@@ -1,0 +1,186 @@
+"""Diff-Reg pipeline (torch): KPFCN encode, DDIM reverse loop, pose.
+
+Counterpart of the JAX package's models/diffusion_matching.py for the 3DMatch
+DDIM branch (``ddim_sample``): the backbone and the coarse split, then per
+DDIM step the masked min-shift, (when the condition gate is above 0) a
+Sinkhorn projection, soft Procrustes and a source warp, the 6-layer denoising
+transformer with its matcher, and the deterministic DDIM update; finally the
+Sinkhorn prediction, the top-1 union correspondence mask and soft Procrustes.
+
+Module names follow the reference torch state_dict (pipeline.py), so that
+``tools/convert_checkpoint.py`` and ``diffreg_tpu_torch.convert`` map the
+weights. The coarse transformer and coarse matcher hold parameters only: the
+DDIM branch does not run them, and ``train_forward``/``backbone_forward`` are
+not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from ..diffusion.schedule import (ddim_coefficients, ddim_time_pairs, make_schedule,
+                                  predict_noise_from_start)
+from ..geometry.procrustes import soft_procrustes
+from ..geometry.se3 import apply_transform
+from ..nn.kpfcn import KPFCN, KPConv, KPFCNConfig
+from ..nn.matching import Matching, MatchingConfig
+from ..nn.transformer import RepositioningTransformer, TransformerConfig
+from ..ops.select import mutual_topk_mask
+from ..utils.device import resolve_device
+from ..utils.precision import pin_float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcrustesConfig:
+    sample_rate: float = 1.0
+    max_condition_num: float = 0.0
+    use_masked_lengths: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    kpfcn: KPFCNConfig
+    coarse_transformer: TransformerConfig
+    coarse_matching: MatchingConfig
+    procrustes: ProcrustesConfig
+    denoising_layer_types: Tuple[str, ...] = ("self", "cross") * 3
+    timesteps: int = 1000
+    sample_steps: int = 20
+    ddim_eta: float = 1.0
+    coarse_level: int = -2
+
+
+def masked_min(x, src_mask, tgt_mask):
+    """Min of x [B, S, T] over valid entries only, keepdim [B, 1, 1]."""
+    valid = src_mask[:, :, None] & tgt_mask[:, None, :]
+    return torch.where(valid, x, torch.full_like(x, math.inf)).amin(dim=(1, 2), keepdim=True)
+
+
+def _gather_rows(arr, idx):
+    """arr [B, N, C], idx [B, S] with sentinel N -> [B, S, C] (sentinel rows 0)."""
+    padded = torch.cat([arr, arr.new_zeros((arr.shape[0], 1, arr.shape[2]))], dim=1)
+    return torch.gather(padded, 1, idx.long()[..., None].expand(-1, -1, arr.shape[2]))
+
+
+def init_weights(model: nn.Module, seed: int) -> None:
+    """Synthesise weights from ``seed`` on the CPU with the JAX package's
+    initializer families: 1/sqrt(fan_in) normal for dense and 1x1 conv
+    weights, zero biases, unit LayerNorms, KPConv weights uniform with
+    variance (2 / P) / (P * Cin), and the configured dustbin score."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv1d)):
+                w = mod.weight
+                fan_in = w[0].numel()
+                w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(fan_in))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, KPConv):
+                p, cin, _ = mod.weights.shape
+                limit = math.sqrt(3.0 * (2.0 / p) / (p * cin))
+                mod.weights.copy_((torch.rand(mod.weights.shape, generator=gen) * 2 - 1) * limit)
+            elif isinstance(mod, Matching):
+                mod.bin_score.fill_(mod.cfg.skh_init_bin_score)
+
+
+class DiffusionMatchingModel(nn.Module):
+    """The 3DMatch Diff-Reg model. ``device`` defaults to "cuda" and raises when
+    CUDA is missing; weights are synthesised from ``seed`` (load real or
+    bridged weights with ``load_state_dict``)."""
+
+    def __init__(self, cfg: PipelineConfig, device=None, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        pin_float32()
+        self.cfg = cfg
+        self.backbone = KPFCN(cfg.kpfcn)
+        self.coarse_transformer = RepositioningTransformer(cfg.coarse_transformer)
+        self.coarse_matching = Matching(cfg.coarse_matching)
+        self.denoising_transformer = RepositioningTransformer(dataclasses.replace(
+            cfg.coarse_transformer, layer_types=cfg.denoising_layer_types))
+        self.denoising_coarse_matching = Matching(cfg.coarse_matching)
+        self.schedule = make_schedule(cfg.timesteps)
+        init_weights(self, seed)
+        self.to(device)
+
+    def encode(self, batch):
+        """Backbone + coarse split -> (src_feats, tgt_feats, s_pcd, t_pcd), [B, S|T, .]."""
+        coarse_feats = self.backbone(batch)                       # [B, Nc, C]
+        coarse_pts = batch.points[self.cfg.coarse_level % len(batch.points)]
+        return (_gather_rows(coarse_feats, batch.src_idx_coarse),
+                _gather_rows(coarse_feats, batch.tgt_idx_coarse),
+                _gather_rows(coarse_pts, batch.src_idx_coarse),
+                _gather_rows(coarse_pts, batch.tgt_idx_coarse))
+
+    def _warp_from_noisy_matrix(self, x, s_pcd, t_pcd, src_mask, tgt_mask):
+        """Sinkhorn-project a noisy matrix, extract a pose, warp the source.
+
+        With ``max_condition_num <= 0`` the gate rejects every solution, so
+        the warp is always the identity and the projection and pose solve are
+        skipped (exact, not an approximation)."""
+        if self.cfg.procrustes.max_condition_num <= 0:
+            return s_pcd, None
+        conf = self.denoising_coarse_matching.sinkhorn(x, src_mask, tgt_mask)
+        res = self._pose(conf, s_pcd, t_pcd, src_mask, tgt_mask)
+        return apply_transform(s_pcd, res.rotation_fwd, res.translation_fwd), res
+
+    def _pose(self, conf, s_pcd, t_pcd, src_mask, tgt_mask):
+        proc = self.cfg.procrustes
+        return soft_procrustes(conf, s_pcd, t_pcd, src_mask, tgt_mask,
+                               sample_rate=proc.sample_rate,
+                               max_condition_num=proc.max_condition_num,
+                               use_masked_lengths=proc.use_masked_lengths)
+
+    def _denoise(self, src_feats, tgt_feats, src_warped, t_pcd, src_mask, tgt_mask):
+        """Denoising transformer + matcher -> x0 prediction [B, S, T]."""
+        sf, tf, spe, tpe = self.denoising_transformer(
+            src_feats, tgt_feats, src_warped, t_pcd, src_mask, tgt_mask)
+        conf, _ = self.denoising_coarse_matching(sf, tf, spe, tpe, src_mask, tgt_mask)
+        return conf
+
+    @torch.no_grad()
+    def ddim_sample(self, batch, x_init, sample_steps=None):
+        """DDIM reverse loop from ``x_init`` [B, S, T] (the N(0, 1) start, passed
+        in). Returns s_pcd, t_pcd, conf_matrix_pred, corr_mask, rotation_pred,
+        translation_pred and, when the condition gate is above 0,
+        step_condition [steps, B] (each step's Procrustes condition number)."""
+        cfg = self.cfg
+        src_feats, tgt_feats, s_pcd, t_pcd = self.encode(batch)
+        src_mask, tgt_mask = batch.src_mask, batch.tgt_mask
+        steps = int(sample_steps if sample_steps is not None else cfg.sample_steps)
+        x = x_init
+        conditions = []
+        for time, time_next in ddim_time_pairs(cfg.timesteps, steps):
+            x = x - masked_min(x, src_mask, tgt_mask)
+            src_warped, res = self._warp_from_noisy_matrix(x, s_pcd, t_pcd, src_mask, tgt_mask)
+            if res is not None:
+                conditions.append(res.condition)
+            x_start = self._denoise(src_feats, tgt_feats, src_warped, t_pcd, src_mask, tgt_mask)
+            pred_noise = predict_noise_from_start(self.schedule, x, int(time), x_start)
+            sqrt_next, c = ddim_coefficients(self.schedule, int(time), int(time_next),
+                                             cfg.ddim_eta)
+            x = x_start * sqrt_next + c * pred_noise
+
+        sim = x - masked_min(x, src_mask, tgt_mask)
+        conf_pred = self.denoising_coarse_matching.sinkhorn(sim, src_mask, tgt_mask)
+        # top-1 from both sides, union
+        corr_mask = mutual_topk_mask(conf_pred, 1, mutual=False)
+        corr_mask = corr_mask & src_mask[:, :, None] & tgt_mask[:, None, :]
+        res = self._pose(conf_pred, s_pcd, t_pcd, src_mask, tgt_mask)
+        out = {"s_pcd": s_pcd, "t_pcd": t_pcd, "conf_matrix_pred": conf_pred,
+               "corr_mask": corr_mask, "rotation_pred": res.rotation,
+               "translation_pred": res.translation}
+        if conditions:
+            out["step_condition"] = torch.stack(conditions)
+        return out
+
+    def forward(self, batch, x_init, sample_steps=None):
+        return self.ddim_sample(batch, x_init, sample_steps)

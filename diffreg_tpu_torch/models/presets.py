@@ -1,0 +1,83 @@
+"""Task presets mirroring the reference config YAMLs (configs/test/3dmatch.yaml)."""
+from __future__ import annotations
+
+import dataclasses
+
+from ..nn.kpfcn import KPFCNConfig
+from ..nn.matching import MatchingConfig
+from ..nn.transformer import TransformerConfig
+from .diffusion_matching import PipelineConfig, ProcrustesConfig
+
+KPFCN_ARCHITECTURE = (
+    "simple",
+    "resnetb",
+    "resnetb_strided",
+    "resnetb",
+    "resnetb",
+    "resnetb_strided",
+    "resnetb",
+    "resnetb",
+    "resnetb_strided",
+    "resnetb",
+    "resnetb",
+    "nearest_upsample",
+    "unary",
+    "nearest_upsample",
+    "unary",
+    "nearest_upsample",
+    "unary",
+)
+
+
+def preset_3dmatch(sample_steps: int = 20, feature_dim: int = 432,
+                   first_feats_dim: int = 256) -> PipelineConfig:
+    """3DMatch/3DLoMatch rigid registration, test config: condition gate 0
+    (identity warp); masked (real) lengths set the Procrustes budget."""
+    matching = MatchingConfig(feature_dim=feature_dim, confidence_threshold=0.2,
+                              skh_init_bin_score=1.0, skh_iters=3)
+    transformer = TransformerConfig(
+        feature_dim=feature_dim,
+        n_head=4,
+        layer_types=("self", "cross", "positioning", "self", "cross"),
+        vol_origin=(-3.6, -2.4, 1.14),
+        voxel_size=0.08,
+        feature_matching=matching,
+    )
+    kpfcn = KPFCNConfig(
+        architecture=KPFCN_ARCHITECTURE,
+        first_feats_dim=first_feats_dim,
+        in_feats_dim=1,
+        first_subsampling_dl=0.025,
+        conv_radius=2.5,
+        kp_extent=2.0,
+        coarse_feature_dim=feature_dim,
+        fine_feature_dim=264,
+        coarse_level=-2,
+    )
+    return PipelineConfig(
+        kpfcn=kpfcn,
+        coarse_transformer=transformer,
+        coarse_matching=matching,
+        procrustes=ProcrustesConfig(sample_rate=1.0, max_condition_num=0.0,
+                                    use_masked_lengths=True),
+        sample_steps=sample_steps,
+    )
+
+
+def preset_tiny(sample_steps: int = 2) -> PipelineConfig:
+    """Small config for tests: same topology, tiny dims."""
+    base = preset_3dmatch(sample_steps=sample_steps)
+    matching = dataclasses.replace(base.coarse_matching, feature_dim=48)
+    transformer = dataclasses.replace(base.coarse_transformer, feature_dim=48, n_head=2,
+                                      feature_matching=matching)
+    kpfcn = dataclasses.replace(base.kpfcn, first_feats_dim=16, coarse_feature_dim=48,
+                                fine_feature_dim=16, first_subsampling_dl=0.06)
+    return dataclasses.replace(base, kpfcn=kpfcn, coarse_transformer=transformer,
+                               coarse_matching=matching)
+
+
+def with_condition_gate(cfg: PipelineConfig, max_condition_num: float) -> PipelineConfig:
+    """``cfg`` with the Procrustes condition gate set (40 is the warp-active
+    variant: every DDIM step then runs Sinkhorn, Procrustes and the warp)."""
+    return dataclasses.replace(cfg, procrustes=dataclasses.replace(
+        cfg.procrustes, max_condition_num=max_condition_num))

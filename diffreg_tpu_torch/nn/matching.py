@@ -1,0 +1,49 @@
+"""Matcher head: feature projection + rotary PE + learned-dustbin Sinkhorn.
+
+Reference behaviors kept on purpose: ``src_proj`` projects BOTH sides (the
+reference never applies its ``tgt_proj``, so the port has none), and the
+features are divided by sqrt(C) before the similarity product.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..ops.masked import mask_matrix
+from ..ops.position_encoding import embed_rotary
+from ..ops.select import thresholded_mutual_argmax_mask
+from ..ops.sinkhorn import log_sinkhorn
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchingConfig:
+    feature_dim: int = 432
+    confidence_threshold: float = 0.2
+    skh_init_bin_score: float = 1.0
+    skh_iters: int = 3
+
+
+class Matching(nn.Module):
+    def __init__(self, cfg: MatchingConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.src_proj = nn.Linear(cfg.feature_dim, cfg.feature_dim, bias=False)
+        self.bin_score = nn.Parameter(torch.tensor(float(cfg.skh_init_bin_score)))
+
+    def forward(self, src_feats, tgt_feats, src_pe, tgt_pe, src_mask, tgt_mask):
+        """-> (conf_matrix [B, S, T], match_mask [B, S, T] bool)."""
+        src = embed_rotary(self.src_proj(src_feats), src_pe[..., 0], src_pe[..., 1])
+        tgt = embed_rotary(self.src_proj(tgt_feats), tgt_pe[..., 0], tgt_pe[..., 1])
+        scale = src.shape[-1] ** 0.5
+        sim = torch.einsum("bsc,btc->bst", src / scale, tgt / scale)
+        conf = self.sinkhorn(sim, src_mask, tgt_mask)
+        match_mask = thresholded_mutual_argmax_mask(conf, self.cfg.confidence_threshold)
+        return conf, match_mask
+
+    def sinkhorn(self, scores, src_mask, tgt_mask):
+        """Learned-dustbin Sinkhorn confidences of an external score matrix."""
+        scores = mask_matrix(scores, src_mask, tgt_mask)
+        z = log_sinkhorn(scores, self.bin_score, self.cfg.skh_iters, src_mask, tgt_mask)
+        return torch.exp(z)[:, :-1, :-1]

@@ -1,0 +1,71 @@
+"""Masked multi-head attention: the plain PyTorch version and the Hopper kernel.
+
+Counterpart of the JAX package's ops/pallas/attention_kernel.py
+(``masked_attention_pallas``), in its layout: q [B, H, L, D], k/v
+[B, H, S, D], kv_mask [B, S] -> [B, H, L, D]. Keys with ``kv_mask`` False
+are set to -1e9 for every query before the softmax, as the TPU kernel does.
+Rows of invalid queries are garbage that callers mask downstream.
+
+``masked_attention`` is the entry the transformer calls: a CUDA tensor
+launches the hand-written kernel (``csrc/attention.cu``) or raises; a CPU
+tensor runs the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils.cuda import check, current_stream, kernel_library
+from .masked import NEG_INF
+
+
+def masked_attention_plain(q, k, v, kv_mask, scale):
+    """softmax(where(kv_mask, (q * scale) k^T, -1e9)) v."""
+    logits = torch.einsum("bhld,bhsd->bhls", q * scale, k)
+    logits = torch.where(kv_mask[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
+    return torch.einsum("bhls,bhsd->bhld", torch.softmax(logits, dim=-1), v)
+
+
+def masked_attention_cuda(q, k, v, kv_mask, scale):
+    """Launch the Hopper attention kernel; same contract as the plain version."""
+    for name, t in {"q": q, "k": k, "v": v}.items():
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"masked_attention_cuda: {name} must be a contiguous "
+                             "float32 CUDA tensor")
+    if not kv_mask.is_cuda or kv_mask.dtype != torch.bool or not kv_mask.is_contiguous():
+        raise ValueError("masked_attention_cuda: kv_mask must be a contiguous bool CUDA tensor")
+    b, h, l, d = q.shape
+    s = k.shape[2]
+    if k.shape != (b, h, s, d) or v.shape != (b, h, s, d) or kv_mask.shape != (b, s):
+        raise ValueError("masked_attention_cuda: inconsistent shapes "
+                         f"{q.shape} {k.shape} {v.shape} {kv_mask.shape}")
+    lib = _library()
+    out = torch.empty_like(q)
+    err = lib.masked_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
+        b, h, l, s, d, float(scale), current_stream(q.device))
+    check(lib, err, "masked_attention_forward")
+    masked_attention_cuda.launches += 1
+    return out
+
+
+masked_attention_cuda.launches = 0
+
+
+def _library():
+    lib = kernel_library("attention")
+    if lib.masked_attention_forward.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.masked_attention_forward.argtypes = [vp] * 5 + [ci] * 5 + [ctypes.c_float, vp]
+        lib.masked_attention_forward.restype = ci
+    return lib
+
+
+def masked_attention(q, k, v, kv_mask, scale):
+    """Masked attention on the tensors' device: the Hopper kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if q.is_cuda:
+        return masked_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                     kv_mask.contiguous(), scale)
+    return masked_attention_plain(q, k, v, kv_mask, scale)

@@ -1,0 +1,121 @@
+"""Kernel-point convolution: the plain PyTorch version and the Hopper kernel.
+
+Counterpart of the JAX package's ops/kpconv.py (``kpconv``, ``max_pool``,
+``closest_pool``, ``kpconv_batched``) and of its Pallas kernel
+ops/pallas/kpconv_kernel.py. Neighborhoods are fixed-K and sentinel-padded
+(index == Ns is the shadow point: position 1e6, zero features). Linear
+influence and sum aggregation, the only modes on the Diff-Reg path.
+
+``kpconv_batched`` is the entry the backbone calls: a CUDA tensor launches
+the hand-written kernel (``csrc/kpconv.cu``) or raises; a CPU tensor runs
+the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils.cuda import check, current_stream, kernel_library
+
+_SHADOW = 1.0e6
+
+
+def _gather_rows(table, inds):
+    """table [B, N, C], inds [B, Nq, K] -> [B, Nq, K, C]."""
+    b = table.shape[0]
+    return table[torch.arange(b, device=table.device)[:, None, None], inds.long()]
+
+
+def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+    """Plain KPConv, batched.
+
+    q_pts [B, Nq, 3], s_pts [B, Ns, 3], neighb_inds [B, Nq, K] (sentinel Ns),
+    x [B, Ns, Cin] (padded rows 0), kernel_points [P, 3], weights [P, Cin, Cout]
+    -> [B, Nq, Cout].
+    """
+    b, _, cin = x.shape
+    table = torch.cat([
+        torch.cat([s_pts, s_pts.new_full((b, 1, 3), _SHADOW)], dim=1),
+        torch.cat([x, x.new_zeros((b, 1, cin))], dim=1)], dim=-1)
+    gathered = _gather_rows(table, neighb_inds)                 # [B, Nq, K, 3+Cin]
+    neighbors = gathered[..., :3] - q_pts[:, :, None, :]
+    feats = gathered[..., 3:]
+    # ||n - kp||^2 = ||n||^2 + ||kp||^2 - 2 n.kp, as the JAX package computes it
+    n2 = torch.sum(neighbors * neighbors, dim=-1, keepdim=True)
+    k2 = torch.sum(kernel_points * kernel_points, dim=-1)
+    cross = torch.einsum("bnkc,pc->bnkp", neighbors, kernel_points)
+    sq_d = torch.clamp(n2 + k2 - 2.0 * cross, min=0.0)
+    infl = torch.clamp(1.0 - torch.sqrt(sq_d) / kp_extent, min=0.0)
+    weighted = torch.einsum("bnkp,bnkc->bnpc", infl, feats)
+    out = torch.einsum("bnpc,pcd->bnd", weighted, weights)
+    # density normalization: a neighbor counts iff its feature-sum is positive
+    # (the reference's quirk, blocks.py:354-357)
+    neighbor_num = (feats.sum(dim=-1) > 0.0).sum(dim=-1).clamp_min(1)
+    return out / neighbor_num[..., None].to(out.dtype)
+
+
+def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+    """Launch the Hopper KPConv kernel; same contract as ``kpconv``."""
+    tensors = {"q_pts": q_pts, "s_pts": s_pts, "x": x,
+               "kernel_points": kernel_points, "weights": weights}
+    for name, t in tensors.items():
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"kpconv_cuda: {name} must be a contiguous float32 CUDA tensor")
+    if (not neighb_inds.is_cuda or neighb_inds.dtype != torch.int32
+            or not neighb_inds.is_contiguous()):
+        raise ValueError("kpconv_cuda: neighb_inds must be a contiguous int32 CUDA tensor")
+    b, nq, k = neighb_inds.shape
+    ns = s_pts.shape[1]
+    p, cin, cout = weights.shape
+    if (q_pts.shape != (b, nq, 3) or s_pts.shape != (b, ns, 3) or x.shape != (b, ns, cin)
+            or kernel_points.shape != (p, 3)):
+        raise ValueError("kpconv_cuda: inconsistent shapes "
+                         f"{q_pts.shape} {s_pts.shape} {neighb_inds.shape} {x.shape} "
+                         f"{kernel_points.shape} {weights.shape}")
+    lib = _library()
+    out = torch.empty((b, nq, cout), device=x.device, dtype=torch.float32)
+    err = lib.kpconv_forward(
+        q_pts.data_ptr(), s_pts.data_ptr(), neighb_inds.data_ptr(), x.data_ptr(),
+        kernel_points.data_ptr(), weights.data_ptr(), out.data_ptr(),
+        b, nq, ns, k, cin, cout, p, float(kp_extent), current_stream(x.device))
+    check(lib, err, "kpconv_forward")
+    kpconv_cuda.launches += 1
+    return out
+
+
+kpconv_cuda.launches = 0
+
+
+def _library():
+    lib = kernel_library("kpconv")
+    if lib.kpconv_forward.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.kpconv_forward.argtypes = [vp] * 7 + [ci] * 7 + [ctypes.c_float, vp]
+        lib.kpconv_forward.restype = ci
+    return lib
+
+
+def kpconv_batched(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+    """KPConv on the tensors' device: the Hopper kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if x.is_cuda:
+        return kpconv_cuda(q_pts.contiguous(), s_pts.contiguous(),
+                           neighb_inds.contiguous(), x.contiguous(),
+                           kernel_points.contiguous(), weights.contiguous(), kp_extent)
+    return kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent)
+
+
+def max_pool(x, inds):
+    """Max over sentinel-padded neighborhoods; shadow rows contribute 0.
+
+    x [B, Ns, C], inds [B, Nq, K] -> [B, Nq, C].
+    """
+    shadow = torch.cat([x, x.new_zeros((x.shape[0], 1, x.shape[2]))], dim=1)
+    return _gather_rows(shadow, inds).amax(dim=2)
+
+
+def closest_pool(x, inds):
+    """Feature of the nearest (first) neighbor; x [B, Ns, C], inds [B, Nq, K]."""
+    shadow = torch.cat([x, x.new_zeros((x.shape[0], 1, x.shape[2]))], dim=1)
+    return _gather_rows(shadow, inds[:, :, :1])[:, :, 0]

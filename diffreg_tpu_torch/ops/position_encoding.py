@@ -1,0 +1,36 @@
+"""Volumetric rotary position encoding over voxelized coordinates.
+
+Coordinates are voxelized against a volume origin; each axis gets
+feature_dim // 6 sin/cos frequencies, each duplicated into an interleaved
+pair, and the code rotates feature pairs RoFormer-style.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def embed_rotary(x, cos, sin):
+    """x * cos + rot90(x) * sin, interleaved pairs; x, cos, sin: [..., d]."""
+    x2 = torch.stack([-x[..., 1::2], x[..., 0::2]], dim=-1).reshape(x.shape)
+    return x * cos + x2 * sin
+
+
+def volumetric_pe(xyz, feature_dim, vol_origin, voxel_size):
+    """Rotary code of xyz [B, N, 3] -> [B, N, feature_dim, 2] stacked (cos, sin)."""
+    b, n, _ = xyz.shape
+    origin = torch.as_tensor(vol_origin, dtype=xyz.dtype, device=xyz.device).reshape(1, 1, 3)
+    vox = (xyz - origin) / voxel_size
+    d3 = feature_dim // 3
+    freq_idx = torch.arange(0, d3, 2, dtype=xyz.dtype, device=xyz.device)
+    div = torch.exp(freq_idx * (-math.log(10000.0) / d3)).reshape(1, 1, -1)
+    phases = vox[..., :, None] * div[..., None, :]            # [B, N, 3, d/6]
+    sin, cos = torch.sin(phases), torch.cos(phases)
+
+    def dup(a):  # [B, N, d/6] -> [B, N, d/3], each frequency twice
+        return torch.stack([a, a], dim=-1).reshape(b, n, -1)
+
+    sin_pos = torch.cat([dup(sin[..., ax, :]) for ax in range(3)], dim=-1)
+    cos_pos = torch.cat([dup(cos[..., ax, :]) for ax in range(3)], dim=-1)
+    return torch.stack([cos_pos, sin_pos], dim=-1)

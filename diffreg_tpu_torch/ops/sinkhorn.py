@@ -1,0 +1,48 @@
+"""Log-space Sinkhorn optimal transport with a learned dustbin.
+
+The reference ``log_optimal_transport``: an (N+1)x(M+1) augmented score
+matrix with one dustbin score ``alpha``, marginals that give each real row
+and column mass 1/(ms+ns) and the dustbins ns/(ms+ns) resp. ms/(ms+ns), and
+``iters`` alternating log-domain normalizations. Padded rows and columns get
+-1e9 scores and -1e9 marginals, so their mass is exactly zero.
+"""
+from __future__ import annotations
+
+import torch
+
+from .masked import NEG_INF, mask_matrix
+
+
+def log_sinkhorn(scores, alpha, iters, src_mask, tgt_mask):
+    """scores [B, N, M], alpha scalar, masks [B, N] / [B, M] ->
+    [B, N+1, M+1] log assignment with the ``-log(ms+ns)`` normalization removed,
+    so ``exp(Z)[:, :-1, :-1]`` are the match confidences."""
+    b, n, m = scores.shape
+    dtype = scores.dtype
+    scores = mask_matrix(scores, src_mask, tgt_mask)
+    # a fully masked side would give log(0); its outputs are masked downstream
+    ms = src_mask.sum(dim=1, keepdim=True).to(dtype).clamp_min(1.0)   # [B, 1]
+    ns = tgt_mask.sum(dim=1, keepdim=True).to(dtype).clamp_min(1.0)
+
+    alpha = alpha.to(dtype)
+    neg = torch.tensor(NEG_INF, dtype=dtype, device=scores.device)
+    bins0 = torch.where(src_mask[:, :, None], alpha, neg)               # [B, N, 1]
+    bins1 = torch.where(tgt_mask[:, None, :], alpha, neg)               # [B, 1, M]
+    corner = alpha.expand(b, 1, 1)
+    z = torch.cat([torch.cat([scores, bins0], dim=2),
+                   torch.cat([bins1, corner], dim=2)], dim=1)          # [B, N+1, M+1]
+
+    norm = -torch.log(ms + ns)                                          # [B, 1]
+    log_mu = torch.cat([norm.expand(b, n), torch.log(ns) + norm], dim=1)
+    log_nu = torch.cat([norm.expand(b, m), torch.log(ms) + norm], dim=1)
+    ones = src_mask.new_ones((b, 1))
+    log_mu = torch.where(torch.cat([src_mask, ones], dim=1), log_mu, neg)
+    log_nu = torch.where(torch.cat([tgt_mask, ones], dim=1), log_nu, neg)
+
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    for _ in range(int(iters)):
+        u = log_mu - torch.logsumexp(z + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(z + u[:, :, None], dim=1)
+    z = z + u[:, :, None] + v[:, None, :]
+    return z - norm[:, :, None]
