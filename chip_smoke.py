@@ -251,6 +251,31 @@ def check_outputs(out, tag):
             raise AssertionError(f"{tag}: {key} not a rotation (orth {orth}, det {det.tolist()})")
 
 
+def check_ransac(src, rot, trn, u, gen):
+    import torch
+
+    from diffreg_tpu_torch.eval.ransac import ransac_pose
+
+    src = src.cpu()[None]
+    tgt = src @ rot.T + trn.T
+    # outliers: moved 0.3 to 0.8 m off their true position, so none is an inlier
+    outliers = torch.rand(src.shape[1], generator=gen) < 0.4
+    away = torch.randn(int(outliers.sum()), 3, generator=gen)
+    away = away / away.norm(dim=1, keepdim=True) * (0.3 + 0.5 * torch.rand(len(away), 1,
+                                                                               generator=gen))
+    tgt[0, outliers] += away
+    valid = torch.ones(src.shape[:2], dtype=torch.bool)
+    poses = {"card": ransac_pose(u.cuda(), src.cuda(), tgt.cuda(), valid.cuda()),
+             "CPU": ransac_pose(u, src, tgt, valid)}
+    for name, res in poses.items():
+        err = max(float((res.rotation[0].cpu() - rot).abs().max()),
+                  float((res.translation[0].cpu() - trn).abs().max()))
+        log(f"RANSAC on the {name}: {int(res.inlier_count[0])} inliers of {src.shape[1]} "
+            f"({int((~outliers).sum())} true), pose error {err:.3e}")
+        if not err <= POSE_ABS_TOL:
+            raise AssertionError(f"RANSAC on the {name} missed the ground-truth pose by {err}")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -359,25 +384,23 @@ def main() -> int:
         rot_err = float((got["rotation_pred"] - ref["rotation_pred"]).abs().max())
         trn_err = float((got["translation_pred"] - ref["translation_pred"]).abs().max())
         mask_agree = float((got["corr_mask"] == ref["corr_mask"])[valid].float().mean())
-        # RANSAC on the card and on the CPU from the card's correspondences and the
-        # same draws (the two runs' own lists differ where the union mask flips)
-        same = {k: results[gate][k][:1] for k in ("s_pcd", "t_pcd", "conf_matrix_pred",
-                                                   "corr_mask")}
-        r_gpu, t_gpu = correspond_and_ransac(same, u[:1].cuda())
-        r_cpu, t_cpu = correspond_and_ransac({k: v.cpu() for k, v in same.items()}, u[:1])
-        ransac_err = max(float((r_gpu.cpu() - r_cpu).abs().max()),
-                         float((t_gpu.cpu() - t_cpu).abs().max()))
         log(f"card vs CPU gate {gate} (CPU {cpu_s:.1f} s): conf {conf_err:.3e}, corr_mask "
-            f"agreement {mask_agree:.6f}, rotation {rot_err:.3e}, translation {trn_err:.3e}; "
-            f"RANSAC on the same correspondences {ransac_err:.3e}")
+            f"agreement {mask_agree:.6f}, rotation {rot_err:.3e}, translation {trn_err:.3e}")
         if not conf_err <= CONF_ABS_TOL:
             raise AssertionError(f"gate {gate}: conf differs from the CPU run by {conf_err}")
         if not mask_agree >= MASK_AGREEMENT:
             raise AssertionError(f"gate {gate}: corr_mask agrees on {mask_agree} of entries")
-        if not max(rot_err, trn_err, ransac_err) <= POSE_ABS_TOL:
-            raise AssertionError(f"gate {gate}: poses differ from the CPU run by "
-                                 f"{max(rot_err, trn_err)} (Procrustes), {ransac_err} (RANSAC)")
+        if not max(rot_err, trn_err) <= POSE_ABS_TOL:
+            raise AssertionError(f"gate {gate}: pose differs from the CPU run by "
+                                 f"{max(rot_err, trn_err)}")
         check_outputs(ref, f"CPU gate {gate}")
+
+    # ---- RANSAC against the ground truth, on the card and on the CPU ----
+    # With random weights the path's correspondences are noise, where ties
+    # among near-equal hypotheses decide the pose; so RANSAC is held on pair
+    # 0's coarse source points under its ground-truth pose, 40% outliers.
+    check_ransac(results[0.0]["s_pcd"][0, :int(batch_cpu.src_mask[0].sum())],
+                 batch_cpu.rot_gt[0], batch_cpu.trn_gt[0], u[:1], gen)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -7,15 +7,15 @@
 // [B, H, L, S] logits never reach device memory. The scale is passed in
 // (1/sqrt(108) on the main path), and D = 108 is not padded.
 //
-// What bounds it on an H100: at L = S = 704, D = 108 the work is
-// 4 * L * S * D flops per (batch, head) against ~3 * S * D * 4 bytes of
-// q/k/v, so it is compute-bound; this simple kernel runs the two products on
-// CUDA cores from shared memory (f32 has no tensor-core path besides TF32,
-// which would change the numbers), so it is far from the card's bf16 rate.
+// What bounds it on an H100: operations. At L = S = 704, D = 108 it does
+// 4 * L * S * D flops per (batch, head) against 4 * (L + 2 S) * D bytes of
+// q, k, v and 4 * L * D bytes of output, far past the f32 ridge point.
 // Design: one block per (batch * head, tile of 64 queries); 4 threads per
 // query row, each owning 16 key columns of the 64-key tile and a quarter of
-// the D output lanes in registers; q, the key and value tiles, and the
-// tile's probabilities live in shared memory.
+// the D output lanes in registers; q, the key and value tiles, and the tile's
+// probabilities live in shared memory. The products are scalar f32 FMAs on
+// CUDA cores (TF32 would change the numbers); register tiling and tensor
+// cores are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -20,14 +20,17 @@
 //    global memory (15.7 MB at 512 -> 512, which fits the 50 MB L2), so every
 //    layer of the path runs here; Pallas gave up above 4 MB of weights.
 //
-// What bounds it on an H100: at the main path's shapes the contraction
-// (2 * P * Cin * Cout flops per query) dominates and the rows of x are re-read
-// per neighbor; the kernel is far from the f32 roofline because it runs the
-// contraction on CUDA cores from shared memory. Design: one block per
-// (pair, tile of TQ queries); the influence-weighted [TQ, P, Cin] accumulator
-// lives in shared memory, so each W element is read once per block and reused
-// for all TQ queries from registers. TQ is the largest of 16/8/4/2/1 whose
-// shared memory fits. A tensor-core (wgmma) contraction is later work.
+// What bounds it on an H100: operations. Per real neighbor it does ~13 P
+// flops of distances and influences and 2 P Cin of accumulation, and per
+// query the 2 P Cin Cout contraction, in f32 on CUDA cores (67 TFLOP/s);
+// its bytes (inputs once, output once) take far less time at 3.35 TB/s.
+// Design: one block per (pair, tile of TQ queries); the influences, the
+// density count and the influence-weighted [TQ, P * Cin] accumulator live in
+// shared memory (each x row is read once per query); the contraction reads
+// each W element once per block and reuses it for the TQ queries from
+// registers. TQ is the largest of 16/8/4/2/1 whose shared memory fits, so
+// the deep layers (TQ = 4 at Cin 512) reread W from L2 often; tensor cores
+// (wgmma) and larger query tiles are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
