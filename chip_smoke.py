@@ -20,7 +20,8 @@ In order, it
      seed, at condition gate 0 and gate 40: one warm-up and one timed run
      each, with the kernels' launch counts asserted and the outputs checked;
   5. runs one pair through the same port on the CPU (plain versions) and
-     holds the card's result against it;
+     holds the card's result against it, and holds RANSAC on the card and
+     on the CPU against a known pose (pair 0's coarse points, 40% outliers);
   6. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of

@@ -2,7 +2,7 @@
 
 Structured point clouds (multi-blob surfaces) under a random rigid transform
 with noise and partial-overlap cropping, run through the real pyramid
-builder. Same draws as the JAX package's data/synthetic.py at the same seed.
+construction. Same draws as the JAX package's data/synthetic.py at the same seed.
 """
 from __future__ import annotations
 
