@@ -17,8 +17,9 @@ In order, it
   4. runs the main path at full width (preset_3dmatch: 432-dim, 4 heads,
      17-block KPFCN, 704 coarse tokens per side from 4096-point clouds,
      20 DDIM steps, RANSAC with 8192 hypotheses) with random weights from a
-     seed, at condition gate 0 and gate 40: one warm-up and one timed run
-     each, with the kernels' launch counts asserted and the outputs checked;
+     seed, at condition gate 0 and gate 40: one warm-up and three timed runs
+     each (pairs/s from the median), with the kernels' launch counts asserted
+     for every run and the outputs checked;
   5. runs one pair through the same port on the CPU (plain versions) and
      holds the card's result against it, and holds RANSAC on the card and
      on the CPU against a known pose (pair 0's coarse points, 40% outliers);
@@ -41,8 +42,11 @@ N_POINTS = 4096
 STEPS = 20
 HYPOTHESES = 8192
 GATES = (0.0, 40.0)
-# H100 SXM data-sheet peaks (dense): HBM bandwidth and non-tensor f32 rate
+TIMED_RUNS = 3
+# H100 SXM data-sheet peaks (dense): HBM bandwidth, the tensor cores' TF32
+# rate (the kernels' matrix products) and the f32 rate outside them
 HBM_BYTES_PER_S = 3.35e12
+TF32_FLOPS_PER_S = 495e12
 F32_FLOPS_PER_S = 67e12
 # kernel vs plain version on the card: both sum in f32, in different orders;
 # KPConv sums up to K * P * Cin = 307,200 products per output
@@ -84,13 +88,19 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound_ms(nbytes: float, mma_flops: float, f32_flops: float):
+    """Least time for the work: bytes at the memory rate, matrix-product flops
+    at the dense TF32 tensor-core rate, the other flops at the f32 rate; the
+    units run side by side, so the largest of the three. 3xTF32 spends three
+    tensor-core products per f32 product, so it can reach at most a third of
+    this bound where the products set it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(mma_flops / TF32_FLOPS_PER_S, f32_flops / F32_FLOPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def kpconv_work(q, s, inds, x, w):
-    """(bytes, flops) one KPConv call must move and do on these inputs."""
+    """(bytes, matrix-product flops, other flops) of one KPConv call on these inputs."""
     b, nq, k = inds.shape
     ns, cin = x.shape[1], x.shape[2]
     p, _, cout = w.shape
@@ -101,9 +111,9 @@ def kpconv_work(q, s, inds, x, w):
                   + b * nq * cout)
     # per neighbor: offset and norm (8), per kernel point distance + influence
     # (13), feature-sum test (Cin), influence x features (2 P Cin);
-    # per query: the [P Cin] x Cout contraction and the division
-    flops = n_nb * (8 + 13 * p + cin + 2 * p * cin) + n_q * (2 * p * cin * cout + cout)
-    return nbytes, flops
+    # per query: the division, and the [P Cin] x Cout contraction (the product)
+    flops = n_nb * (8 + 13 * p + cin + 2 * p * cin) + n_q * cout
+    return nbytes, n_q * 2 * p * cin * cout, flops
 
 
 def attention_work(q, k, kv_mask):
@@ -111,8 +121,8 @@ def attention_work(q, k, kv_mask):
     s = k.shape[2]
     valid_keys = float(kv_mask.sum())                 # summed over the batch
     nbytes = 4 * (2 * q.numel() + 2 * k.numel()) + kv_mask.numel()
-    flops = h * l * valid_keys * (4 * d + 3)          # QK^T, PV, exp/sum/scale
-    return nbytes, flops
+    # QK^T and PV are the products; exp, sum and scale the rest
+    return nbytes, h * l * valid_keys * 4 * d, h * l * valid_keys * 3
 
 
 def check_kpconv(model, batch):
@@ -137,7 +147,7 @@ def check_kpconv(model, batch):
     for mod, (q, s, inds, x) in seen:
         key = (q.shape[1], s.shape[1], inds.shape[2], x.shape[2], mod.weights.shape[2])
         shapes.setdefault(key, [mod, (q, s, inds, x), 0])[2] += 1
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "mma_flops": 0.0, "flops": 0.0}
     worst, per_shape = 0.0, []
     with torch.inference_mode():
         for (nq, ns, k, cin, cout), (mod, (q, s, inds, x), calls) in shapes.items():
@@ -156,19 +166,22 @@ def check_kpconv(model, batch):
             worst = max(worst, err)
             ms = time_cuda(lambda: kpconv_cuda(*args), 20)
             plain = time_cuda(lambda: kpconv(*args), 3, warmup=1)
-            nbytes, flops = kpconv_work(q, s, inds, x, mod.weights)
-            bms, by = bound_ms(nbytes, flops)
+            work = kpconv_work(q, s, inds, x, mod.weights)
+            bms, by = bound_ms(*work)
+            tensor_cores = cin >= 64 and cin % 32 == 0 and k <= 40 and cout in (64, 128, 256, 512)
+            path = "tensor cores" if tensor_cores else "CUDA cores"
             per_shape.append({"nq": nq, "ns": ns, "k": k, "cin": cin, "cout": cout,
-                              "calls": calls, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                              "bound_by": by, "max_abs_err": err, "max_abs_plain": scale})
-            log(f"kpconv {nq}/{ns}/K{k}/{cin}->{cout} x{calls}: err {err:.3e} "
-                f"(|plain| {scale:.3e}) kernel {ms:.4f} ms plain {plain:.4f} ms "
-                f"bound {bms:.4f} ms ({by})")
+                              "calls": calls, "path": path, "ms": ms, "plain_ms": plain,
+                              "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                              "max_abs_plain": scale})
+            log(f"kpconv {nq}/{ns}/K{k}/{cin}->{cout} x{calls} ({path}): err {err:.3e} "
+                f"(limit {KPCONV_REL_TOL * max(scale, 1.0):.3e}) kernel {ms:.4f} ms plain "
+                f"{plain:.4f} ms bound {bms:.4f} ms ({by})")
             totals["ms"] += calls * ms
             totals["plain_ms"] += calls * plain
-            totals["bytes"] += calls * nbytes
-            totals["flops"] += calls * flops
-    bms, by = bound_ms(totals["bytes"], totals["flops"])
+            for key, val in zip(("bytes", "mma_flops", "flops"), work):
+                totals[key] += calls * val
+    bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"])
     return {"name": "kpconv", "route": "cuda", "source": "diffreg_tpu_torch/csrc/kpconv.cu",
             "replaces": "diffreg_tpu/ops/pallas/kpconv_kernel.py:38",
             "launches": None, "max_abs_err": worst, "ms": totals["ms"],
@@ -191,7 +204,8 @@ def check_attention(batch, cfg, gen):
     b, length = src_mask.shape
     cases = [("self", torch.cat([src_mask, tgt_mask]), 3),   # 3 self layers, [2B] each
              ("cross", tgt_mask, 3), ("cross_back", src_mask, 3)]
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "mma_flops": 0.0,
+              "flops": 0.0}
     worst, per_shape = 0.0, []
     with torch.inference_mode():
         for name, kv_mask, calls in cases:
@@ -214,19 +228,20 @@ def check_attention(batch, cfg, gen):
             plain = time_cuda(lambda: masked_attention_plain(q, k, v, kv_mask, scale), 10)
             lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=lib_mask, scale=scale), 20)
-            nbytes, flops = attention_work(q, k, kv_mask)
-            bms, by = bound_ms(nbytes, flops)
+            nbytes, mma_flops, flops = attention_work(q, k, kv_mask)
+            bms, by = bound_ms(nbytes, mma_flops, flops)
             per_shape.append({"case": name, "b": bb, "h": h, "l": length, "s": length, "d": d,
                               "calls": calls, "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
                               "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                               "library_max_abs_err": lib_err})
-            log(f"attention {name} [{bb},{h},{length},{d}] x{calls}: err {err:.3e} kernel "
+            log(f"attention {name} [{bb},{h},{length},{d}] x{calls}: err {err:.3e} (limit "
+                f"{ATTENTION_ABS_TOL:.1e}) kernel "
                 f"{ms:.4f} ms plain {plain:.4f} ms sdpa {lib_ms:.4f} ms (err {lib_err:.3e}) "
                 f"bound {bms:.4f} ms ({by})")
             for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib_ms),
-                             ("bytes", nbytes), ("flops", flops)):
+                             ("bytes", nbytes), ("mma_flops", mma_flops), ("flops", flops)):
                 totals[key] += calls * val
-    bms, by = bound_ms(totals["bytes"], totals["flops"])
+    bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"])
     return {"name": "masked_attention", "route": "cuda",
             "source": "diffreg_tpu_torch/csrc/attention.cu",
             "replaces": "diffreg_tpu/ops/pallas/attention_kernel.py:24",
@@ -319,7 +334,7 @@ def main() -> int:
         f"({', '.join(f'{k} {v['seconds']:.2f} s' for k, v in report.items())})")
     for name, rep in report.items():
         for line in rep["log"].splitlines():
-            if "Used" in line or "spill" in line:
+            if "Function properties" in line or "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     # ---- data and model ----
@@ -346,15 +361,19 @@ def main() -> int:
     results, launches = {}, {"kpconv": 0, "masked_attention": 0}
     for gate, model in models.items():
         register(model, batch, x_init, u)                      # warm-up
-        kpconv_cuda.launches = 0
-        masked_attention_cuda.launches = 0
-        out, seconds = wall(lambda: register(model, batch, x_init, u))
-        n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
-        if n_kp != 11 or n_at != 9 * STEPS:
-            raise AssertionError(f"gate {gate}: {n_kp} KPConv launches (want 11), "
-                                 f"{n_at} attention launches (want {9 * STEPS})")
-        launches["kpconv"] += n_kp
-        launches["masked_attention"] += n_at
+        times = []
+        for _ in range(TIMED_RUNS):
+            kpconv_cuda.launches = 0
+            masked_attention_cuda.launches = 0
+            out, seconds = wall(lambda: register(model, batch, x_init, u))
+            n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+            if n_kp != 11 or n_at != 9 * STEPS:
+                raise AssertionError(f"gate {gate}: {n_kp} KPConv launches (want 11), "
+                                     f"{n_at} attention launches (want {9 * STEPS})")
+            launches["kpconv"] += n_kp
+            launches["masked_attention"] += n_at
+            times.append(seconds)
+        seconds = sorted(times)[TIMED_RUNS // 2]
         check_outputs(out, f"gate {gate}")
         with torch.inference_mode():
             _, enc_s = wall(lambda: model.encode(batch))
@@ -364,7 +383,8 @@ def main() -> int:
         cond = out.get("step_condition")
         accepted = "" if cond is None else \
             f", warps accepted {int((cond < gate).sum())}/{cond.numel()}"
-        log(f"main path gate {gate}: {BATCH_PAIRS} pairs in {seconds:.4f} s = "
+        log(f"main path gate {gate}: {BATCH_PAIRS} pairs in {seconds:.4f} s (median of "
+            f"{', '.join(f'{t:.4f}' for t in times)}) = "
             f"{BATCH_PAIRS / seconds:.3f} pairs/s; encode {enc_s:.4f} s, DDIM "
             f"{ddim_s - enc_s:.4f} s, correspondences + RANSAC {ransac_s:.4f} s; "
             f"launches kpconv {n_kp} attention {n_at}{accepted}; peak memory "

@@ -34,6 +34,15 @@ def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
     x [B, Ns, Cin] (padded rows 0), kernel_points [P, 3], weights [P, Cin, Cout]
     -> [B, Nq, Cout].
     """
+    weighted, neighbor_num = kpconv_aggregate(q_pts, s_pts, neighb_inds, x, kernel_points,
+                                              kp_extent)
+    out = torch.einsum("bnpc,pcd->bnd", weighted, weights)
+    return out / neighbor_num[..., None].to(out.dtype)
+
+
+def kpconv_aggregate(q_pts, s_pts, neighb_inds, x, kernel_points, kp_extent):
+    """KPConv before its contraction: the influence-weighted features
+    [B, Nq, P, Cin] and the density count [B, Nq] (at least 1)."""
     b, _, cin = x.shape
     table = torch.cat([
         torch.cat([s_pts, s_pts.new_full((b, 1, 3), _SHADOW)], dim=1),
@@ -48,11 +57,10 @@ def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
     sq_d = torch.clamp(n2 + k2 - 2.0 * cross, min=0.0)
     infl = torch.clamp(1.0 - torch.sqrt(sq_d) / kp_extent, min=0.0)
     weighted = torch.einsum("bnkp,bnkc->bnpc", infl, feats)
-    out = torch.einsum("bnpc,pcd->bnd", weighted, weights)
     # density normalization: a neighbor counts iff its feature-sum is positive
     # (the reference's quirk, blocks.py:354-357)
     neighbor_num = (feats.sum(dim=-1) > 0.0).sum(dim=-1).clamp_min(1)
-    return out / neighbor_num[..., None].to(out.dtype)
+    return weighted, neighbor_num
 
 
 def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/lib<name>.so`` at first use, then loaded with
-ctypes. ``build_kernels`` starts one ``nvcc`` per stale source, all at once,
+ctypes; a library is stale when its source or a shared ``csrc/*.cuh`` header
+is newer. ``build_kernels`` starts one ``nvcc`` per stale source, all at once,
 and waits for all of them; it returns the seconds and the compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) of each.
 """
@@ -52,8 +53,9 @@ def build_kernels(timeout: float = 600.0) -> Dict[str, dict]:
     with _LOCK:
         pending = {}
         t0 = time.perf_counter()
+        headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
         for name, src in _sources().items():
-            if is_stale(_lib_path(name), [src]):
+            if is_stale(_lib_path(name), [src, *headers]):
                 pending[name] = PendingBuild([_nvcc(), *NVCC_FLAGS, src], _lib_path(name))
         report = {}
         errors = []
