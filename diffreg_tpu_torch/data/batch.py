@@ -70,6 +70,18 @@ class PairBatch:
     def batch_size(self) -> int:
         return self.features.shape[0]
 
+    def matrix_gt(self) -> torch.Tensor:
+        """Dense GT matching matrix [B, S, T] float32: ones at the valid GT
+        correspondences; invalid slots (and indices out of range) are dropped."""
+        b, s = self.src_mask.shape
+        t = self.tgt_mask.shape[1]
+        src, tgt = self.gt_src.long(), self.gt_tgt.long()
+        keep = self.gt_valid & (src >= 0) & (src < s) & (tgt >= 0) & (tgt < t)
+        flat = torch.where(keep, src * t + tgt, torch.full_like(src, s * t))
+        m = torch.zeros((b, s * t + 1), dtype=torch.float32, device=src.device)
+        m.scatter_(1, flat, 1.0)
+        return m[:, :s * t].reshape(b, s, t)
+
     def map(self, fn) -> "PairBatch":
         """Apply ``fn`` to every tensor (tuples element-wise)."""
         def one(v):

@@ -1,7 +1,9 @@
-"""Cosine diffusion schedule and the DDIM helpers of the reverse loop.
+"""Cosine diffusion schedule, the forward process and the DDIM helpers.
 
 The schedule is computed in float64 on the host and stored in float32, as
-the JAX package stores it.
+the JAX package stores it. The training noise is the 3DMatch branch's
+signed-fractional noise; its standard-normal draw is passed in, so that a
+test can feed both packages the same draw.
 """
 from __future__ import annotations
 
@@ -9,11 +11,14 @@ import math
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class DiffusionSchedule(NamedTuple):
     """Per-timestep float32 arrays (host numpy)."""
     alphas_cumprod: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
     sqrt_recip_alphas_cumprod: np.ndarray
     sqrt_recipm1_alphas_cumprod: np.ndarray
 
@@ -32,9 +37,29 @@ def make_schedule(timesteps: int = 1000) -> DiffusionSchedule:
     f32 = lambda a: np.asarray(a, np.float32)
     return DiffusionSchedule(
         alphas_cumprod=f32(acp),
+        sqrt_alphas_cumprod=f32(np.sqrt(acp)),
+        sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - acp)),
         sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / acp)),
         sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / acp - 1.0)),
     )
+
+
+def _per_batch(table: np.ndarray, t, like):
+    """table[t] for timesteps t [B], shaped to broadcast over ``like`` [B, ...]."""
+    vals = torch.from_numpy(table).to(like.device)[t.long().to(like.device)]
+    return vals.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
+def q_sample(schedule: DiffusionSchedule, x_start, t, noise):
+    """Forward diffusion x_t = sqrt(acp_t) x_0 + sqrt(1 - acp_t) eps, t [B]."""
+    return _per_batch(schedule.sqrt_alphas_cumprod, t, x_start) * x_start \
+        + _per_batch(schedule.sqrt_one_minus_alphas_cumprod, t, x_start) * noise
+
+
+def signed_fractional_noise(g, scale: float = 1.5):
+    """3DMatch training noise sign(g) * frac(|g|) * scale of a standard-normal
+    draw ``g`` (the JAX package draws g inside; here it is passed in)."""
+    return torch.sign(g) * torch.remainder(torch.abs(g), 1.0) * scale
 
 
 def predict_noise_from_start(schedule: DiffusionSchedule, x_t, t: int, x0):

@@ -46,11 +46,17 @@ def _horn_rotation(b_mat):
         b31 - b13, b12 + b21, b22 - b11 - b33, b23 + b32,
         b12 - b21, b31 + b13, b23 + b32, b33 - b11 - b22,
     ], dim=-1).reshape(b_mat.shape[:-2] + (4, 4))
-    _, vecs = torch.linalg.eigh(k)           # ascending eigenvalues
+    # torch's eigh raises on a non-finite matrix where JAX's returns NaN: solve
+    # a harmless stand-in instead and give those entries a NaN rotation, which
+    # soft_procrustes replaces by the identity
+    finite = torch.isfinite(k).all(dim=-1).all(dim=-1)[..., None, None]
+    stand_in = torch.diag(torch.arange(4, dtype=k.dtype, device=k.device))
+    _, vecs = torch.linalg.eigh(torch.where(finite, k, stand_in))   # ascending eigenvalues
     q = vecs[..., :, -1]
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
     # this K convention yields R^T of the map y ~ R x; transpose back
-    return quaternion_to_matrix(q).transpose(-1, -2)
+    r = quaternion_to_matrix(q).transpose(-1, -2)
+    return torch.where(finite, r, torch.full_like(r, float("nan")))
 
 
 def weighted_kabsch(x, y, w, eps=1e-4):
@@ -64,7 +70,9 @@ def weighted_kabsch(x, y, w, eps=1e-4):
     r = _horn_rotation(sxy)
     # singular values of Sxy from eigvalsh(Sxy^T Sxy); a degenerate covariance
     # (smallest singular value 0) gives an infinite condition, which fails the gate
-    evals = torch.linalg.eigvalsh(sxy.transpose(1, 2) @ sxy)
+    gram = sxy.transpose(1, 2) @ sxy
+    gram = torch.where(torch.isfinite(gram), gram, torch.zeros_like(gram))  # (see above)
+    evals = torch.linalg.eigvalsh(gram)
     d = torch.sqrt(torch.clamp(evals, min=0.0))
     pos = d[:, 0] > 0.0
     condition = torch.where(pos, d[:, -1] / torch.where(pos, d[:, 0], torch.ones_like(d[:, 0])),

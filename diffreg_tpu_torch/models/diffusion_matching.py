@@ -1,17 +1,25 @@
-"""Diff-Reg pipeline (torch): KPFCN encode, DDIM reverse loop, pose.
+"""Diff-Reg pipeline (torch): KPFCN encode, training branch, DDIM loop, pose.
 
-Counterpart of the JAX package's models/diffusion_matching.py for the 3DMatch
-DDIM branch (``ddim_sample``): the backbone and the coarse split, then per
-DDIM step the masked min-shift, (when the condition gate is above 0) a
-Sinkhorn projection, soft Procrustes and a source warp, the 6-layer denoising
-transformer with its matcher, and the deterministic DDIM update; finally the
-Sinkhorn prediction, the top-1 union correspondence mask and soft Procrustes.
+Counterpart of the JAX package's models/diffusion_matching.py, 3DMatch
+variant. Three branches share ``encode`` (the backbone and the coarse split):
+
+  * ``train_forward``: the coarse transformer (with its positioning layer) and
+    coarse matcher, soft Procrustes of their confidences; then the GT matching
+    matrix noised with signed-fractional noise at random timesteps (NaN -> 0,
+    masked min-shift), the gated warp from that noisy matrix and the
+    denoising transformer and matcher. Timesteps, the normal draw and the
+    randSO3 Euler angles come in as tensors (``draw_train_inputs`` makes them);
+  * ``ddim_sample``: per DDIM step the masked min-shift, (when the condition
+    gate is above 0) a Sinkhorn projection, soft Procrustes and a source warp,
+    the 6-layer denoising transformer with its matcher, and the deterministic
+    DDIM update; finally the Sinkhorn prediction, the top-1 union
+    correspondence mask and soft Procrustes;
+  * ``backbone_forward``: the coarse transformer and matcher in one pass, the
+    top-1 union mask and soft Procrustes.
 
 Module names follow the reference torch state_dict (pipeline.py), so that
 ``tools/convert_checkpoint.py`` and ``diffreg_tpu_torch.convert`` map the
-weights. The coarse transformer and coarse matcher hold parameters only: the
-DDIM branch does not run them, and ``train_forward``/``backbone_forward`` are
-not ported yet.
+weights.
 """
 from __future__ import annotations
 
@@ -23,22 +31,20 @@ import torch
 from torch import nn
 
 from ..diffusion.schedule import (ddim_coefficients, ddim_time_pairs, make_schedule,
-                                  predict_noise_from_start)
+                                  predict_noise_from_start, q_sample, signed_fractional_noise)
 from ..geometry.procrustes import soft_procrustes
 from ..geometry.se3 import apply_transform
 from ..nn.kpfcn import KPFCN, KPConv, KPFCNConfig
 from ..nn.matching import Matching, MatchingConfig
-from ..nn.transformer import RepositioningTransformer, TransformerConfig
+from ..nn.transformer import ProcrustesConfig, RepositioningTransformer, TransformerConfig
 from ..ops.select import mutual_topk_mask
 from ..utils.device import resolve_device
 from ..utils.precision import pin_float32
 
-
-@dataclasses.dataclass(frozen=True)
-class ProcrustesConfig:
-    sample_rate: float = 1.0
-    max_condition_num: float = 0.0
-    use_masked_lengths: bool = False
+# backbone modules outside the coarse phase: kept so that reference weights
+# load whole, never run, and not part of the trained parameters
+FINE_PHASE_PREFIXES = ("backbone.decoder_blocks.3.", "backbone.decoder_blocks.5.",
+                       "backbone.coarse_in.", "backbone.fine_out.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,17 +126,26 @@ class DiffusionMatchingModel(nn.Module):
                 _gather_rows(coarse_pts, batch.src_idx_coarse),
                 _gather_rows(coarse_pts, batch.tgt_idx_coarse))
 
+    def named_trained_parameters(self):
+        """(name, parameter) pairs that training updates: every parameter but
+        the backbone's fine phase (``FINE_PHASE_PREFIXES``), the set the JAX
+        package's train state holds."""
+        return [(n, p) for n, p in self.named_parameters()
+                if not n.startswith(FINE_PHASE_PREFIXES)]
+
     def _warp_from_noisy_matrix(self, x, s_pcd, t_pcd, src_mask, tgt_mask):
         """Sinkhorn-project a noisy matrix, extract a pose, warp the source.
 
         With ``max_condition_num <= 0`` the gate rejects every solution, so
         the warp is always the identity and the projection and pose solve are
-        skipped (exact, not an approximation)."""
+        skipped (exact, not an approximation). The warp feeds only the
+        denoiser's (detached) position code, so it is computed without a graph."""
         if self.cfg.procrustes.max_condition_num <= 0:
             return s_pcd, None
-        conf = self.denoising_coarse_matching.sinkhorn(x, src_mask, tgt_mask)
-        res = self._pose(conf, s_pcd, t_pcd, src_mask, tgt_mask)
-        return apply_transform(s_pcd, res.rotation_fwd, res.translation_fwd), res
+        with torch.no_grad():
+            conf = self.denoising_coarse_matching.sinkhorn(x, src_mask, tgt_mask)
+            res = self._pose(conf, s_pcd, t_pcd, src_mask, tgt_mask)
+            return apply_transform(s_pcd, res.rotation_fwd, res.translation_fwd), res
 
     def _pose(self, conf, s_pcd, t_pcd, src_mask, tgt_mask):
         proc = self.cfg.procrustes
@@ -141,10 +156,71 @@ class DiffusionMatchingModel(nn.Module):
 
     def _denoise(self, src_feats, tgt_feats, src_warped, t_pcd, src_mask, tgt_mask):
         """Denoising transformer + matcher -> x0 prediction [B, S, T]."""
-        sf, tf, spe, tpe = self.denoising_transformer(
+        sf, tf, spe, tpe, _ = self.denoising_transformer(
             src_feats, tgt_feats, src_warped, t_pcd, src_mask, tgt_mask)
-        conf, _ = self.denoising_coarse_matching(sf, tf, spe, tpe, src_mask, tgt_mask)
-        return conf
+        return self.denoising_coarse_matching(sf, tf, spe, tpe, src_mask, tgt_mask)
+
+    def _coarse_pass(self, batch, src_feats, tgt_feats, s_pcd, t_pcd, euler):
+        """Coarse transformer + coarse matcher -> (conf, match_mask, aux)."""
+        src_mask, tgt_mask = batch.src_mask, batch.tgt_mask
+        sf, tf, spe, tpe, aux = self.coarse_transformer(
+            src_feats, tgt_feats, s_pcd, t_pcd, src_mask, tgt_mask,
+            rot_gt=batch.rot_gt, trn_gt=batch.trn_gt, euler=euler)
+        conf, match_mask = self.coarse_matching(sf, tf, spe, tpe, src_mask, tgt_mask)
+        return conf, match_mask, aux
+
+    def draw_train_inputs(self, batch, generator: torch.Generator):
+        """The random draws of one training forward, made with ``generator`` on
+        its device: t [B] timesteps in [0, timesteps), g [B, S, T] standard
+        normal, euler [B, 3] Euler angles uniform in [0, 2 pi)."""
+        b, s = batch.src_mask.shape
+        t_len = batch.tgt_mask.shape[1]
+        dev = generator.device
+        return {"t": torch.randint(0, self.cfg.timesteps, (b,), generator=generator, device=dev),
+                "g": torch.randn((b, s, t_len), generator=generator, device=dev),
+                "euler": torch.rand((b, 3), generator=generator, device=dev) * 2.0 * math.pi}
+
+    def train_forward(self, batch, t, g, euler=None):
+        """Training branch (pipeline.py:182-219). t [B] timesteps, g [B, S, T]
+        the standard-normal draw of the noise, euler [B, 3] the randSO3 angles
+        (used only by that positioning type). Returns the outputs the loss reads:
+        s_pcd, t_pcd, conf_matrix_pred, match_mask_pred, rotation_pred,
+        translation_pred, conf_matrix_gt_hat, match_mask_gt_hat, matrix_gt,
+        position_layers and timesteps."""
+        cfg = self.cfg
+        src_feats, tgt_feats, s_pcd, t_pcd = self.encode(batch)
+        src_mask, tgt_mask = batch.src_mask, batch.tgt_mask
+        conf_pred, match_mask_pred, aux = self._coarse_pass(
+            batch, src_feats, tgt_feats, s_pcd, t_pcd, euler)
+        res = self._pose(conf_pred, s_pcd, t_pcd, src_mask, tgt_mask)
+
+        # diffusion: noise the GT matrix, denoise it
+        matrix_gt = batch.matrix_gt()
+        disturbed = q_sample(self.schedule, matrix_gt, t, signed_fractional_noise(g))
+        disturbed = torch.nan_to_num(disturbed, nan=0.0)
+        disturbed = disturbed - masked_min(disturbed, src_mask, tgt_mask)
+        src_warped, _ = self._warp_from_noisy_matrix(disturbed, s_pcd, t_pcd, src_mask, tgt_mask)
+        conf_gt_hat, match_mask_gt_hat = self._denoise(
+            src_feats, tgt_feats, src_warped, t_pcd, src_mask, tgt_mask)
+        return {"s_pcd": s_pcd, "t_pcd": t_pcd,
+                "conf_matrix_pred": conf_pred, "match_mask_pred": match_mask_pred,
+                "rotation_pred": res.rotation, "translation_pred": res.translation,
+                "conf_matrix_gt_hat": conf_gt_hat, "match_mask_gt_hat": match_mask_gt_hat,
+                "matrix_gt": matrix_gt, "position_layers": aux["position_layers"],
+                "timesteps": t}
+
+    def backbone_forward(self, batch, euler=None):
+        """Single-pass branch: coarse transformer + matcher, the top-1 union
+        mask and soft Procrustes. ``euler`` [B, 3] feeds a randSO3 positioning."""
+        src_feats, tgt_feats, s_pcd, t_pcd = self.encode(batch)
+        src_mask, tgt_mask = batch.src_mask, batch.tgt_mask
+        conf_pred, _, _ = self._coarse_pass(batch, src_feats, tgt_feats, s_pcd, t_pcd, euler)
+        corr_mask = mutual_topk_mask(conf_pred, 1, mutual=False)
+        corr_mask = corr_mask & src_mask[:, :, None] & tgt_mask[:, None, :]
+        res = self._pose(conf_pred, s_pcd, t_pcd, src_mask, tgt_mask)
+        return {"s_pcd": s_pcd, "t_pcd": t_pcd, "conf_matrix_pred": conf_pred,
+                "corr_mask": corr_mask, "rotation_pred": res.rotation,
+                "translation_pred": res.translation}
 
     @torch.no_grad()
     def ddim_sample(self, batch, x_init, sample_steps=None):
@@ -163,7 +239,8 @@ class DiffusionMatchingModel(nn.Module):
             src_warped, res = self._warp_from_noisy_matrix(x, s_pcd, t_pcd, src_mask, tgt_mask)
             if res is not None:
                 conditions.append(res.condition)
-            x_start = self._denoise(src_feats, tgt_feats, src_warped, t_pcd, src_mask, tgt_mask)
+            x_start, _ = self._denoise(src_feats, tgt_feats, src_warped, t_pcd, src_mask,
+                                       tgt_mask)
             pred_noise = predict_noise_from_start(self.schedule, x, int(time), x_start)
             sqrt_next, c = ddim_coefficients(self.schedule, int(time), int(time_next),
                                              cfg.ddim_eta)
@@ -182,5 +259,13 @@ class DiffusionMatchingModel(nn.Module):
             out["step_condition"] = torch.stack(conditions)
         return out
 
-    def forward(self, batch, x_init, sample_steps=None):
-        return self.ddim_sample(batch, x_init, sample_steps)
+    def forward(self, batch, *args, mode: str = "ddim", **kwargs):
+        """``mode`` "ddim" -> ddim_sample(batch, x_init, sample_steps), "train" ->
+        train_forward(batch, t, g, euler), "backbone" -> backbone_forward(batch, euler)."""
+        if mode == "ddim":
+            return self.ddim_sample(batch, *args, **kwargs)
+        if mode == "train":
+            return self.train_forward(batch, *args, **kwargs)
+        if mode == "backbone":
+            return self.backbone_forward(batch, *args, **kwargs)
+        raise KeyError(mode)

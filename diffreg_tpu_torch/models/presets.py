@@ -1,12 +1,13 @@
-"""Task presets mirroring the reference config YAMLs (configs/test/3dmatch.yaml)."""
+"""Task presets mirroring the reference config YAMLs (configs/test/3dmatch.yaml,
+configs/train/3dmatch.yaml)."""
 from __future__ import annotations
 
 import dataclasses
 
 from ..nn.kpfcn import KPFCNConfig
 from ..nn.matching import MatchingConfig
-from ..nn.transformer import TransformerConfig
-from .diffusion_matching import PipelineConfig, ProcrustesConfig
+from ..nn.transformer import ProcrustesConfig, TransformerConfig
+from .diffusion_matching import PipelineConfig
 
 KPFCN_ARCHITECTURE = (
     "simple",
@@ -30,17 +31,23 @@ KPFCN_ARCHITECTURE = (
 
 
 def preset_3dmatch(sample_steps: int = 20, feature_dim: int = 432,
-                   first_feats_dim: int = 256) -> PipelineConfig:
-    """3DMatch/3DLoMatch rigid registration, test config: condition gate 0
-    (identity warp); masked (real) lengths set the Procrustes budget."""
+                   first_feats_dim: int = 256, train: bool = False) -> PipelineConfig:
+    """3DMatch/3DLoMatch rigid registration. The test config has condition gate
+    0 (identity warp); ``train=True`` sets gate 200, as the reference train
+    config does, in the pipeline and in the coarse transformer's procrustes
+    positioning layer. Masked (real) lengths set the Procrustes budget."""
     matching = MatchingConfig(feature_dim=feature_dim, confidence_threshold=0.2,
                               skh_init_bin_score=1.0, skh_iters=3)
+    procrustes = ProcrustesConfig(sample_rate=1.0, max_condition_num=200.0 if train else 0.0,
+                                  use_masked_lengths=True)
     transformer = TransformerConfig(
         feature_dim=feature_dim,
         n_head=4,
         layer_types=("self", "cross", "positioning", "self", "cross"),
+        positioning_type="procrustes",
         vol_origin=(-3.6, -2.4, 1.14),
         voxel_size=0.08,
+        procrustes=procrustes,
         feature_matching=matching,
     )
     kpfcn = KPFCNConfig(
@@ -58,8 +65,7 @@ def preset_3dmatch(sample_steps: int = 20, feature_dim: int = 432,
         kpfcn=kpfcn,
         coarse_transformer=transformer,
         coarse_matching=matching,
-        procrustes=ProcrustesConfig(sample_rate=1.0, max_condition_num=0.0,
-                                    use_masked_lengths=True),
+        procrustes=procrustes,
         sample_steps=sample_steps,
     )
 
@@ -77,7 +83,10 @@ def preset_tiny(sample_steps: int = 2) -> PipelineConfig:
 
 
 def with_condition_gate(cfg: PipelineConfig, max_condition_num: float) -> PipelineConfig:
-    """``cfg`` with the Procrustes condition gate set (40 is the warp-active
-    variant: every DDIM step then runs Sinkhorn, Procrustes and the warp)."""
-    return dataclasses.replace(cfg, procrustes=dataclasses.replace(
-        cfg.procrustes, max_condition_num=max_condition_num))
+    """``cfg`` with the Procrustes condition gate set in the pipeline and in the
+    coarse transformer's positioning layer (40 is the warp-active DDIM variant:
+    every DDIM step then runs Sinkhorn, Procrustes and the warp; 200 is the
+    training config's)."""
+    proc = dataclasses.replace(cfg.procrustes, max_condition_num=max_condition_num)
+    return dataclasses.replace(cfg, procrustes=proc, coarse_transformer=dataclasses.replace(
+        cfg.coarse_transformer, procrustes=proc))

@@ -1,13 +1,18 @@
 """Repositioning transformer — self/cross geometry attention with rotary VolPE.
 
-Counterpart of the JAX package's nn/transformer.py (``GeometryAttentionLayer``
-and ``RepositioningTransformer``) for 'self' and 'cross' layers. Only the
-math is ported: the JAX package's lane-layout switches (align_heads,
-rotary_half, fused_rotary_qkv, logits_layout) give identical outputs.
-Attention goes through ``ops.attention.masked_attention``: the Hopper kernel
-for CUDA tensors, the plain version on the CPU. The 'positioning' layer keeps
-its parameters (``layers.<i>.0``, a Matching) so reference weights load, but
-running it is not ported yet.
+Counterpart of the JAX package's nn/transformer.py (``GeometryAttentionLayer``,
+``RepositioningTransformer``). Only the math is ported: the JAX package's
+lane-layout switches (align_heads, rotary_half, fused_rotary_qkv,
+logits_layout) give identical outputs. Attention goes through
+``ops.attention.masked_attention``: the Hopper kernel for CUDA tensors, the
+plain version on the CPU.
+
+The 'positioning' layer re-derives both position codes from a warped source
+cloud. Its warp is one of: 'procrustes' (its own Matching, ``layers.<i>.0``,
+then soft Procrustes with the configured condition gate), 'randSO3' (a
+random rotation about the masked centroid, from Euler angles passed in) or
+'oracle' (the ground-truth pose). The codes are detached
+(``ops.position_encoding``), so no gradient reaches the warp.
 """
 from __future__ import annotations
 
@@ -17,9 +22,18 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..geometry.procrustes import soft_procrustes
+from ..geometry.se3 import apply_transform
 from ..ops.attention import masked_attention
 from ..ops.position_encoding import embed_rotary, volumetric_pe
 from .matching import Matching, MatchingConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcrustesConfig:
+    sample_rate: float = 1.0
+    max_condition_num: float = 0.0
+    use_masked_lengths: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,8 +41,10 @@ class TransformerConfig:
     feature_dim: int = 432
     n_head: int = 4
     layer_types: Tuple[str, ...] = ("self", "cross", "positioning", "self", "cross")
+    positioning_type: str = "procrustes"      # procrustes | randSO3 | oracle
     vol_origin: Tuple[float, float, float] = (-3.6, -2.4, 1.14)
     voxel_size: float = 0.08
+    procrustes: ProcrustesConfig = ProcrustesConfig()
     feature_matching: MatchingConfig = MatchingConfig()
 
 
@@ -71,7 +87,11 @@ class RepositioningTransformer(nn.Module):
             if lt in ("self", "cross"):
                 layers.append(GeometryAttentionLayer(cfg.feature_dim, cfg.n_head))
             elif lt == "positioning":
-                layers.append(nn.ModuleList([Matching(cfg.feature_matching)]))
+                if cfg.positioning_type not in ("procrustes", "randSO3", "oracle"):
+                    raise KeyError(cfg.positioning_type)
+                # parameters only for the procrustes warp, at layers.<i>.0
+                layers.append(nn.ModuleList([Matching(cfg.feature_matching)]
+                                            if cfg.positioning_type == "procrustes" else []))
             else:
                 raise KeyError(lt)
         self.layers = nn.ModuleList(layers)
@@ -80,10 +100,18 @@ class RepositioningTransformer(nn.Module):
         return volumetric_pe(xyz, self.cfg.feature_dim, self.cfg.vol_origin,
                              self.cfg.voxel_size)
 
-    def forward(self, src_feat, tgt_feat, s_pcd, t_pcd, src_mask, tgt_mask):
-        """-> (src_feat, tgt_feat, src_pe, tgt_pe)."""
-        s_pe, t_pe = self._pe(s_pcd), self._pe(t_pcd)
-        for lt, layer in zip(self.cfg.layer_types, self.layers):
+    def forward(self, src_feat, tgt_feat, s_pcd, t_pcd, src_mask, tgt_mask, rot_gt=None,
+                trn_gt=None, transform=None, euler=None):
+        """-> (src_feat, tgt_feat, src_pe, tgt_pe, aux). ``transform`` (R [B, 3, 3],
+        t [B, 3, 1]) warps the source before the first code; ``rot_gt``/``trn_gt``
+        feed the 'oracle' warp and ``euler`` [B, 3] (radians) the 'randSO3' one.
+        aux["position_layers"] holds each procrustes positioning layer's
+        conf_matrix, match_mask, rotation, translation, condition, solution_mask."""
+        cfg = self.cfg
+        src_wrapped = s_pcd if transform is None else apply_transform(s_pcd, *transform)
+        s_pe, t_pe = self._pe(src_wrapped), self._pe(t_pcd)
+        aux = {"position_layers": []}
+        for lt, layer in zip(cfg.layer_types, self.layers):
             if lt == "self":
                 if src_feat.shape[1] == tgt_feat.shape[1]:
                     # src and tgt share the weights and are independent: one [2B] call
@@ -98,6 +126,44 @@ class RepositioningTransformer(nn.Module):
                 src_feat = layer(src_feat, tgt_feat, s_pe, t_pe, tgt_mask)
                 # tgt attends to the updated src, as in the reference
                 tgt_feat = layer(tgt_feat, src_feat, t_pe, s_pe, src_mask)
-            else:
-                raise NotImplementedError(f"layer type {lt!r} is not ported yet")
-        return src_feat, tgt_feat, s_pe, t_pe
+            elif cfg.positioning_type == "procrustes":
+                conf, match_mask = layer[0](src_feat, tgt_feat, s_pe, t_pe, src_mask, tgt_mask)
+                proc = cfg.procrustes
+                res = soft_procrustes(conf, s_pcd, t_pcd, src_mask, tgt_mask,
+                                      sample_rate=proc.sample_rate,
+                                      max_condition_num=proc.max_condition_num,
+                                      use_masked_lengths=proc.use_masked_lengths)
+                aux["position_layers"].append({
+                    "conf_matrix": conf, "match_mask": match_mask,
+                    "rotation": res.rotation, "translation": res.translation,
+                    "condition": res.condition, "solution_mask": res.solution_mask})
+                s_pe = self._pe(apply_transform(s_pcd, res.rotation_fwd, res.translation_fwd))
+                t_pe = self._pe(t_pcd)
+            elif cfg.positioning_type == "randSO3":
+                s_pe, t_pe = self._pe(rand_rot_pcd(euler, s_pcd, src_mask)), self._pe(t_pcd)
+            else:  # oracle
+                s_pe, t_pe = self._pe(apply_transform(s_pcd, rot_gt, trn_gt)), self._pe(t_pcd)
+        return src_feat, tgt_feat, s_pe, t_pe, aux
+
+
+def rand_rot_pcd(euler, pcd, mask):
+    """Rotate pcd [B, N, 3] (padding zeroed) about its masked centroid by the
+    z-y-x Euler angles ``euler`` [B, 3] (transformero.py:262-279)."""
+    n = pcd.shape[1]
+    pcd = pcd * mask[..., None].to(pcd.dtype)
+    n_points = mask.sum(dim=1).reshape(-1, 1, 1).clamp_min(1).to(pcd.dtype)
+    centroid = pcd.mean(dim=1, keepdim=True) * n / n_points
+    return (pcd - centroid) @ euler_zyx_to_matrix(euler).transpose(1, 2) + centroid
+
+
+def euler_zyx_to_matrix(euler):
+    """Intrinsic z-y-x Euler angles [B, 3] -> rotation matrices [B, 3, 3]."""
+    z, y, x = euler.unbind(-1)
+    zero, one = torch.zeros_like(z), torch.ones_like(z)
+    rz = torch.stack([z.cos(), -z.sin(), zero, z.sin(), z.cos(), zero,
+                      zero, zero, one], -1).reshape(-1, 3, 3)
+    ry = torch.stack([y.cos(), zero, y.sin(), zero, one, zero,
+                      -y.sin(), zero, y.cos()], -1).reshape(-1, 3, 3)
+    rx = torch.stack([one, zero, zero, zero, x.cos(), -x.sin(),
+                      zero, x.sin(), x.cos()], -1).reshape(-1, 3, 3)
+    return rz @ ry @ rx

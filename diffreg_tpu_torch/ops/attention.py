@@ -8,7 +8,11 @@ Rows of invalid queries are garbage that callers mask downstream.
 
 ``masked_attention`` is the entry the transformer calls: a CUDA tensor
 launches the hand-written kernel (``csrc/attention.cu``) or raises; a CPU
-tensor runs the plain version.
+tensor runs the plain version. On CUDA tensors the kernel runs inside
+``MaskedAttentionFunction``, whose backward recomputes the plain version and
+differentiates it: the dq/dk/dv of the JAX package's ``custom_vjp``
+(``ops/pallas/attention_kernel.py``), with the probabilities rebuilt in the
+backward, not kept from the forward.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from ..utils.cuda import check, current_stream, kernel_library
 from .masked import NEG_INF
+from .recompute import recompute_grads
 
 
 def masked_attention_plain(q, k, v, kv_mask, scale):
@@ -53,6 +58,22 @@ def masked_attention_cuda(q, k, v, kv_mask, scale):
 masked_attention_cuda.launches = 0
 
 
+class MaskedAttentionFunction(torch.autograd.Function):
+    """``masked_attention_cuda`` forward; plain-recompute backward for q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.scale = scale
+        return masked_attention_cuda(q, k, v, kv_mask, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*recompute_grads("masked_attention_backward_recompute",
+                                 lambda *a: masked_attention_plain(*a, ctx.scale),
+                                 ctx.saved_tensors, ctx.needs_input_grad[:4], grad_out), None)
+
+
 def _library():
     lib = kernel_library("attention")
     if lib.masked_attention_forward.argtypes is None:
@@ -63,9 +84,9 @@ def _library():
 
 
 def masked_attention(q, k, v, kv_mask, scale):
-    """Masked attention on the tensors' device: the Hopper kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """Masked attention on the tensors' device: the Hopper kernel (under
+    autograd) for CUDA tensors, the plain version for CPU tensors."""
     if q.is_cuda:
-        return masked_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                     kv_mask.contiguous(), scale)
+        return MaskedAttentionFunction.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                             kv_mask.contiguous(), scale)
     return masked_attention_plain(q, k, v, kv_mask, scale)

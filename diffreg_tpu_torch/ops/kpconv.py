@@ -8,7 +8,11 @@ influence and sum aggregation, the only modes on the Diff-Reg path.
 
 ``kpconv_batched`` is the entry the backbone calls: a CUDA tensor launches
 the hand-written kernel (``csrc/kpconv.cu``) or raises; a CPU tensor runs
-the plain version.
+the plain version. On CUDA tensors the kernel runs inside ``KPConvFunction``,
+whose backward recomputes the plain version at the saved inputs and
+differentiates it, as the JAX package's ``custom_vjp`` does
+(``ops/pallas/kpconv_kernel.py``): the gathered rows are rebuilt one layer at
+a time in the backward and freed after it, never kept from the forward.
 """
 from __future__ import annotations
 
@@ -17,14 +21,19 @@ import ctypes
 import torch
 
 from ..utils.cuda import check, current_stream, kernel_library
+from .recompute import recompute_grads
 
 _SHADOW = 1.0e6
 
 
 def _gather_rows(table, inds):
-    """table [B, N, C], inds [B, Nq, K] -> [B, Nq, K, C]."""
-    b = table.shape[0]
-    return table[torch.arange(b, device=table.device)[:, None, None], inds.long()]
+    """table [B, N, C], inds [B, Nq, K] -> [B, Nq, K, C]: one ``index_select``
+    over the flattened batch. Its backward is an ``index_add_`` (atomic adds);
+    advanced indexing's sort-based backward took 480 of a train step's 590 ms
+    of device time at full width (tools/profile_port_train.py on an H100)."""
+    b, n, c = table.shape
+    rows = inds.long() + torch.arange(b, device=table.device).reshape(b, 1, 1) * n
+    return table.reshape(b * n, c).index_select(0, rows.reshape(-1)).reshape(*inds.shape, c)
 
 
 def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
@@ -95,6 +104,23 @@ def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent)
 kpconv_cuda.launches = 0
 
 
+class KPConvFunction(torch.autograd.Function):
+    """``kpconv_cuda`` forward; plain-recompute backward for the inputs that
+    need a gradient (features and weights on the training path)."""
+
+    @staticmethod
+    def forward(ctx, q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+        ctx.save_for_backward(q_pts, s_pts, neighb_inds, x, kernel_points, weights)
+        ctx.kp_extent = kp_extent
+        return kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*recompute_grads("kpconv_backward_recompute",
+                                 lambda *a: kpconv(*a, ctx.kp_extent), ctx.saved_tensors,
+                                 ctx.needs_input_grad[:6], grad_out), None)
+
+
 def _library():
     lib = kernel_library("kpconv")
     if lib.kpconv_forward.argtypes is None:
@@ -105,12 +131,12 @@ def _library():
 
 
 def kpconv_batched(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
-    """KPConv on the tensors' device: the Hopper kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    """KPConv on the tensors' device: the Hopper kernel (under autograd) for
+    CUDA tensors, the plain version for CPU tensors."""
     if x.is_cuda:
-        return kpconv_cuda(q_pts.contiguous(), s_pts.contiguous(),
-                           neighb_inds.contiguous(), x.contiguous(),
-                           kernel_points.contiguous(), weights.contiguous(), kp_extent)
+        return KPConvFunction.apply(q_pts.contiguous(), s_pts.contiguous(),
+                                    neighb_inds.contiguous(), x.contiguous(),
+                                    kernel_points.contiguous(), weights.contiguous(), kp_extent)
     return kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent)
 
 

@@ -2,7 +2,10 @@
 
 Coordinates are voxelized against a volume origin; each axis gets
 feature_dim // 6 sin/cos frequencies, each duplicated into an interleaved
-pair, and the code rotates feature pairs RoFormer-style.
+pair, and the code rotates feature pairs RoFormer-style. The code is a
+constant of the coordinates: no gradient flows back into them (the JAX
+package's ``stop_gradient``), so a warp that moved the points, such as the
+positioning layer's, passes no gradient to what computed it.
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ def embed_rotary(x, cos, sin):
 
 
 def volumetric_pe(xyz, feature_dim, vol_origin, voxel_size):
-    """Rotary code of xyz [B, N, 3] -> [B, N, feature_dim, 2] stacked (cos, sin)."""
+    """Rotary code of xyz [B, N, 3] -> [B, N, feature_dim, 2] stacked (cos, sin),
+    detached from xyz's graph."""
+    xyz = xyz.detach()
     b, n, _ = xyz.shape
     origin = torch.as_tensor(vol_origin, dtype=xyz.dtype, device=xyz.device).reshape(1, 1, 3)
     vox = (xyz - origin) / voxel_size

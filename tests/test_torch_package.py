@@ -46,8 +46,11 @@ def test_no_module_names_the_jax_package():
                     assert f"import {mod}" not in text and f"from {mod}" not in text, name
 
 
-def test_entry_points_need_a_device(monkeypatch):
+def test_entry_points_need_a_device(monkeypatch, tmp_path):
     from diffreg_tpu_torch.data.synthetic import synthetic_batch
+    from diffreg_tpu_torch.engine.losses import LossConfig
+    from diffreg_tpu_torch.engine.train import OptimConfig, create_train_state, make_train_step
+    from diffreg_tpu_torch.engine.trainer import IterBasedTrainer, Trainer, TrainerConfig
     from diffreg_tpu_torch.eval.register import register
     from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
     from diffreg_tpu_torch.models.presets import preset_tiny
@@ -64,3 +67,12 @@ def test_entry_points_need_a_device(monkeypatch):
     out = register(model, batch, x_init, u, device="cpu")
     assert out["ransac_rotation"].shape == (1, 3, 3)
     assert torch.isfinite(out["conf_matrix_pred"]).all()
+
+    state = create_train_state(model, OptimConfig())
+    loader = lambda epoch: iter([(batch, None)])
+    cfg = TrainerConfig(max_epoch=1, save_dir=str(tmp_path / "run"))
+    for trainer_cls in (Trainer, IterBasedTrainer):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            trainer_cls(make_train_step(LossConfig()), state, loader, cfg)
+    trained = Trainer(make_train_step(LossConfig()), state, loader, cfg, device="cpu").train()
+    assert trained.step == 1 and trained.optimizer.count == 1
