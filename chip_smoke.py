@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's 3DMatch registration and training on one CUDA card.
+"""Drive the PyTorch port's 3DMatch registration and training, its 4DMatch
+registration and its CLI on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -16,7 +17,10 @@ In order, it
      scaled_dot_product_attention as a yardstick (the port never calls it);
      then, at the same shapes, the gradients through each kernel's autograd
      Function (forward: the kernel; backward: the plain recompute) against
-     plain autograd, with the backward's time;
+     plain autograd, with the backward's time; then the same at the 4DMatch
+     shapes (KPConv per layer of preset_4dmatch's encoder, attention at head
+     width 132, a self call per side, with its gradients) on the 4DMatch
+     phase's data;
   4. runs the DDIM path (``register``) at full width (preset_3dmatch: 432-dim,
      4 heads, 17-block KPFCN, 704 coarse tokens per side from 4096-point
      clouds, 20 DDIM steps, RANSAC with 8192 hypotheses) with random weights
@@ -38,13 +42,35 @@ In order, it
   8. takes one train step of one pair on the card and on the CPU from the
      same weights and draws and compares the loss, every gradient and the
      parameters after the SGD step;
-  9. prints the kernels' JSON line, and as its last line
+  9. runs the 4DMatch path at full width through FourDMatchTester
+     (preset_4dmatch: 528-dim, 4 heads of 132, gate 40, stochastic DDIM with
+     20 steps) on 4 deformable pairs of 4096 points at scene scale 1/3, at the
+     spec calibrated from such pairs as main.py calibrates (704 source and 768
+     target tokens, so each self layer is one call per side), with the DDIM
+     start, the noise and the metric points from seeded generators: one
+     warm-up and three timed runs (pairs/s from the median), 11 KPConv and
+     the spec's attention launches (12 a DDIM step) asserted per forward,
+     matches, IR and NFMR printed;
+ 10. runs pair 0 of that path on the CPU with the same weights and draws and
+     holds the sigmoid confidences, the soft-Procrustes pose, the thr-mutual
+     match mask, IR and NFMR against the card's;
+ 11. runs the entry point ``diffreg_tpu_torch.main`` in a temporary working
+     directory: configs/test/4dmatch.yaml with --demo at the protocol's
+     threshold 0.55; the same config on phase 9's pairs written as an
+     on-disk 4DMatch split with a checkpoint of random weights (main's own
+     calibration from the YAML's pyramid, the loader, the restore, NFMR on
+     the metric_index points; matches asserted at MATCH_THR_4D);
+     configs/test/3dmatch.yaml with --demo; and configs/train/4dmatch.yaml
+     with --demo --mode train (its max_epoch cut to 1: two steps and a
+     checkpoint), each with its summary and launches checked;
+ 12. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -58,6 +84,12 @@ STEPS = 20
 HYPOTHESES = 8192
 GATES = (0.0, 40.0)
 TIMED_RUNS = 3
+# 4DMatch phase: deformable pairs at scene scale 1/3 (the 0.01 voxel of
+# configs/test/4dmatch.yaml gives the 3DMatch phase's grid), flow 0.1 after
+# scaling (tools/train_synthetic_4d.py:49-50); metric points per pair for NFMR
+SCALE_4D = 1.0 / 3.0
+FLOW_AMP_4D = 0.3
+METRIC_POINTS = 2048
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, the tensor cores' TF32
 # rate (the kernels' matrix products) and the f32 rate outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -92,6 +124,16 @@ GRAD_MEDIAN_TOL = 5e-3     # median of that over the trained tensors (measured 6
 GRAD_GLOBAL_TOL = 1e-2     # ||card - CPU|| / ||CPU|| over all gradients together (1.4e-3)
 PARAM_ABS_TOL = 1e-4       # parameters after the SGD step (lr 0.015)
 CUT_GAP_MIN = 1e-7         # soft Procrustes' top-k cut must not fall on a near-tie
+# With random weights the 4DMatch sigmoid confidences sit just above 0.5, so
+# the protocol's threshold 0.55 extracts no match; the 4DMatch phase and the
+# CLI's on-disk run extract at 0.5 (the mutual-argmax matches), so that IR
+# and NFMR do their full work
+MATCH_THR_4D = 0.5
+# 4DMatch pair 0, card against CPU: sigmoid confidences, valid entries. The
+# sigmoid's slope near 0.5 is 1/4 and no Sinkhorn follows it (measured 6.0e-8
+# on the H100)
+CONF_4D_ABS_TOL = 1e-6
+METRIC_4D_ABS_TOL = 1e-2   # IR and NFMR: a flipped match moves IR by 1/n_corr
 # the positioning layer's matcher feeds only the detached position code: its
 # gradient is exactly zero in the JAX package and None here
 NO_GRADIENT = "coarse_transformer.layers.2.0."
@@ -164,7 +206,7 @@ def attention_work(q, k, kv_mask):
     return nbytes, h * l * valid_keys * 4 * d, h * l * valid_keys * 3
 
 
-def check_kpconv(model, batch):
+def check_kpconv(model, batch, tag=""):
     """Kernel vs plain KPConv at every distinct encoder layer, on the inputs the
     encoder really feeds each layer. Returns the kernel's JSON entry."""
     import torch
@@ -213,7 +255,7 @@ def check_kpconv(model, batch):
                               "calls": calls, "path": path, "ms": ms, "plain_ms": plain,
                               "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                               "max_abs_plain": scale})
-            log(f"kpconv {nq}/{ns}/K{k}/{cin}->{cout} x{calls} ({path}): err {err:.3e} "
+            log(f"kpconv{tag} {nq}/{ns}/K{k}/{cin}->{cout} x{calls} ({path}): err {err:.3e} "
                 f"(limit {KPCONV_REL_TOL * max(scale, 1.0):.3e}) kernel {ms:.4f} ms plain "
                 f"{plain:.4f} ms bound {bms:.4f} ms ({by})")
             totals["ms"] += calls * ms
@@ -229,9 +271,35 @@ def check_kpconv(model, batch):
     return entry, shapes
 
 
-def check_attention(batch, cfg, gen):
-    """Kernel vs plain attention at the denoiser's self [2B] and cross [B]
-    shapes; times scaled_dot_product_attention as the yardstick."""
+def attention_calls(n_src, n_tgt, layer_types):
+    """Attention launches of one pass of a transformer with these layer types
+    (nn/transformer.py): a self layer is one [2B] call when both sides have as
+    many tokens and one call per side when not; a cross layer is two calls."""
+    per_self = 1 if n_src == n_tgt else 2
+    return sum(per_self if lt == "self" else 2 if lt == "cross" else 0 for lt in layer_types)
+
+
+def attention_cases(batch, cfg):
+    """The denoiser's attention calls in one DDIM step, as (name, query
+    length, key mask, calls): the self layers as one [2B] call, or one per
+    side when the sides' token counts differ; then both cross directions."""
+    import torch
+
+    src_mask, tgt_mask = batch.src_mask, batch.tgt_mask
+    s, t = src_mask.shape[1], tgt_mask.shape[1]
+    n_self = cfg.denoising_layer_types.count("self")
+    n_cross = cfg.denoising_layer_types.count("cross")
+    if s == t:
+        cases = [("self", s, torch.cat([src_mask, tgt_mask]), n_self)]
+    else:
+        cases = [("self_src", s, src_mask, n_self), ("self_tgt", t, tgt_mask, n_self)]
+    return cases + [("cross", s, tgt_mask, n_cross), ("cross_back", t, src_mask, n_cross)]
+
+
+def check_attention(batch, cfg, gen, tag=""):
+    """Kernel vs plain attention at the denoiser's shapes (``attention_cases``)
+    with the batch's key masks; times scaled_dot_product_attention as the
+    yardstick. Returns the kernel's JSON entry (totals per DDIM step of ``cfg``)."""
     import torch
     import torch.nn.functional as F
 
@@ -240,17 +308,15 @@ def check_attention(batch, cfg, gen):
     h = cfg.coarse_transformer.n_head
     d = cfg.coarse_transformer.feature_dim // h
     scale = d ** -0.5
-    src_mask, tgt_mask = batch.src_mask, batch.tgt_mask
-    b, length = src_mask.shape
-    cases = [("self", torch.cat([src_mask, tgt_mask]), 3),   # 3 self layers, [2B] each
-             ("cross", tgt_mask, 3), ("cross_back", src_mask, 3)]
+    cases = attention_cases(batch, cfg)
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "mma_flops": 0.0,
               "flops": 0.0}
     worst, per_shape = 0.0, []
     with torch.inference_mode():
-        for name, kv_mask, calls in cases:
-            bb = kv_mask.shape[0]
-            q, k, v = (torch.randn(bb, h, length, d, generator=gen).cuda() for _ in range(3))
+        for name, length, kv_mask, calls in cases:
+            bb, keys = kv_mask.shape
+            q = torch.randn(bb, h, length, d, generator=gen).cuda()
+            k, v = (torch.randn(bb, h, keys, d, generator=gen).cuda() for _ in range(2))
             kv_mask = kv_mask.contiguous()
             before = masked_attention_cuda.launches
             got = masked_attention_cuda(q, k, v, kv_mask, scale)
@@ -270,12 +336,12 @@ def check_attention(batch, cfg, gen):
                 q, k, v, attn_mask=lib_mask, scale=scale), 20)
             nbytes, mma_flops, flops = attention_work(q, k, kv_mask)
             bms, by = bound_ms(nbytes, mma_flops, flops)
-            per_shape.append({"case": name, "b": bb, "h": h, "l": length, "s": length, "d": d,
+            per_shape.append({"case": name + tag, "b": bb, "h": h, "l": length, "s": keys, "d": d,
                               "calls": calls, "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
                               "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                               "library_max_abs_err": lib_err})
-            log(f"attention {name} [{bb},{h},{length},{d}] x{calls}: err {err:.3e} (limit "
-                f"{ATTENTION_ABS_TOL:.1e}) kernel "
+            log(f"attention {name}{tag} [{bb},{h},{length}x{keys},{d}] x{calls}: err {err:.3e} "
+                f"(limit {ATTENTION_ABS_TOL:.1e}) kernel "
                 f"{ms:.4f} ms plain {plain:.4f} ms sdpa {lib_ms:.4f} ms (err {lib_err:.3e}) "
                 f"bound {bms:.4f} ms ({by})")
             for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib_ms),
@@ -287,8 +353,8 @@ def check_attention(batch, cfg, gen):
             "replaces": "diffreg_tpu/ops/pallas/attention_kernel.py:24",
             "launches": None, "max_abs_err": worst, "ms": totals["ms"],
             "plain_ms": totals["plain_ms"], "bound_ms": bms, "bound_by": by,
-            "library_ms": totals["library_ms"], "per": "one DDIM step (9 calls)",
-            "shapes": per_shape}
+            "library_ms": totals["library_ms"],
+            "per": f"one DDIM step ({sum(c[3] for c in cases)} calls)", "shapes": per_shape}
 
 
 def grad_case(name, function, inputs, wanted, plain, gen, calls, counter):
@@ -330,8 +396,6 @@ def check_gradients(kernels, kp_shapes, batch, cfg, gen):
     """Phase 3b: each kernel's autograd Function at the main path's shapes."""
     import torch
 
-    from diffreg_tpu_torch.ops.attention import (MaskedAttentionFunction, masked_attention_cuda,
-                                                 masked_attention_plain)
     from diffreg_tpu_torch.ops.kpconv import KPConvFunction, kpconv, kpconv_cuda
 
     worst, total = 0.0, 0.0
@@ -345,25 +409,33 @@ def check_gradients(kernels, kp_shapes, batch, cfg, gen):
         worst, total = max(worst, err), total + calls * ms
     kernels[0].update({"backward_ms": total, "backward_route": "plain recompute",
                        "backward_max_rel_err": worst})
+    worst, total = attention_gradients(batch, cfg, gen)
+    kernels[1].update({"backward_ms": total, "backward_route": "plain recompute",
+                       "backward_max_rel_err": worst})
+
+
+def attention_gradients(batch, cfg, gen):
+    """MaskedAttentionFunction against plain autograd at the denoiser's shapes
+    of ``cfg``; returns (worst relative error, backward ms per DDIM step)."""
+    import torch
+
+    from diffreg_tpu_torch.ops.attention import (MaskedAttentionFunction, masked_attention_cuda,
+                                                 masked_attention_plain)
 
     h = cfg.coarse_transformer.n_head
     d = cfg.coarse_transformer.feature_dim // h
     scale = d ** -0.5
-    src_mask, tgt_mask = batch.src_mask, batch.tgt_mask
-    length = src_mask.shape[1]
     worst, total = 0.0, 0.0
-    for name, kv_mask, calls in (("self", torch.cat([src_mask, tgt_mask]), 3),
-                                 ("cross", tgt_mask, 3), ("cross_back", src_mask, 3)):
-        bb = kv_mask.shape[0]
-        qkv = [torch.randn(bb, h, length, d, generator=gen).cuda() for _ in range(3)]
+    for name, length, kv_mask, calls in attention_cases(batch, cfg):
+        bb, keys = kv_mask.shape
+        qkv = [torch.randn(bb, h, n, d, generator=gen).cuda() for n in (length, keys, keys)]
         err, ms = grad_case(
-            f"attention {name} [{bb},{h},{length},{d}]",
+            f"attention {name} [{bb},{h},{length}x{keys},{d}]",
             lambda *a: MaskedAttentionFunction.apply(*a, scale), (*qkv, kv_mask.contiguous()),
             (0, 1, 2), lambda *a: masked_attention_plain(*a, scale), gen, calls,
             masked_attention_cuda)
         worst, total = max(worst, err), total + calls * ms
-    kernels[1].update({"backward_ms": total, "backward_route": "plain recompute",
-                       "backward_max_rel_err": worst})
+    return worst, total
 
 
 def check_outputs(out, tag):
@@ -662,6 +734,243 @@ def train_step_card_vs_cpu(cfg_train, one):
         raise AssertionError(f"train step: parameters differ by {param_err} after the update")
 
 
+def deformable_data():
+    """The 4DMatch phase's data: BATCH_PAIRS deformable pairs of N_POINTS at
+    scene scale SCALE_4D (4DMatch's 0.01 voxel), the spec calibrated from two
+    more such pairs as main.py calibrates (its sides' token counts differ),
+    their pyramid batch, each pair's metric points (raw source, GT flow, a
+    seeded metric_index) and the raw pairs (src, tgt, rot, trn, flow)."""
+    import numpy as np
+
+    from diffreg_tpu_torch.data.calibrate import calibrate_spec
+    from diffreg_tpu_torch.data.pyramid import PyramidConfig, batch_from_samples, build_pair_pyramid
+    from diffreg_tpu_torch.data.synthetic import make_pair
+
+    pair = lambda rng: make_pair(rng, N_POINTS, deformable=True, flow_amp=FLOW_AMP_4D,
+                                 scale=SCALE_4D)
+    # configs/test/4dmatch.yaml:9,22
+    pcfg = PyramidConfig(first_subsampling_dl=0.01, coarse_match_radius=0.024)
+    cal_rng = np.random.RandomState(0)
+    spec = calibrate_spec([pair(cal_rng)[:2] for _ in range(2)], pcfg, k_cap=40,
+                          neighbor_percentile=90.0)
+    rng, pick = np.random.RandomState(1), np.random.RandomState(2)
+    samples, meta, pairs = [], [], []
+    for _ in range(BATCH_PAIRS):
+        pairs.append(pair(rng))
+        src, tgt, rot, trn, flow = pairs[-1]
+        samples.append(build_pair_pyramid(src, tgt, rot, trn, pcfg, spec, scene_flow=flow))
+        idx = np.sort(pick.choice(len(src), min(len(src), METRIC_POINTS), replace=False))
+        meta.append({"src_pcd": src, "scene_flow": flow, "metric_index": idx})
+    return batch_from_samples(samples), meta, spec, pairs
+
+
+def run_4dmatch(batch_cpu, meta, spec, launches):
+    """Phase 9: the 4DMatch path at full width through FourDMatchTester, then
+    pair 0 on the CPU (phase 10). Returns the numbers for the summary."""
+    import torch
+
+    from diffreg_tpu_torch.engine.tester import (FourDMatchTester, TestConfig,
+                                                 make_metric_points_fn, match_mask_4dmatch,
+                                                 pair_metrics_4dmatch)
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.models.presets import preset_4dmatch
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+
+    cfg = preset_4dmatch(sample_steps=STEPS)
+    per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
+    model = DiffusionMatchingModel(cfg, device="cuda", seed=0)
+    tcfg = TestConfig(inlier_thr=0.04, match_thr=MATCH_THR_4D)
+    tester = FourDMatchTester(model, tcfg, device="cuda")
+    metric_points = make_metric_points_fn(METRIC_POINTS)
+    batch = batch_cpu.to("cuda")
+    make_iter = lambda: iter([(batch, meta)])
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        tester.test(make_iter, torch.Generator("cuda").manual_seed(0), metric_points)  # warm-up
+        times = []
+        for run in range(TIMED_RUNS):
+            kpconv_cuda.launches = 0
+            masked_attention_cuda.launches = 0
+            summary, seconds = wall(lambda: tester.test(
+                make_iter, torch.Generator("cuda").manual_seed(1 + run), metric_points))
+            n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+            if n_kp != 11 or n_at != per_step * STEPS:
+                raise AssertionError(f"4DMatch tester: {n_kp} KPConv launches (want 11), "
+                                     f"{n_at} attention launches (want {per_step * STEPS})")
+            launches["kpconv"] += n_kp
+            launches["masked_attention_d132"] += n_at
+            times.append(seconds)
+            if not (summary["pairs"] == BATCH_PAIRS and summary["matches"] > 0
+                    and math.isfinite(summary["IR"])
+                    and math.isfinite(summary.get("NFMR", math.nan))):
+                raise AssertionError(f"4DMatch tester summary {summary}")
+        seconds = sorted(times)[TIMED_RUNS // 2]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"4DMatch path (FourDMatchTester, gate 40, stochastic DDIM, {STEPS} steps, match "
+            f"threshold {MATCH_THR_4D}): {BATCH_PAIRS} pairs in {seconds:.4f} s (median of "
+            f"{', '.join(f'{t:.4f}' for t in times)}) = {BATCH_PAIRS / seconds:.3f} pairs/s; "
+            f"IR {summary['IR']:.4f} NFMR {summary['NFMR']:.4f}, {summary['matches']:.1f} "
+            f"matches a pair; launches kpconv {n_kp} "
+            f"attention {n_at}; peak memory {peak:.2f} GiB")
+
+        # ---- 10. pair 0 on the CPU, same weights and draws ----
+        gen = torch.Generator().manual_seed(3)
+        x_init = torch.randn(BATCH_PAIRS, spec.n_src, spec.n_tgt, generator=gen)
+        noise = torch.randn(STEPS, BATCH_PAIRS, spec.n_src, spec.n_tgt, generator=gen)
+        kpconv_cuda.launches = 0
+        masked_attention_cuda.launches = 0
+        out, fwd_s = wall(lambda: model.ddim_sample(batch, x_init.cuda(),
+                                                    ddim_noise=noise.cuda()))
+        n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+        if n_kp != 11 or n_at != per_step * STEPS:
+            raise AssertionError(f"4DMatch ddim_sample: {n_kp} KPConv, {n_at} attention launches")
+        launches["kpconv"] += n_kp
+        launches["masked_attention_d132"] += n_at
+        cond = out["step_condition"]
+        accepted = int((cond < cfg.procrustes.max_condition_num).sum())
+        log(f"4DMatch ddim_sample: {fwd_s:.4f} s, warps accepted {accepted}/{cond.numel()}")
+        cpu_model = DiffusionMatchingModel(cfg, device="cpu", seed=0)
+        one = batch_cpu.select(slice(0, 1))
+        t0 = time.perf_counter()
+        ref = cpu_model.ddim_sample(one, x_init[:1], ddim_noise=noise[:, :1])
+        cpu_s = time.perf_counter() - t0
+        valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
+        got = {k: v[:1].cpu() for k, v in out.items() if k != "step_condition"}
+        conf_err = float((got["conf_matrix_pred"] - ref["conf_matrix_pred"]).abs()[valid].max())
+        pose_err = max(float((got[k] - ref[k]).abs().max())
+                       for k in ("rotation_pred", "translation_pred"))
+        gap = cut_gap(ref["conf_matrix_pred"], one.src_mask, one.tgt_mask)
+        mask, ref_mask = (match_mask_4dmatch(o, one, tcfg) for o in (got, ref))
+        agree = float((mask == ref_mask)[valid].float().mean())
+        ir, n_corr = pair_metrics_4dmatch(got, one, tcfg)
+        ref_ir, ref_n = pair_metrics_4dmatch(ref, one, tcfg)
+        cpu_tester = FourDMatchTester(cpu_model, tcfg, device="cpu")
+        nfmr = cpu_tester.nfmr_for_batch(got, one, meta[:1], metric_points)[0]
+        ref_nfmr = cpu_tester.nfmr_for_batch(ref, one, meta[:1], metric_points)[0]
+        cond_cpu = ref["step_condition"][:, 0]
+        cond_gap = float((cond_cpu - cfg.procrustes.max_condition_num).abs().min())
+    log(f"4DMatch card vs CPU, pair 0 (CPU {cpu_s:.1f} s): sigmoid conf {conf_err:.3e} (limit "
+        f"{CONF_4D_ABS_TOL:.0e}), pose {pose_err:.3e} (limit {POSE_ABS_TOL:.0e}), cut gap "
+        f"{gap:.3e}, nearest step condition to the gate {cond_gap:.3f}, thr-mutual mask "
+        f"agreement {agree:.7f}, matches {int(n_corr[0])} vs {int(ref_n[0])}, IR "
+        f"{float(ir[0]):.5f} vs {float(ref_ir[0]):.5f}, NFMR {nfmr:.5f} vs {ref_nfmr:.5f}")
+    if not gap > CUT_GAP_MIN:
+        raise AssertionError(f"4DMatch: soft Procrustes' cut falls on a near-tie ({gap})")
+    if not conf_err <= CONF_4D_ABS_TOL:
+        raise AssertionError(f"4DMatch: confidences differ from the CPU's by {conf_err}")
+    if not pose_err <= POSE_ABS_TOL:
+        raise AssertionError(f"4DMatch: pose differs from the CPU's by {pose_err}")
+    if not agree >= MASK_AGREEMENT:
+        raise AssertionError(f"4DMatch: thr-mutual masks agree on {agree} of entries")
+    if not (abs(float(ir[0]) - float(ref_ir[0])) <= METRIC_4D_ABS_TOL
+            and abs(nfmr - ref_nfmr) <= METRIC_4D_ABS_TOL):
+        raise AssertionError("4DMatch: IR or NFMR differ from the CPU's")
+    return {"pairs_per_s": BATCH_PAIRS / seconds, "peak_gib": peak}
+
+
+def write_4dmatch_split(directory, pairs, meta):
+    """The pairs as 4DMatch .npz entries (src_pcd, tgt_pcd, s2t_flow, rot,
+    trans, metric_index), as data/datasets.py:FourDMatchPairDataset reads them."""
+    import numpy as np
+
+    os.makedirs(directory)
+    for i, ((src, tgt, rot, trn, flow), m) in enumerate(zip(pairs, meta)):
+        np.savez(os.path.join(directory, f"pair{i}.npz"), src_pcd=src, tgt_pcd=tgt,
+                 s2t_flow=flow, rot=rot, trans=trn, metric_index=m["metric_index"][:, None])
+
+
+def run_cli(repo, pairs4, meta4, launches):
+    """Phase 11: ``diffreg_tpu_torch.main`` on the card, in a temporary working
+    directory: 4DMatch test on the demo pairs at the protocol's threshold;
+    4DMatch test on the 4DMatch phase's pairs written as an on-disk split,
+    with a checkpoint of random weights (calibration from the YAML's pyramid,
+    the loader, the restore, NFMR on the metric_index points) at MATCH_THR_4D;
+    3DMatch test (65,536 RANSAC hypotheses); one 4DMatch training epoch (its
+    config with max_epoch cut to 1)."""
+    import tempfile
+
+    import yaml
+
+    from diffreg_tpu_torch.data.datasets import FourDMatchPairDataset
+    from diffreg_tpu_torch.data.synthetic import synthetic_batch
+    from diffreg_tpu_torch.engine.checkpoint import CheckpointManager
+    from diffreg_tpu_torch.engine.train import create_train_state
+    from diffreg_tpu_torch.main import data_spec
+    from diffreg_tpu_torch.main import main as cli
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+    from diffreg_tpu_torch.utils.config import (build_optim_config, build_pipeline_config,
+                                                load_yaml)
+
+    configs = os.path.join(repo, "configs")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cfg = load_yaml(os.path.join(configs, "train", "4dmatch.yaml"))
+        train_cfg["max_epoch"] = 1
+        with open(os.path.join(tmp, "train_4dmatch.yaml"), "w") as f:
+            yaml.safe_dump(train_cfg, f)
+        disk_cfg = load_yaml(os.path.join(configs, "test", "4dmatch.yaml"))
+        write_4dmatch_split(os.path.join(tmp, "4dmatch", "test"), pairs4, meta4)
+        disk_cfg.update(data_root=os.path.join(tmp, "4dmatch"), exp_dir="disk-4dmatch",
+                        split={"test": os.path.join(tmp, "4dmatch", "test")},
+                        pretrain=os.path.join(tmp, "ckpt"), num_workers=4)
+        pipeline = build_pipeline_config(disk_cfg)
+        CheckpointManager(disk_cfg["pretrain"]).save(1, create_train_state(
+            DiffusionMatchingModel(pipeline, device="cpu", seed=0),
+            build_optim_config(disk_cfg, steps_per_epoch=1)))
+        with open(os.path.join(tmp, "disk_4dmatch.yaml"), "w") as f:
+            yaml.safe_dump(disk_cfg, f)
+        disk_spec, _ = data_spec(FourDMatchPairDataset(disk_cfg["split"]["test"]), disk_cfg,
+                                 pipeline)
+        _, demo_spec, _ = synthetic_batch(batch_size=1, n_points=768, seed=0)
+        layers = pipeline.denoising_layer_types
+        ddim = lambda spec: STEPS * attention_calls(spec.n_src, spec.n_tgt, layers)
+        train = attention_calls(demo_spec.n_src, demo_spec.n_tgt,
+                                tuple(pipeline.coarse_transformer.layer_types) + layers)
+        # (name, config, extra arguments, pairs per batch, summary keys, attention
+        # launches per batch: a 20-step DDIM sample or a train step)
+        runs = [("4DMatch test (demo)", os.path.join(configs, "test", "4dmatch.yaml"),
+                 ["--demo", "--thr", "0.55"], BATCH_PAIRS, ("IR",), ddim(demo_spec)),
+                ("4DMatch test (on disk)", os.path.join(tmp, "disk_4dmatch.yaml"),
+                 ["--thr", str(MATCH_THR_4D)], BATCH_PAIRS, ("IR", "NFMR", "matches"),
+                 ddim(disk_spec)),
+                ("3DMatch test (demo)", os.path.join(configs, "test", "3dmatch.yaml"), ["--demo"],
+                 BATCH_PAIRS, ("IR", "FMR", "RR"), ddim(demo_spec)),
+                ("4DMatch train (demo)", os.path.join(tmp, "train_4dmatch.yaml"),
+                 ["--demo", "--mode", "train"], 2, ("loss",), train)]
+        os.chdir(tmp)
+        try:
+            for name, config, extra, batch_size, keys, attn_per_batch in runs:
+                kpconv_cuda.launches = 0
+                masked_attention_cuda.launches = 0
+                argv = ["--config", config, "--num-pairs", str(BATCH_PAIRS),
+                        "--batch-size", str(batch_size), *extra]
+                summary, seconds = wall(lambda: cli(argv))
+                n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+                batches = BATCH_PAIRS // batch_size
+                if n_kp != 11 * batches or n_at != attn_per_batch * batches:
+                    raise AssertionError(f"main {name}: {n_kp} KPConv, {n_at} attention launches")
+                if not all(math.isfinite(summary[k]) for k in keys):
+                    raise AssertionError(f"main {name}: summary {summary}")
+                if "matches" in keys and not summary["matches"] > 0:
+                    raise AssertionError(f"main {name}: no match extracted ({summary})")
+                launches["kpconv"] += n_kp
+                launches["masked_attention_d132" if "4DMatch" in name
+                         else "masked_attention"] += n_at
+                log(f"main {name}, {BATCH_PAIRS} pairs: {seconds:.2f} s, launches kpconv "
+                    f"{n_kp} attention {n_at}; " + ", ".join(
+                        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in summary.items()))
+            log(f"main 4DMatch on-disk spec {disk_spec}")
+            if not os.path.isfile(os.path.join(tmp, "snapshot", "train-4dmatch", "checkpoints",
+                                               "1.pt")):
+                raise AssertionError("main 4DMatch train: no checkpoint")
+        finally:
+            os.chdir(cwd)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -680,7 +989,8 @@ def main() -> int:
         from diffreg_tpu_torch.data.synthetic import make_pair, synthetic_batch
         from diffreg_tpu_torch.eval.register import correspond_and_ransac, register
         from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
-        from diffreg_tpu_torch.models.presets import preset_3dmatch, with_condition_gate
+        from diffreg_tpu_torch.models.presets import (preset_3dmatch, preset_4dmatch,
+                                                      with_condition_gate)
         from diffreg_tpu_torch.ops.attention import masked_attention_cuda
         from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
         from diffreg_tpu_torch.utils.cuda import build_kernels
@@ -733,9 +1043,30 @@ def main() -> int:
     check_gradients(kernels, kp_shapes, batch, cfg, gen)
     del kp_shapes
 
+    # ---- 3c. the 4DMatch shapes: KPConv per layer, attention at D = 132 ----
+    t0 = time.perf_counter()
+    batch4_cpu, meta4, spec4, pairs4 = deformable_data()
+    log(f"4DMatch spec {spec4}; host data {time.perf_counter() - t0:.2f} s")
+    batch4 = batch4_cpu.to("cuda")
+    cfg4 = preset_4dmatch(sample_steps=STEPS)
+    kp4, kp4_shapes = check_kpconv(DiffusionMatchingModel(cfg4, device="cuda", seed=0), batch4,
+                                   tag=" (4DMatch)")
+    del kp4_shapes
+    kernels[0]["shapes_4dmatch"] = kp4["shapes"]
+    at4 = check_attention(batch4, cfg4, gen, tag=" (4DMatch)")
+    grad4, back4 = attention_gradients(batch4, cfg4, gen)
+    kernels[1]["d132"] = {k: at4[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "per")}
+    kernels[1]["d132"].update({"backward_ms": back4, "backward_max_rel_err": grad4})
+    kernels[1]["shapes"] += at4["shapes"]
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], at4["max_abs_err"])
+    del batch4
+
     # ---- 4. the DDIM path ----
     torch.cuda.reset_peak_memory_stats()      # the gradient checks above are not its peak
-    results, launches = {}, {"kpconv": 0, "masked_attention": 0}
+    results = {}
+    launches = {"kpconv": 0, "masked_attention": 0, "masked_attention_d132": 0}
+    per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
     for gate, model in models.items():
         register(model, batch, x_init, u)                      # warm-up
         times = []
@@ -744,9 +1075,9 @@ def main() -> int:
             masked_attention_cuda.launches = 0
             out, seconds = wall(lambda: register(model, batch, x_init, u))
             n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
-            if n_kp != 11 or n_at != 9 * STEPS:
+            if n_kp != 11 or n_at != per_step * STEPS:
                 raise AssertionError(f"gate {gate}: {n_kp} KPConv launches (want 11), "
-                                     f"{n_at} attention launches (want {9 * STEPS})")
+                                     f"{n_at} attention launches (want {per_step * STEPS})")
             launches["kpconv"] += n_kp
             launches["masked_attention"] += n_at
             times.append(seconds)
@@ -795,8 +1126,15 @@ def main() -> int:
     # ---- 8. one train step, card against CPU ----
     train_step_card_vs_cpu(cfg_train, one)
 
+    # ---- 9-10. the 4DMatch path through FourDMatchTester; pair 0 on the CPU ----
+    run_4dmatch(batch4_cpu, meta4, spec4, launches)
+
+    # ---- 11. the entry point: 4DMatch test, 3DMatch test, 4DMatch train ----
+    run_cli(repo, pairs4, meta4, launches)
+
     kernels[0]["launches"] = launches["kpconv"]
-    kernels[1]["launches"] = launches["masked_attention"]
+    kernels[1]["launches"] = launches["masked_attention"] + launches["masked_attention_d132"]
+    kernels[1]["launches_d132"] = launches["masked_attention_d132"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

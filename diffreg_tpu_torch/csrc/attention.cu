@@ -5,9 +5,9 @@
 // keys with kv_mask == 0 set to -1e9 for every query, keys past S to -inf,
 // softmax over keys, then times v; an online softmax over key tiles in f32, so
 // the [B, H, L, S] logits never reach device memory. The scale is passed in
-// (1/sqrt(108) on the main path). Rows of queries past L are not written.
+// (1/sqrt(D)). Rows of queries past L are not written.
 //
-// What bounds it on an H100: operations. At L = S = 704, D = 108 it does
+// What bounds it on an H100: operations. At L = S = 704, D = 108 or 132 it does
 // 4 L S D product flops per (batch, head) against 4 (L + 2 S) D bytes of q, k,
 // v and 4 L D bytes of output, far past the ridge point even at the TF32
 // tensor-core rate; 3xTF32 spends three tensor-core products per f32 product.
@@ -23,7 +23,7 @@
 //    A fragment of P.V: the keys of each 8-wide k-step are taken in the order
 //    (0, 2, 4, 6, 1, 3, 5, 7), which is the order the accumulator layout holds
 //    them in, and V's B fragment reads its rows in the same order.
-//  * A warp owns 16 query rows; S = q.k^T of a 32-key tile and O [16 x 112]
+//  * A warp owns 16 query rows; S = q.k^T of a 32-key tile and O [16 x DPad]
 //    stay in registers. Row max, rescale and row sum run in f32 on the
 //    accumulator fragments; the max needs two quad shuffles, the sum is kept
 //    per thread and reduced over the quad once at the end. Each tile's P.V
@@ -31,21 +31,26 @@
 //    rescale (O = O alpha + PV): the tensor core's f32 accumulation does not
 //    round to nearest, and carrying O through it over all tiles cost f32
 //    accuracy.
-//  * D is padded to 112 (a multiple of the k-step 8) with zero columns in
-//    shared memory, which leaves every product exact; 108 columns are written.
+//  * D is padded to DPad (a multiple of the k-step 8) with zero columns in
+//    shared memory, which leaves every product exact; D columns are written.
+//    The kernel is a template on DPad with two instances: 112 for D <= 112
+//    (3DMatch, D = 108) and 136 for 112 < D <= 136 (4DMatch, D = 132).
 //  * K and V tiles are staged by cp.async (16 B; a 108-float row is 432 B),
 //    rows past S zero-filled, into one buffer each, used alternately: the next
 //    tile's K loads while this tile's softmax and P.V run, and the next V
 //    while the next S runs. That overlaps every load with products at half
-//    the shared memory of a double buffer of both. Shared rows are 116 floats
-//    apart, so every fragment load of q, k and v is free of bank conflicts.
-//  * 64 queries (4 warps) and 32 keys per tile: 59.4 KB of shared memory (3
+//    the shared memory of a double buffer of both. Shared rows are DPad + 4
+//    floats apart (116 or 140: 20 or 12 banks), so every fragment load of q, k
+//    and v (8 rows x 4 lanes, or 4 row pairs x 8 lanes) hits 32 distinct banks.
+//  * 64 queries (4 warps) and 32 keys per tile. DPad 112: 59.4 KB of shared memory (3
 //    blocks would fit); the registers (191 a thread, no spills) hold it to 2
 //    blocks, 8 warps, per SM: 264 slots on 132 SMs, so the cross calls (176
 //    blocks) take one wave and the self calls (352) 1.3. Forcing 3 blocks
 //    spills registers. It was the fastest of the tilings tried on the card at
 //    the main path's shapes (32 or 64 queries, 32 or 64 keys, a double buffer
-//    or this alternation).
+//    or this alternation). DPad 136 keeps the tiling: 71.7 KB of shared
+//    memory, O in 17 n-tiles, 225 registers a thread with no spills, still 2
+//    blocks per SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,12 +64,13 @@ constexpr int kWarps = 4;
 constexpr int kQT = 16 * kWarps;     // queries per block
 constexpr int kKT = 32;              // keys per tile
 constexpr int kThreads = 32 * kWarps;
-constexpr int kDPad = 112;           // D padded to a multiple of the k-step
-constexpr int kStride = kDPad + 4;   // shared row stride (floats): no bank conflicts
-constexpr int kKSteps = kDPad / 8;
-constexpr size_t kSmemBytes = sizeof(float) * kStride * (kQT + 2 * kKT);
+constexpr int kDMax = 136;           // the widest instance
+
+template <int kDPad>
+constexpr size_t smem_bytes() { return sizeof(float) * (kDPad + 4) * (kQT + 2 * kKT); }
 
 // Stage rows [s0, s0 + kKT) of k or v into a shared buffer; rows past S are zeros.
+template <int kStride>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int s0, int S, int D) {
   const int chunks = D / 4;
   for (int i = threadIdx.x; i < kKT * chunks; i += kThreads) {
@@ -75,10 +81,14 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int s0, 
   cp_async_commit();
 }
 
+// kDPad: D padded to a multiple of the k-step 8.
+template <int kDPad>
 __global__ void __launch_bounds__(kThreads) masked_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
     float* __restrict__ out, int H, int L, int S, int D, float scale) {
+  constexpr int kStride = kDPad + 4;   // shared row stride (floats): no bank conflicts
+  constexpr int kKSteps = kDPad / 8;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                    // [QT][kStride], pre-scaled
   float* ks = qs + kQT * kStride;      // [KT][kStride]
@@ -95,8 +105,8 @@ __global__ void __launch_bounds__(kThreads) masked_attention_kernel(
   const uint8_t* mb = kv_mask + (size_t)b * S;
   const int n_tiles = (S + kKT - 1) / kKT;
 
-  load_rows(ks, kb, 0, S, D);
-  load_rows(vs, vb, 0, S, D);
+  load_rows<kStride>(ks, kb, 0, S, D);
+  load_rows<kStride>(vs, vb, 0, S, D);
 
   // q (scaled) and the zero columns [D, kDPad) of the K and V buffers
   for (int i = tid; i < kQT * kDPad; i += kThreads) {
@@ -145,7 +155,7 @@ __global__ void __launch_bounds__(kThreads) masked_attention_kernel(
       }
     }
     __syncthreads();  // K is consumed: stage the next tile's K during softmax and P.V
-    if (more) load_rows(ks, kb, s0 + kKT, S, D);
+    if (more) load_rows<kStride>(ks, kb, s0 + kKT, S, D);
 
     // mask, online softmax; thread holds keys 8n + 2t, 8n + 2t + 1 of rows g, g + 8
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -190,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) masked_attention_kernel(
     // pv = P V of this tile, in fresh accumulators: k-step j covers keys
     // 8j..8j+7 in the order (0,2,4,6,1,3,5,7), so the A fragment is the
     // accumulator of n-tile j as it stands. The three products of one
-    // accumulator are 14 products apart in the instruction stream.
+    // accumulator are kKSteps products apart in the instruction stream.
     float pv[kKSteps][4];
 #pragma unroll
     for (int n = 0; n < kKSteps; ++n)
@@ -228,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) masked_attention_kernel(
       o[n][3] = fmaf(o[n][3], al1, pv[n][3]);
     }
     __syncthreads();  // V is consumed: stage the next tile's V during the next S
-    if (more) load_rows(vs, vb, s0 + kKT, S, D);
+    if (more) load_rows<kStride>(vs, vb, s0 + kKT, S, D);
   }
 
   l0sum += __shfl_xor_sync(0xffffffffu, l0sum, 1);
@@ -250,31 +260,39 @@ __global__ void __launch_bounds__(kThreads) masked_attention_kernel(
   }
 }
 
+template <int kDPad>
+int launch(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
+           int B, int H, int L, int S, int D, float scale, cudaStream_t stream) {
+  auto kernel = masked_attention_kernel<kDPad>;
+  constexpr size_t bytes = smem_bytes<kDPad>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((L + kQT - 1) / kQT, B * H);
+  kernel<<<grid, kThreads, bytes, stream>>>(q, k, v, kv_mask, out, H, L, S, D, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // q [B, H, L, D], k/v [B, H, S, D], kv_mask [B, S] bool (1 byte), out
 // [B, H, L, D]; f32, contiguous, 16-byte aligned; D a multiple of 4, at most
-// 112. Returns a cudaError_t (0 on success).
+// 136. Returns a cudaError_t (0 on success).
 int masked_attention_forward(const float* q, const float* k, const float* v,
                              const uint8_t* kv_mask, float* out, int B, int H,
                              int L, int S, int D, float scale, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || S <= 0 || D <= 0 || D > kDPad || D % 4 != 0)
+  if (B <= 0 || H <= 0 || L <= 0 || S <= 0 || D <= 0 || D > kDMax || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  cudaError_t err = cudaFuncSetAttribute(
-      masked_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(masked_attention_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + kQT - 1) / kQT, B * H);
-  masked_attention_kernel<<<grid, kThreads, kSmemBytes, stream>>>(q, k, v, kv_mask, out, H, L,
-                                                                  S, D, scale);
-  return (int)cudaGetLastError();
+  if (D <= 112)
+    return launch<112>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
+  return launch<136>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
 }
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

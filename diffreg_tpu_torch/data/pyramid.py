@@ -15,7 +15,7 @@ a ``ShapeSpec``. The same contract as the JAX package's data/pyramid.py:
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -52,8 +52,14 @@ def build_pair_pyramid(
     trn: np.ndarray,
     cfg: PyramidConfig,
     spec: ShapeSpec,
+    scene_flow: Optional[np.ndarray] = None,
+    gt_cov: Optional[np.ndarray] = None,
 ) -> dict:
-    """Build one rigid pair's padded pyramid sample (dict of numpy arrays)."""
+    """Build one pair's padded pyramid sample (dict of numpy arrays).
+    ``scene_flow`` [N_src, 3] (4DMatch) deforms the source before the GT pose:
+    each coarse source point takes the flow of its nearest raw source point
+    (``coarse_flow``), and the GT matches are found after that deformation.
+    ``gt_cov`` [6, 6] is the pair's registration-recall covariance."""
     dtype = np.float32
     src_pcd = src_pcd.astype(dtype)
     tgt_pcd = tgt_pcd.astype(dtype)
@@ -129,7 +135,16 @@ def build_pair_pyramid(
 
     # ---- GT coarse matches ----
     c_src, c_tgt = src_levels[cl], tgt_levels[cl]
-    c_src_warped = (rot @ c_src.T + trn.reshape(3, 1)).T
+    if scene_flow is not None:
+        from scipy.spatial import cKDTree
+
+        _, nn = cKDTree(src_pcd).query(c_src, k=1)
+        c_src_deformed = c_src + scene_flow[nn].astype(dtype)
+        coarse_flow = c_src_deformed - c_src
+    else:
+        c_src_deformed = c_src
+        coarse_flow = np.zeros_like(c_src)
+    c_src_warped = (rot @ c_src_deformed.T + trn.reshape(3, 1)).T
     matches = _mutual_nn_with_radius(c_src_warped, c_tgt, cfg.coarse_match_radius)
     g = spec.n_gt_matches
     n_m = min(matches.shape[1], g)
@@ -156,8 +171,8 @@ def build_pair_pyramid(
         "gt_src": gt_src,
         "gt_tgt": gt_tgt,
         "gt_valid": gt_valid,
-        "coarse_flow": pad_to(np.zeros_like(c_src), spec.n_src, axis=0),
-        "gt_cov": np.zeros((6, 6), dtype),
+        "coarse_flow": pad_to(coarse_flow.astype(dtype), spec.n_src, axis=0),
+        "gt_cov": np.zeros((6, 6), dtype) if gt_cov is None else gt_cov.astype(dtype),
     }
 
 

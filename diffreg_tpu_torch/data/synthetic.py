@@ -1,8 +1,9 @@
-"""Synthetic rigid registration pairs — test fixtures and the chip smoke's data.
+"""Synthetic registration pairs — test fixtures and the chip smoke's data.
 
 Structured point clouds (multi-blob surfaces) under a random rigid transform
-with noise and partial-overlap cropping, run through the real pyramid
-construction. Same draws as the JAX package's data/synthetic.py at the same seed.
+with noise and partial-overlap cropping, optionally deformed by a smooth flow
+field (4DMatch-like pairs), run through the real pyramid construction. Same
+draws as the JAX package's data/synthetic.py at the same seed.
 """
 from __future__ import annotations
 
@@ -21,8 +22,12 @@ def make_cloud(rng: np.random.RandomState, n: int, n_blobs: int = 6, extent: flo
 
 
 def make_pair(rng: np.random.RandomState, n_points: int = 1024, overlap: float = 0.8,
-              noise: float = 0.005, max_rot_deg: float = 45.0):
-    """Returns (src, tgt, rot [3, 3], trn [3, 1]) with tgt ~ rot @ src + trn."""
+              noise: float = 0.005, max_rot_deg: float = 45.0, deformable: bool = False,
+              flow_amp: float = 0.05, scale: float = 1.0):
+    """Returns (src, tgt, rot [3, 3], trn [3, 1], flow) with tgt ~ rot @ (src +
+    flow) + trn; flow [N_src, 3] is the sinusoidal deformation of amplitude
+    ``flow_amp`` when ``deformable``, else None. ``scale`` rescales the scene
+    (points, flow, translation) at the end."""
     base = make_cloud(rng, n_points)
     # partial overlap: drop a directional slab from each side
     d = rng.randn(3)
@@ -32,6 +37,12 @@ def make_pair(rng: np.random.RandomState, n_points: int = 1024, overlap: float =
     src = base[proj <= hi]
     tgt_base = base[proj >= lo]
 
+    flow = None
+    if deformable:
+        flow_all = flow_amp * np.sin(base * 3.0)[:, ::-1]
+        flow = flow_all[proj <= hi].astype(np.float32)
+        tgt_base = tgt_base + flow_all[proj >= lo]
+
     axis = rng.randn(3)
     axis /= np.linalg.norm(axis)
     angle = np.deg2rad(rng.rand() * max_rot_deg)
@@ -40,7 +51,12 @@ def make_pair(rng: np.random.RandomState, n_points: int = 1024, overlap: float =
     trn = (rng.randn(3, 1) * 0.3).astype(np.float32)
 
     tgt = (rot @ tgt_base.T + trn).T + rng.randn(len(tgt_base), 3) * noise
-    return src.astype(np.float32), tgt.astype(np.float32), rot, trn
+    if scale != 1.0:
+        src, tgt, trn = src * scale, tgt * scale, trn * scale
+        if flow is not None:
+            flow = flow * scale
+    return (src.astype(np.float32), tgt.astype(np.float32), rot, trn.astype(np.float32),
+            None if flow is None else flow.astype(np.float32))
 
 
 def tiny_spec(n0: int = 256, levels: int = 4) -> ShapeSpec:
@@ -58,13 +74,15 @@ def tiny_spec(n0: int = 256, levels: int = 4) -> ShapeSpec:
 
 
 def synthetic_batch(batch_size: int = 2, n_points: int = 256, seed: int = 0,
-                    spec: ShapeSpec | None = None, cfg: PyramidConfig | None = None):
-    """(PairBatch of CPU tensors, spec, cfg) for ``batch_size`` random pairs."""
+                    spec: ShapeSpec | None = None, cfg: PyramidConfig | None = None,
+                    deformable: bool = False):
+    """(PairBatch of CPU tensors, spec, cfg) for ``batch_size`` random pairs
+    (deformable pairs carry their coarse flow)."""
     rng = np.random.RandomState(seed)
     cfg = cfg or PyramidConfig(first_subsampling_dl=0.06, coarse_match_radius=0.15)
     spec = spec or tiny_spec(n_points)
     samples = []
     for _ in range(batch_size):
-        src, tgt, rot, trn = make_pair(rng, n_points)
-        samples.append(build_pair_pyramid(src, tgt, rot, trn, cfg, spec))
+        src, tgt, rot, trn, flow = make_pair(rng, n_points, deformable=deformable)
+        samples.append(build_pair_pyramid(src, tgt, rot, trn, cfg, spec, scene_flow=flow))
     return batch_from_samples(samples), spec, cfg

@@ -1,9 +1,10 @@
 """Cosine diffusion schedule, the forward process and the DDIM helpers.
 
 The schedule is computed in float64 on the host and stored in float32, as
-the JAX package stores it. The training noise is the 3DMatch branch's
-signed-fractional noise; its standard-normal draw is passed in, so that a
-test can feed both packages the same draw.
+the JAX package stores it. The training noise of the 3DMatch branch is the
+signed-fractional noise of a standard-normal draw; the 4DMatch branch's is the
+draw itself (then a sigmoid of the noised matrix). The draw is passed in, so
+that a test can feed both packages the same numbers.
 """
 from __future__ import annotations
 
@@ -69,10 +70,11 @@ def predict_noise_from_start(schedule: DiffusionSchedule, x_t, t: int, x0):
 
 
 def ddim_coefficients(schedule: DiffusionSchedule, t: int, t_next: int, eta: float):
-    """(sqrt(acp_next), c) of the deterministic DDIM update
-    x_next = x0 * sqrt(acp_next) + c * eps_hat, with
+    """(sqrt(acp_next), c, sigma) of the DDIM update
+    x_next = x0 * sqrt(acp_next) + c * eps_hat [+ sigma * noise], with
     c = sqrt(max(1 - acp_next - sigma^2, 0)) and
-    sigma = eta * sqrt((1 - acp_t / acp_next) (1 - acp_next) / (1 - acp_t)).
+    sigma = eta * sqrt((1 - acp_t / acp_next) (1 - acp_next) / (1 - acp_t));
+    the 3DMatch branch drops the noise term, the 4DMatch branch keeps it.
 
     At the first step (acp_t ~ 2e-9) ``1 - acp_next - sigma^2`` cancels to
     float32 rounding, so c depends on how it is evaluated. The JAX package's
@@ -84,7 +86,8 @@ def ddim_coefficients(schedule: DiffusionSchedule, t: int, t_next: int, eta: flo
     one = np.float32(1.0)
     sigma = np.float32(eta) * np.sqrt((one - a / a_next) * (one - a_next) / (one - a))
     rem = np.float32(np.float64(one - a_next) - np.float64(sigma) * np.float64(sigma))
-    return float(np.sqrt(a_next)), float(np.sqrt(np.maximum(rem, np.float32(0.0))))
+    return (float(np.sqrt(a_next)), float(np.sqrt(np.maximum(rem, np.float32(0.0)))),
+            float(sigma))
 
 
 def ddim_time_pairs(num_timesteps: int, sampling_steps: int) -> np.ndarray:

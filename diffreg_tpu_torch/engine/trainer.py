@@ -7,7 +7,8 @@ checkpoint per epoch with best-metric tracking, ``resume`` and ``validate``.
 The step is ``engine.train.make_train_step``'s; the JAX package's random key
 becomes a ``torch.Generator`` on the trainer's device, from which each step's
 ``model.draw_train_inputs`` are drawn. Batches are moved to that device.
-``BatchTester`` is not ported yet (it waits for the testers).
+``BatchTester`` is the batched test loop (vision3d's) that ``engine.tester``'s
+testers are built on.
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ class Trainer:
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.timers = Timers()
         self.start_epoch = 0
+        self.metrics = {}           # the last epoch's summary
 
     def resume(self):
         if self.ckpt.restore(self.state) is not None:
@@ -77,6 +79,7 @@ class Trainer:
             metrics.update({f"val_{k}": v for k, v in val.items()})
             self.logger.metrics(step_count, val, prefix="val/")
         self.ckpt.save(epoch + 1, self.state, metrics)
+        self.metrics = metrics
         return metrics
 
     def train(self):
@@ -146,3 +149,49 @@ class IterBasedTrainer(Trainer):
                     self.logger.metrics(step_count, board.summary(), prefix="train/")
             self._end_epoch(epoch, step_count, board)
         return self.state
+
+
+class BatchTester:
+    """Batched test loop with per-sample evaluation (vision3d/engine/
+    batch_tester.py:16-70): ``forward(batch, generator)`` once per batch, then
+    ``eval_sample(i, batch, out, meta_i)`` -> {name: value} per sample,
+    averaged on a summary board (a name that a sample leaves out is averaged
+    over the samples that give it). Pass both as callables, or subclass and
+    override the methods (``engine.tester``'s testers do). Batches are moved
+    to ``device`` (default "cuda"; raises when CUDA is missing); the draws come
+    from the ``generator`` given to ``test`` (default: seed 0 on that device)."""
+
+    def __init__(self, forward: Optional[Callable] = None,
+                 eval_sample: Optional[Callable] = None,
+                 batch_size_of: Optional[Callable] = None, logger: Optional[Logger] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        if forward is not None:
+            self.forward = forward
+        if eval_sample is not None:
+            self.eval_sample = eval_sample
+        self.batch_size_of = batch_size_of or (lambda b: b.batch_size)
+        self.logger = logger or Logger(None)
+
+    def forward(self, batch, generator: torch.Generator):
+        raise NotImplementedError
+
+    def eval_sample(self, i: int, batch, out, meta) -> dict:
+        raise NotImplementedError
+
+    def test(self, make_iter: Callable[[], Iterable],
+             generator: Optional[torch.Generator] = None) -> dict:
+        """The averaged rows and ``samples``, the number of samples."""
+        generator = generator or torch.Generator(self.device).manual_seed(0)
+        board = SummaryBoard()
+        n = 0
+        for batch, meta in make_iter():
+            batch = batch.to(self.device)
+            out = self.forward(batch, generator)
+            for i in range(self.batch_size_of(batch)):
+                row = self.eval_sample(i, batch, out, meta[i] if meta is not None else None)
+                board.update({k: float(v) for k, v in row.items()})
+                n += 1
+        summary = board.summary()
+        summary["samples"] = n
+        return summary

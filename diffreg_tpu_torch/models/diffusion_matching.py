@@ -1,19 +1,22 @@
 """Diff-Reg pipeline (torch): KPFCN encode, training branch, DDIM loop, pose.
 
-Counterpart of the JAX package's models/diffusion_matching.py, 3DMatch
-variant. Three branches share ``encode`` (the backbone and the coarse split):
+Counterpart of the JAX package's models/diffusion_matching.py, both variants
+(``PipelineConfig.variant``: "3dmatch" rigid, "4dmatch" deformable). Three
+branches share ``encode`` (the backbone and the coarse split):
 
   * ``train_forward``: the coarse transformer (with its positioning layer) and
     coarse matcher, soft Procrustes of their confidences; then the GT matching
-    matrix noised with signed-fractional noise at random timesteps (NaN -> 0,
-    masked min-shift), the gated warp from that noisy matrix and the
-    denoising transformer and matcher. Timesteps, the normal draw and the
-    randSO3 Euler angles come in as tensors (``draw_train_inputs`` makes them);
-  * ``ddim_sample``: per DDIM step the masked min-shift, (when the condition
-    gate is above 0) a Sinkhorn projection, soft Procrustes and a source warp,
-    the 6-layer denoising transformer with its matcher, and the deterministic
-    DDIM update; finally the Sinkhorn prediction, the top-1 union
-    correspondence mask and soft Procrustes;
+    matrix noised at random timesteps (3dmatch: signed-fractional noise, NaN ->
+    0, masked min-shift; 4dmatch: Gaussian noise, then a sigmoid), the gated
+    warp from that noisy matrix and the denoising transformer and matcher.
+    Timesteps, the normal draw and the randSO3 Euler angles come in as tensors
+    (``draw_train_inputs`` makes them);
+  * ``ddim_sample``: per DDIM step (3dmatch only) the masked min-shift, (when
+    the condition gate is above 0) a Sinkhorn projection, soft Procrustes and a
+    source warp, the 6-layer denoising transformer with its matcher, and the
+    DDIM update (4dmatch adds sigma times a passed-in noise draw); finally the
+    prediction (3dmatch: Sinkhorn; 4dmatch: the masked sigmoid), the top-1
+    union correspondence mask and soft Procrustes;
   * ``backbone_forward``: the coarse transformer and matcher in one pass, the
     top-1 union mask and soft Procrustes.
 
@@ -57,6 +60,7 @@ class PipelineConfig:
     timesteps: int = 1000
     sample_steps: int = 20
     ddim_eta: float = 1.0
+    variant: str = "3dmatch"               # 3dmatch | 4dmatch
     coarse_level: int = -2
 
 
@@ -98,12 +102,14 @@ def init_weights(model: nn.Module, seed: int) -> None:
 
 
 class DiffusionMatchingModel(nn.Module):
-    """The 3DMatch Diff-Reg model. ``device`` defaults to "cuda" and raises when
+    """The Diff-Reg model (either variant). ``device`` defaults to "cuda" and raises when
     CUDA is missing; weights are synthesised from ``seed`` (load real or
     bridged weights with ``load_state_dict``)."""
 
     def __init__(self, cfg: PipelineConfig, device=None, seed: int = 0):
         super().__init__()
+        if cfg.variant not in ("3dmatch", "4dmatch"):
+            raise ValueError(f"unknown variant {cfg.variant!r}")
         device = resolve_device(device)
         pin_float32()
         self.cfg = cfg
@@ -182,7 +188,8 @@ class DiffusionMatchingModel(nn.Module):
 
     def train_forward(self, batch, t, g, euler=None):
         """Training branch (pipeline.py:182-219). t [B] timesteps, g [B, S, T]
-        the standard-normal draw of the noise, euler [B, 3] the randSO3 angles
+        the standard-normal draw of the noise (3dmatch: its signed fraction;
+        4dmatch: the noise itself), euler [B, 3] the randSO3 angles
         (used only by that positioning type). Returns the outputs the loss reads:
         s_pcd, t_pcd, conf_matrix_pred, match_mask_pred, rotation_pred,
         translation_pred, conf_matrix_gt_hat, match_mask_gt_hat, matrix_gt,
@@ -196,9 +203,12 @@ class DiffusionMatchingModel(nn.Module):
 
         # diffusion: noise the GT matrix, denoise it
         matrix_gt = batch.matrix_gt()
-        disturbed = q_sample(self.schedule, matrix_gt, t, signed_fractional_noise(g))
-        disturbed = torch.nan_to_num(disturbed, nan=0.0)
-        disturbed = disturbed - masked_min(disturbed, src_mask, tgt_mask)
+        if cfg.variant == "4dmatch":
+            disturbed = torch.sigmoid(q_sample(self.schedule, matrix_gt, t, g))
+        else:
+            disturbed = q_sample(self.schedule, matrix_gt, t, signed_fractional_noise(g))
+            disturbed = torch.nan_to_num(disturbed, nan=0.0)
+            disturbed = disturbed - masked_min(disturbed, src_mask, tgt_mask)
         src_warped, _ = self._warp_from_noisy_matrix(disturbed, s_pcd, t_pcd, src_mask, tgt_mask)
         conf_gt_hat, match_mask_gt_hat = self._denoise(
             src_feats, tgt_feats, src_warped, t_pcd, src_mask, tgt_mask)
@@ -223,34 +233,57 @@ class DiffusionMatchingModel(nn.Module):
                 "translation_pred": res.translation}
 
     @torch.no_grad()
-    def ddim_sample(self, batch, x_init, sample_steps=None):
+    def ddim_sample(self, batch, x_init, sample_steps=None, ddim_noise=None,
+                    zero_ddim_noise: bool = False):
         """DDIM reverse loop from ``x_init`` [B, S, T] (the N(0, 1) start, passed
-        in). Returns s_pcd, t_pcd, conf_matrix_pred, corr_mask, rotation_pred,
-        translation_pred and, when the condition gate is above 0,
-        step_condition [steps, B] (each step's Procrustes condition number)."""
+        in). The 4dmatch update adds sigma * ``ddim_noise[i]`` at step i
+        (``ddim_noise`` [steps, B, S, T], N(0, 1)); ``zero_ddim_noise`` drops
+        that term while sigma stays in the coefficient c, as in the JAX
+        package. A 4dmatch call needs one of the two; a 3dmatch call takes
+        neither. Returns s_pcd, t_pcd, conf_matrix_pred, corr_mask,
+        rotation_pred, translation_pred and, when the condition gate is above
+        0, step_condition [steps, B] (each step's Procrustes condition number)."""
         cfg = self.cfg
+        steps = int(sample_steps if sample_steps is not None else cfg.sample_steps)
+        deformable = cfg.variant == "4dmatch"
+        if not deformable:
+            if ddim_noise is not None or zero_ddim_noise:
+                raise ValueError("the 3dmatch DDIM update is deterministic: it takes no noise")
+        elif zero_ddim_noise:
+            ddim_noise = None
+        elif ddim_noise is None:
+            raise ValueError("the 4dmatch DDIM update needs ddim_noise [steps, B, S, T] "
+                             "or zero_ddim_noise=True")
+        elif ddim_noise.shape != (steps,) + tuple(x_init.shape):
+            raise ValueError(f"ddim_noise has shape {tuple(ddim_noise.shape)}, want "
+                             f"{(steps,) + tuple(x_init.shape)}")
         src_feats, tgt_feats, s_pcd, t_pcd = self.encode(batch)
         src_mask, tgt_mask = batch.src_mask, batch.tgt_mask
-        steps = int(sample_steps if sample_steps is not None else cfg.sample_steps)
         x = x_init
         conditions = []
-        for time, time_next in ddim_time_pairs(cfg.timesteps, steps):
-            x = x - masked_min(x, src_mask, tgt_mask)
+        for i, (time, time_next) in enumerate(ddim_time_pairs(cfg.timesteps, steps)):
+            if not deformable:
+                x = x - masked_min(x, src_mask, tgt_mask)
             src_warped, res = self._warp_from_noisy_matrix(x, s_pcd, t_pcd, src_mask, tgt_mask)
             if res is not None:
                 conditions.append(res.condition)
             x_start, _ = self._denoise(src_feats, tgt_feats, src_warped, t_pcd, src_mask,
                                        tgt_mask)
             pred_noise = predict_noise_from_start(self.schedule, x, int(time), x_start)
-            sqrt_next, c = ddim_coefficients(self.schedule, int(time), int(time_next),
-                                             cfg.ddim_eta)
+            sqrt_next, c, sigma = ddim_coefficients(self.schedule, int(time), int(time_next),
+                                                    cfg.ddim_eta)
             x = x_start * sqrt_next + c * pred_noise
+            if ddim_noise is not None:
+                x = x + sigma * ddim_noise[i]
 
-        sim = x - masked_min(x, src_mask, tgt_mask)
-        conf_pred = self.denoising_coarse_matching.sinkhorn(sim, src_mask, tgt_mask)
+        valid = src_mask[:, :, None] & tgt_mask[:, None, :]
+        if deformable:
+            conf_pred = torch.sigmoid(x) * valid.to(x.dtype)
+        else:
+            sim = x - masked_min(x, src_mask, tgt_mask)
+            conf_pred = self.denoising_coarse_matching.sinkhorn(sim, src_mask, tgt_mask)
         # top-1 from both sides, union
-        corr_mask = mutual_topk_mask(conf_pred, 1, mutual=False)
-        corr_mask = corr_mask & src_mask[:, :, None] & tgt_mask[:, None, :]
+        corr_mask = mutual_topk_mask(conf_pred, 1, mutual=False) & valid
         res = self._pose(conf_pred, s_pcd, t_pcd, src_mask, tgt_mask)
         out = {"s_pcd": s_pcd, "t_pcd": t_pcd, "conf_matrix_pred": conf_pred,
                "corr_mask": corr_mask, "rotation_pred": res.rotation,
@@ -260,7 +293,7 @@ class DiffusionMatchingModel(nn.Module):
         return out
 
     def forward(self, batch, *args, mode: str = "ddim", **kwargs):
-        """``mode`` "ddim" -> ddim_sample(batch, x_init, sample_steps), "train" ->
+        """``mode`` "ddim" -> ddim_sample(batch, x_init, sample_steps, ...), "train" ->
         train_forward(batch, t, g, euler), "backbone" -> backbone_forward(batch, euler)."""
         if mode == "ddim":
             return self.ddim_sample(batch, *args, **kwargs)

@@ -1,5 +1,5 @@
 """Task presets mirroring the reference config YAMLs (configs/test/3dmatch.yaml,
-configs/train/3dmatch.yaml)."""
+configs/train/3dmatch.yaml, configs/test/4dmatch.yaml)."""
 from __future__ import annotations
 
 import dataclasses
@@ -70,9 +70,29 @@ def preset_3dmatch(sample_steps: int = 20, feature_dim: int = 432,
     )
 
 
-def preset_tiny(sample_steps: int = 2) -> PipelineConfig:
-    """Small config for tests: same topology, tiny dims."""
-    base = preset_3dmatch(sample_steps=sample_steps)
+def preset_4dmatch(sample_steps: int = 20, thr: float = 0.55) -> PipelineConfig:
+    """4DMatch/4DLoMatch deformable registration (configs/test/4dmatch.yaml):
+    coarse feature dim 528 (4 heads of 132), first_subsampling_dl 0.01, VolPE
+    voxel 0.04, condition gate 40 in training and test (the warp is live in
+    inference), Gaussian+sigmoid training noise, the stochastic DDIM update
+    and the sigmoid prediction head. ``thr`` is the tester's match threshold
+    (``engine.tester.TestConfig.match_thr``), kept for the JAX signature."""
+    base = preset_3dmatch(sample_steps=sample_steps, feature_dim=528)
+    procrustes = dataclasses.replace(base.procrustes, max_condition_num=40.0)
+    transformer = dataclasses.replace(base.coarse_transformer, procrustes=procrustes,
+                                      voxel_size=0.04)
+    kpfcn = dataclasses.replace(base.kpfcn, first_subsampling_dl=0.01)
+    return dataclasses.replace(base, kpfcn=kpfcn, coarse_transformer=transformer,
+                               procrustes=procrustes, variant="4dmatch")
+
+
+def preset_tiny(variant: str = "3dmatch", sample_steps: int = 2) -> PipelineConfig:
+    """Small config for tests: same topology, tiny dims. ``preset_tiny(n)``
+    (an int first) is ``preset_tiny("3dmatch", n)``."""
+    if isinstance(variant, int):
+        variant, sample_steps = "3dmatch", variant
+    base = preset_3dmatch(sample_steps=sample_steps) if variant == "3dmatch" \
+        else preset_4dmatch(sample_steps=sample_steps)
     matching = dataclasses.replace(base.coarse_matching, feature_dim=48)
     transformer = dataclasses.replace(base.coarse_transformer, feature_dim=48, n_head=2,
                                       feature_matching=matching)

@@ -19,10 +19,12 @@ from convert_checkpoint import convert_state_dict, graft_into_variables  # noqa:
 
 from diffreg_tpu.data import synthetic_batch  # noqa: E402
 from diffreg_tpu.models import DiffusionMatchingModel as JaxModel  # noqa: E402
+from diffreg_tpu.models.presets import preset_4dmatch as jax_preset_4dmatch  # noqa: E402
 from diffreg_tpu.models.presets import preset_tiny as jax_preset_tiny  # noqa: E402
 from diffreg_tpu_torch.convert import state_dict_from_flax  # noqa: E402
 from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel  # noqa: E402
-from diffreg_tpu_torch.models.presets import KPFCN_ARCHITECTURE, preset_tiny  # noqa: E402
+from diffreg_tpu_torch.models.presets import (KPFCN_ARCHITECTURE, preset_4dmatch,  # noqa: E402
+                                              preset_tiny)
 
 # reference parameters the JAX coarse path never creates (see
 # tools/convert_checkpoint.py KNOWN_DEAD_PREFIXES)
@@ -30,14 +32,9 @@ DEAD = ("backbone.decoder_blocks.3.", "backbone.decoder_blocks.5.", "backbone.co
         "backbone.fine_out.")
 
 
-def test_state_dict_round_trip():
-    port = DiffusionMatchingModel(preset_tiny(2), device="cpu", seed=3)
+def _round_trip(port, variables):
+    """port state_dict -> flax variables shaped like ``variables`` -> back."""
     sd = {k: v.detach().clone() for k, v in port.state_dict().items()}
-
-    batch, _, _ = synthetic_batch(batch_size=1, n_points=96, seed=0)
-    jax_model = JaxModel(jax_preset_tiny("3dmatch", sample_steps=2))
-    rng = jax.random.PRNGKey(0)
-    variables = jax.jit(lambda b, r: jax_model.init({"params": r}, b, r, mode="train"))(batch, rng)
     params_flat, buffers_flat = convert_state_dict(sd, KPFCN_ARCHITECTURE)
     # raises on any flax slot without a source or with a mismatched shape
     grafted, dropped = graft_into_variables(variables, params_flat, buffers_flat)
@@ -51,3 +48,26 @@ def test_state_dict_round_trip():
     for key, value in back.items():
         assert value.shape == sd[key].shape, key
         assert torch.equal(value, sd[key]), key
+
+
+def test_state_dict_round_trip():
+    port = DiffusionMatchingModel(preset_tiny(2), device="cpu", seed=3)
+    batch, _, _ = synthetic_batch(batch_size=1, n_points=96, seed=0)
+    jax_model = JaxModel(jax_preset_tiny("3dmatch", sample_steps=2))
+    rng = jax.random.PRNGKey(0)
+    variables = jax.jit(lambda b, r: jax_model.init({"params": r}, b, r, mode="train"))(batch, rng)
+    _round_trip(port, variables)
+
+
+def test_4dmatch_weights_round_trip():
+    """The full-width 4DMatch model (528-dim, 4 heads of 132): every weight maps
+    to the JAX tree's slot of the same shape and back unchanged (shapes from
+    ``jax.eval_shape``: nothing is computed at full width)."""
+    port = DiffusionMatchingModel(preset_4dmatch(), device="cpu", seed=5)
+    assert port.denoising_transformer.layers[0].q_proj.weight.shape == (528, 528)
+    batch, _, _ = synthetic_batch(batch_size=1, n_points=96, seed=0, deformable=True)
+    jax_model = JaxModel(jax_preset_4dmatch())
+    rng = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda b, r: jax_model.init({"params": r}, b, r, mode="train"),
+                            batch, rng)
+    _round_trip(port, shapes)

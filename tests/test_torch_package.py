@@ -18,6 +18,13 @@ def _modules():
     return sorted(m.name for m in pkgutil.walk_packages([PACKAGE_DIR], "diffreg_tpu_torch."))
 
 
+# the CLI slice's modules, named so that a missing one fails the import guard
+CLI_MODULES = ["diffreg_tpu_torch.main", "diffreg_tpu_torch.utils.config",
+               "diffreg_tpu_torch.utils.snapshot", "diffreg_tpu_torch.engine.tester",
+               "diffreg_tpu_torch.eval.metrics", "diffreg_tpu_torch.data.datasets",
+               "diffreg_tpu_torch.data.loader"]
+
+
 def test_every_module_imports_without_jax():
     code = (
         "import sys\n"
@@ -32,7 +39,7 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert len(_modules()) > 20
+    assert len(_modules()) > 20 and set(CLI_MODULES) <= set(_modules())
 
 
 def test_no_module_names_the_jax_package():
@@ -76,3 +83,24 @@ def test_entry_points_need_a_device(monkeypatch, tmp_path):
             trainer_cls(make_train_step(LossConfig()), state, loader, cfg)
     trained = Trainer(make_train_step(LossConfig()), state, loader, cfg, device="cpu").train()
     assert trained.step == 1 and trained.optimizer.count == 1
+
+
+def test_cli_entry_points_need_a_device(monkeypatch, tmp_path):
+    from diffreg_tpu_torch.engine.tester import (FourDMatchTester, TestConfig,
+                                                 ThreeDMatchTester)
+    from diffreg_tpu_torch.engine.trainer import BatchTester
+    from diffreg_tpu_torch.main import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    for make in (lambda: ThreeDMatchTester(None), lambda: FourDMatchTester(None),
+                 lambda: BatchTester(None, None),
+                 lambda: main(["--config", os.path.join(REPO_DIR, "configs", "test",
+                                                        "4dmatch.yaml"), "--demo"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    config = tmp_path / "open3d.yaml"
+    config.write_text("dataset: 3dmatch\neval: {pose_backend: open3d}\n")
+    with pytest.raises(NotImplementedError, match="host_estimators"):
+        main(["--config", str(config), "--demo", "--device", "cpu"])
+    assert not hasattr(TestConfig(), "pose_backend")
