@@ -1,5 +1,5 @@
 """Drive the PyTorch port's 3DMatch registration and training, its 4DMatch
-registration and its CLI on one CUDA card.
+registration, its 2D-3D registration and its CLI on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -63,7 +63,31 @@ In order, it
      configs/test/3dmatch.yaml with --demo; and configs/train/4dmatch.yaml
      with --demo --mode train (its max_epoch cut to 1: two steps and a
      checkpoint), each with its summary and launches checked;
- 12. prints the kernels' JSON line, and as its last line
+ 12. writes 4 RGB-D Scenes V2-like pairs as an on-disk split (16-bit depth
+     and 8-bit colour PNGs of a smooth scene on a 480 x 640 Kinect sensor,
+     clouds of 30,000 points that partly overlap the view, intrinsics,
+     metadata), reads them back through the port's reader, calibrates and
+     crops them to 472 x 624 (4602 image tokens) as main.py does, and holds
+     both kernels against their plain versions at the 2D-3D shapes: KPConv at
+     each distinct layer of the point backbone on the activations it really
+     feeds them (K = 64 at level 0), attention at head width 64 in the
+     fusion's four shapes with the batch's masks and at a node count that is
+     not a multiple of 32, with SDPA's time; one gradient case each;
+ 13. runs the 2D-3D path at full width (configs/test/rgbdv2.yaml, SAMPLE_STEP
+     50, random weights from seed 0) through TwoDThreeDTester: one warm-up
+     and three timed runs (pairs/s from the median), 8 KPConv and 612
+     attention launches asserted per forward, where the time goes (encode,
+     partition, one fusion pass, the DDIM steps, fine matching and PnP);
+ 14. runs pair 0 on the CPU at 10 DDIM steps with the same weights and draws
+     and holds the Sinkhorn confidences, the top-1 mask (up to near-ties) and
+     the fine matches on the same coarse correspondences against the card's;
+     holds PnP-RANSAC on the card and the CPU against pair 0's known pose
+     (40% outlier pixels);
+ 15. runs ``diffreg_tpu_torch.main`` on configs/test/rgbdv2.yaml and
+     7scenes.yaml with --demo, and on the split of phase 12 with a checkpoint
+     of random weights (calibration, the PNG reader, the restore, the npz
+     cache, eval_from_cache), each with its summary and launches checked;
+ 16. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
@@ -90,6 +114,31 @@ TIMED_RUNS = 3
 SCALE_4D = 1.0 / 3.0
 FLOW_AMP_4D = 0.3
 METRIC_POINTS = 2048
+# 2D-3D phases: RGB-D Scenes V2-like pairs on a Kinect-sized sensor (the
+# reader crops 476 x 630, main.py 472 x 624: 59 x 78 = 4602 image tokens), a
+# cloud of 30,000 points that partly overlaps the view, configs/test/rgbdv2.yaml
+SENSOR_HW = (480, 640)
+CLOUD_POINTS = 30000
+KINECT_F = 570.3
+STEPS_2D3D_CPU = 10        # pair 0 on the CPU at configs/test/7scenes.yaml's count
+PNP_HYPOTHESES = 8192
+# Random weights: the image and the cloud encoders are independent random
+# networks, so a pixel's and a point's cosine similarity is about N(0, 1/128)
+# and the mutual top-2 sit near 0.2; the protocol's 0.75 extracts nothing.
+# The tester phase and pair 0 extract at 0 (the CLI runs keep the config's)
+FINE_THR_2D3D = 0.0
+# Pair 0, card vs CPU. Plain random weights leave the final Sinkhorn
+# confidences near-uniform (all ~1.6e-4, every row's best two within 2e-8:
+# the top-1 union mask holds 1.8M tied entries a pair); this phase scales
+# both matchers' projections by SHARPEN_2D3D, which spreads them (~8k
+# entries). Each entry where the two masks differ must lie in a row or
+# column whose best two CPU confidences are within twice the confidence
+# limit. The fine matches are held on the same coarse correspondences (the
+# card's): the card's against the CPU's fine matching of the CPU's features.
+SHARPEN_2D3D = 8.0
+CONF_2D3D_ABS_TOL = 5e-7   # Sinkhorn confidences, valid entries (measured 1.0e-7)
+FINE_2D3D_AGREEMENT = 0.99  # fine correspondences: shared share of the union (measured 1.0)
+PNP_POSE_TOL = 1e-3        # PnP on a known pose (measured 9.6e-6 card, 1.2e-4 CPU)
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, the tensor cores' TF32
 # rate (the kernels' matrix products) and the f32 rate outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -206,34 +255,55 @@ def attention_work(q, k, kv_mask):
     return nbytes, h * l * valid_keys * 4 * d, h * l * valid_keys * 3
 
 
-def check_kpconv(model, batch, tag=""):
-    """Kernel vs plain KPConv at every distinct encoder layer, on the inputs the
-    encoder really feeds each layer. Returns the kernel's JSON entry."""
+def kpconv_layer_calls(model, run, module_type):
+    """(q, s, inds, x, kernel_points, weights, extent) of every KPConv call that
+    ``run()`` makes through ``module_type`` modules of ``model``: nn/kpfcn.py's
+    KPConv (called (q, s, inds, x)) or nn/point_backbone.py's KPConvBias
+    (called (q, s, x, inds); its extent is ``sigma``)."""
     import torch
 
     from diffreg_tpu_torch.nn.kpfcn import KPConv
-    from diffreg_tpu_torch.ops.kpconv import kpconv, kpconv_cuda
 
     seen = []
     hooks = [m.register_forward_pre_hook(lambda mod, args: seen.append((mod, args)))
-             for m in model.backbone.modules() if isinstance(m, KPConv)]
+             for m in model.modules() if isinstance(m, module_type)]
     with torch.no_grad():
-        model.encode(batch)
+        run()
     for h in hooks:
         h.remove()
-    if len(seen) != 11:
-        raise AssertionError(f"expected 11 KPConv calls per encode, saw {len(seen)}")
+    calls = []
+    for mod, args in seen:
+        if module_type is KPConv:
+            q, s, inds, x = args
+            extent = mod.extent
+        else:
+            q, s, x, inds = args
+            extent = mod.sigma
+        calls.append((q, s, inds, x.contiguous(), mod.kernel_points, mod.weights.detach(),
+                      extent))
+    return calls
 
+
+def check_kpconv(calls, n_calls, per, tag=""):
+    """Kernel vs plain KPConv at every distinct layer of ``calls`` (the inputs
+    the backbone really feeds each layer). Returns the kernel's JSON entry and
+    the distinct layers {(nq, ns, k, cin, cout): (inputs, calls)}."""
+    import torch
+
+    from diffreg_tpu_torch.ops.kpconv import kpconv, kpconv_cuda
+
+    if len(calls) != n_calls:
+        raise AssertionError(f"expected {n_calls} KPConv calls per encode, saw {len(calls)}")
     shapes = {}
-    for mod, (q, s, inds, x) in seen:
-        key = (q.shape[1], s.shape[1], inds.shape[2], x.shape[2], mod.weights.shape[2])
-        shapes.setdefault(key, [mod, (q, s, inds, x), 0])[2] += 1
+    for args in calls:
+        q, s, inds, x, _, w, _ = args
+        key = (q.shape[1], s.shape[1], inds.shape[2], x.shape[2], w.shape[2])
+        shapes.setdefault(key, [args, 0])[1] += 1
     totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "mma_flops": 0.0, "flops": 0.0}
     worst, per_shape = 0.0, []
     with torch.inference_mode():
-        for (nq, ns, k, cin, cout), (mod, (q, s, inds, x), calls) in shapes.items():
-            args = (q, s, inds, x.contiguous(), mod.kernel_points, mod.weights.detach(),
-                    mod.extent)
+        for (nq, ns, k, cin, cout), (args, count) in shapes.items():
+            q, s, inds, x, _, w, _ = args
             before = kpconv_cuda.launches
             got = kpconv_cuda(*args)
             ref = kpconv(*args)
@@ -247,27 +317,27 @@ def check_kpconv(model, batch, tag=""):
             worst = max(worst, err)
             ms = time_cuda(lambda: kpconv_cuda(*args), 20)
             plain = time_cuda(lambda: kpconv(*args), 3, warmup=1)
-            work = kpconv_work(q, s, inds, x, mod.weights)
+            work = kpconv_work(q, s, inds, x, w)
             bms, by = bound_ms(*work)
             tensor_cores = cin >= 64 and cin % 32 == 0 and k <= 40 and cout in (64, 128, 256, 512)
             path = "tensor cores" if tensor_cores else "CUDA cores"
             per_shape.append({"nq": nq, "ns": ns, "k": k, "cin": cin, "cout": cout,
-                              "calls": calls, "path": path, "ms": ms, "plain_ms": plain,
+                              "calls": count, "path": path, "ms": ms, "plain_ms": plain,
                               "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                               "max_abs_plain": scale})
-            log(f"kpconv{tag} {nq}/{ns}/K{k}/{cin}->{cout} x{calls} ({path}): err {err:.3e} "
+            log(f"kpconv{tag} {nq}/{ns}/K{k}/{cin}->{cout} x{count} ({path}): err {err:.3e} "
                 f"(limit {KPCONV_REL_TOL * max(scale, 1.0):.3e}) kernel {ms:.4f} ms plain "
                 f"{plain:.4f} ms bound {bms:.4f} ms ({by})")
-            totals["ms"] += calls * ms
-            totals["plain_ms"] += calls * plain
+            totals["ms"] += count * ms
+            totals["plain_ms"] += count * plain
             for key, val in zip(("bytes", "mma_flops", "flops"), work):
-                totals[key] += calls * val
+                totals[key] += count * val
     bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"])
     entry = {"name": "kpconv", "route": "cuda", "source": "diffreg_tpu_torch/csrc/kpconv.cu",
              "replaces": "diffreg_tpu/ops/pallas/kpconv_kernel.py:38",
              "launches": None, "max_abs_err": worst, "ms": totals["ms"],
              "plain_ms": totals["plain_ms"], "bound_ms": bms, "bound_by": by,
-             "library_ms": None, "per": "one encode (11 calls)", "shapes": per_shape}
+             "library_ms": None, "per": per, "shapes": per_shape}
     return entry, shapes
 
 
@@ -394,24 +464,27 @@ def grad_case(name, function, inputs, wanted, plain, gen, calls, counter):
 
 def check_gradients(kernels, kp_shapes, batch, cfg, gen):
     """Phase 3b: each kernel's autograd Function at the main path's shapes."""
-    import torch
-
-    from diffreg_tpu_torch.ops.kpconv import KPConvFunction, kpconv, kpconv_cuda
-
-    worst, total = 0.0, 0.0
-    for (nq, ns, k, cin, cout), (mod, (q, s, inds, x), calls) in kp_shapes.items():
-        ext = mod.extent
-        err, ms = grad_case(
-            f"kpconv {nq}/{ns}/K{k}/{cin}->{cout}",
-            lambda *a: KPConvFunction.apply(*a, ext),
-            (q, s, inds, x.contiguous(), mod.kernel_points, mod.weights.detach()), (3, 5),
-            lambda *a: kpconv(*a, ext), gen, calls, kpconv_cuda)
-        worst, total = max(worst, err), total + calls * ms
+    worst, total = kpconv_gradients(kp_shapes, gen)
     kernels[0].update({"backward_ms": total, "backward_route": "plain recompute",
                        "backward_max_rel_err": worst})
     worst, total = attention_gradients(batch, cfg, gen)
     kernels[1].update({"backward_ms": total, "backward_route": "plain recompute",
                        "backward_max_rel_err": worst})
+
+
+def kpconv_gradients(kp_shapes, gen):
+    """KPConvFunction against plain autograd at each distinct layer; returns
+    (worst relative error, backward ms of all the layers' calls)."""
+    from diffreg_tpu_torch.ops.kpconv import KPConvFunction, kpconv, kpconv_cuda
+
+    worst, total = 0.0, 0.0
+    for (nq, ns, k, cin, cout), ((*inputs, ext), calls) in kp_shapes.items():
+        err, ms = grad_case(
+            f"kpconv {nq}/{ns}/K{k}/{cin}->{cout}",
+            lambda *a: KPConvFunction.apply(*a, ext), tuple(inputs), (3, 5),
+            lambda *a: kpconv(*a, ext), gen, calls, kpconv_cuda)
+        worst, total = max(worst, err), total + calls * ms
+    return worst, total
 
 
 def attention_gradients(batch, cfg, gen):
@@ -971,6 +1044,531 @@ def run_cli(repo, pairs4, meta4, launches):
             os.chdir(cwd)
 
 
+# ---------------------------------------------------------------- 2D-3D
+
+
+def _png_chunk(kind, body):
+    import struct
+    import zlib
+
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(
+        ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def write_png(path, img):
+    """An 8-bit RGB [H, W, 3] or 16-bit gray [H, W] PNG whose rows cycle
+    through the five filter types (the port's reader must undo each)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    nbytes = img.dtype.itemsize
+    rows = (img.astype(">u2").view(np.uint8) if nbytes == 2 else img).reshape(h, -1)
+    rows = rows.astype(np.int32)
+    bpp = ch * nbytes
+    raw, prev = [], np.zeros(rows.shape[1], np.int32)
+    for y in range(h):
+        ftype, cur = y % 5, rows[y]
+        left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        if ftype == 0:
+            pred = np.zeros_like(cur)
+        elif ftype == 1:
+            pred = left
+        elif ftype == 2:
+            pred = prev
+        elif ftype == 3:
+            pred = (left + prev) // 2
+        else:
+            p = left + prev - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+        raw.append(bytes([ftype]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
+        prev = cur
+    header = struct.pack(">IIBBBBB", w, h, 8 * nbytes, 0 if ch == 1 else 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+                + _png_chunk(b"IDAT", zlib.compress(b"".join(raw), 6)) + _png_chunk(b"IEND", b""))
+
+
+def write_2d3d_split(root):
+    """BATCH_PAIRS RGB-D Scenes V2-like pairs as the reader's on-disk layout:
+    data/<scene>/{camera-intrinsics.txt, depth, image, cloud}, metadata/test.pkl.
+    A pair: a smooth scene's 16-bit depth (mm) and 8-bit RGB texture on a
+    480 x 640 Kinect sensor (f = 570.3, principal point at the centre), and a
+    cloud of CLOUD_POINTS points of the same surface, sampled at continuous
+    pixel positions over columns 0.3 W .. 1.4 W (so it partly overlaps the
+    view), in a world frame under a known camera-from-cloud pose."""
+    import pickle
+
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    rs = np.random.RandomState(7)
+    h, w = SENSOR_HW
+    k = np.array([[KINECT_F, 0, (w - 1) / 2], [0, KINECT_F, (h - 1) / 2], [0, 0, 1]])
+    meta = []
+    for i in range(BATCH_PAIRS):
+        scene = f"scene_{i // 2:02d}"
+        a = rs.rand(6)
+
+        def depth_at(u, v):
+            return (1.8 + 0.4 * a[0] + 0.3 * np.sin(u / 70.0 + 6 * a[1])
+                    + 0.2 * np.cos(v / 55.0 + 6 * a[2]) + 4e-4 * (u - w / 2) * (a[3] - 0.5))
+
+        vv, uu = np.mgrid[0:h, 0:w].astype(np.float64)
+        depth_mm = np.round(depth_at(uu, vv) * 1000).astype(np.uint16)
+        depth_mm[: 12 + int(20 * a[4]), : 40] = 0                # a hole without depth
+        tex = 0.5 + 0.25 * np.sin(uu / 9.0 + 6 * a[5]) * np.cos(vv / 13.0) \
+            + 0.1 * rs.rand(h, w)
+        rgb = np.clip(np.stack([tex, tex ** 1.2, 1.0 - 0.5 * tex], -1) * 255, 0, 255)
+        u = rs.uniform(0.3 * w, 1.4 * w, CLOUD_POINTS)
+        v = rs.uniform(0, h, CLOUD_POINTS)
+        z = depth_at(u, v)
+        cam = np.stack([(u - k[0, 2]) * z / KINECT_F, (v - k[1, 2]) * z / KINECT_F, z], -1)
+        rot = Rotation.from_euler("zyx", rs.uniform(-np.pi, np.pi, 3)).as_matrix()
+        trn = rs.randn(3) * 0.5
+        tfm = np.eye(4)
+        tfm[:3, :3], tfm[:3, 3] = rot, trn
+        world = ((cam - trn) @ rot).astype(np.float32)
+        d = os.path.join(root, "data", scene)
+        for sub in ("depth", "image", "cloud"):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        np.savetxt(os.path.join(d, "camera-intrinsics.txt"), k)
+        write_png(os.path.join(d, "depth", f"{i:06d}.png"), depth_mm)
+        write_png(os.path.join(d, "image", f"{i:06d}.png"), rgb.astype(np.uint8))
+        np.save(os.path.join(d, "cloud", f"{i:06d}.npy"), world)
+        meta.append({"scene_name": scene, "depth_file": f"{scene}/depth/{i:06d}.png",
+                     "image_file": f"{scene}/image/{i:06d}.png",
+                     "cloud_file": f"{scene}/cloud/{i:06d}.npy", "overlap": 0.5,
+                     "cloud_to_image": tfm.astype(np.float32)})
+    os.makedirs(os.path.join(root, "metadata"))
+    with open(os.path.join(root, "metadata", "test.pkl"), "wb") as f:
+        pickle.dump(meta, f)
+
+
+def data_2d3d(root):
+    """The split read back through the port's reader, calibrated and cropped
+    as main.py does: (batch of CPU tensors, spec, scene names)."""
+    import numpy as np
+
+    from diffreg_tpu_torch.data.calibrate import calibrate_spec_2d3d
+    from diffreg_tpu_torch.data.collate2d3d import batch_2d3d, build_2d3d_sample
+    from diffreg_tpu_torch.data.datasets2d3d import RGBDScenes2D3DPairDataset
+
+    ds = RGBDScenes2D3DPairDataset(root, "test")
+    raws = [ds[i] for i in range(len(ds))]
+    spec = calibrate_spec_2d3d([r["points"] for r in raws])
+    samples = []
+    for r in raws:
+        h, w = (n // 8 * 8 for n in r["depth"].shape)
+        for key in ("depth", "image", "image_gray"):
+            r[key] = r[key][:h, :w]
+        samples.append(build_2d3d_sample(r, spec, 8))
+    batch = batch_2d3d(samples)
+    return batch, spec, [r["scene_name"] for r in raws], int(np.prod(batch.image.shape[1:3]))
+
+
+def attention_cases_2d3d(batch, n_tokens):
+    """The fusion's attention calls of one pass, as (name, query length, key
+    mask, calls): image self (no mask), node self (the nodes' padding), image
+    -> node, node -> image, three of each."""
+    import torch
+
+    b = batch.batch_size
+    nodes = batch.masks[-1].cuda()
+    img = torch.ones(b, n_tokens, dtype=torch.bool, device="cuda")
+    n = nodes.shape[1]
+    return [("image_self", n_tokens, img, 3), ("node_self", n, nodes, 3),
+            ("image_to_node", n_tokens, nodes, 3), ("node_to_image", n, img, 3)]
+
+
+def check_attention_2d3d(batch, n_tokens, cfg, gen):
+    """Kernel vs plain attention at the fusion's shapes (head width 64), and a
+    node count that is not a multiple of 32 (pair 0's real nodes); SDPA as the
+    yardstick. Returns the JSON entry (totals per fusion pass) and the cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_plain
+
+    h = cfg.num_heads
+    d = cfg.hidden_dim // h
+    scale = d ** -0.5
+    cases = attention_cases_2d3d(batch, n_tokens)
+    real = int(batch.masks[-1][0].sum())
+    real -= 1 if real % 32 == 0 else 0
+    tail = [("node_self_tail", real, batch.masks[-1][:1, :real].cuda().contiguous(), 0)]
+    totals = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bytes", "mma_flops", "flops")}
+    worst, per_shape = 0.0, []
+    with torch.inference_mode():
+        for name, length, kv_mask, calls in cases + tail:
+            bb, keys = kv_mask.shape
+            q = torch.randn(bb, h, length, d, generator=gen).cuda()
+            k, v = (torch.randn(bb, h, keys, d, generator=gen).cuda() for _ in range(2))
+            kv_mask = kv_mask.contiguous()
+            before = masked_attention_cuda.launches
+            got = masked_attention_cuda(q, k, v, kv_mask, scale)
+            ref = masked_attention_plain(q, k, v, kv_mask, scale)
+            torch.cuda.synchronize()
+            assert masked_attention_cuda.launches == before + 1
+            err = float((got - ref).abs().max())
+            if not math.isfinite(err) or err > ATTENTION_ABS_TOL:
+                raise AssertionError(f"attention {name} (2D-3D): max abs err {err}")
+            worst = max(worst, err)
+            lib_mask = kv_mask[:, None, None, :]
+            lib = F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask, scale=scale)
+            lib_err = float((lib - ref).abs().max())
+            ms = time_cuda(lambda: masked_attention_cuda(q, k, v, kv_mask, scale), 20)
+            plain = time_cuda(lambda: masked_attention_plain(q, k, v, kv_mask, scale), 5,
+                              warmup=1)
+            lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=lib_mask, scale=scale), 20)
+            nbytes, mma_flops, flops = attention_work(q, k, kv_mask)
+            bms, by = bound_ms(nbytes, mma_flops, flops)
+            per_shape.append({"case": name + " (2D-3D)", "b": bb, "h": h, "l": length, "s": keys,
+                              "d": d, "calls": calls, "ms": ms, "plain_ms": plain,
+                              "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                              "max_abs_err": err, "library_max_abs_err": lib_err})
+            log(f"attention {name} (2D-3D) [{bb},{h},{length}x{keys},{d}] x{calls}: err "
+                f"{err:.3e} (limit {ATTENTION_ABS_TOL:.1e}) kernel {ms:.4f} ms plain "
+                f"{plain:.4f} ms sdpa {lib_ms:.4f} ms (err {lib_err:.3e}) bound {bms:.4f} ms "
+                f"({by})")
+            for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib_ms),
+                             ("bytes", nbytes), ("mma_flops", mma_flops), ("flops", flops)):
+                totals[key] += calls * val
+    bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"])
+    entry = {"max_abs_err": worst, "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+             "bound_ms": bms, "bound_by": by, "library_ms": totals["library_ms"],
+             "per": "one fusion pass (12 calls)"}
+    return entry, per_shape, cases
+
+
+def attention_gradients_2d3d(cases, cfg, gen):
+    """MaskedAttentionFunction against plain autograd at the image -> node shape."""
+    import torch
+
+    from diffreg_tpu_torch.ops.attention import (MaskedAttentionFunction, masked_attention_cuda,
+                                                 masked_attention_plain)
+
+    h = cfg.num_heads
+    d = cfg.hidden_dim // h
+    scale = d ** -0.5
+    name, length, kv_mask, calls = next(c for c in cases if c[0] == "image_to_node")
+    bb, keys = kv_mask.shape
+    qkv = [torch.randn(bb, h, n, d, generator=gen).cuda() for n in (length, keys, keys)]
+    return grad_case(f"attention {name} (2D-3D) [{bb},{h},{length}x{keys},{d}]",
+                     lambda *a: MaskedAttentionFunction.apply(*a, scale),
+                     (*qkv, kv_mask.contiguous()), (0, 1, 2),
+                     lambda *a: masked_attention_plain(*a, scale), gen, calls,
+                     masked_attention_cuda)
+
+
+def fixed_draws_tester(model, cfg, device, x_init, u):
+    """A TwoDThreeDTester whose draws are the given tensors (pair 0 on the card
+    and on the CPU from the same start and PnP draws)."""
+    from diffreg_tpu_torch.engine.tester2d3d import TwoDThreeDTester
+
+    t = TwoDThreeDTester(model, cfg, device=device)
+    t.draw_start = lambda batch, n, m, generator: x_init.to(device)
+    t.draw_pnp = lambda batch, generator: u.to(device)
+    return t
+
+
+def check_pnp_2d3d(batch_cpu, u, gen):
+    """PnP-RANSAC on the card and on the CPU against pair 0's ground-truth pose:
+    2048 of its cloud points in front of the camera, projected under the pose,
+    40% of the pixels moved 20 to 100 px, so that none is an inlier at the
+    8 px tolerance. (A random pixel can land within 8 px of its point's
+    projection; a pose that counts it beats the exact one by one inlier, and
+    RANSAC rightly keeps that pose.)"""
+    import torch
+
+    from diffreg_tpu_torch.eval.pnp import pnp_ransac
+
+    pts = batch_cpu.points[0][0][batch_cpu.masks[0][0]]
+    tfm, k = batch_cpu.transform[0], batch_cpu.intrinsics[0]
+    cam = pts @ tfm[:3, :3].T + tfm[:3, 3]
+    keep = torch.nonzero(cam[:, 2] > 0.2)[:, 0]
+    sel = keep[torch.randperm(len(keep), generator=gen)[:2048]]
+    pts, cam = pts[sel], cam[sel]
+    pix = torch.stack([cam[:, 0] / cam[:, 2] * k[0, 0] + k[0, 2],
+                       cam[:, 1] / cam[:, 2] * k[1, 1] + k[1, 2]], -1)
+    bad = torch.rand(len(pix), generator=gen) < 0.4
+    angle = torch.rand(int(bad.sum()), generator=gen) * 2 * math.pi
+    radius = 20.0 + 80.0 * torch.rand(int(bad.sum()), generator=gen)
+    pix[bad] += torch.stack([torch.cos(angle), torch.sin(angle)], -1) * radius[:, None]
+    valid = torch.ones(len(pts), dtype=torch.bool)
+    for name, dev in (("card", "cuda"), ("CPU", "cpu")):
+        res = pnp_ransac(u.to(dev), pts.to(dev), pix.to(dev), valid.to(dev), k.to(dev))
+        err = max(float((res.rotation.cpu() - tfm[:3, :3]).abs().max()),
+                  float((res.translation.cpu()[:, 0] - tfm[:3, 3]).abs().max()))
+        log(f"PnP on the {name}: {int(res.inlier_count)} inliers of {len(pts)} "
+            f"({int((~bad).sum())} true), pose error {err:.3e} (limit {PNP_POSE_TOL:.0e})")
+        if not (bool(res.success) and err <= PNP_POSE_TOL):
+            raise AssertionError(f"PnP on the {name} missed the ground-truth pose by {err}")
+
+
+def run_2d3d(batch_cpu, spec, scenes, cfg, launches, gen):
+    """The 2D-3D path at full width through TwoDThreeDTester (one warm-up, three
+    timed runs, launches asserted), where its time goes, pair 0 on the CPU
+    against the card at STEPS_2D3D_CPU steps, and PnP on a known pose."""
+    import torch
+
+    from diffreg_tpu_torch.engine.tester2d3d import Test2D3DConfig, TwoDThreeDTester
+    from diffreg_tpu_torch.models.pipeline_2d3d import (DiffReg2D3D, fine_matching,
+                                                        patch_pixel_table)
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+    from diffreg_tpu_torch.ops.partition import point_to_node_partition
+    from diffreg_tpu_torch.ops.vision import create_meshgrid
+
+    per_forward = 12 * (1 + cfg.sample_steps)
+    tcfg = Test2D3DConfig(fine_threshold=FINE_THR_2D3D)
+    model = DiffReg2D3D(cfg, device="cuda", seed=0)
+    tester = TwoDThreeDTester(model, tcfg, device="cuda")
+    batch = batch_cpu.to("cuda")
+    make_iter = lambda: iter([(batch, scenes)])  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        tester.test(make_iter, torch.Generator("cuda").manual_seed(0))           # warm-up
+        times = []
+        for run in range(TIMED_RUNS):
+            kpconv_cuda.launches = 0
+            masked_attention_cuda.launches = 0
+            summary, seconds = wall(lambda: tester.test(
+                make_iter, torch.Generator("cuda").manual_seed(1 + run)))
+            n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+            if n_kp != 8 or n_at != per_forward:
+                raise AssertionError(f"2D-3D tester: {n_kp} KPConv launches (want 8), {n_at} "
+                                     f"attention launches (want {per_forward})")
+            launches["kpconv"] += n_kp
+            launches["masked_attention_d64"] += n_at
+            times.append(seconds)
+            if not (summary["pairs"] == BATCH_PAIRS and summary["n_corr"] > 0
+                    and all(math.isfinite(summary[k]) for k in ("IR", "PIR", "RR", "RRE",
+                                                                  "RTE"))):
+                raise AssertionError(f"2D-3D tester summary {summary}")
+        seconds = sorted(times)[TIMED_RUNS // 2]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = batch.points[-1].shape[1]
+        m = batch.image.shape[1] * batch.image.shape[2] // 64
+        x_init = torch.randn(BATCH_PAIRS, n, m, generator=gen)
+        u = torch.rand(BATCH_PAIRS, PNP_HYPOTHESES, 6, generator=gen)
+        fixed = fixed_draws_tester(model, tcfg, "cuda", x_init, u)
+        _, enc_s = wall(lambda: model.encode(batch))
+        _, part_s = wall(lambda: point_to_node_partition(
+            batch.points[0], batch.points[-1], batch.masks[0], batch.masks[-1],
+            cfg.pcd_num_points_in_patch))
+        _, bb_s = wall(lambda: model(batch, mode="backbone"))
+        kpconv_cuda.launches = 0
+        masked_attention_cuda.launches = 0
+        _, ddim_s = wall(lambda: model(batch, mode="ddim", x_init=x_init.cuda()))
+        (out, corrs, pairs), fwd_s = wall(lambda: fixed.forward(batch, None))
+        n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+        if n_kp != 16 or n_at != 2 * per_forward:
+            raise AssertionError(f"2D-3D forwards: {n_kp} KPConv, {n_at} attention launches")
+        launches["kpconv"] += n_kp
+        launches["masked_attention_d64"] += n_at
+    coarse = [int(c) for c in out["corr_mask"].sum(dim=(1, 2))]
+    fine = [int(p["n_corr"]) for p in pairs]
+    log(f"2D-3D path (TwoDThreeDTester, configs/test/rgbdv2.yaml widths, SAMPLE_STEP "
+        f"{cfg.sample_steps}, fine threshold {FINE_THR_2D3D}): {BATCH_PAIRS} pairs in "
+        f"{seconds:.4f} s (median of {', '.join(f'{t:.4f}' for t in times)}) = "
+        f"{BATCH_PAIRS / seconds:.3f} pairs/s; IR {summary['IR']:.4f} PIR {summary['PIR']:.4f} "
+        f"RR {summary['RR']:.4f} RRE {summary['RRE']:.3f} RTE {summary['RTE']:.4f}; coarse "
+        f"correspondences {coarse}, fine {fine}; launches kpconv {n_kp // 2} attention "
+        f"{n_at // 2} a forward; peak memory {peak:.2f} GiB")
+    log(f"2D-3D where the time goes ({BATCH_PAIRS} pairs): encode {enc_s:.4f} s, partition "
+        f"{part_s:.4f} s, backbone mode (encode, partition, one fusion pass, matcher) "
+        f"{bb_s:.4f} s, ddim forward {ddim_s:.4f} s (so {cfg.sample_steps} DDIM steps "
+        f"{ddim_s - bb_s:.4f} s = {(ddim_s - bb_s) / cfg.sample_steps * 1e3:.2f} ms a step), "
+        f"fine matching + PnP {fwd_s - ddim_s:.4f} s")
+
+    # ---- pair 0 on the CPU, same weights and draws, at STEPS_2D3D_CPU ----
+    cfg_short = dataclasses.replace(cfg, sample_steps=STEPS_2D3D_CPU)
+    one = batch_cpu.select(slice(0, 1))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m2 = DiffReg2D3D(cfg_short, device=dev, seed=0)
+        with torch.no_grad():
+            for matcher in (m2.coarse_matching, m2.denoising_coarse_matching):
+                matcher.src_proj.weight.mul_(SHARPEN_2D3D)
+        t = fixed_draws_tester(m2, tcfg, dev, x_init[:1], u[:1])
+        kpconv_cuda.launches = 0
+        masked_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            res[dev] = t.forward(one.to(dev), None)
+        res[dev + "_s"] = time.perf_counter() - t0
+        if dev == "cuda":
+            n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+            if n_kp != 8 or n_at != 12 * (1 + STEPS_2D3D_CPU):
+                raise AssertionError(f"2D-3D pair 0: {n_kp} KPConv, {n_at} attention launches")
+            launches["kpconv"] += n_kp
+            launches["masked_attention_d64"] += n_at
+    (got, got_corrs, got_pairs), (ref, _, ref_pairs) = res["cuda"], res["cpu"]
+    valid = ref["node_masks"][:, :, None] & ref["img_valid_c"][:, None, :]
+    conf = ref["conf_matrix_pred"]
+    conf_err = float((got["conf_matrix_pred"].cpu() - conf).abs()[valid].max())
+    differ = (got["corr_mask"].cpu() != ref["corr_mask"]) & valid
+    c = torch.where(valid, conf, torch.full_like(conf, -1.0))
+    top_r, top_c = c.topk(2, dim=2).values, c.topk(2, dim=1).values
+    row_tie = (top_r[..., 0] - top_r[..., 1]) <= 2 * CONF_2D3D_ABS_TOL        # [1, N]
+    col_tie = (top_c[:, 0] - top_c[:, 1]) <= 2 * CONF_2D3D_ABS_TOL            # [1, M]
+    unexplained = int((differ & ~(row_tie[:, :, None] | col_tie[:, None, :])).sum())
+
+    # the CPU's fine matching of its own features on the card's coarse correspondences
+    h, w = one.image.shape[1:3]
+    table = torch.from_numpy(patch_pixel_table(h, w, cfg.coarse_stride))
+    pix = create_meshgrid(h, w, flatten=True).flip(-1).contiguous()
+    part = ref["partition"]
+    fm_ref = fine_matching(
+        ref["img_feats_f"][0], one.img_points[0], pix, ref["pcd_feats_f"][0], one.points[0][0],
+        got_corrs.src_idx[0].cpu(), got_corrs.tgt_idx[0].cpu(), got_corrs.valid[0].cpu(),
+        part.node_knn_indices[0], part.node_knn_masks[0], table, tcfg.max_fine_corr,
+        topk=tcfg.fine_topk, threshold=tcfg.fine_threshold)
+
+    def fine_set(fm):
+        v = fm["corr_valid"].cpu()
+        return set(zip(fm["img_corr_indices"].cpu()[v].tolist(),
+                       fm["pcd_corr_indices"].cpu()[v].tolist()))
+    fg, fr = fine_set(got_pairs[0]["fm"]), fine_set(fm_ref)
+    fine_agree = len(fg & fr) / max(len(fg | fr), 1)
+    log(f"2D-3D card vs CPU, pair 0 ({STEPS_2D3D_CPU} steps, matchers sharpened x{SHARPEN_2D3D}, "
+        f"CPU {res['cpu_s']:.1f} s, card "
+        f"{res['cuda_s']:.2f} s): Sinkhorn conf {conf_err:.3e} (limit {CONF_2D3D_ABS_TOL:.0e}, "
+        f"max conf {float(conf.max()):.3e}); corr_mask: {int(differ.sum())} of "
+        f"{int(valid.sum())} valid entries differ, {unexplained} of them outside a near-tie "
+        f"(limit 0), rows with a near-tie {int(row_tie.sum())} of {row_tie.shape[1]}; coarse "
+        f"{int(got['corr_mask'].sum())} vs {int(ref['corr_mask'].sum())}; fine correspondences "
+        f"on the card's coarse ones {len(fg)} vs {len(fr)}, shared {fine_agree:.4f} of the union "
+        f"(limit {FINE_2D3D_AGREEMENT}); the CPU's own run {int(ref_pairs[0]['n_corr'])}; IR "
+        f"{float(got_pairs[0]['IR']):.4f} vs {float(ref_pairs[0]['IR']):.4f}")
+    if not conf_err <= CONF_2D3D_ABS_TOL:
+        raise AssertionError(f"2D-3D: confidences differ from the CPU's by {conf_err}")
+    if unexplained:
+        raise AssertionError(f"2D-3D: {unexplained} corr_mask entries differ outside near-ties")
+    if not (len(fr) > 0 and fine_agree >= FINE_2D3D_AGREEMENT):
+        raise AssertionError(f"2D-3D: fine correspondences share {fine_agree} of the union")
+    check_pnp_2d3d(batch_cpu, u[0], gen)
+    return {"pairs_per_s": BATCH_PAIRS / seconds, "peak_gib": peak}
+
+
+def run_cli_2d3d(repo, split_root, launches):
+    """``diffreg_tpu_torch.main`` on the 2D-3D configs in a temporary working
+    directory: rgbdv2.yaml and 7scenes.yaml with --demo, and rgbdv2.yaml on the
+    split under ``split_root`` with a checkpoint of random weights (main's own
+    calibration, the PNG reader, the restore, the npz cache, eval_from_cache)."""
+    import tempfile
+
+    import yaml
+
+    from diffreg_tpu_torch.engine.checkpoint import CheckpointManager
+    from diffreg_tpu_torch.engine.train import OptimConfig, create_train_state
+    from diffreg_tpu_torch.main import main as cli
+    from diffreg_tpu_torch.main import pipeline_2d3d_config
+    from diffreg_tpu_torch.models.pipeline_2d3d import DiffReg2D3D
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+    from diffreg_tpu_torch.utils.config import load_yaml
+
+    configs = os.path.join(repo, "configs", "test")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        disk = load_yaml(os.path.join(configs, "rgbdv2.yaml"))
+        disk.update(data_root=split_root, exp_dir="disk-rgbdv2", pretrain=os.path.join(tmp, "ckpt"))
+        CheckpointManager(disk["pretrain"]).save(1, create_train_state(
+            DiffReg2D3D(pipeline_2d3d_config(disk), device="cpu", seed=0), OptimConfig()))
+        with open(os.path.join(tmp, "disk_rgbdv2.yaml"), "w") as f:
+            yaml.safe_dump(disk, f)
+        # (name, config, extra arguments, DDIM steps)
+        runs = [("rgbdv2 test (demo)", os.path.join(configs, "rgbdv2.yaml"), ["--demo"], 50),
+                ("7scenes test (demo)", os.path.join(configs, "7scenes.yaml"), ["--demo"], 10),
+                ("rgbdv2 test (on disk)", os.path.join(tmp, "disk_rgbdv2.yaml"), [], 50)]
+        os.chdir(tmp)
+        try:
+            for name, config, extra, steps in runs:
+                kpconv_cuda.launches = 0
+                masked_attention_cuda.launches = 0
+                argv = ["--config", config, "--num-pairs", str(BATCH_PAIRS),
+                        "--batch-size", str(BATCH_PAIRS), *extra]
+                summary, seconds = wall(lambda: cli(argv))
+                n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+                if n_kp != 8 or n_at != 12 * (1 + steps):
+                    raise AssertionError(f"main {name}: {n_kp} KPConv, {n_at} attention launches")
+                if not (summary["pairs"] == BATCH_PAIRS and all(
+                        math.isfinite(summary[k]) for k in ("IR", "PIR", "RR", "RRE", "RTE"))):
+                    raise AssertionError(f"main {name}: summary {summary}")
+                if "disk" in name:
+                    ev = summary.get("eval", {})
+                    if sorted(ev.get("scenes", {})) != ["scene_00", "scene_01"] \
+                            or not math.isfinite(ev.get("PIR", math.nan)):
+                        raise AssertionError(f"main {name}: eval_from_cache gave {ev}")
+                launches["kpconv"] += n_kp
+                launches["masked_attention_d64"] += n_at
+                log(f"main {name}, {BATCH_PAIRS} pairs: {seconds:.2f} s, launches kpconv {n_kp} "
+                    f"attention {n_at}; " + ", ".join(
+                        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in summary.items() if k != "eval"))
+        finally:
+            os.chdir(cwd)
+
+
+def run_2d3d_phases(repo, kernels, launches, gen):
+    """Phases 12-15: the kernels at the 2D-3D shapes, the 2D-3D path, pair 0 on
+    the CPU, PnP, and the CLI on the 2D-3D configs."""
+    import tempfile
+
+    from diffreg_tpu_torch.main import pipeline_2d3d_config
+    from diffreg_tpu_torch.models.pipeline_2d3d import DiffReg2D3D
+    from diffreg_tpu_torch.nn.point_backbone import KPConvBias
+    from diffreg_tpu_torch.utils.config import load_yaml
+
+    cfg = pipeline_2d3d_config(load_yaml(os.path.join(repo, "configs", "test", "rgbdv2.yaml")))
+    with tempfile.TemporaryDirectory() as split_root:
+        t0 = time.perf_counter()
+        write_2d3d_split(split_root)
+        t1 = time.perf_counter()
+        batch_cpu, spec, scenes, pixels = data_2d3d(split_root)
+        n_tokens = pixels // 64
+        log(f"2D-3D data: split written in {t1 - t0:.2f} s, read, calibrated and collated in "
+            f"{time.perf_counter() - t1:.2f} s; spec {spec}; image {tuple(batch_cpu.image.shape)}"
+            f", {n_tokens} image tokens; real nodes "
+            f"{[int(m.sum()) for m in batch_cpu.masks[-1]]} of {batch_cpu.masks[-1].shape[1]}")
+
+        # ---- 12. the kernels at the 2D-3D shapes ----
+        batch = batch_cpu.to("cuda")
+        model = DiffReg2D3D(cfg, device="cuda", seed=0)
+        kp, kp_shapes = check_kpconv(
+            kpconv_layer_calls(model, lambda: model.pcd_backbone(batch), KPConvBias), 8,
+            "one point-backbone pass (8 calls)", tag=" (2D-3D)")
+        kernels[0]["shapes_2d3d"] = kp["shapes"]
+        kernels[0]["2d3d"] = {k: kp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "per")}
+        key = max(kp_shapes, key=lambda s: s[3])                 # the widest layer
+        err, back = kpconv_gradients({key: kp_shapes[key]}, gen)
+        kernels[0]["2d3d"].update({"backward_ms_widest_layer": back, "backward_max_rel_err": err})
+        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], kp["max_abs_err"])
+        del kp_shapes, model, batch
+        at, at_shapes, cases = check_attention_2d3d(batch_cpu, n_tokens, cfg, gen)
+        err, back = attention_gradients_2d3d(cases, cfg, gen)
+        at.update({"backward_ms_image_to_node": back, "backward_max_rel_err": err})
+        kernels[1]["d64"] = at
+        kernels[1]["shapes"] += at_shapes
+        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], at["max_abs_err"])
+        del cases
+
+        # ---- 13-14. the 2D-3D path; pair 0 on the CPU; PnP ----
+        run_2d3d(batch_cpu, spec, scenes, cfg, launches, gen)
+
+        # ---- 15. the entry point on the 2D-3D configs ----
+        run_cli_2d3d(repo, split_root, launches)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -991,6 +1589,7 @@ def main() -> int:
         from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
         from diffreg_tpu_torch.models.presets import (preset_3dmatch, preset_4dmatch,
                                                       with_condition_gate)
+        from diffreg_tpu_torch.nn.kpfcn import KPConv
         from diffreg_tpu_torch.ops.attention import masked_attention_cuda
         from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
         from diffreg_tpu_torch.utils.cuda import build_kernels
@@ -1038,7 +1637,9 @@ def main() -> int:
     u = torch.rand(BATCH_PAIRS, HYPOTHESES, 3, generator=gen)
 
     # ---- 3. kernels against their plain versions, forward and gradients ----
-    kpconv_entry, kp_shapes = check_kpconv(models[0.0], batch)
+    kpconv_entry, kp_shapes = check_kpconv(
+        kpconv_layer_calls(models[0.0], lambda: models[0.0].encode(batch), KPConv), 11,
+        "one encode (11 calls)")
     kernels = [kpconv_entry, check_attention(batch, cfg, gen)]
     check_gradients(kernels, kp_shapes, batch, cfg, gen)
     del kp_shapes
@@ -1049,9 +1650,11 @@ def main() -> int:
     log(f"4DMatch spec {spec4}; host data {time.perf_counter() - t0:.2f} s")
     batch4 = batch4_cpu.to("cuda")
     cfg4 = preset_4dmatch(sample_steps=STEPS)
-    kp4, kp4_shapes = check_kpconv(DiffusionMatchingModel(cfg4, device="cuda", seed=0), batch4,
+    model4 = DiffusionMatchingModel(cfg4, device="cuda", seed=0)
+    kp4, kp4_shapes = check_kpconv(kpconv_layer_calls(model4, lambda: model4.encode(batch4),
+                                                      KPConv), 11, "one encode (11 calls)",
                                    tag=" (4DMatch)")
-    del kp4_shapes
+    del kp4_shapes, model4
     kernels[0]["shapes_4dmatch"] = kp4["shapes"]
     at4 = check_attention(batch4, cfg4, gen, tag=" (4DMatch)")
     grad4, back4 = attention_gradients(batch4, cfg4, gen)
@@ -1065,7 +1668,8 @@ def main() -> int:
     # ---- 4. the DDIM path ----
     torch.cuda.reset_peak_memory_stats()      # the gradient checks above are not its peak
     results = {}
-    launches = {"kpconv": 0, "masked_attention": 0, "masked_attention_d132": 0}
+    launches = {"kpconv": 0, "masked_attention": 0, "masked_attention_d132": 0,
+                "masked_attention_d64": 0}
     per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
     for gate, model in models.items():
         register(model, batch, x_init, u)                      # warm-up
@@ -1132,9 +1736,14 @@ def main() -> int:
     # ---- 11. the entry point: 4DMatch test, 3DMatch test, 4DMatch train ----
     run_cli(repo, pairs4, meta4, launches)
 
+    # ---- 12-15. 2D-3D: kernels at its shapes, the tester path, pair 0, the CLI ----
+    run_2d3d_phases(repo, kernels, launches, gen)
+
     kernels[0]["launches"] = launches["kpconv"]
-    kernels[1]["launches"] = launches["masked_attention"] + launches["masked_attention_d132"]
+    kernels[1]["launches"] = (launches["masked_attention"] + launches["masked_attention_d132"]
+                              + launches["masked_attention_d64"])
     kernels[1]["launches_d132"] = launches["masked_attention_d132"]
+    kernels[1]["launches_d64"] = launches["masked_attention_d64"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

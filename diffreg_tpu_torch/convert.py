@@ -1,4 +1,6 @@
-"""Weight bridge: the JAX package's flax variables -> the port's state_dict.
+"""Weight bridge: the JAX package's flax variables -> the port's state_dict,
+for the 3D model (``state_dict_from_flax``) and the 2D-3D model
+(``state_dict_2d3d_from_flax``).
 
 Input: flat numpy parameters and buffers with '/'-paths, as
 ``flax.traverse_util.flatten_dict`` joins them (e.g.
@@ -9,7 +11,10 @@ named like the reference torch state_dict (e.g.
   * a Dense ``kernel [in, out]`` becomes a Linear ``weight [out, in]``
     (``coarse_out``: a Conv1d ``weight [out, in, 1]``);
   * a LayerNorm ``scale`` becomes ``weight`` (the port keeps Flax's eps 1e-6);
-  * KPConv ``weights [P, Cin, Cout]`` and ``kernel_points`` keep their layout.
+  * KPConv ``weights [P, Cin, Cout]`` and ``kernel_points`` keep their layout;
+  * (2D-3D) a Conv ``kernel [H, W, I, O]`` becomes a Conv2d ``weight
+    [O, I, H, W]``; a GroupNorm ``scale`` becomes ``weight``; the port's names
+    are the reference's (tools/convert_checkpoint_2d3d.py lists them).
 """
 from __future__ import annotations
 
@@ -61,16 +66,78 @@ def _translate(path: str):
     raise KeyError(f"no port counterpart for flax path {path!r}")
 
 
-def state_dict_from_flax(params_flat: Mapping[str, np.ndarray],
-                         buffers_flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Port state_dict entries for every flax parameter and buffer given."""
+_FUSIONS = {"fusion": "transformer", "denoising_fusion": "denoising_transformer"}
+_FUSION_LAYER = {"linear": "attention.linear", "norm1": "attention.norm",
+                 "expand": "output.expand", "squeeze": "output.squeeze", "norm2": "output.norm"}
+
+
+def _translate_2d3d(path: str):
+    """(port key, "T" | "conv2d" | None) for one flax path of ``DiffReg2D3D``."""
+    m = re.fullmatch(r"img_backbone/(\w+)(/conv1|/conv2|/identity)?/(Conv_0|GroupNorm_0)/"
+                     r"(kernel|scale|bias)", path)
+    if m:
+        # encoderN_i and decoderX_2_i are the i-th blocks of a Sequential
+        block = re.sub(r"^(encoder[2-4]|decoder\d_2)_(\d)$", r"\1.\2", m[1])
+        name = f"img_backbone.{block}{(m[2] or '').replace('/', '.')}." \
+            + ("conv" if m[3] == "Conv_0" else "norm")
+        if m[4] == "kernel":
+            return f"{name}.weight", "conv2d"
+        return f"{name}.{'weight' if m[4] == 'scale' else 'bias'}", None
+    m = re.fullmatch(r"pcd_backbone/(.+?)/(kpconv/weights|kpconv/kernel_points|norm/scale|"
+                     r"norm/bias|mlp/kernel|mlp/bias|bias)", path)
+    if m:
+        leaf = {"kpconv/weights": "weights", "kpconv/kernel_points": "kernel_points",
+                "norm/scale": "norm.norm.weight", "norm/bias": "norm.norm.bias",
+                "mlp/kernel": "mlp.weight", "mlp/bias": "mlp.bias", "bias": "bias"}[m[2]]
+        return (f"pcd_backbone.{m[1].replace('/', '.')}.{leaf}",
+                "T" if m[2] == "mlp/kernel" else None)
+    m = re.fullmatch(r"pcd_backbone/out_proj/(kernel|bias)", path)
+    if m:
+        return ("pcd_backbone.out_proj.weight", "T") if m[1] == "kernel" \
+            else ("pcd_backbone.out_proj.bias", None)
+    m = re.fullmatch(r"(fusion|denoising_fusion)/(?:transformer(\d+)/)?"
+                     r"(?:attention/)?(\w+)/(kernel|scale|bias)", path)
+    if m:
+        prefix, index, layer, leaf = _FUSIONS[m[1]], m[2], m[3], m[4]
+        if index is None:
+            name = f"{prefix}.{layer}"
+        elif layer.endswith("_token_layer"):
+            name = f"{prefix}.transformer.{index}.attention.attention.{layer}"
+        else:
+            name = f"{prefix}.transformer.{index}.{_FUSION_LAYER[layer]}"
+        return {"kernel": (f"{name}.weight", "T"), "scale": (f"{name}.weight", None),
+                "bias": (f"{name}.bias", None)}[leaf]
+    m = re.fullmatch(r"(coarse_matching|denoising_matching)/(src_proj/kernel|bin_score)", path)
+    if m:
+        prefix = _MATCHERS[m[1]]
+        return (f"{prefix}.src_proj.weight", "T") if m[2] != "bin_score" \
+            else (f"{prefix}.bin_score", None)
+    raise KeyError(f"no port counterpart for flax path {path!r}")
+
+
+def _convert(params_flat, buffers_flat, translate) -> Dict[str, torch.Tensor]:
     out = {}
     for path, arr in {**params_flat, **buffers_flat}.items():
-        key, layout = _translate(path)
+        key, layout = translate(path)
         a = np.asarray(arr, np.float32)
         if layout == "T":
             a = a.T
         elif layout == "conv":
             a = a.T[:, :, None]
+        elif layout == "conv2d":
+            a = a.transpose(3, 2, 0, 1)
         out[key] = torch.from_numpy(np.array(a, order="C"))   # a 0-d copy stays 0-d
     return out
+
+
+def state_dict_from_flax(params_flat: Mapping[str, np.ndarray],
+                         buffers_flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Port state_dict entries for every flax parameter and buffer given."""
+    return _convert(params_flat, buffers_flat, _translate)
+
+
+def state_dict_2d3d_from_flax(params_flat: Mapping[str, np.ndarray],
+                              buffers_flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``DiffReg2D3D`` state_dict entries for every flax parameter and buffer
+    of the JAX package's DiffReg2D3D (without the towers)."""
+    return _convert(params_flat, buffers_flat, _translate_2d3d)

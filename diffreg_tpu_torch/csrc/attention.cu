@@ -33,15 +33,18 @@
 //    accuracy.
 //  * D is padded to DPad (a multiple of the k-step 8) with zero columns in
 //    shared memory, which leaves every product exact; D columns are written.
-//    The kernel is a template on DPad with two instances: 112 for D <= 112
-//    (3DMatch, D = 108) and 136 for 112 < D <= 136 (4DMatch, D = 132).
+//    The kernel is a template on DPad with three instances: 64 for D <= 64
+//    (2D-3D, D = 64), 112 for 64 < D <= 112 (3DMatch, D = 108) and 136 for
+//    112 < D <= 136 (4DMatch, D = 132). At D = 64 instance 112 spent 43% of
+//    its products on padding and was slower than PyTorch's SDPA.
 //  * K and V tiles are staged by cp.async (16 B; a 108-float row is 432 B),
 //    rows past S zero-filled, into one buffer each, used alternately: the next
 //    tile's K loads while this tile's softmax and P.V run, and the next V
 //    while the next S runs. That overlaps every load with products at half
 //    the shared memory of a double buffer of both. Shared rows are DPad + 4
-//    floats apart (116 or 140: 20 or 12 banks), so every fragment load of q, k
-//    and v (8 rows x 4 lanes, or 4 row pairs x 8 lanes) hits 32 distinct banks.
+//    floats apart (68, 116 or 140: 4, 20 or 12 banks), so every fragment load
+//    of q, k and v (8 rows x 4 lanes, or 4 row pairs x 8 lanes) hits 32
+//    distinct banks.
 //  * 64 queries (4 warps) and 32 keys per tile. DPad 112: 59.4 KB of shared memory (3
 //    blocks would fit); the registers (191 a thread, no spills) hold it to 2
 //    blocks, 8 warps, per SM: 264 slots on 132 SMs, so the cross calls (176
@@ -50,7 +53,8 @@
 //    the main path's shapes (32 or 64 queries, 32 or 64 keys, a double buffer
 //    or this alternation). DPad 136 keeps the tiling: 71.7 KB of shared
 //    memory, O in 17 n-tiles, 225 registers a thread with no spills, still 2
-//    blocks per SM.
+//    blocks per SM. DPad 64 keeps it too: 34.8 KB of shared memory, O in 8
+//    n-tiles; the 2D-3D image self call ([4, 4, 4602 x 4602]) has 1160 blocks.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -290,6 +294,8 @@ int masked_attention_forward(const float* q, const float* k, const float* v,
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
+  if (D <= 64)
+    return launch<64>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
   if (D <= 112)
     return launch<112>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
   return launch<136>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);

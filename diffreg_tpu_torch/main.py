@@ -4,16 +4,20 @@
     python -m diffreg_tpu_torch.main --config configs/test/4dmatch.yaml --thr 0.55
     python -m diffreg_tpu_torch.main --config configs/test/3dmatch.yaml --demo
     python -m diffreg_tpu_torch.main --config configs/train/4dmatch.yaml --mode train --demo
+    python -m diffreg_tpu_torch.main --config configs/test/rgbdv2.yaml --demo
+    python -m diffreg_tpu_torch.main --config configs/test/7scenes.yaml
     python -m diffreg_tpu_torch.main --config ... --device cpu     # the plain CPU path
 
 Counterpart of the JAX package's main.py (the reference entry point,
 Diff-Reg-3dmatch/main.py): YAML with ``!join`` tags -> typed configs -> model,
 loaders and engine. 3DMatch and 4DMatch, test (``ThreeDMatchTester``,
-``FourDMatchTester``) and train (``Trainer``). ``--demo``, or a missing
-``data_root``, runs on synthetic pairs. A metric run on real data refuses
-random weights. One process on one device: there is no mesh (data parallel
-is in ROADMAP §1), and the 2D-3D tasks are not ported (ROADMAP §1). Runs
-write under ``snapshot/<exp_dir>`` in the working directory.
+``FourDMatchTester``) and train (``Trainer``); 2D-3D (RGB-D Scenes V2,
+7Scenes) test (``TwoDThreeDTester``, then ``eval_from_cache``), whose
+training and frozen towers are not ported (ROADMAP §1). ``--demo``, or a
+missing ``data_root``, runs on synthetic pairs. A metric run on real data
+refuses random weights. One process on one device: there is no mesh (data
+parallel is in ROADMAP §1). Runs write under ``snapshot/<exp_dir>`` in the
+working directory.
 """
 from __future__ import annotations
 
@@ -102,8 +106,7 @@ def main(argv=None):
     batch_size = args.batch_size or int(raw.get("batch_size", 1))
     dataset_name = str(raw.get("dataset", "3dmatch"))
     if dataset_name in ("rgbdv2", "7scenes"):
-        raise NotImplementedError(f"dataset {dataset_name!r}: the 2D-3D tasks are not ported "
-                                  "(ROADMAP §1: 2D-3D)")
+        return run_2d3d(args, raw, mode, batch_size, dataset_name)
     ev = raw.get("eval", {})
     if raw.get("parity_eval") or ev.get("pose_backend", "device") != "device":
         # the JAX package's metric-audit mode runs the host pose estimators
@@ -198,6 +201,142 @@ def main(argv=None):
         logger.warning(f"{loader_stats['pairs_dropped']} pairs overflowed every bucket and were "
                        f"dropped ({loader_stats['pairs_used']} used): recalibrate with more "
                        "calibration_pairs or a larger headroom")
+    logger.close()
+    return result
+
+
+def pipeline_2d3d_config(raw):
+    """The ``Pipeline2D3DConfig`` of a 2D-3D YAML (its ``model_2d3d`` section)."""
+    from .models.pipeline_2d3d import Pipeline2D3DConfig
+    from .nn.matching import MatchingConfig
+    from .nn.point_backbone import PointBackboneConfig
+
+    m = raw.get("model_2d3d", {})
+    return Pipeline2D3DConfig(
+        img_out_dim=int(m.get("img_out_dim", 128)),
+        img_base_dim=int(m.get("img_base_dim", 128)),
+        pcd_backbone=PointBackboneConfig(output_dim=int(m.get("pcd_output_dim", 128)),
+                                         init_dim=int(m.get("pcd_init_dim", 64))),
+        hidden_dim=int(m.get("hidden_dim", 256)),
+        output_dim=int(m.get("output_dim", 256)),
+        num_heads=int(m.get("num_heads", 4)),
+        matching=MatchingConfig(feature_dim=int(m.get("output_dim", 256))),
+        coarse_stride=int(m.get("coarse_stride", 8)),
+        pcd_num_points_in_patch=int(m.get("pcd_num_points_in_patch", 32)),
+        pcd_min_node_size=int(m.get("pcd_min_node_size", 5)),
+        sample_steps=int(raw.get("SAMPLE_STEP", 10)),
+        use_dino=bool(m.get("use_dino", False)),
+        use_mono_depth=bool(m.get("use_mono_depth", False)),
+        procrustes_max_condition=float(raw.get("procrustes", {}).get("max_condition_num", 200.0)),
+        fine_topk=int(m.get("fine_topk", 2)),
+        fine_threshold=float(m.get("fine_threshold", 0.75)))
+
+
+def run_2d3d(args, raw, mode, batch_size, dataset_name):
+    """2D-3D test (RGB-D Scenes V2 / 7Scenes): the model, demo or on-disk
+    pairs (calibrated from the data), the weights, ``TwoDThreeDTester`` and
+    (on real data, or with ``eval.write_cache``) ``eval_from_cache``."""
+    import numpy as np
+    import torch
+
+    from .engine.tester2d3d import Test2D3DConfig, TwoDThreeDTester, eval_from_cache
+    from .models.pipeline_2d3d import DiffReg2D3D
+    from .utils.device import resolve_device
+    from .utils.logging import Logger
+
+    if mode == "train":
+        raise NotImplementedError("2D-3D training is not ported yet (ROADMAP §1: 2D-3D "
+                                  "training)")
+    cfg = pipeline_2d3d_config(raw)
+    m, ev = raw.get("model_2d3d", {}), raw.get("eval", {})
+    test_cfg = Test2D3DConfig(
+        acceptance_radius=float(ev.get("acceptance_radius", 0.05)),
+        ir_threshold=float(ev.get("ir_threshold", 0.1)),
+        rmse_threshold=float(ev.get("rmse_threshold", 0.1)),
+        pnp_tolerance_px=float(ev.get("pnp_tolerance_px", 8.0)),
+        # parity_eval asks for the host estimators, which are not ported
+        pnp_backend="opencv" if raw.get("parity_eval") else str(ev.get("pnp_backend", "device")),
+        fine_topk=cfg.fine_topk, fine_threshold=cfg.fine_threshold)
+    device = resolve_device(args.device)
+    seed = int(raw.get("seed", 0))
+    save_dir = os.path.join("snapshot", raw.get("exp_dir", "run-2d3d"))
+    logger = Logger(save_dir)
+    logger.info(f"device {device}"
+                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    logger.info(f"2D-3D task={dataset_name} mode={mode} steps={cfg.sample_steps}")
+    model = DiffReg2D3D(cfg, device=device, seed=seed)
+    tester = TwoDThreeDTester(model, test_cfg, logger, device=device)
+
+    data_root = raw.get("data_root", "")
+    demo = args.demo or not (data_root and os.path.exists(data_root))
+    pretrain = raw.get("pretrain", "")
+    if pretrain and os.path.exists(pretrain):
+        from .engine.checkpoint import CheckpointManager
+        from .engine.train import OptimConfig, create_train_state
+
+        if CheckpointManager(pretrain).restore(create_train_state(model, OptimConfig())) is None:
+            logger.warning(f"pretrain={pretrain!r} holds no checkpoint: the metric run uses "
+                           "RANDOM weights and its numbers mean nothing")
+        else:
+            logger.info(f"restored weights from {pretrain}")
+    elif not demo:
+        raise SystemExit(f"refusing a metric run on real data with random weights: "
+                         f"pretrain={pretrain!r} not found (use --demo for a smoke run)")
+    if demo:
+        from .data.synthetic2d3d import synthetic_2d3d_batch
+
+        logger.info("demo mode: synthetic image <-> cloud pairs")
+
+        def make_iter():
+            for i in range(max(1, args.num_pairs // batch_size)):
+                yield synthetic_2d3d_batch(batch_size=batch_size, img_hw=(64, 96),
+                                           n_points=512, seed=i), [{}] * batch_size
+    else:
+        from .data.calibrate import calibrate_spec_2d3d
+        from .data.collate2d3d import batch_2d3d, build_2d3d_sample
+        from .data.datasets2d3d import RGBDScenes2D3DPairDataset, SevenScenes2D3DPairDataset
+
+        ds_cls = SevenScenes2D3DPairDataset if dataset_name == "7scenes" \
+            else RGBDScenes2D3DPairDataset
+        ds = ds_cls(data_root, "test")
+        n_calib = min(int(raw.get("calibration_pairs", 16)), len(ds))
+        spec = calibrate_spec_2d3d(
+            [ds[int(i)]["points"] for i in np.linspace(0, len(ds) - 1, n_calib).astype(int)],
+            init_radius=float(m.get("init_radius", 0.0625)))
+        logger.info(f"calibrated 2d3d spec from {n_calib} pairs: {spec}")
+
+        def make_iter():
+            buf, metas = [], []
+            for i in range(len(ds)):
+                raw_s = ds[i]
+                # crop to a window the coarse stride divides
+                st = cfg.coarse_stride
+                h = raw_s["depth"].shape[0] // st * st
+                w = raw_s["depth"].shape[1] // st * st
+                for k in ("depth", "image", "image_gray"):
+                    raw_s[k] = raw_s[k][:h, :w]
+                try:
+                    sample = build_2d3d_sample(raw_s, spec, st)
+                except ValueError:
+                    continue
+                buf.append(sample)
+                metas.append(raw_s["scene_name"])
+                if len(buf) == batch_size:
+                    yield batch_2d3d(buf), metas
+                    buf, metas = [], []
+
+    # the reference protocol is two-stage: the test writes the npz prediction
+    # cache, the evaluation re-scores it. Real-data runs always cache; demo
+    # runs when asked
+    cache_dir = ev.get("cache_dir") or (
+        None if demo and not ev.get("write_cache", False) else os.path.join(save_dir, "cache"))
+    result = tester.test(make_iter, torch.Generator(device).manual_seed(seed),
+                         cache_dir=cache_dir)
+    if cache_dir is not None:
+        result["eval"] = eval_from_cache(cache_dir, test_cfg, logger,
+                                         num_corr=ev.get("num_correspondences"),
+                                         generator=torch.Generator(device).manual_seed(seed),
+                                         device=device)
     logger.close()
     return result
 

@@ -39,6 +39,7 @@ from ..geometry.procrustes import soft_procrustes
 from ..geometry.se3 import apply_transform
 from ..nn.kpfcn import KPFCN, KPConv, KPFCNConfig
 from ..nn.matching import Matching, MatchingConfig
+from ..nn.point_backbone import KPConvBias
 from ..nn.transformer import ProcrustesConfig, RepositioningTransformer, TransformerConfig
 from ..ops.select import mutual_topk_mask
 from ..utils.device import resolve_device
@@ -78,22 +79,23 @@ def _gather_rows(arr, idx):
 
 def init_weights(model: nn.Module, seed: int) -> None:
     """Synthesise weights from ``seed`` on the CPU with the JAX package's
-    initializer families: 1/sqrt(fan_in) normal for dense and 1x1 conv
-    weights, zero biases, unit LayerNorms, KPConv weights uniform with
-    variance (2 / P) / (P * Cin), and the configured dustbin score."""
+    initializer families: 1/sqrt(fan_in) normal for dense and convolution
+    weights, zero biases, unit LayerNorms and GroupNorms, KPConv weights
+    uniform with variance (2 / P) / (P * Cin), and the configured dustbin
+    score."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv1d)):
+            if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 w = mod.weight
                 fan_in = w[0].numel()
                 w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(fan_in))
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-            elif isinstance(mod, KPConv):
+            elif isinstance(mod, (KPConv, KPConvBias)):
                 p, cin, _ = mod.weights.shape
                 limit = math.sqrt(3.0 * (2.0 / p) / (p * cin))
                 mod.weights.copy_((torch.rand(mod.weights.shape, generator=gen) * 2 - 1) * limit)

@@ -2,7 +2,9 @@
 
 Reference behaviors kept on purpose: ``src_proj`` projects BOTH sides (the
 reference never applies its ``tgt_proj``, so the port has none), and the
-features are divided by sqrt(C) before the similarity product.
+features are divided by sqrt(C) before the similarity product. The 2D-3D
+matcher passes no position code (its fused features carry position) and
+static-padding masks besides the validity masks (see ops/sinkhorn.py).
 """
 from __future__ import annotations
 
@@ -32,18 +34,23 @@ class Matching(nn.Module):
         self.src_proj = nn.Linear(cfg.feature_dim, cfg.feature_dim, bias=False)
         self.bin_score = nn.Parameter(torch.tensor(float(cfg.skh_init_bin_score)))
 
-    def forward(self, src_feats, tgt_feats, src_pe, tgt_pe, src_mask, tgt_mask):
-        """-> (conf_matrix [B, S, T], match_mask [B, S, T] bool)."""
-        src = embed_rotary(self.src_proj(src_feats), src_pe[..., 0], src_pe[..., 1])
-        tgt = embed_rotary(self.src_proj(tgt_feats), tgt_pe[..., 0], tgt_pe[..., 1])
+    def forward(self, src_feats, tgt_feats, src_pe, tgt_pe, src_mask, tgt_mask,
+                src_pad=None, tgt_pad=None):
+        """-> (conf_matrix [B, S, T], match_mask [B, S, T] bool). ``src_pe``
+        None: no position code."""
+        src, tgt = self.src_proj(src_feats), self.src_proj(tgt_feats)
+        if src_pe is not None:
+            src = embed_rotary(src, src_pe[..., 0], src_pe[..., 1])
+            tgt = embed_rotary(tgt, tgt_pe[..., 0], tgt_pe[..., 1])
         scale = src.shape[-1] ** 0.5
         sim = torch.einsum("bsc,btc->bst", src / scale, tgt / scale)
-        conf = self.sinkhorn(sim, src_mask, tgt_mask)
+        conf = self.sinkhorn(sim, src_mask, tgt_mask, src_pad, tgt_pad)
         match_mask = thresholded_mutual_argmax_mask(conf, self.cfg.confidence_threshold)
         return conf, match_mask
 
-    def sinkhorn(self, scores, src_mask, tgt_mask):
+    def sinkhorn(self, scores, src_mask, tgt_mask, src_pad=None, tgt_pad=None):
         """Learned-dustbin Sinkhorn confidences of an external score matrix."""
         scores = mask_matrix(scores, src_mask, tgt_mask)
-        z = log_sinkhorn(scores, self.bin_score, self.cfg.skh_iters, src_mask, tgt_mask)
+        z = log_sinkhorn(scores, self.bin_score, self.cfg.skh_iters, src_mask, tgt_mask,
+                         src_pad, tgt_pad)
         return torch.exp(z)[:, :-1, :-1]

@@ -332,9 +332,9 @@ def test_main_train_4dmatch_and_resume(tmp_path, monkeypatch):
 
 def test_main_rejects_what_the_port_lacks(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="2D-3D"):
+    with pytest.raises(NotImplementedError, match="2D-3D training"):
         main(["--config", _tiny_yaml(tmp_path / "a.yaml", dataset="rgbdv2"), "--demo",
-              "--device", "cpu"])
+              "--mode", "train", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="host_estimators"):
         main(["--config", _tiny_yaml(tmp_path / "b.yaml", dataset="3dmatch", parity_eval=True),
               "--demo", "--device", "cpu"])

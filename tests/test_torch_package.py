@@ -18,11 +18,17 @@ def _modules():
     return sorted(m.name for m in pkgutil.walk_packages([PACKAGE_DIR], "diffreg_tpu_torch."))
 
 
-# the CLI slice's modules, named so that a missing one fails the import guard
+# the CLI and 2D-3D slices' modules, named so that a missing one fails the import guard
 CLI_MODULES = ["diffreg_tpu_torch.main", "diffreg_tpu_torch.utils.config",
                "diffreg_tpu_torch.utils.snapshot", "diffreg_tpu_torch.engine.tester",
                "diffreg_tpu_torch.eval.metrics", "diffreg_tpu_torch.data.datasets",
-               "diffreg_tpu_torch.data.loader"]
+               "diffreg_tpu_torch.data.loader", "diffreg_tpu_torch.ops.vision",
+               "diffreg_tpu_torch.ops.partition", "diffreg_tpu_torch.nn.layers2d3d",
+               "diffreg_tpu_torch.nn.image_backbone", "diffreg_tpu_torch.nn.point_backbone",
+               "diffreg_tpu_torch.nn.fusion", "diffreg_tpu_torch.models.pipeline_2d3d",
+               "diffreg_tpu_torch.eval.pnp", "diffreg_tpu_torch.data.collate2d3d",
+               "diffreg_tpu_torch.data.synthetic2d3d", "diffreg_tpu_torch.data.datasets2d3d",
+               "diffreg_tpu_torch.engine.tester2d3d"]
 
 
 def test_every_module_imports_without_jax():
@@ -88,15 +94,21 @@ def test_entry_points_need_a_device(monkeypatch, tmp_path):
 def test_cli_entry_points_need_a_device(monkeypatch, tmp_path):
     from diffreg_tpu_torch.engine.tester import (FourDMatchTester, TestConfig,
                                                  ThreeDMatchTester)
+    from diffreg_tpu_torch.engine.tester2d3d import TwoDThreeDTester, eval_from_cache
     from diffreg_tpu_torch.engine.trainer import BatchTester
     from diffreg_tpu_torch.main import main
+    from diffreg_tpu_torch.models.pipeline_2d3d import DiffReg2D3D, Pipeline2D3DConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     for make in (lambda: ThreeDMatchTester(None), lambda: FourDMatchTester(None),
-                 lambda: BatchTester(None, None),
+                 lambda: BatchTester(None, None), lambda: TwoDThreeDTester(None),
+                 lambda: eval_from_cache(str(tmp_path)),
+                 lambda: DiffReg2D3D(Pipeline2D3DConfig()),
                  lambda: main(["--config", os.path.join(REPO_DIR, "configs", "test",
-                                                        "4dmatch.yaml"), "--demo"])):
+                                                        "4dmatch.yaml"), "--demo"]),
+                 lambda: main(["--config", os.path.join(REPO_DIR, "configs", "test",
+                                                        "rgbdv2.yaml"), "--demo"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     config = tmp_path / "open3d.yaml"
