@@ -2,8 +2,8 @@
 
 A smooth random depth map (8 x 8 blocks), its back-projection for the image
 side, a cloud sampled from the same camera points in a world frame under a
-known rigid transform, the 3-level pyramid, and nearest-patch coarse GT.
-Same draws and arrays as the JAX package's data/synthetic2d3d.py at the same
+known rigid transform, the 3-level pyramid, nearest-patch coarse GT, and
+(for training) the overlap and fine GT pairs. Same draws and arrays as the JAX package's data/synthetic2d3d.py at the same
 seed.
 """
 from __future__ import annotations
@@ -51,9 +51,15 @@ def _pyramid_3lvl(points, caps, ks, radius0):
 
 
 def synthetic_2d3d_batch(batch_size=1, img_hw=(64, 96), n_points=512, seed=0,
-                         coarse_stride=8, n_gt=64):
-    """A ``Batch2D3D`` of CPU tensors: ``batch_size`` synthetic pairs."""
+                         coarse_stride=8, n_gt=64, with_full_gt=False, n_overlap=256,
+                         n_fine_gt=64, gt_radius_3d=0.05):
+    """A ``Batch2D3D`` of CPU tensors: ``batch_size`` synthetic pairs.
+    ``with_full_gt`` adds the training losses' ground truth through the
+    collate helpers: the node <-> patch overlap pairs (up to ``n_overlap``)
+    and the fine pixel <-> point pairs (up to ``n_fine_gt``), both within
+    ``gt_radius_3d`` and 8 px."""
     from ..models.pipeline_2d3d import Batch2D3D
+    from .collate2d3d import fine_gt_correspondences, node_patch_overlaps
 
     rng = np.random.RandomState(seed)
     h, w = img_hw
@@ -61,8 +67,10 @@ def synthetic_2d3d_batch(batch_size=1, img_hw=(64, 96), n_points=512, seed=0,
     cx, cy = w / 2.0, h / 2.0
     intrinsics = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
     caps, ks = (n_points,) * 3, (16,) * 3
+    full_gt = ("ov_src", "ov_tgt", "ov_min", "ov_max", "ov_valid", "fine_pixels",
+               "fine_pcd_idx", "fine_valid") if with_full_gt else ()
     cols = {k: [] for k in ("image", "img_points", "img_valid", "pcd_feats", "transform",
-                            "gt_src", "gt_tgt", "gt_valid")}
+                            "gt_src", "gt_tgt", "gt_valid") + full_gt}
     pyrs = []
     for _ in range(batch_size):
         base = rng.rand(-(-h // 8), -(-w // 8)).astype(np.float32)
@@ -83,7 +91,8 @@ def synthetic_2d3d_batch(batch_size=1, img_hw=(64, 96), n_points=512, seed=0,
         pyr = _pyramid_3lvl(world_pts, caps, ks, 0.3)
 
         # coarse GT: each node's nearest patch centre, within 0.4
-        nodes_cam = pyr[0][2][pyr[1][2]] @ rot.T + trn.T
+        nodes = pyr[0][2][pyr[1][2]]
+        nodes_cam = nodes @ rot.T + trn.T
         hc, wc = h // coarse_stride, w // coarse_stride
         centers = cam_pts.reshape(hc, coarse_stride, wc, coarse_stride, 3)
         centers = centers.transpose(0, 2, 1, 3, 4).reshape(hc * wc, -1, 3).mean(axis=1)
@@ -103,6 +112,17 @@ def synthetic_2d3d_batch(batch_size=1, img_hw=(64, 96), n_points=512, seed=0,
         cols["gt_src"].append(gt[0])
         cols["gt_tgt"].append(gt[1])
         cols["gt_valid"].append(gt[2].astype(bool))
+        if with_full_gt:
+            valid = z > 0
+            ov = node_patch_overlaps(world_pts, nodes, cam_pts, valid, tfm, intrinsics, (h, w),
+                                     coarse_stride, matching_radius_3d=gt_radius_3d,
+                                     matching_radius_2d=8.0, num_points_in_patch=32,
+                                     max_pairs=n_overlap)
+            fine = fine_gt_correspondences(cam_pts, valid, world_pts, tfm, intrinsics, (h, w),
+                                           n_fine_gt, matching_radius_3d=gt_radius_3d,
+                                           matching_radius_2d=8.0, rng=rng)
+            for key, arr in zip(full_gt, ov + fine):
+                cols[key].append(arr)
 
     arrays = {k: np.stack(v) for k, v in cols.items()}
     arrays["intrinsics"] = np.stack([intrinsics] * batch_size)

@@ -13,7 +13,9 @@ test.py and eval.py), in two stages:
 
 Each draw is one method (``draw_start``, ``draw_pnp``; ``eval_from_cache``
 takes ``draw_pnp``), in the order the JAX tester splits its keys. The host
-estimator (``pnp_backend: opencv``) is not ported.
+estimator (``pnp_backend: opencv``) is not ported: without cv2 the device
+PnP runs instead, with a warning; with cv2 the config is refused
+(``eval/host_estimators.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from ..eval.host_estimators import resolve_backend
 from ..eval.pnp import pnp_ransac
 from ..geometry.se3 import rotation_error_deg, translation_error
 from ..models.pipeline_2d3d import fine_matching, patch_pixel_table
@@ -49,12 +52,6 @@ class Test2D3DConfig:
 
 
 PMR_TIERS = (0.0, 0.1, 0.3, 0.5)
-
-
-def _check_backend(cfg: Test2D3DConfig):
-    if cfg.pnp_backend != "device":
-        raise NotImplementedError("pnp_backend: opencv (the host estimator) belongs to the "
-                                  "library surface, not ported yet (ROADMAP §1)")
 
 
 def patch_inlier_ratio(corr_mask, gt_src, gt_tgt, gt_valid):
@@ -115,10 +112,10 @@ class TwoDThreeDTester:
     def __init__(self, model, cfg: Test2D3DConfig = Test2D3DConfig(),
                  logger: Optional[Logger] = None, mode: str = "ddim", device=None):
         self.device = resolve_device(device)
-        _check_backend(cfg)
-        self.model = model
-        self.cfg = cfg
         self.logger = logger or Logger(None)
+        self.model = model
+        self.cfg = dataclasses.replace(
+            cfg, pnp_backend=resolve_backend(cfg.pnp_backend, self.logger))
         self.mode = mode
         self._tables = {}
 
@@ -268,9 +265,9 @@ def eval_from_cache(cache_dir: str, cfg: Test2D3DConfig = Test2D3DConfig(),
     IR, OR, FMR, RR (device PnP on the cached correspondences, best
     ``max_fine_corr`` by score), mean and median RRE / RTE of the registered
     pairs; overall means of the scene means, and ``scenes``."""
-    _check_backend(cfg)
     device = resolve_device(device)
     logger = logger or Logger(None)
+    cfg = dataclasses.replace(cfg, pnp_backend=resolve_backend(cfg.pnp_backend, logger))
     generator = generator or torch.Generator(device).manual_seed(0)
     scene_rows = {}
     overall = SummaryBoard()

@@ -231,12 +231,13 @@ def _lap(timers, name: Optional[str], device, next_name: Optional[str] = None):
         timers.tic(next_name)
 
 
-def make_train_step(loss_cfg: LossConfig):
-    """``train_step(state, batch, inputs, timers=None) -> (state, info)``.
+def make_loss_train_step(loss_fn):
+    """``train_step(state, batch, inputs, timers=None) -> (state, info)`` for
+    ``loss_fn(outputs, batch) -> (loss, info)`` over ``model.train_forward``.
 
-    ``inputs`` is ``model.draw_train_inputs``'s dict (t, g, euler). info holds
-    the loss terms, ``grads_finite`` and ``grad_norm`` (of the raw gradients)
-    as 0-d tensors; ``apply_gradients`` makes the update. With ``timers``
+    ``inputs`` is ``model.draw_train_inputs``'s dict. info holds the loss
+    terms, ``grads_finite`` and ``grad_norm`` (of the raw gradients) as 0-d
+    tensors; ``apply_gradients`` makes the update. With ``timers``
     (``utils.logging.Timers``) the forward, backward and optimizer phases are
     timed, each ended by a device synchronize."""
 
@@ -245,7 +246,7 @@ def make_train_step(loss_cfg: LossConfig):
         device = params[0].device
         _lap(timers, None, device, "forward")
         outputs = state.model.train_forward(batch, **inputs)
-        loss, info = diffreg_loss(outputs, batch, loss_cfg)
+        loss, info = loss_fn(outputs, batch)
         _lap(timers, "forward", device, "backward")
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         _lap(timers, "backward", device, "optimizer")
@@ -256,6 +257,12 @@ def make_train_step(loss_cfg: LossConfig):
         return state, {**info, "grads_finite": grads_finite, "grad_norm": grad_norm}
 
     return train_step
+
+
+def make_train_step(loss_cfg: LossConfig):
+    """The 3D train step (``make_loss_train_step``) on ``diffreg_loss``; the
+    draws are (t, g, euler)."""
+    return make_loss_train_step(lambda outputs, batch: diffreg_loss(outputs, batch, loss_cfg))
 
 
 def make_eval_step(loss_cfg: LossConfig):

@@ -6,15 +6,18 @@
     python -m diffreg_tpu_torch.main --config configs/train/4dmatch.yaml --mode train --demo
     python -m diffreg_tpu_torch.main --config configs/test/rgbdv2.yaml --demo
     python -m diffreg_tpu_torch.main --config configs/test/7scenes.yaml
+    python -m diffreg_tpu_torch.main --config configs/train/rgbdv2.yaml --mode train
     python -m diffreg_tpu_torch.main --config ... --device cpu     # the plain CPU path
 
 Counterpart of the JAX package's main.py (the reference entry point,
 Diff-Reg-3dmatch/main.py): YAML with ``!join`` tags -> typed configs -> model,
 loaders and engine. 3DMatch and 4DMatch, test (``ThreeDMatchTester``,
 ``FourDMatchTester``) and train (``Trainer``); 2D-3D (RGB-D Scenes V2,
-7Scenes) test (``TwoDThreeDTester``, then ``eval_from_cache``), whose
-training and frozen towers are not ported (ROADMAP §1). ``--demo``, or a
-missing ``data_root``, runs on synthetic pairs. A metric run on real data
+7Scenes) test (``TwoDThreeDTester``, then ``eval_from_cache``) and train
+(``engine.train2d3d`` with Adam, the ``Trainer``); the frozen towers and the
+host estimators are not ported (ROADMAP §1): where the estimator's library
+is missing, the device estimator runs, as in the JAX package. ``--demo``, or
+a missing ``data_root``, runs on synthetic pairs. A metric run on real data
 refuses random weights. One process on one device: there is no mesh (data
 parallel is in ROADMAP §1). Runs write under ``snapshot/<exp_dir>`` in the
 working directory.
@@ -95,6 +98,7 @@ def main(argv=None):
                                 make_metric_points_fn)
     from .engine.train import create_train_state, make_eval_step, make_train_step
     from .engine.trainer import Trainer, TrainerConfig
+    from .eval.host_estimators import resolve_backend
     from .models.diffusion_matching import DiffusionMatchingModel
     from .utils.config import (build_loss_config, build_optim_config, build_pipeline_config,
                                load_yaml)
@@ -108,12 +112,6 @@ def main(argv=None):
     if dataset_name in ("rgbdv2", "7scenes"):
         return run_2d3d(args, raw, mode, batch_size, dataset_name)
     ev = raw.get("eval", {})
-    if raw.get("parity_eval") or ev.get("pose_backend", "device") != "device":
-        # the JAX package's metric-audit mode runs the host pose estimators
-        raise NotImplementedError(
-            "parity_eval / eval.pose_backend: the host pose estimators "
-            "(eval/host_estimators.py) belong to the library surface, not ported yet "
-            "(ROADMAP §1); the port estimates poses on the device")
     device = resolve_device(args.device)
     pipeline_cfg = build_pipeline_config(raw)
     loss_cfg = build_loss_config(raw)
@@ -124,6 +122,10 @@ def main(argv=None):
     logger.info(f"device {device}"
                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     logger.info(f"task={dataset_name} mode={mode} steps={pipeline_cfg.sample_steps}")
+    if mode != "train":
+        # parity_eval (the metric-audit mode) asks for the host estimators
+        resolve_backend(str(ev.get("pose_backend", "open3d" if raw.get("parity_eval")
+                                   else "device")), logger)
     model = DiffusionMatchingModel(pipeline_cfg, device=device, seed=seed)
 
     data_root = raw.get("data_root", "")
@@ -227,61 +229,63 @@ def pipeline_2d3d_config(raw):
         sample_steps=int(raw.get("SAMPLE_STEP", 10)),
         use_dino=bool(m.get("use_dino", False)),
         use_mono_depth=bool(m.get("use_mono_depth", False)),
-        procrustes_max_condition=float(raw.get("procrustes", {}).get("max_condition_num", 200.0)),
-        fine_topk=int(m.get("fine_topk", 2)),
-        fine_threshold=float(m.get("fine_threshold", 0.75)))
+        procrustes_max_condition=float(raw.get("procrustes", {}).get("max_condition_num", 200.0)))
+
+
+def loss_2d3d_configs(raw):
+    """(CircleLossConfig, FineLossConfig) of a 2D-3D YAML: ``loss.coarse_loss``,
+    and of ``loss.fine_loss`` its radii and log scale (default 24)."""
+    from .engine.losses2d3d import CircleLossConfig, FineLossConfig
+
+    lc = raw.get("loss", {}).get("coarse_loss", {})
+    fl = raw.get("loss", {}).get("fine_loss", {})
+    circle = CircleLossConfig(**{f: float(lc.get(f, getattr(CircleLossConfig, f))) for f in (
+        "positive_margin", "negative_margin", "positive_optimal", "negative_optimal",
+        "log_scale", "positive_overlap", "negative_overlap")})
+    fine = FineLossConfig(**{f: float(fl.get(f, getattr(FineLossConfig, f))) for f in (
+        "positive_radius_3d", "negative_radius_3d", "positive_radius_2d",
+        "negative_radius_2d")}, circle=CircleLossConfig(log_scale=float(fl.get("log_scale", 24.0))))
+    return circle, fine
 
 
 def run_2d3d(args, raw, mode, batch_size, dataset_name):
-    """2D-3D test (RGB-D Scenes V2 / 7Scenes): the model, demo or on-disk
-    pairs (calibrated from the data), the weights, ``TwoDThreeDTester`` and
-    (on real data, or with ``eval.write_cache``) ``eval_from_cache``."""
+    """2D-3D (RGB-D Scenes V2 / 7Scenes): the model, demo or on-disk pairs
+    (calibrated from the data), then test (the weights, ``TwoDThreeDTester``
+    and, on real data or with ``eval.write_cache``, ``eval_from_cache``) or
+    train (Adam at the YAML's ``lr``, the ``Trainer``)."""
     import numpy as np
     import torch
 
     from .engine.tester2d3d import Test2D3DConfig, TwoDThreeDTester, eval_from_cache
+    from .eval.host_estimators import resolve_backend
     from .models.pipeline_2d3d import DiffReg2D3D
     from .utils.device import resolve_device
     from .utils.logging import Logger
 
-    if mode == "train":
-        raise NotImplementedError("2D-3D training is not ported yet (ROADMAP §1: 2D-3D "
-                                  "training)")
     cfg = pipeline_2d3d_config(raw)
     m, ev = raw.get("model_2d3d", {}), raw.get("eval", {})
-    test_cfg = Test2D3DConfig(
-        acceptance_radius=float(ev.get("acceptance_radius", 0.05)),
-        ir_threshold=float(ev.get("ir_threshold", 0.1)),
-        rmse_threshold=float(ev.get("rmse_threshold", 0.1)),
-        pnp_tolerance_px=float(ev.get("pnp_tolerance_px", 8.0)),
-        # parity_eval asks for the host estimators, which are not ported
-        pnp_backend="opencv" if raw.get("parity_eval") else str(ev.get("pnp_backend", "device")),
-        fine_topk=cfg.fine_topk, fine_threshold=cfg.fine_threshold)
     device = resolve_device(args.device)
     seed = int(raw.get("seed", 0))
+    train = mode == "train"
     save_dir = os.path.join("snapshot", raw.get("exp_dir", "run-2d3d"))
     logger = Logger(save_dir)
     logger.info(f"device {device}"
                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     logger.info(f"2D-3D task={dataset_name} mode={mode} steps={cfg.sample_steps}")
     model = DiffReg2D3D(cfg, device=device, seed=seed)
-    tester = TwoDThreeDTester(model, test_cfg, logger, device=device)
 
     data_root = raw.get("data_root", "")
     demo = args.demo or not (data_root and os.path.exists(data_root))
-    pretrain = raw.get("pretrain", "")
-    if pretrain and os.path.exists(pretrain):
-        from .engine.checkpoint import CheckpointManager
-        from .engine.train import OptimConfig, create_train_state
+    if not train:
+        pretrain = raw.get("pretrain", "")
+        if pretrain and os.path.exists(pretrain):
+            from .engine.train import OptimConfig
 
-        if CheckpointManager(pretrain).restore(create_train_state(model, OptimConfig())) is None:
-            logger.warning(f"pretrain={pretrain!r} holds no checkpoint: the metric run uses "
-                           "RANDOM weights and its numbers mean nothing")
-        else:
-            logger.info(f"restored weights from {pretrain}")
-    elif not demo:
-        raise SystemExit(f"refusing a metric run on real data with random weights: "
-                         f"pretrain={pretrain!r} not found (use --demo for a smoke run)")
+            _restore_weights(model, pretrain, OptimConfig(), logger)
+        elif not demo:
+            raise SystemExit(f"refusing a metric run on real data with random weights: "
+                             f"pretrain={pretrain!r} not found (use --demo for a smoke run)")
+
     if demo:
         from .data.synthetic2d3d import synthetic_2d3d_batch
 
@@ -289,8 +293,10 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
 
         def make_iter():
             for i in range(max(1, args.num_pairs // batch_size)):
+                # training reads the overlap and fine GT of the full loss
                 yield synthetic_2d3d_batch(batch_size=batch_size, img_hw=(64, 96),
-                                           n_points=512, seed=i), [{}] * batch_size
+                                           n_points=512, seed=i, with_full_gt=train), \
+                    [{}] * batch_size
     else:
         from .data.calibrate import calibrate_spec_2d3d
         from .data.collate2d3d import batch_2d3d, build_2d3d_sample
@@ -298,7 +304,7 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
 
         ds_cls = SevenScenes2D3DPairDataset if dataset_name == "7scenes" \
             else RGBDScenes2D3DPairDataset
-        ds = ds_cls(data_root, "test")
+        ds = ds_cls(data_root, "train" if train else "test", use_augmentation=train)
         n_calib = min(int(raw.get("calibration_pairs", 16)), len(ds))
         spec = calibrate_spec_2d3d(
             [ds[int(i)]["points"] for i in np.linspace(0, len(ds) - 1, n_calib).astype(int)],
@@ -325,6 +331,27 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
                     yield batch_2d3d(buf), metas
                     buf, metas = [], []
 
+        if train:
+            # the JAX package reads one batch to initialise its model; the
+            # reader's augmentation draws go on from there, so read it too
+            next(make_iter())
+
+    if train:
+        return _train_2d3d(args, raw, model, make_iter, save_dir, logger, device, seed)
+
+    # the JAX tester runs fine matching at its defaults, whatever the YAML says
+    fine = {"fine_topk": 2, "fine_threshold": 0.75}
+    if any(float(m.get(k, v)) != v for k, v in fine.items()):
+        logger.warning(f"model_2d3d.fine_topk / fine_threshold: the tester matches at {fine} "
+                       "(as the JAX package's does), not at the YAML's values")
+    pnp_backend = resolve_backend(str(ev.get("pnp_backend", "opencv" if raw.get("parity_eval")
+                                             else "device")), logger)
+    test_cfg = Test2D3DConfig(
+        acceptance_radius=float(ev.get("acceptance_radius", 0.05)),
+        ir_threshold=float(ev.get("ir_threshold", 0.1)),
+        rmse_threshold=float(ev.get("rmse_threshold", 0.1)),
+        pnp_tolerance_px=float(ev.get("pnp_tolerance_px", 8.0)), pnp_backend=pnp_backend)
+    tester = TwoDThreeDTester(model, test_cfg, logger, device=device)
     # the reference protocol is two-stage: the test writes the npz prediction
     # cache, the evaluation re-scores it. Real-data runs always cache; demo
     # runs when asked
@@ -339,6 +366,32 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
                                          device=device)
     logger.close()
     return result
+
+
+def _train_2d3d(args, raw, model, make_iter, save_dir, logger, device, seed):
+    """2D-3D training as the JAX package's main runs it: the losses of
+    ``loss_2d3d_configs`` (the plain focal loss's defaults), Adam at the YAML's
+    ``lr`` with the optimizer's other defaults (the JAX main reads neither
+    ``weight_decay`` nor the epoch length), the same batches every epoch, the
+    ``Trainer`` (``--resume``). Returns the last epoch's metrics and ``steps``."""
+    from .engine.losses import LossConfig
+    from .engine.train import OptimConfig
+    from .engine.train2d3d import create_train_state_2d3d, make_train_step_2d3d
+    from .engine.trainer import Trainer, TrainerConfig
+    from .utils.snapshot import backup_sources
+
+    backup_sources(save_dir, args.config)
+    circle_cfg, fine_cfg = loss_2d3d_configs(raw)
+    optim_cfg = OptimConfig(optimizer="adam", lr=float(raw.get("lr", 1e-4)))
+    trainer = Trainer(make_train_step_2d3d(circle_cfg, LossConfig(), fine_cfg),
+                      create_train_state_2d3d(model, optim_cfg), lambda epoch: make_iter(),
+                      TrainerConfig(max_epoch=int(raw.get("max_epoch", 10)), save_dir=save_dir),
+                      logger=logger, device=device, seed=seed)
+    if args.resume:
+        trainer.resume()
+    state = trainer.train()
+    logger.close()
+    return {**trainer.metrics, "steps": state.step}
 
 
 if __name__ == "__main__":

@@ -11,6 +11,9 @@ MATR2D3D), without the frozen towers (``use_dino``, ``use_mono_depth``):
     each image patch's centre is the mean of its valid stride-2 pixels;
   * mode "backbone": the fusion transformer and coarse matcher once, then the
     top-1 union correspondence mask;
+  * mode "train": the same coarse pass; the GT matrix noised at passed-in
+    timesteps with a passed-in normal draw, the node warp from it (Sinkhorn
+    and soft Procrustes, differentiated) and the denoising fusion and matcher;
   * mode "ddim": the same coarse pass, then the deterministic DDIM loop from
     ``x_init`` [B, N, M] (passed in): per step a Sinkhorn projection of the
     noisy matrix, soft Procrustes of the nodes onto the patch centres, the
@@ -35,7 +38,7 @@ import torch
 from torch import nn
 
 from ..diffusion.schedule import (ddim_coefficients, ddim_time_pairs, make_schedule,
-                                  predict_noise_from_start)
+                                  predict_noise_from_start, q_sample)
 from ..geometry.procrustes import soft_procrustes
 from ..geometry.se3 import apply_transform
 from .diffusion_matching import init_weights
@@ -43,11 +46,11 @@ from ..nn.fusion import CrossModalFusionModule
 from ..nn.image_backbone import ImageBackbone
 from ..nn.matching import Matching, MatchingConfig
 from ..nn.point_backbone import PointBackbone, PointBackboneConfig
-from ..ops.masked import NEG_INF
+from ..ops.masked import NEG_INF, scatter_pairs
 from ..ops.partition import batch_mutual_topk_select, point_to_node_partition
 from ..ops.select import mutual_topk_mask
 from ..ops.topk import stable_top_k
-from ..ops.vision import create_meshgrid, resize_align_corners
+from ..ops.vision import create_meshgrid, l2_normalize, resize_align_corners
 from ..utils.device import resolve_device
 from ..utils.precision import pin_float32
 
@@ -130,8 +133,6 @@ class Pipeline2D3DConfig:
     procrustes_max_condition: float = 200.0
     use_dino: bool = False
     use_mono_depth: bool = False
-    fine_topk: int = 2
-    fine_threshold: float = 0.75
 
 
 class DiffReg2D3D(nn.Module):
@@ -216,15 +217,10 @@ class DiffReg2D3D(nn.Module):
                           src_pad=batch.masks[-1], tgt_pad=torch.ones_like(img_valid_c))
         return conf, img_t, pcd_t
 
-    @torch.no_grad()
-    def forward(self, batch: Batch2D3D, mode: str = "ddim",
-                x_init: Optional[torch.Tensor] = None) -> dict:
-        """mode "ddim" (needs ``x_init`` [B, N, M], N(0, 1)) or "backbone"."""
-        if mode == "train":
-            raise NotImplementedError("2D-3D training is not ported yet (ROADMAP §1: 2D-3D "
-                                      "training)")
-        if mode not in ("ddim", "backbone"):
-            raise KeyError(mode)
+    def _coarse_pass(self, batch: Batch2D3D) -> Tuple[dict, dict]:
+        """Both encoders, the partition (nodes gated by their member count), the
+        patch centres, the fusion transformer and the coarse matcher -> (the
+        outputs every mode returns, the encoder's)."""
         cfg = self.cfg
         enc = self.encode(batch)
         nodes, node_pad = batch.points[-1], batch.masks[-1]
@@ -232,40 +228,87 @@ class DiffReg2D3D(nn.Module):
                                        cfg.pcd_num_points_in_patch)
         node_masks = part.node_masks & (part.node_sizes > cfg.pcd_min_node_size)
         centers, img_valid_c = self.patch_centers(batch)
-
         conf, img_t, pcd_t = self._match(self.transformer, self.coarse_matching, enc, batch,
                                          nodes, node_masks, img_valid_c)
         out = {"conf_matrix_pred": conf, "node_masks": node_masks, "img_valid_c": img_valid_c,
                "nodes": nodes, "patch_centers": centers, "pcd_feats_c": pcd_t,
                "img_feats_c": img_t, "partition": part, "img_feats_f": enc["img_feats_f"],
                "pcd_feats_f": enc["pcd_feats_f"]}
-        if mode == "backbone":
-            out["corr_mask"] = batch_mutual_topk_select(conf, 1, node_masks, img_valid_c,
-                                                        mutual=False)
-            return out
+        return out, enc
 
-        if x_init is None:
-            raise ValueError("mode 'ddim' needs x_init [B, N, M]")
-        x = x_init
-        for time, time_next in ddim_time_pairs(cfg.timesteps, cfg.sample_steps):
-            warped = self._warp_nodes(x, nodes, centers, node_masks, img_valid_c, node_pad)
-            x_start, _, _ = self._match(self.denoising_transformer,
-                                        self.denoising_coarse_matching, enc, batch, warped,
-                                        node_masks, img_valid_c)
-            eps = predict_noise_from_start(self.schedule, x, int(time), x_start)
-            sqrt_next, c, _ = ddim_coefficients(self.schedule, int(time), int(time_next),
-                                                cfg.ddim_eta)
-            x = x_start * sqrt_next + c * eps
-        conf = self.denoising_coarse_matching.sinkhorn(x, node_masks, img_valid_c, node_pad,
-                                                       torch.ones_like(img_valid_c))
-        corr = mutual_topk_mask(conf, 1, mutual=False)
-        out["conf_matrix_pred"] = conf
-        out["corr_mask"] = corr & node_masks[:, :, None] & img_valid_c[:, None, :]
+    def _denoise(self, enc, batch, x, out):
+        """Warp the nodes by the noisy matrix ``x``, then the denoising fusion
+        and matcher -> the x0 prediction [B, N, M]."""
+        nodes, masks, valid = out["nodes"], out["node_masks"], out["img_valid_c"]
+        warped = self._warp_nodes(x, nodes, out["patch_centers"], masks, valid, batch.masks[-1])
+        return self._match(self.denoising_transformer, self.denoising_coarse_matching, enc,
+                           batch, warped, masks, valid)[0]
+
+    def draw_train_inputs(self, batch: Batch2D3D, generator: torch.Generator) -> dict:
+        """The random draws of one training forward, made with ``generator`` on
+        its device: t [B] timesteps in [0, timesteps), noise [B, N, M] standard
+        normal (N node slots, M image patches)."""
+        b, h, w, _ = batch.image.shape
+        s = self.cfg.coarse_stride
+        dev = generator.device
+        shape = (b, batch.points[-1].shape[1], (h // s) * (w // s))
+        return {"t": torch.randint(0, self.cfg.timesteps, (b,), generator=generator, device=dev),
+                "noise": torch.randn(shape, generator=generator, device=dev)}
+
+    def train_forward(self, batch: Batch2D3D, t, noise) -> dict:
+        """Training branch (the reference model.py:599-636): the coarse pass;
+        the GT matrix of ``batch.gt_*``, noised at timesteps ``t`` [B] with the
+        standard-normal ``noise`` [B, N, M]; the node warp from that matrix
+        (its Sinkhorn and soft Procrustes stay in the graph) and the denoising
+        pass. Returns the coarse pass's outputs with conf_matrix_gt_hat,
+        matrix_gt and timesteps."""
+        out, enc = self._coarse_pass(batch)
+        n, m = out["node_masks"].shape[1], out["img_valid_c"].shape[1]
+        matrix_gt = _matrix_from_indices(batch.gt_src, batch.gt_tgt, batch.gt_valid, n, m)
+        disturbed = q_sample(self.schedule, matrix_gt, t, noise)
+        out.update({"conf_matrix_gt_hat": self._denoise(enc, batch, disturbed, out),
+                    "matrix_gt": matrix_gt, "timesteps": t})
         return out
 
+    def forward(self, batch: Batch2D3D, mode: str = "ddim",
+                x_init: Optional[torch.Tensor] = None, t=None, noise=None) -> dict:
+        """mode "ddim" (needs ``x_init`` [B, N, M], N(0, 1)), "backbone", or
+        "train" (needs ``t`` and ``noise``: ``train_forward``). The first two
+        run without a graph."""
+        if mode == "train":
+            return self.train_forward(batch, t, noise)
+        if mode not in ("ddim", "backbone"):
+            raise KeyError(mode)
+        if mode == "ddim" and x_init is None:
+            raise ValueError("mode 'ddim' needs x_init [B, N, M]")
+        with torch.no_grad():
+            out, enc = self._coarse_pass(batch)
+            node_masks, img_valid_c = out["node_masks"], out["img_valid_c"]
+            if mode == "backbone":
+                out["corr_mask"] = batch_mutual_topk_select(out["conf_matrix_pred"], 1,
+                                                            node_masks, img_valid_c, mutual=False)
+                return out
+            cfg = self.cfg
+            x = x_init
+            for time, time_next in ddim_time_pairs(cfg.timesteps, cfg.sample_steps):
+                x_start = self._denoise(enc, batch, x, out)
+                eps = predict_noise_from_start(self.schedule, x, int(time), x_start)
+                sqrt_next, c, _ = ddim_coefficients(self.schedule, int(time), int(time_next),
+                                                    cfg.ddim_eta)
+                x = x_start * sqrt_next + c * eps
+            conf = self.denoising_coarse_matching.sinkhorn(x, node_masks, img_valid_c,
+                                                           batch.masks[-1],
+                                                           torch.ones_like(img_valid_c))
+            out["conf_matrix_pred"] = conf
+            out["corr_mask"] = mutual_topk_mask(conf, 1, mutual=False) \
+                & node_masks[:, :, None] & img_valid_c[:, None, :]
+            return out
 
-def _l2_normalize(x):
-    return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(1e-8)
+
+def _matrix_from_indices(src, tgt, valid, n: int, m: int):
+    """The binary GT matrix [B, n, m] (float32) of padded index lists [B, G]."""
+    return scatter_pairs(src, tgt, torch.ones(src.shape, dtype=torch.float32, device=src.device),
+                         valid, n, m)
 
 
 def fine_matching(img_feats_f, img_points_f, img_pixels_f, pcd_feats_f, pcd_points_f,
@@ -289,7 +332,7 @@ def fine_matching(img_feats_f, img_points_f, img_pixels_f, pcd_feats_f, pcd_poin
     pcd_m = node_knn_masks[corr_src] & corr_valid[:, None]
     img_f = img_flat[img_idx]
     pcd_f = torch.cat([pcd_feats_f, pcd_feats_f.new_zeros((1, c))])[pcd_idx]
-    sim = torch.einsum("cpk,cqk->cpq", _l2_normalize(img_f), _l2_normalize(pcd_f))
+    sim = torch.einsum("cpk,cqk->cpq", l2_normalize(img_f), l2_normalize(pcd_f))
 
     corr = batch_mutual_topk_select(sim, topk, valid_row=corr_valid[:, None].expand(img_idx.shape),
                                     valid_col=pcd_m, threshold=threshold, mutual=True)
@@ -313,7 +356,7 @@ def fine_matching(img_feats_f, img_points_f, img_pixels_f, pcd_feats_f, pcd_poin
     uvalid = val_s & first
     img_u = torch.where(uvalid, img_s, torch.zeros_like(img_s))
     pcd_u = torch.where(uvalid, pcd_s, torch.zeros_like(pcd_s))
-    out_scores = torch.sum(_l2_normalize(img_flat[img_u]) * _l2_normalize(pcd_feats_f[pcd_u]),
+    out_scores = torch.sum(l2_normalize(img_flat[img_u]) * l2_normalize(pcd_feats_f[pcd_u]),
                            dim=-1)
     return {"img_corr_pixels": img_pixels_f[img_u], "img_corr_points": img_points_f[img_u],
             "pcd_corr_points": pcd_points_f[pcd_u], "pcd_corr_indices": pcd_u,

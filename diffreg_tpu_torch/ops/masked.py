@@ -36,3 +36,14 @@ def mask_matrix(scores, src_mask, tgt_mask, fill=NEG_INF):
     """Fill entries of [B, N, M] scores where either side is padding."""
     valid = src_mask[..., :, None] & tgt_mask[..., None, :]
     return torch.where(valid, scores, torch.full_like(scores, fill))
+
+
+def scatter_pairs(src, tgt, values, valid, n: int, m: int):
+    """Padded pair lists src, tgt, values [B, Q] -> dense [B, n, m] (zeros
+    elsewhere); invalid entries are dropped (written to a slot past the end).
+    Where a valid (src, tgt) pair repeats, one of its values is kept."""
+    flat = torch.where(valid, src.long() * m + tgt.long(),
+                       torch.full_like(src, n * m, dtype=torch.long))
+    out = values.new_zeros((src.shape[0], n * m + 1))
+    out.scatter_(1, flat, values)
+    return out[:, :n * m].reshape(src.shape[0], n, m)

@@ -1,5 +1,5 @@
 """2D<->3D geometry ops: meshgrid, align-corners resize, back-projection,
-patchify, pairwise distances.
+rendering, patchify, pairwise distances.
 
 Counterpart of the JAX package's ops/vision.py. Pixels are (row, col) =
 (v, u) ordered; intrinsics K = [[fx, 0, cx], [0, fy, cy], [0, 0, 1]].
@@ -58,6 +58,24 @@ def back_project(depth, intrinsics, depth_limit=6.0, depth_min=0.0):
     return pts, (d > depth_min) & (d <= depth_limit)
 
 
+def render(points, intrinsics, extrinsics=None, rounding=True):
+    """Project points [N, 3] (camera frame, or world frame under the world ->
+    camera ``extrinsics`` [4, 4]) to pixels -> (pixels [N, 2] (v, u), depth
+    [N], in front [N]). A point at depth <= 1e-6 is divided by 1 instead."""
+    if extrinsics is not None:
+        points = points @ extrinsics[:3, :3].T + extrinsics[:3, 3]
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    z = points[:, 2]
+    in_front = z > 1e-6
+    zs = torch.where(in_front, z, torch.ones_like(z))
+    u = points[:, 0] / zs * fx + cx
+    v = points[:, 1] / zs * fy + cy
+    if rounding:
+        u, v = torch.round(u), torch.round(v)
+    return torch.stack([v, u], dim=-1), z, in_front
+
+
 def patchify(height, width, stride, device=None):
     """Flat pixel indices [P, stride^2] of each stride x stride patch and the
     patch centres [P, 2] (v, u)."""
@@ -82,7 +100,10 @@ def pairwise_distance(a, b, squared=True):
     return d2 if squared else torch.sqrt(d2)
 
 
+def l2_normalize(x, eps=1e-8):
+    """x / max(||x||, eps) along the last axis."""
+    return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(eps)
+
+
 def pairwise_cosine_similarity(a, b, eps=1e-8):
-    an = a / torch.linalg.norm(a, dim=-1, keepdim=True).clamp_min(eps)
-    bn = b / torch.linalg.norm(b, dim=-1, keepdim=True).clamp_min(eps)
-    return an @ bn.transpose(-1, -2)
+    return l2_normalize(a, eps) @ l2_normalize(b, eps).transpose(-1, -2)

@@ -424,10 +424,14 @@ def test_model(runs, setup, mode):
 
 
 def test_model_refuses_what_is_not_ported(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        setup["port"](setup["batch"], mode="train")
+    """The towers are not ported; training is (tests/test_torch_train2d3d.py),
+    and the DDIM needs its start."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pp.DiffReg2D3D(_port_cfg(use_dino=True), device="cpu")
+    with pytest.raises(ValueError, match="x_init"):
+        setup["port"](setup["batch"], mode="ddim")
+    with pytest.raises(KeyError):
+        setup["port"](setup["batch"], mode="sample")
 
 
 def test_fine_matching(runs, setup):
@@ -552,8 +556,16 @@ def test_tester_and_cache(runs, setup, tmp_path, monkeypatch):
     for key, val in ref_eval.items():
         if key != "scenes":
             assert got_eval[key] == pytest.approx(float(val), rel=1e-5, abs=1e-5), key
+    # the host PnP is not ported: refused where cv2 imports, the device PnP
+    # (with a warning) where it does not, as the JAX package's main falls back
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.TwoDThreeDTester(setup["port"], pt.Test2D3DConfig(pnp_backend="opencv"), device="cpu")
+    from diffreg_tpu_torch.eval import host_estimators
+
+    monkeypatch.setattr(host_estimators, "has_opencv", lambda: False)
+    fallback = pt.TwoDThreeDTester(setup["port"], pt.Test2D3DConfig(pnp_backend="opencv"),
+                                   device="cpu")
+    assert fallback.cfg.pnp_backend == "device"
 
 
 # ---------------------------------------------------------------- data

@@ -4,7 +4,10 @@ the CPU: test mode on the demo pairs and on an on-disk RGB-D Scenes V2 split
 with the JAX weights converted into a checkpoint of the port's and JAX's
 draws (the DDIM start, the PnP hypotheses of the tester and of
 ``eval_from_cache``) rebuilt from its keys. Both mains write the npz cache,
-so ``eval_from_cache`` is held too; and the port refuses what it lacks.
+so ``eval_from_cache`` is held too. A third run asks for the host PnP
+(``parity_eval``) with cv2 made to look missing, and for a fine threshold of
+0.5: both mains fall back to the device PnP and match at the tester's 0.75.
+The port refuses what it lacks.
 
 The JAX main's initial weights have both matchers' projections scaled by
 ``SHARPEN``: with plain random weights the confidences are near-uniform, the
@@ -40,12 +43,13 @@ def _two_threads():
     torch.set_num_threads(n)
 
 
-def _tiny_yaml(path, **extra):
+def _tiny_yaml(path, model=None, **extra):
     tree = {"dataset": "rgbdv2", "mode": "test", "exp_dir": "tiny2d3d", "batch_size": 2,
             "SAMPLE_STEP": 2, "eval": {"write_cache": True},
             "model_2d3d": {"img_out_dim": 32, "img_base_dim": 16, "pcd_init_dim": 16,
                            "pcd_output_dim": 32, "hidden_dim": 64, "output_dim": 64,
-                           "num_heads": 2, "pcd_num_points_in_patch": 32, **_TOWERS_OFF}}
+                           "num_heads": 2, "pcd_num_points_in_patch": 32, **_TOWERS_OFF,
+                           **(model or {})}}
     tree.update(extra)
     with open(path, "w") as f:
         yaml.safe_dump(tree, f)
@@ -169,20 +173,40 @@ def _same(got, ref, what):
         assert got[key] == pytest.approx(float(val), rel=1e-5, abs=1e-5), f"{what} {key}"
 
 
-@pytest.mark.parametrize("case", ["demo", "disk"])
+@pytest.mark.parametrize("case", ["demo", "disk", "parity-without-cv2"])
 def test_main_2d3d_matches_jax(tmp_path, monkeypatch, rng, case):
     """``main`` on a 2D-3D YAML against ``diffreg_tpu.main`` (test mode, two
-    batches of two pairs): the tester's summary and ``eval_from_cache``'s."""
+    batches of two pairs): the tester's summary and ``eval_from_cache``'s. The
+    parity case asks for the host estimators (``parity_eval``) on a machine
+    without cv2 (the availability check patched in both packages) and for a
+    fine threshold of 0.5: both mains run the device PnP and fine matching at
+    the tester's 0.75 and top 2."""
     import diffreg_tpu.main as jax_main
+    from diffreg_tpu.eval import host_estimators as jhe
+    from diffreg_tpu.ops import topk as jtopk
+    from diffreg_tpu.utils import precision as jprec
     from diffreg_tpu_torch.engine import tester2d3d as pt
+    from diffreg_tpu_torch.eval import host_estimators as phe
     from diffreg_tpu_torch.utils.config import load_yaml
 
     monkeypatch.chdir(tmp_path)
-    extra, argv = {}, []
-    if case == "demo":
-        argv = ["--demo", "--num-pairs", "4"]
-    else:
+    extra, argv = {}, ["--demo", "--num-pairs", "4"]
+    if case == "disk":
+        argv = []
         extra["data_root"] = _write_split(tmp_path / "rgbdv2", rng)
+    elif case == "parity-without-cv2":
+        extra.update(parity_eval=True, model={"fine_threshold": 0.5, "fine_topk": 3})
+        for module in (jhe, phe):
+            monkeypatch.setattr(module, "has_opencv", lambda: False)
+        # parity_eval sets these switches of the JAX package: put them back after
+        monkeypatch.setattr(jtopk, "_EXACT", jtopk._EXACT)
+        monkeypatch.setattr(jprec, "_PRECISION", jprec._PRECISION)
+        testers = []
+
+        def init(self, model, cfg, *args, _orig=pt.TwoDThreeDTester.__init__, **kwargs):
+            _orig(self, model, cfg, *args, **kwargs)
+            testers.append(self.cfg)
+        monkeypatch.setattr(pt.TwoDThreeDTester, "__init__", init)
     run = _record_jax(monkeypatch)
     os.makedirs(tmp_path / "empty")
     jax_main.main(["--config", _tiny_yaml(tmp_path / "jax.yaml", exp_dir="jax",
@@ -197,6 +221,9 @@ def test_main_2d3d_matches_jax(tmp_path, monkeypatch, rng, case):
     got = main(["--config", _tiny_yaml(tmp_path / "port.yaml", exp_dir="port", pretrain=ckpt,
                                        **extra), *argv, "--device", "cpu"])
     assert got["pairs"] == run["summary"]["pairs"] == 4
+    if case == "parity-without-cv2":
+        (cfg,) = testers
+        assert (cfg.pnp_backend, cfg.fine_topk, cfg.fine_threshold) == ("device", 2, 0.75)
     _same({k: v for k, v in got.items() if k != "eval"}, run["summary"], "test")
     _same(got["eval"], run["eval"], "eval")
     if case == "disk":
@@ -231,10 +258,9 @@ def test_dataset_readers_match_jax(tmp_path, rng, kind, augment):
 
 
 def test_main_2d3d_rejects_what_is_not_ported(tmp_path, monkeypatch):
+    """The towers; the host PnP where cv2 imports (it does here); a metric run
+    on real data with random weights."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--config", _tiny_yaml(tmp_path / "a.yaml"), "--demo", "--mode", "train",
-              "--device", "cpu"])
     cfg = _tiny_yaml(tmp_path / "b.yaml")
     raw = yaml.safe_load(open(cfg))
     raw["model_2d3d"]["use_dino"] = True

@@ -331,13 +331,37 @@ def test_main_train_4dmatch_and_resume(tmp_path, monkeypatch):
 
 
 def test_main_rejects_what_the_port_lacks(tmp_path, monkeypatch):
+    """The host pose estimator where open3d imports (patched in: it does not
+    here), and the 2D-3D towers, in test and in train mode."""
+    from diffreg_tpu_torch.eval import host_estimators
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="2D-3D training"):
-        main(["--config", _tiny_yaml(tmp_path / "a.yaml", dataset="rgbdv2"), "--demo",
-              "--mode", "train", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="host_estimators"):
-        main(["--config", _tiny_yaml(tmp_path / "b.yaml", dataset="3dmatch", parity_eval=True),
-              "--demo", "--device", "cpu"])
+    monkeypatch.setattr(host_estimators, "has_open3d", lambda: True)
+    for change in ({"parity_eval": True}, {"eval": {"pose_backend": "open3d"}}):
+        with pytest.raises(NotImplementedError, match="host_estimators"):
+            main(["--config", _tiny_yaml(tmp_path / "b.yaml", dataset="3dmatch", **change),
+                  "--demo", "--device", "cpu"])
+    for mode in ("test", "train"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(["--config", _tiny_yaml(tmp_path / "a.yaml", dataset="rgbdv2",
+                                         model_2d3d={"use_dino": True}),
+                  "--demo", "--mode", mode, "--device", "cpu"])
+
+
+def test_main_falls_back_without_open3d(tmp_path, monkeypatch):
+    """``parity_eval`` asks for Open3D's RANSAC; without open3d the 3DMatch
+    test runs the device RANSAC with the JAX package's warning."""
+    from diffreg_tpu_torch.eval import host_estimators
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(host_estimators, "has_open3d", lambda: False)
+    summary = main(["--config", _tiny_yaml(tmp_path / "p.yaml", dataset="3dmatch",
+                                           exp_dir="parity", parity_eval=True),
+                    "--demo", "--num-pairs", "2", "--device", "cpu"])
+    _finite(summary, ("IR", "FMR", "RR"))
+    log = (tmp_path / "snapshot" / "parity" / "log.txt").read_text()
+    assert "eval.pose_backend=open3d but open3d is not installed — falling back to the " \
+        "device RANSAC" in log
 
 
 # ---------------------------------------------------------------- main() against diffreg_tpu.main

@@ -18,7 +18,8 @@ def _modules():
     return sorted(m.name for m in pkgutil.walk_packages([PACKAGE_DIR], "diffreg_tpu_torch."))
 
 
-# the CLI and 2D-3D slices' modules, named so that a missing one fails the import guard
+# the CLI and 2D-3D slices' modules (test, training), named so that a missing one
+# fails the import guard
 CLI_MODULES = ["diffreg_tpu_torch.main", "diffreg_tpu_torch.utils.config",
                "diffreg_tpu_torch.utils.snapshot", "diffreg_tpu_torch.engine.tester",
                "diffreg_tpu_torch.eval.metrics", "diffreg_tpu_torch.data.datasets",
@@ -28,7 +29,8 @@ CLI_MODULES = ["diffreg_tpu_torch.main", "diffreg_tpu_torch.utils.config",
                "diffreg_tpu_torch.nn.fusion", "diffreg_tpu_torch.models.pipeline_2d3d",
                "diffreg_tpu_torch.eval.pnp", "diffreg_tpu_torch.data.collate2d3d",
                "diffreg_tpu_torch.data.synthetic2d3d", "diffreg_tpu_torch.data.datasets2d3d",
-               "diffreg_tpu_torch.engine.tester2d3d"]
+               "diffreg_tpu_torch.engine.tester2d3d", "diffreg_tpu_torch.engine.losses2d3d",
+               "diffreg_tpu_torch.engine.train2d3d", "diffreg_tpu_torch.eval.host_estimators"]
 
 
 def test_every_module_imports_without_jax():
@@ -111,6 +113,10 @@ def test_cli_entry_points_need_a_device(monkeypatch, tmp_path):
                                                         "rgbdv2.yaml"), "--demo"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+    # the host estimators are refused where their library imports (patched in)
+    from diffreg_tpu_torch.eval import host_estimators
+
+    monkeypatch.setattr(host_estimators, "has_open3d", lambda: True)
     config = tmp_path / "open3d.yaml"
     config.write_text("dataset: 3dmatch\neval: {pose_backend: open3d}\n")
     with pytest.raises(NotImplementedError, match="host_estimators"):
