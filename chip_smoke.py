@@ -86,7 +86,8 @@ In order, it
      mask (up to near-ties) and the fine matches on the same coarse
      correspondences against the card's, and in backbone mode the coarse
      matcher's confidences and mask (up to near-ties, at most 1% of its
-     entries, with at least half of the real node rows free of a near-tie);
+     entries, with at least half of the real node rows free of a near-tie:
+     the DDIM's mask is held only up to near-ties, which cover its rows);
      holds PnP-RANSAC on the card and the CPU against pair 0's known pose
      (40% outlier pixels);
  15. runs ``diffreg_tpu_torch.main`` on configs/test/rgbdv2.yaml and
@@ -151,12 +152,14 @@ FINE_THR_2D3D = 0.0
 # both matchers' projections by SHARPEN_2D3D, which spreads them (~8k
 # entries). Each entry where the two masks differ must lie in a row or
 # column whose best two CPU confidences are within twice the confidence
-# limit. The DDIM's last Sinkhorn runs over x in [0, 1] and 4603 columns,
-# so with random weights its rows' best two stay that close whatever the
-# sharpening. The coarse matcher's confidences on the same pair and weights
-# (backbone mode) have margins: there at least TIE_FREE_ROWS_MIN of the real
-# node rows must be free of a near-tie, and at most MASK_DIFFER_SHARE of the
-# mask may differ. The fine matches are held on the same coarse
+# limit. With random weights the DDIM's final confidences are flat even so
+# (no real node row free of a near-tie), so the DDIM mask check excuses every
+# differing entry: the DDIM output is held by its confidence limit only, and
+# its tie-free share is printed (ROADMAP §3: open until trained weights). The
+# tie-free share and the cap hold the coarse matcher, not the DDIM output:
+# on the same pair and weights (backbone mode) at least TIE_FREE_ROWS_MIN of
+# the real node rows must be free of a near-tie, and at most
+# MASK_DIFFER_SHARE of its mask may differ. The fine matches are held on the same coarse
 # correspondences (the card's): the card's against the CPU's fine matching
 # of the CPU's features.
 SHARPEN_2D3D = 8.0
@@ -1524,9 +1527,8 @@ def run_2d3d(batch_cpu, spec, scenes, cfg, launches, gen):
         if agree["unexplained"]:
             raise AssertionError(f"2D-3D {name}: {agree['unexplained']} corr_mask entries differ "
                                  "outside near-ties")
-    # the DDIM's last Sinkhorn runs over x in [0, 1] and 4603 columns, so with
-    # random weights its rows are flat (no sharpening gives them margins); the
-    # coarse matcher's confidences have them, and carry the cap and the share
+    # the cap and the tie-free share hold the coarse matcher's mask, not the
+    # DDIM's: with random weights the DDIM's rows are all near-ties
     if not (coarse["differ"] <= coarse["cap"] and coarse["tie_free"] >= TIE_FREE_ROWS_MIN):
         raise AssertionError(f"2D-3D coarse matcher: {coarse['text']}")
     if not (len(fr) > 0 and fine_agree >= FINE_2D3D_AGREEMENT):

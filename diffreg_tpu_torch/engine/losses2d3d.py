@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from ..ops.masked import scatter_pairs
+from ..ops.masked import scatter_pairs as scatter_overlaps  # the JAX package's name
 from ..ops.vision import l2_normalize, pairwise_distance, render
 from .losses import LossConfig, focal_correspondence_loss
 
@@ -117,10 +117,6 @@ def fine_matching_loss(img_feats, img_points, img_pixels, pcd_feats, pcd_points_
     return loss, recall.to(fdist.dtype)
 
 
-# padded (node, patch, overlap) lists [B, Q] -> dense [B, n, m]
-scatter_overlaps = scatter_pairs
-
-
 def _rows(table, idx):
     """table [N, C] rows at idx [F] (index_select: an atomic backward on CUDA,
     where advanced indexing's backward sorts)."""
@@ -144,8 +140,7 @@ def fine_loss_from_batch(outputs, batch, cfg: FineLossConfig):
         cols["img_points"].append(_rows(batch.img_points[i], flat))
         cols["pcd_feats"].append(l2_normalize(_rows(pcd_f[i], pidx)))
         cols["pcd_points"].append(_rows(pts_cam, pidx))
-        cols["pcd_pixels"].append(render(cols["pcd_points"][-1], batch.intrinsics[i],
-                                         rounding=False)[0])
+        cols["pcd_pixels"].append(render(cols["pcd_points"][-1], batch.intrinsics[i])[0])
     s = {k: torch.stack(v) for k, v in cols.items()}
     losses, recalls = fine_matching_loss(
         s["img_feats"], s["img_points"], batch.fine_pixels.to(img_f.dtype), s["pcd_feats"],
@@ -154,12 +149,11 @@ def fine_loss_from_batch(outputs, batch, cfg: FineLossConfig):
 
 
 def loss_2d3d(outputs, circle_cfg: CircleLossConfig, focal_cfg: LossConfig, batch=None,
-              fine_cfg: FineLossConfig | None = None, weight_coarse: float = 1.0,
-              weight_fine: float = 1.0):
+              fine_cfg: FineLossConfig | None = None):
     """Total 2D-3D training loss -> (loss, info of 0-d tensors).
 
-    ``weight_coarse * (circle + gt_hat) + weight_fine * fine``, as the
-    reference's OverallLoss; the focal loss on ``conf_matrix_pred`` is logged,
+    ``circle + gt_hat + fine``, as the reference's OverallLoss at its default
+    weights (1); the focal loss on ``conf_matrix_pred`` is logged,
     not added. The circle loss's positives (sqrt-scaled) and negatives both
     come from the MIN overlap ratio (the reference aliases the max overlaps to
     the min ones); without overlap pairs in the batch the binary GT matrix
@@ -181,10 +175,10 @@ def loss_2d3d(outputs, circle_cfg: CircleLossConfig, focal_cfg: LossConfig, batc
     l_gt_hat = focal_correspondence_loss(outputs["conf_matrix_gt_hat"], matrix_gt, valid,
                                          focal_cfg)
     info = {"circle": l_circle, "focal": l_focal, "gt_hat": l_gt_hat}
-    total = weight_coarse * (l_circle + l_gt_hat)
+    total = l_circle + l_gt_hat
     if fine_cfg is not None and batch is not None and batch.fine_valid is not None:
         l_fine, recall = fine_loss_from_batch(outputs, batch, fine_cfg)
-        total = total + weight_fine * l_fine
+        total = total + l_fine
         info.update({"fine": l_fine, "fine_recall": recall})
     info["loss"] = total
     return total, info

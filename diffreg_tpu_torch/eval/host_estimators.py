@@ -17,17 +17,10 @@ _BACKENDS = {"open3d": ("pose_backend", "open3d", "device RANSAC"),
              "opencv": ("pnp_backend", "cv2", "device PnP")}
 
 
-def has_open3d() -> bool:
+def has_module(name: str) -> bool:
+    """Whether the library ``name`` (an import name of ``_BACKENDS``) imports."""
     try:
-        import open3d  # noqa: F401
-        return True
-    except ImportError:
-        return False
-
-
-def has_opencv() -> bool:
-    try:
-        import cv2  # noqa: F401
+        __import__(name)
         return True
     except ImportError:
         return False
@@ -42,8 +35,7 @@ def resolve_backend(backend: str, logger=None) -> str:
     if backend not in _BACKENDS:
         raise ValueError(f"unknown estimator backend {backend!r} (device, open3d or opencv)")
     key, library, fallback = _BACKENDS[backend]
-    available = has_open3d() if backend == "open3d" else has_opencv()
-    if available:
+    if has_module(library):
         raise NotImplementedError(
             f"eval.{key}={backend}: the host estimators (eval/host_estimators.py of the JAX "
             "package) are not ported yet (ROADMAP §1 item 6); use the device estimator")

@@ -11,7 +11,7 @@ MATR2D3D), without the frozen towers (``use_dino``, ``use_mono_depth``):
     each image patch's centre is the mean of its valid stride-2 pixels;
   * mode "backbone": the fusion transformer and coarse matcher once, then the
     top-1 union correspondence mask;
-  * mode "train": the same coarse pass; the GT matrix noised at passed-in
+  * ``train_forward``: the same coarse pass; the GT matrix noised at passed-in
     timesteps with a passed-in normal draw, the node warp from it (Sinkhorn
     and soft Procrustes, differentiated) and the denoising fusion and matcher;
   * mode "ddim": the same coarse pass, then the deterministic DDIM loop from
@@ -271,12 +271,9 @@ class DiffReg2D3D(nn.Module):
         return out
 
     def forward(self, batch: Batch2D3D, mode: str = "ddim",
-                x_init: Optional[torch.Tensor] = None, t=None, noise=None) -> dict:
-        """mode "ddim" (needs ``x_init`` [B, N, M], N(0, 1)), "backbone", or
-        "train" (needs ``t`` and ``noise``: ``train_forward``). The first two
-        run without a graph."""
-        if mode == "train":
-            return self.train_forward(batch, t, noise)
+                x_init: Optional[torch.Tensor] = None) -> dict:
+        """mode "ddim" (needs ``x_init`` [B, N, M], N(0, 1)) or "backbone",
+        without a graph; training goes through ``train_forward``."""
         if mode not in ("ddim", "backbone"):
             raise KeyError(mode)
         if mode == "ddim" and x_init is None:

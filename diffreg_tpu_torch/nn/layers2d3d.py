@@ -30,6 +30,25 @@ def leaky2d3d(x):
     return F.leaky_relu(x, negative_slope=0.2)
 
 
+class _ReLU(torch.autograd.Function):
+    """ReLU with jax.nn.relu's derivative: the gradient passes where x > 0 and
+    is 0 elsewhere, at a NaN x too (torch's relu passes a NaN x's gradient
+    on). A non-finite train step then zeroes the same gradient entries in both
+    packages. relu(x) > 0 exactly where x > 0 (relu(NaN) is NaN), so the
+    output is what the backward keeps, as torch's relu keeps it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.relu(x)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (out,) = ctx.saved_tensors
+        return torch.where(out > 0, grad, torch.zeros_like(grad))
+
+
 def optimal_groups(num_channels: int) -> int:
     """vision3d's GroupNorm groups: at most 32, at least 8 channels a group,
     dividing the channels; 1 when nothing fits (tiny test widths)."""
@@ -122,7 +141,7 @@ class AttentionOutput(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, x):
-        return self.norm(x + self.squeeze(F.relu(self.expand(x))))
+        return self.norm(x + self.squeeze(_ReLU.apply(self.expand(x))))
 
 
 class TransformerLayer(nn.Module):

@@ -58,12 +58,10 @@ def back_project(depth, intrinsics, depth_limit=6.0, depth_min=0.0):
     return pts, (d > depth_min) & (d <= depth_limit)
 
 
-def render(points, intrinsics, extrinsics=None, rounding=True):
-    """Project points [N, 3] (camera frame, or world frame under the world ->
-    camera ``extrinsics`` [4, 4]) to pixels -> (pixels [N, 2] (v, u), depth
-    [N], in front [N]). A point at depth <= 1e-6 is divided by 1 instead."""
-    if extrinsics is not None:
-        points = points @ extrinsics[:3, :3].T + extrinsics[:3, 3]
+def render(points, intrinsics):
+    """Project camera-frame points [N, 3] to unrounded pixels -> (pixels
+    [N, 2] (v, u), depth [N], in front [N]): the JAX package's render with
+    ``rounding=False``. A point at depth <= 1e-6 is divided by 1 instead."""
     fx, fy = intrinsics[0, 0], intrinsics[1, 1]
     cx, cy = intrinsics[0, 2], intrinsics[1, 2]
     z = points[:, 2]
@@ -71,8 +69,6 @@ def render(points, intrinsics, extrinsics=None, rounding=True):
     zs = torch.where(in_front, z, torch.ones_like(z))
     u = points[:, 0] / zs * fx + cx
     v = points[:, 1] / zs * fy + cy
-    if rounding:
-        u, v = torch.round(u), torch.round(v)
     return torch.stack([v, u], dim=-1), z, in_front
 
 

@@ -562,7 +562,7 @@ def test_tester_and_cache(runs, setup, tmp_path, monkeypatch):
         pt.TwoDThreeDTester(setup["port"], pt.Test2D3DConfig(pnp_backend="opencv"), device="cpu")
     from diffreg_tpu_torch.eval import host_estimators
 
-    monkeypatch.setattr(host_estimators, "has_opencv", lambda: False)
+    monkeypatch.setattr(host_estimators, "has_module", lambda name: False)
     fallback = pt.TwoDThreeDTester(setup["port"], pt.Test2D3DConfig(pnp_backend="opencv"),
                                    device="cpu")
     assert fallback.cfg.pnp_backend == "device"

@@ -196,8 +196,9 @@ def test_main_2d3d_matches_jax(tmp_path, monkeypatch, rng, case):
         extra["data_root"] = _write_split(tmp_path / "rgbdv2", rng)
     elif case == "parity-without-cv2":
         extra.update(parity_eval=True, model={"fine_threshold": 0.5, "fine_topk": 3})
-        for module in (jhe, phe):
-            monkeypatch.setattr(module, "has_opencv", lambda: False)
+        monkeypatch.setattr(jhe, "has_opencv", lambda: False)
+        monkeypatch.setattr(phe, "has_module",
+                            lambda name, real=phe.has_module: name != "cv2" and real(name))
         # parity_eval sets these switches of the JAX package: put them back after
         monkeypatch.setattr(jtopk, "_EXACT", jtopk._EXACT)
         monkeypatch.setattr(jprec, "_PRECISION", jprec._PRECISION)

@@ -336,7 +336,7 @@ def test_main_rejects_what_the_port_lacks(tmp_path, monkeypatch):
     from diffreg_tpu_torch.eval import host_estimators
 
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(host_estimators, "has_open3d", lambda: True)
+    monkeypatch.setattr(host_estimators, "has_module", lambda name: True)
     for change in ({"parity_eval": True}, {"eval": {"pose_backend": "open3d"}}):
         with pytest.raises(NotImplementedError, match="host_estimators"):
             main(["--config", _tiny_yaml(tmp_path / "b.yaml", dataset="3dmatch", **change),
@@ -354,7 +354,7 @@ def test_main_falls_back_without_open3d(tmp_path, monkeypatch):
     from diffreg_tpu_torch.eval import host_estimators
 
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(host_estimators, "has_open3d", lambda: False)
+    monkeypatch.setattr(host_estimators, "has_module", lambda name: False)
     summary = main(["--config", _tiny_yaml(tmp_path / "p.yaml", dataset="3dmatch",
                                            exp_dir="parity", parity_eval=True),
                     "--demo", "--num-pairs", "2", "--device", "cpu"])

@@ -116,7 +116,7 @@ def test_cli_entry_points_need_a_device(monkeypatch, tmp_path):
     # the host estimators are refused where their library imports (patched in)
     from diffreg_tpu_torch.eval import host_estimators
 
-    monkeypatch.setattr(host_estimators, "has_open3d", lambda: True)
+    monkeypatch.setattr(host_estimators, "has_module", lambda name: True)
     config = tmp_path / "open3d.yaml"
     config.write_text("dataset: 3dmatch\neval: {pose_backend: open3d}\n")
     with pytest.raises(NotImplementedError, match="host_estimators"):
