@@ -1,13 +1,14 @@
-"""Drive the PyTorch port's 3DMatch registration and training, its 4DMatch
-registration, its 2D-3D registration and training and its CLI on one CUDA
-card.
+"""Drive the PyTorch port's 3DMatch registration (f32 and the bf16 fast path)
+and training, its 4DMatch registration, its 2D-3D registration and training
+and its CLI on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
 In order, it
-  1. prints the card's name and power limit (nvidia-smi);
+  1. prints the card's name and power limit (nvidia-smi); with
+     CHIP_SMOKE_LOG set, it also writes its whole output to that file;
   2. builds the port's CUDA kernels (nvcc, sm_90a) from csrc/ and prints the
      build seconds and ptxas' register/shared-memory report;
   3. holds each kernel against its plain PyTorch version on the card, at the
@@ -43,6 +44,18 @@ In order, it
   8. takes one train step of one pair on the card and on the CPU from the
      same weights and draws and compares the loss, every gradient and the
      parameters after the SGD step;
+ 8b. the bf16 fast path (compute_dtype bfloat16, precision default, as
+     configs/test/3dmatch_fast.yaml sets them): each kernel's bf16 instance
+     against its plain bf16 version (KPConv at the 11 layers of a bf16 encode
+     on the activations it feeds them, attention at the 3DMatch self and
+     cross shapes, D = 108, and at the 4DMatch shapes, D = 132), timed beside
+     the plain version and, for attention, SDPA in bf16; the bf16 DDIM path
+     at full width, gate 0 and 40, one warm-up and three timed runs (pairs/s
+     beside the f32 path's of phase 4, peak memory), 11 bf16 KPConv and 180
+     bf16 attention launches asserted per run and no f32 kernel launch;
+     pair 0 against the port's CPU run in bf16 (confidences, poses, the
+     union mask up to near-ties; the card's bf16-vs-f32 gap printed); and
+     ``diffreg_tpu_torch.main`` on configs/test/3dmatch_fast.yaml with --demo;
   9. runs the 4DMatch path at full width through FourDMatchTester
      (preset_4dmatch: 528-dim, 4 heads of 132, gate 40, stochastic DDIM with
      20 steps) on 4 deformable pairs of 4096 points at scene scale 1/3, at the
@@ -106,6 +119,10 @@ In order, it
      in a gap wider than the two devices' difference there); and
      ``diffreg_tpu_torch.main --mode train`` on configs/train/rgbdv2.yaml
      with that split (one epoch), its loss terms and checkpoint checked;
+     then the test split's pair 0 on trained weights: 200 Adam steps on it,
+     each checked, and the share of real node rows of its DDIM output free
+     of a near-tie printed after 0, 50, 100 and 200 (ROADMAP §3: the DDIM
+     mask check waits for that share to reach TIE_FREE_ROWS_MIN);
  17. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
@@ -185,6 +202,7 @@ KEY_BIAS_TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS_PER_S = 495e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # the bf16 instances' matrix products
 # kernel vs plain version on the card: both sum in f32, in different orders;
 # KPConv sums up to K * P * Cin = 307,200 products per output
 KPCONV_REL_TOL = 1e-4      # of max |plain output|
@@ -214,6 +232,26 @@ GRAD_MEDIAN_TOL = 5e-3     # median of that over the trained tensors (measured 6
 GRAD_GLOBAL_TOL = 1e-2     # ||card - CPU|| / ||CPU|| over all gradients together (1.4e-3)
 PARAM_ABS_TOL = 1e-4       # parameters after the SGD step (lr 0.015)
 CUT_GAP_MIN = 1e-7         # soft Procrustes' top-k cut must not fall on a near-tie
+# the bf16 fast path (compute_dtype bfloat16, precision default): each bf16
+# instance against its plain bf16 version, whose roundings it shares; they
+# differ where f32 sums in another order land on the other side of a bf16
+# rounding, each such flip moving an entry by 2^-8 of itself. KPConv's flips
+# are in its inner sums (measured at most 3.3e-4 of max |plain|, the first
+# layer); attention's in its bf16 output itself, one ulp of an entry
+# (measured 3.7e-3)
+KPCONV_BF16_REL_TOL = 2e-3     # of max |plain output|
+ATTENTION_BF16_REL_TOL = 1e-2  # of max |plain output|
+# pair 0 of the bf16 DDIM, card (kernels) against CPU (plain bf16 versions):
+# the confidences relative to their largest (measured 1.1e-3; the card's f32
+# path is 4.3e-3 away), the union mask's agreement (measured 0.99975: 64 of
+# 253,967 entries, near-ties flipped by those differences) and no difference
+# outside a near-tie, the pose solve on the same confidences (measured
+# 1.3e-6 against POSE_ABS_TOL; bf16_pair_check)
+CONF_BF16_REL_TOL = 5e-3
+MASK_BF16_AGREEMENT = 0.999
+# 2D-3D pair 0's DDIM on trained weights (ROADMAP §3): Adam steps on that pair,
+# the tie-free share printed at each count
+MASK_TRAIN_STEPS_2D3D = (0, 50, 100, 200)
 # With random weights the 4DMatch sigmoid confidences sit just above 0.5, so
 # the protocol's threshold 0.55 extracts no match; the 4DMatch phase and the
 # CLI's on-disk run extract at 0.5 (the mutual-argmax matches), so that IR
@@ -229,8 +267,13 @@ METRIC_4D_ABS_TOL = 1e-2   # IR and NFMR: a flipped match moves IR by 1/n_corr
 NO_GRADIENT = "coarse_transformer.layers.2.0."
 
 
+LOG_FILES = []  # the file named by CHIP_SMOKE_LOG, opened by main()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    for f in LOG_FILES:
+        print(msg, file=f, flush=True)
 
 
 def time_cuda(fn, iters: int, warmup: int = 2) -> float:
@@ -259,27 +302,34 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def bound_ms(nbytes: float, mma_flops: float, f32_flops: float):
+def bound_ms(nbytes: float, mma_flops: float, f32_flops: float,
+             mma_rate: float = TF32_FLOPS_PER_S):
     """Least time for the work: bytes at the memory rate, matrix-product flops
-    at the dense TF32 tensor-core rate, the other flops at the f32 rate; the
-    units run side by side, so the largest of the three. 3xTF32 spends three
-    tensor-core products per f32 product, so it can reach at most a third of
-    this bound where the products set it."""
+    at the dense tensor-core rate of their type (TF32 for the f32 kernels,
+    whose 3xTF32 spends three tensor-core products per f32 product and so
+    reaches at most a third of this bound where the products set it; bf16 for
+    the bf16 instances), the other flops at the f32 rate; the units run side
+    by side, so the largest of the three."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(mma_flops / TF32_FLOPS_PER_S, f32_flops / F32_FLOPS_PER_S)
+    t_ops = max(mma_flops / mma_rate, f32_flops / F32_FLOPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kpconv_work(q, s, inds, x, w):
-    """(bytes, matrix-product flops, other flops) of one KPConv call on these inputs."""
+def kpconv_work(q, s, inds, x, w, bf16=False):
+    """(bytes, matrix-product flops, other flops) of one KPConv call on these
+    inputs; ``bf16``: the bf16 instance's, whose support table (hi, lo,
+    features) and weights are bf16."""
     b, nq, k = inds.shape
     ns, cin = x.shape[1], x.shape[2]
     p, _, cout = w.shape
     real = inds < ns                                   # non-sentinel neighbors
     n_nb = int(real.sum())
     n_q = int(real.any(dim=-1).sum())
-    nbytes = 4 * (q.numel() + s.numel() + inds.numel() + x.numel() + p * 3 + w.numel()
-                  + b * nq * cout)
+    nbytes = 4 * (q.numel() + inds.numel() + p * 3 + b * nq * cout)
+    if bf16:
+        nbytes += 2 * (b * (ns + 1) * (6 + cin) + w.numel())
+    else:
+        nbytes += 4 * (s.numel() + x.numel() + w.numel())
     # per neighbor: offset and norm (8), per kernel point distance + influence
     # (13), feature-sum test (Cin), influence x features (2 P Cin);
     # per query: the division, and the [P Cin] x Cout contraction (the product)
@@ -291,7 +341,7 @@ def attention_work(q, k, kv_mask):
     b, h, l, d = q.shape
     s = k.shape[2]
     valid_keys = float(kv_mask.sum())                 # summed over the batch
-    nbytes = 4 * (2 * q.numel() + 2 * k.numel()) + kv_mask.numel()
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) + kv_mask.numel()
     # QK^T and PV are the products; exp, sum and scale the rest
     return nbytes, h * l * valid_keys * 4 * d, h * l * valid_keys * 3
 
@@ -325,13 +375,25 @@ def kpconv_layer_calls(model, run, module_type):
     return calls
 
 
-def check_kpconv(calls, n_calls, per, tag=""):
+def check_kpconv(calls, n_calls, per, tag="", bf16=False):
     """Kernel vs plain KPConv at every distinct layer of ``calls`` (the inputs
-    the backbone really feeds each layer). Returns the kernel's JSON entry and
-    the distinct layers {(nq, ns, k, cin, cout): (inputs, calls)}."""
+    the backbone really feeds each layer); ``bf16``: the bf16 instance against
+    the plain bf16 version. Returns the kernel's JSON entry and the distinct
+    layers {(nq, ns, k, cin, cout): (inputs, calls)}."""
     import torch
 
-    from diffreg_tpu_torch.ops.kpconv import kpconv, kpconv_cuda
+    from diffreg_tpu_torch.ops.kpconv import (kpconv, kpconv_bf16_plain, kpconv_bf16_table,
+                                              kpconv_cuda, kpconv_cuda_bf16)
+
+    if bf16:
+        # the kernel's own inputs (the bf16 table and weights), built once a shape
+        def kernel(q, s, inds, x, kp, w, extent):
+            return kpconv_cuda_bf16(q, tables[id(x)], inds, kp, weights[id(w)], extent)
+        counted, plain, limit = kpconv_cuda_bf16, kpconv_bf16_plain, KPCONV_BF16_REL_TOL
+        tables = {id(a[3]): kpconv_bf16_table(a[1], a[3]) for a in calls}
+        weights = {id(a[5]): a[5].to(torch.bfloat16).contiguous() for a in calls}
+    else:
+        kernel, counted, plain, limit = kpconv_cuda, kpconv_cuda, kpconv, KPCONV_REL_TOL
 
     if len(calls) != n_calls:
         raise AssertionError(f"expected {n_calls} KPConv calls per encode, saw {len(calls)}")
@@ -345,36 +407,41 @@ def check_kpconv(calls, n_calls, per, tag=""):
     with torch.inference_mode():
         for (nq, ns, k, cin, cout), (args, count) in shapes.items():
             q, s, inds, x, _, w, _ = args
-            before = kpconv_cuda.launches
-            got = kpconv_cuda(*args)
-            ref = kpconv(*args)
+            before = counted.launches
+            got = kernel(*args)
+            ref = plain(*args)
             torch.cuda.synchronize()
-            assert kpconv_cuda.launches == before + 1
+            assert counted.launches == before + 1
             err = float((got - ref).abs().max())
             scale = float(ref.abs().max())
-            if not math.isfinite(err) or err > KPCONV_REL_TOL * max(scale, 1.0):
-                raise AssertionError(f"kpconv {nq}/{ns}/{k}/{cin}->{cout}: max abs err {err} "
-                                     f"(max |plain| {scale})")
+            allowed = limit * (scale if bf16 else max(scale, 1.0))
+            if not math.isfinite(err) or err > allowed:
+                raise AssertionError(f"kpconv{tag} {nq}/{ns}/{k}/{cin}->{cout}: max abs err "
+                                     f"{err} (max |plain| {scale})")
             worst = max(worst, err)
-            ms = time_cuda(lambda: kpconv_cuda(*args), 20)
-            plain = time_cuda(lambda: kpconv(*args), 3, warmup=1)
-            work = kpconv_work(q, s, inds, x, w)
-            bms, by = bound_ms(*work)
-            tensor_cores = cin >= 64 and cin % 32 == 0 and k <= 40 and cout in (64, 128, 256, 512)
+            ms = time_cuda(lambda: kernel(*args), 20)
+            plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
+            work = kpconv_work(q, s, inds, x, w, bf16)
+            bms, by = bound_ms(*work, BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
+            tensor_cores = (cin >= (32 if bf16 else 64) and cin % 32 == 0 and k <= 40
+                            and cout in (64, 128, 256, 512))
             path = "tensor cores" if tensor_cores else "CUDA cores"
             per_shape.append({"nq": nq, "ns": ns, "k": k, "cin": cin, "cout": cout,
-                              "calls": count, "path": path, "ms": ms, "plain_ms": plain,
+                              "calls": count, "path": path, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                               "max_abs_plain": scale})
             log(f"kpconv{tag} {nq}/{ns}/K{k}/{cin}->{cout} x{count} ({path}): err {err:.3e} "
-                f"(limit {KPCONV_REL_TOL * max(scale, 1.0):.3e}) kernel {ms:.4f} ms plain "
-                f"{plain:.4f} ms bound {bms:.4f} ms ({by})")
+                f"= {err / max(scale, 1e-30):.3e} of max |plain| (limit {allowed:.3e}) kernel "
+                f"{ms:.4f} ms plain "
+                f"{plain_ms:.4f} ms bound {bms:.4f} ms ({by})")
             totals["ms"] += count * ms
-            totals["plain_ms"] += count * plain
+            totals["plain_ms"] += count * plain_ms
             for key, val in zip(("bytes", "mma_flops", "flops"), work):
                 totals[key] += count * val
-    bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"])
-    entry = {"name": "kpconv", "route": "cuda", "source": "diffreg_tpu_torch/csrc/kpconv.cu",
+    bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"],
+                       BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
+    entry = {"name": "kpconv_bf16" if bf16 else "kpconv", "route": "cuda",
+             "source": "diffreg_tpu_torch/csrc/kpconv.cu",
              "replaces": "diffreg_tpu/ops/pallas/kpconv_kernel.py:38",
              "launches": None, "max_abs_err": worst, "ms": totals["ms"],
              "plain_ms": totals["plain_ms"], "bound_ms": bms, "bound_by": by,
@@ -407,14 +474,25 @@ def attention_cases(batch, cfg):
     return cases + [("cross", s, tgt_mask, n_cross), ("cross_back", t, src_mask, n_cross)]
 
 
-def check_attention(batch, cfg, gen, tag=""):
+def check_attention(batch, cfg, gen, tag="", bf16=False):
     """Kernel vs plain attention at the denoiser's shapes (``attention_cases``)
-    with the batch's key masks; times scaled_dot_product_attention as the
-    yardstick. Returns the kernel's JSON entry (totals per DDIM step of ``cfg``)."""
+    with the batch's key masks; times scaled_dot_product_attention (in the
+    same dtype) as the yardstick. ``bf16``: the bf16 instance on bf16 q, k, v
+    against the plain bf16 version, the error relative to the largest plain
+    entry. Returns the kernel's JSON entry (totals per DDIM step of ``cfg``)."""
     import torch
     import torch.nn.functional as F
 
-    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_plain
+    from diffreg_tpu_torch.ops.attention import (masked_attention_bf16_plain,
+                                                 masked_attention_cuda,
+                                                 masked_attention_cuda_bf16,
+                                                 masked_attention_plain)
+
+    if bf16:
+        kernel, plain, dtype = masked_attention_cuda_bf16, masked_attention_bf16_plain, \
+            torch.bfloat16
+    else:
+        kernel, plain, dtype = masked_attention_cuda, masked_attention_plain, torch.float32
 
     h = cfg.coarse_transformer.n_head
     d = cfg.coarse_transformer.feature_dim // h
@@ -426,40 +504,46 @@ def check_attention(batch, cfg, gen, tag=""):
     with torch.inference_mode():
         for name, length, kv_mask, calls in cases:
             bb, keys = kv_mask.shape
-            q = torch.randn(bb, h, length, d, generator=gen).cuda()
-            k, v = (torch.randn(bb, h, keys, d, generator=gen).cuda() for _ in range(2))
+            q = torch.randn(bb, h, length, d, generator=gen).to("cuda", dtype)
+            k, v = (torch.randn(bb, h, keys, d, generator=gen).to("cuda", dtype)
+                    for _ in range(2))
             kv_mask = kv_mask.contiguous()
-            before = masked_attention_cuda.launches
-            got = masked_attention_cuda(q, k, v, kv_mask, scale)
-            ref = masked_attention_plain(q, k, v, kv_mask, scale)
+            before = kernel.launches
+            got = kernel(q, k, v, kv_mask, scale)
+            ref = plain(q, k, v, kv_mask, scale)
             torch.cuda.synchronize()
-            assert masked_attention_cuda.launches == before + 1
-            err = float((got - ref).abs().max())
-            if not math.isfinite(err) or err > ATTENTION_ABS_TOL:
-                raise AssertionError(f"attention {name}: max abs err {err}")
+            assert kernel.launches == before + 1 and got.dtype == dtype
+            err = float((got.float() - ref.float()).abs().max())
+            limit = ATTENTION_BF16_REL_TOL * float(ref.float().abs().max()) if bf16 \
+                else ATTENTION_ABS_TOL
+            if not math.isfinite(err) or err > limit:
+                raise AssertionError(f"attention {name}{tag}: max abs err {err} (limit {limit})")
             worst = max(worst, err)
             lib_mask = kv_mask[:, None, None, :]
             lib = F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask, scale=scale)
-            lib_err = float((lib - ref).abs().max())
-            ms = time_cuda(lambda: masked_attention_cuda(q, k, v, kv_mask, scale), 20)
-            plain = time_cuda(lambda: masked_attention_plain(q, k, v, kv_mask, scale), 10)
+            lib_err = float((lib.float() - ref.float()).abs().max())
+            ms = time_cuda(lambda: kernel(q, k, v, kv_mask, scale), 20)
+            plain_ms = time_cuda(lambda: plain(q, k, v, kv_mask, scale), 10)
             lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=lib_mask, scale=scale), 20)
             nbytes, mma_flops, flops = attention_work(q, k, kv_mask)
-            bms, by = bound_ms(nbytes, mma_flops, flops)
+            rate = BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S
+            bms, by = bound_ms(nbytes, mma_flops, flops, rate)
             per_shape.append({"case": name + tag, "b": bb, "h": h, "l": length, "s": keys, "d": d,
-                              "calls": calls, "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
-                              "bound_ms": bms, "bound_by": by, "max_abs_err": err,
-                              "library_max_abs_err": lib_err})
-            log(f"attention {name}{tag} [{bb},{h},{length}x{keys},{d}] x{calls}: err {err:.3e} "
-                f"(limit {ATTENTION_ABS_TOL:.1e}) kernel "
-                f"{ms:.4f} ms plain {plain:.4f} ms sdpa {lib_ms:.4f} ms (err {lib_err:.3e}) "
+                              "calls": calls, "ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                              "max_abs_err": err, "library_max_abs_err": lib_err})
+            log(f"attention{' bf16' if bf16 else ''} {name}{tag} [{bb},{h},{length}x{keys},{d}] "
+                f"x{calls}: err {err:.3e} = {err / float(ref.float().abs().max()):.3e} of max "
+                f"|plain| (limit {limit:.1e}) kernel {ms:.4f} ms plain "
+                f"{plain_ms:.4f} ms sdpa {lib_ms:.4f} ms (err {lib_err:.3e}) "
                 f"bound {bms:.4f} ms ({by})")
-            for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib_ms),
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                              ("bytes", nbytes), ("mma_flops", mma_flops), ("flops", flops)):
                 totals[key] += calls * val
-    bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"])
-    return {"name": "masked_attention", "route": "cuda",
+    bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"],
+                       BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
+    return {"name": "masked_attention_bf16" if bf16 else "masked_attention", "route": "cuda",
             "source": "diffreg_tpu_torch/csrc/attention.cu",
             "replaces": "diffreg_tpu/ops/pallas/attention_kernel.py:24",
             "launches": None, "max_abs_err": worst, "ms": totals["ms"],
@@ -1085,6 +1169,170 @@ def run_cli(repo, pairs4, meta4, launches):
             os.chdir(cwd)
 
 
+# ---------------------------------------------------------------- bf16
+
+
+def bf16_pair_check(got, ref, f32, one, cpu_model, tag):
+    """Pair 0 of the card's bf16 DDIM against the CPU's (the same roundings,
+    so they differ where f32 sums in another order flip a bf16 rounding):
+    the confidences within CONF_BF16_REL_TOL of the largest; the union mask
+    agreeing on MASK_BF16_AGREEMENT of the valid entries, and differing only in
+    rows or columns whose best two CPU confidences lie within twice that
+    limit (near-ties); the pose solve on the card's confidences against the
+    CPU's solve of the same confidences within POSE_ABS_TOL. With random
+    weights the confidences are near-uniform, so soft Procrustes amplifies
+    their card-vs-CPU difference into the end-to-end pose: that gap, and the
+    card's bf16-vs-f32 gaps, are printed beside the limits."""
+    import torch
+
+    valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
+    conf = ref["conf_matrix_pred"]
+    top = float(conf[valid].max())
+    limit = CONF_BF16_REL_TOL * top
+    card = got["conf_matrix_pred"][:1].cpu()
+    conf_err = float((card - conf).abs()[valid].max())
+    f32_gap = float((card - f32["conf_matrix_pred"][:1].cpu()).abs()[valid].max())
+    pose_gap = lambda a, b: max(float((a[k][:1].cpu() - b[k][:1].cpu()).abs().max())  # noqa: E731
+                                for k in ("rotation_pred", "translation_pred"))
+    solve = cpu_model._pose(card, ref["s_pcd"], ref["t_pcd"], one.src_mask, one.tgt_mask)
+    solve_err = pose_gap(got, {"rotation_pred": solve.rotation,
+                               "translation_pred": solve.translation})
+    c = torch.where(valid, conf, torch.full_like(conf, -1.0))
+    top_r, top_c = c.topk(2, dim=2).values, c.topk(2, dim=1).values
+    row_tie = (top_r[..., 0] - top_r[..., 1]) <= 2 * limit                    # [1, S]
+    col_tie = (top_c[:, 0] - top_c[:, 1]) <= 2 * limit                        # [1, T]
+    differ = (got["corr_mask"][:1].cpu() != ref["corr_mask"]) & valid
+    agree = 1.0 - float(differ.sum()) / float(valid.sum())
+    unexplained = int((differ & ~(row_tie[:, :, None] | col_tie[:, None, :])).sum())
+    real = one.src_mask[0]
+    tie_free = float((~row_tie[0] & real).sum()) / max(int(real.sum()), 1)
+    log(f"bf16 card vs CPU {tag}: conf {conf_err:.3e} (limit {limit:.3e}, max conf {top:.3e}; "
+        f"card bf16 vs card f32 {f32_gap:.3e}); corr_mask agreement {agree:.6f} (limit "
+        f"{MASK_BF16_AGREEMENT}), {int(differ.sum())} of {int(valid.sum())} entries differ, "
+        f"{unexplained} outside a near-tie (limit 0), real rows free of a near-tie "
+        f"{tie_free:.4f}; pose solve on the card's confidences vs the CPU's {solve_err:.3e} "
+        f"(limit {POSE_ABS_TOL:.0e}); end-to-end pose card vs CPU {pose_gap(got, ref):.3e}, "
+        f"card bf16 vs f32 {pose_gap(got, f32):.3e}")
+    if not (conf_err <= limit and agree >= MASK_BF16_AGREEMENT and unexplained == 0
+            and solve_err <= POSE_ABS_TOL):
+        raise AssertionError(f"bf16 {tag}: conf {conf_err}, mask agreement {agree}, "
+                             f"{unexplained} entries outside a near-tie, pose solve {solve_err}")
+
+
+def run_bf16(repo, batch, batch_cpu, spec, x_init, u, f32_ref, batch4_cpu, gen, launches):
+    """Phase 8b, the bf16 fast path (configs/test/3dmatch_fast.yaml): each
+    bf16 instance against its plain bf16 version at the main path's shapes
+    (KPConv at the 11 layers of a bf16 encode, attention at the 3DMatch self
+    and cross shapes, D = 108, and the 4DMatch ones, D = 132), with SDPA in
+    bf16 as the attention yardstick; the bf16 DDIM at full width, gate 0 and
+    40 (one warm-up and three timed runs, the bf16 launches asserted and no
+    f32 kernel launched), pair 0 against the CPU, and ``main`` on
+    3dmatch_fast.yaml with --demo. Returns the two kernels' JSON entries and
+    pairs/s per gate."""
+    import tempfile
+
+    import torch
+
+    from diffreg_tpu_torch.eval.register import register
+    from diffreg_tpu_torch.main import main as cli
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.models.presets import (preset_3dmatch, preset_4dmatch,
+                                                  with_condition_gate, with_fast_path)
+    from diffreg_tpu_torch.nn.kpfcn import KPConv
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_cuda_bf16
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda, kpconv_cuda_bf16
+
+    cfg = with_fast_path(preset_3dmatch(sample_steps=STEPS))
+    models = {gate: DiffusionMatchingModel(with_condition_gate(cfg, gate), device="cuda", seed=0)
+              for gate in GATES}
+    kp, _ = check_kpconv(kpconv_layer_calls(models[0.0], lambda: models[0.0].encode(batch),
+                                            KPConv), 11, "one encode (11 calls)", " (bf16)",
+                         bf16=True)
+    at = check_attention(batch, cfg, gen, " (bf16)", bf16=True)
+    cfg4 = with_fast_path(preset_4dmatch(sample_steps=STEPS))
+    at4 = check_attention(batch4_cpu.to("cuda"), cfg4, gen, " (bf16, 4DMatch)", bf16=True)
+    at["d132"] = {k: at4[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "per")}
+    at["shapes"] += at4["shapes"]
+    at["max_abs_err"] = max(at["max_abs_err"], at4["max_abs_err"])
+
+    torch.cuda.reset_peak_memory_stats()
+    per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
+    pairs_per_s, outs = {}, {}
+    for gate, model in models.items():
+        register(model, batch, x_init, u)                      # warm-up
+        times = []
+        for _ in range(TIMED_RUNS):
+            for fn in (kpconv_cuda, masked_attention_cuda, kpconv_cuda_bf16,
+                       masked_attention_cuda_bf16):
+                fn.launches = 0
+            out, seconds = wall(lambda: register(model, batch, x_init, u))
+            n_kp, n_at = kpconv_cuda_bf16.launches, masked_attention_cuda_bf16.launches
+            f32 = kpconv_cuda.launches + masked_attention_cuda.launches
+            if n_kp != 11 or n_at != per_step * STEPS or f32:
+                raise AssertionError(f"bf16 gate {gate}: {n_kp} bf16 KPConv launches (want "
+                                     f"11), {n_at} bf16 attention (want {per_step * STEPS}), "
+                                     f"{f32} f32 kernel launches (want 0)")
+            launches["kpconv_bf16"] += n_kp
+            launches["masked_attention_bf16"] += n_at
+            times.append(seconds)
+        seconds = sorted(times)[TIMED_RUNS // 2]
+        check_outputs(out, f"bf16 gate {gate}")
+        pairs_per_s[gate] = BATCH_PAIRS / seconds
+        outs[gate] = {k: out[k][:1] for k in ("conf_matrix_pred", "corr_mask", "rotation_pred",
+                                              "translation_pred")}
+        with torch.inference_mode():
+            _, enc_s = wall(lambda: model.encode(batch))
+            _, ddim_s = wall(lambda: model.ddim_sample(batch, x_init.cuda()))
+        cond = out.get("step_condition")
+        accepted = "" if cond is None else \
+            f", warps accepted {int((cond < gate).sum())}/{cond.numel()}"
+        log(f"bf16 path gate {gate}: {BATCH_PAIRS} pairs in {seconds:.4f} s (median of "
+            f"{', '.join(f'{t:.4f}' for t in times)}) = {pairs_per_s[gate]:.3f} pairs/s "
+            f"(f32 path {f32_ref[gate]['pairs_per_s']:.3f}); encode {enc_s:.4f} s, DDIM "
+            f"{ddim_s - enc_s:.4f} s; launches bf16 kpconv {n_kp} attention {n_at}, f32 0"
+            f"{accepted}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del models
+
+    one = batch_cpu.select(slice(0, 1))
+    for gate in GATES:
+        t0 = time.perf_counter()
+        cpu_model = DiffusionMatchingModel(with_condition_gate(cfg, gate), device="cpu", seed=0)
+        ref = register(cpu_model, one, x_init[:1], u[:1], device="cpu")
+        bf16_pair_check(outs[gate], ref, f32_ref[gate], one, cpu_model,
+                        f"gate {gate} (CPU {time.perf_counter() - t0:.1f} s)")
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for fn in (kpconv_cuda, masked_attention_cuda, kpconv_cuda_bf16,
+                       masked_attention_cuda_bf16):
+                fn.launches = 0
+            config = os.path.join(repo, "configs", "test", "3dmatch_fast.yaml")
+            summary, seconds = wall(lambda: cli(["--config", config, "--demo", "--num-pairs",
+                                                 str(BATCH_PAIRS), "--batch-size",
+                                                 str(BATCH_PAIRS)]))
+        finally:
+            os.chdir(cwd)
+    from diffreg_tpu_torch.data.synthetic import synthetic_batch
+
+    _, demo_spec, _ = synthetic_batch(batch_size=1, n_points=768, seed=0)
+    want = STEPS * attention_calls(demo_spec.n_src, demo_spec.n_tgt, cfg.denoising_layer_types)
+    n_kp, n_at = kpconv_cuda_bf16.launches, masked_attention_cuda_bf16.launches
+    f32 = kpconv_cuda.launches + masked_attention_cuda.launches
+    if n_kp != 11 or n_at != want or f32 or not all(
+            math.isfinite(summary[k]) for k in ("IR", "FMR", "RR")):
+        raise AssertionError(f"main 3dmatch_fast.yaml: {n_kp} bf16 KPConv, {n_at} bf16 "
+                             f"attention, {f32} f32 launches; summary {summary}")
+    launches["kpconv_bf16"] += n_kp
+    launches["masked_attention_bf16"] += n_at
+    log(f"main 3DMatch fast (configs/test/3dmatch_fast.yaml, demo), {BATCH_PAIRS} pairs: "
+        f"{seconds:.2f} s, launches bf16 kpconv {n_kp} attention {n_at}, f32 0; " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in summary.items()))
+    return [kp, at], pairs_per_s
+
+
 # ---------------------------------------------------------------- 2D-3D
 
 
@@ -1364,27 +1612,36 @@ def check_pnp_2d3d(batch_cpu, u, gen):
             raise AssertionError(f"PnP on the {name} missed the ground-truth pose by {err}")
 
 
+def near_ties_2d3d(out):
+    """Of pair 0's 2D-3D output (on the CPU): the valid entries, the node rows
+    and image columns whose best two confidences lie within twice the
+    confidence limit (near-ties), and the share of real node rows free of one."""
+    import torch
+
+    valid = out["node_masks"][:, :, None] & out["img_valid_c"][:, None, :]
+    c = torch.where(valid, out["conf_matrix_pred"], torch.full_like(out["conf_matrix_pred"], -1.0))
+    top_r, top_c = c.topk(2, dim=2).values, c.topk(2, dim=1).values
+    row_tie = (top_r[..., 0] - top_r[..., 1]) <= 2 * CONF_2D3D_ABS_TOL        # [1, N]
+    col_tie = (top_c[:, 0] - top_c[:, 1]) <= 2 * CONF_2D3D_ABS_TOL            # [1, M]
+    real = out["node_masks"][0]
+    return valid, row_tie, col_tie, float((~row_tie[0] & real).sum()) / max(int(real.sum()), 1)
+
+
 def mask_agreement(got, ref):
     """Pair 0's top-1 union masks, card (``got``) against CPU (``ref``): the
     confidences' largest difference on valid entries, the entries that differ
     (and the cap, 1% of the CPU mask's entries plus 2), those outside a
     near-tie (a row's or column's best two CPU confidences within twice the
     confidence limit), and the share of real node rows free of a near-tie."""
-    import torch
-
-    valid = ref["node_masks"][:, :, None] & ref["img_valid_c"][:, None, :]
+    valid, row_tie, col_tie, tie_free = near_ties_2d3d(ref)
     conf = ref["conf_matrix_pred"]
     conf_err = float((got["conf_matrix_pred"].cpu() - conf).abs()[valid].max())
     differ = (got["corr_mask"].cpu() != ref["corr_mask"]) & valid
-    c = torch.where(valid, conf, torch.full_like(conf, -1.0))
-    top_r, top_c = c.topk(2, dim=2).values, c.topk(2, dim=1).values
-    row_tie = (top_r[..., 0] - top_r[..., 1]) <= 2 * CONF_2D3D_ABS_TOL        # [1, N]
-    col_tie = (top_c[:, 0] - top_c[:, 1]) <= 2 * CONF_2D3D_ABS_TOL            # [1, M]
     real = ref["node_masks"][0]
     out = {"conf_err": conf_err, "differ": int(differ.sum()),
            "cap": MASK_DIFFER_SHARE * max(int(ref["corr_mask"].sum()), 1) + 2,
            "unexplained": int((differ & ~(row_tie[:, :, None] | col_tie[:, None, :])).sum()),
-           "tie_free": float((~row_tie[0] & real).sum()) / max(int(real.sum()), 1)}
+           "tie_free": tie_free}
     out["text"] = (f"conf {conf_err:.3e} (limit {CONF_2D3D_ABS_TOL:.0e}, max conf "
                    f"{float(conf.max()):.3e}), {out['differ']} of {int(valid.sum())} valid mask "
                    f"entries differ (cap {out['cap']:.0f}), {out['unexplained']} outside a "
@@ -1838,9 +2095,60 @@ def run_cli_train_2d3d(repo, split_root, launches):
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in summary.items()))
 
 
-def run_train_2d3d_phase(repo, split_root, launches):
+def trained_pair0_2d3d(cfg, one, circle_cfg, fine_cfg, launches, gen):
+    """Pair 0 of the test split on trained weights, a measurement for the open
+    fault of ROADMAP §3 (the 2D-3D DDIM mask check cannot fail while the
+    DDIM's confidences are flat): the full-width model (cfg at STEPS_2D3D_CPU
+    DDIM steps, matchers not sharpened) takes MASK_TRAIN_STEPS_2D3D[-1] Adam
+    steps (lr 1e-4) on pair 0, each counted and checked as in phase 16, and
+    the share of real node rows of its DDIM output free of a near-tie is
+    printed at each count of MASK_TRAIN_STEPS_2D3D. A card-vs-CPU mask check
+    on these weights could assert the share and the cap only once that share
+    reaches TIE_FREE_ROWS_MIN."""
+    import torch
+
+    from diffreg_tpu_torch.engine.losses import LossConfig
+    from diffreg_tpu_torch.engine.tester2d3d import Test2D3DConfig
+    from diffreg_tpu_torch.engine.train import OptimConfig
+    from diffreg_tpu_torch.engine.train2d3d import create_train_state_2d3d, make_train_step_2d3d
+    from diffreg_tpu_torch.models.pipeline_2d3d import DiffReg2D3D
+
+    cfg_short = dataclasses.replace(cfg, sample_steps=STEPS_2D3D_CPU)
+    tcfg = Test2D3DConfig(fine_threshold=FINE_THR_2D3D)
+    state = create_train_state_2d3d(DiffReg2D3D(cfg_short, device="cuda", seed=0),
+                                    OptimConfig(optimizer="adam", lr=1e-4))
+    rows = []
+    step = counted_train_step_2d3d(make_train_step_2d3d(circle_cfg, LossConfig(), fine_cfg),
+                                   rows, launches)
+    batch = one.to("cuda")
+    x_init = torch.randn(1, one.points[-1].shape[1], one.image.shape[1] * one.image.shape[2] // 64,
+                         generator=gen)
+    u = torch.rand(1, PNP_HYPOTHESES, 6, generator=gen)
+    draws = torch.Generator("cuda").manual_seed(0)
+    shares, done, train_s = [], 0, 0.0
+    for count in MASK_TRAIN_STEPS_2D3D:
+        t0 = time.perf_counter()
+        while done < count:
+            state, _ = step(state, batch, state.model.draw_train_inputs(batch, draws))
+            done += 1
+        torch.cuda.synchronize()
+        train_s += time.perf_counter() - t0
+        with torch.inference_mode():
+            got = fixed_draws_tester(state.model, tcfg, "cuda", x_init, u).forward(batch, None)[0]
+        got = {k: got[k].cpu() for k in ("node_masks", "img_valid_c", "conf_matrix_pred")}
+        shares.append(f"{count} steps {near_ties_2d3d(got)[3]:.4f} (max conf "
+                      f"{float(got['conf_matrix_pred'].max()):.3e})")
+    log(f"2D-3D pair 0 on trained weights ({done} Adam steps on it in {train_s:.1f} s; circle "
+        f"{rows[0]['circle']:.4f} -> {rows[-1]['circle']:.4f}, gt_hat {rows[0]['gt_hat']:.4f} "
+        f"-> {rows[-1]['gt_hat']:.4f}): real node rows of the card's DDIM ({STEPS_2D3D_CPU} "
+        f"steps) free of a near-tie after {'; '.join(shares)} (a mask check needs "
+        f"{TIE_FREE_ROWS_MIN})")
+
+
+def run_train_2d3d_phase(repo, split_root, launches, one, gen):
     """Phase 16: the train subset beside the test split, the Trainer, one step
-    card against CPU, and the CLI's train path."""
+    card against CPU, and the CLI's train path; then the test split's pair 0
+    (``one``) on trained weights."""
     from diffreg_tpu_torch.main import loss_2d3d_configs, pipeline_2d3d_config
     from diffreg_tpu_torch.utils.config import load_yaml
 
@@ -1857,6 +2165,9 @@ def run_train_2d3d_phase(repo, split_root, launches):
     result = train_2d3d_trainer(cfg, batch_cpu, circle_cfg, fine_cfg, launches)
     train_step_2d3d_card_vs_cpu(cfg, batch_cpu.select(slice(0, 1)), circle_cfg, fine_cfg)
     run_cli_train_2d3d(repo, split_root, launches)
+    test_cfg = pipeline_2d3d_config(load_yaml(os.path.join(repo, "configs", "test",
+                                                           "rgbdv2.yaml")))
+    trained_pair0_2d3d(test_cfg, one, circle_cfg, fine_cfg, launches, gen)
     return result
 
 
@@ -1912,7 +2223,8 @@ def run_2d3d_phases(repo, kernels, launches, gen):
         run_cli_2d3d(repo, split_root, launches)
 
         # ---- 16. 2D-3D training: the Trainer, card vs CPU, the entry point ----
-        kernels[1]["d64"]["train_2d3d"] = run_train_2d3d_phase(repo, split_root, launches)
+        kernels[1]["d64"]["train_2d3d"] = run_train_2d3d_phase(
+            repo, split_root, launches, batch_cpu.select(slice(0, 1)), gen)
 
 
 def main() -> int:
@@ -1944,6 +2256,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    # the whole log, for a caller that keeps only the end of the output
+    if os.environ.get("CHIP_SMOKE_LOG"):
+        path = os.path.abspath(os.environ["CHIP_SMOKE_LOG"])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        LOG_FILES.append(open(path, "w"))
     t_start = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2016,7 +2333,9 @@ def main() -> int:
     results = {}
     launches = {"kpconv": 0, "masked_attention": 0, "masked_attention_d132": 0,
                 "masked_attention_d64": 0, "kpconv_train_2d3d": 0,
-                "masked_attention_train_2d3d": 0}
+                "masked_attention_train_2d3d": 0, "kpconv_bf16": 0,
+                "masked_attention_bf16": 0}
+    f32_ref = {}
     per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
     for gate, model in models.items():
         register(model, batch, x_init, u)                      # warm-up
@@ -2034,6 +2353,9 @@ def main() -> int:
             times.append(seconds)
         seconds = sorted(times)[TIMED_RUNS // 2]
         check_outputs(out, f"gate {gate}")
+        f32_ref[gate] = {"pairs_per_s": BATCH_PAIRS / seconds,
+                         **{k: out[k][:1] for k in ("conf_matrix_pred", "rotation_pred",
+                                                    "translation_pred")}}
         with torch.inference_mode():
             _, enc_s = wall(lambda: model.encode(batch))
             ddim_out, ddim_s = wall(lambda: model.ddim_sample(batch, x_init.cuda()))
@@ -2077,6 +2399,16 @@ def main() -> int:
     # ---- 8. one train step, card against CPU ----
     train_step_card_vs_cpu(cfg_train, one)
 
+    # ---- 8b. the bf16 fast path: its kernels, the DDIM at gate 0 and 40, pair 0
+    # on the CPU, main on configs/test/3dmatch_fast.yaml ----
+    bf16_kernels, bf16_pairs = run_bf16(repo, batch, batch_cpu, spec, x_init, u, f32_ref,
+                                        batch4_cpu, gen, launches)
+    kernels += bf16_kernels
+    for gate in GATES:
+        kernels[3].setdefault("pairs_per_s", {})[str(gate)] = {
+            "bf16": bf16_pairs[gate], "f32": f32_ref[gate]["pairs_per_s"]}
+    del f32_ref
+
     # ---- 9-10. the 4DMatch path through FourDMatchTester; pair 0 on the CPU ----
     run_4dmatch(batch4_cpu, meta4, spec4, launches)
 
@@ -2095,6 +2427,8 @@ def main() -> int:
     kernels[1]["launches_d132"] = launches["masked_attention_d132"]
     kernels[1]["launches_d64"] = d64
     kernels[1]["launches_train_2d3d"] = launches["masked_attention_train_2d3d"]
+    kernels[2]["launches"] = launches["kpconv_bf16"]
+    kernels[3]["launches"] = launches["masked_attention_bf16"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

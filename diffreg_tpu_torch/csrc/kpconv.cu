@@ -1,4 +1,6 @@
-// Kernel-point convolution forward (linear influence, sum aggregation) for Hopper.
+// Kernel-point convolution forward (linear influence, sum aggregation) for Hopper,
+// in f32 (kpconv_forward) and in the JAX package's bf16 compute path
+// (kpconv_forward_bf16, described above its kernels below).
 //
 // Replaces the Pallas TPU kernel diffreg_tpu/ops/pallas/kpconv_kernel.py:_kernel
 // (pallas_call in _fused_kpconv_fwd_impl). Same arithmetic: for each query q and
@@ -49,8 +51,9 @@
 //    add their partial results into a zeroed output with atomicAdd; with two
 //    addends onto zero the sum does not depend on their order.
 //  * any other shape (on the main path only the first layer, Cin = 1): one
-//    block per (pair, tile of TQ queries); the influences, the density count
-//    and the influence-weighted [TQ, P * Cin] accumulator live in shared
+//    block per (pair, tile of TQ queries), reading its rows through F32Rows
+//    (the bf16 instance's through Bf16Rows); the influences, the density
+//    count and the influence-weighted [TQ, P * Cin] accumulator live in shared
 //    memory, and the contraction runs in f32 on CUDA cores, each W element
 //    read once per block and reused for the TQ queries from registers (TQ
 //    the largest of 16/8/4/2/1 that fits).
@@ -59,6 +62,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -94,13 +98,52 @@ size_t smem_bytes(int tq, int K, int Cin) {
          sizeof(int) * ((size_t)tq * K + tq);
 }
 
-template <int TQ>
+// Where the CUDA-core kernel reads the support rows and the weights, and how
+// it rounds: the f32 arrays (kpconv_forward), or the bf16 table [B, Ns + 1,
+// 6 + Cin] of [hi(pos), lo(pos), features] and bf16 weights, with the bf16
+// path's roundings of the influences and of the weighted sums
+// (kpconv_forward_bf16).
+struct F32Rows {
+  const float* s_pts;
+  const float* x;
+  const float* w;
+  int Ns, Cin;
+  __device__ void pos(int b, int nb, float& px, float& py, float& pz) const {
+    const float* sp = s_pts + ((size_t)b * Ns + nb) * 3;
+    px = sp[0];
+    py = sp[1];
+    pz = sp[2];
+  }
+  __device__ float feat(int b, int nb, int c) const {
+    return x[((size_t)b * Ns + nb) * Cin + c];
+  }
+  __device__ float weight(size_t i) const { return __ldg(w + i); }
+  __device__ static float rounded(float v) { return v; }
+};
+
+struct Bf16Rows {
+  const __nv_bfloat16* table;
+  const __nv_bfloat16* w;
+  int Ns, Cin;
+  __device__ const __nv_bfloat16* row(int b, int nb) const {
+    return table + ((size_t)b * (Ns + 1) + nb) * (6 + Cin);
+  }
+  __device__ void pos(int b, int nb, float& px, float& py, float& pz) const {
+    const __nv_bfloat16* sp = row(b, nb);
+    px = load_bf16(sp) + load_bf16(sp + 3);
+    py = load_bf16(sp + 1) + load_bf16(sp + 4);
+    pz = load_bf16(sp + 2) + load_bf16(sp + 5);
+  }
+  __device__ float feat(int b, int nb, int c) const { return load_bf16(row(b, nb) + 6 + c); }
+  __device__ float weight(size_t i) const { return load_bf16(w + i); }
+  __device__ static float rounded(float v) { return round_bf16(v); }
+};
+
+template <int TQ, class Rows>
 __global__ void __launch_bounds__(kThreads) kpconv_kernel(
-    const float* __restrict__ q_pts, const float* __restrict__ s_pts,
-    const int32_t* __restrict__ inds, const float* __restrict__ x,
-    const float* __restrict__ kp, const float* __restrict__ w,
-    float* __restrict__ out, int Nq, int Ns, int K, int Cin, int Cout,
-    float extent) {
+    const float* __restrict__ q_pts, const Rows rows, const int32_t* __restrict__ inds,
+    const float* __restrict__ kp, float* __restrict__ out, int Nq, int Ns, int K, int Cin,
+    int Cout, float extent) {
   extern __shared__ float smem[];
   const int PC = kP * Cin;
   float* acc = smem;                           // [TQ][P * Cin]
@@ -113,7 +156,6 @@ __global__ void __launch_bounds__(kThreads) kpconv_kernel(
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * TQ;
   const int tid = threadIdx.x;
-  const float* xb = x + (size_t)b * Ns * Cin;
 
   load_kernel_points(kp, kps, k2s);
   if (tid < TQ) cnt[tid] = 0;
@@ -133,12 +175,13 @@ __global__ void __launch_bounds__(kThreads) kpconv_kernel(
     }
     nbr[s] = nb;
     const float* qp = q_pts + ((size_t)b * Nq + q) * 3;
-    const float* sp = s_pts + ((size_t)b * Ns + nb) * 3;
-    const float rx = sp[0] - qp[0], ry = sp[1] - qp[1], rz = sp[2] - qp[2];
+    float px, py, pz;
+    rows.pos(b, nb, px, py, pz);
+    const float rx = px - qp[0], ry = py - qp[1], rz = pz - qp[2];
     const float n2 = rx * rx + ry * ry + rz * rz;
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
-      ip[p] = influence(rx, ry, rz, n2, kps, k2s, p, extent);
+      ip[p] = Rows::rounded(influence(rx, ry, rz, n2, kps, k2s, p, extent));
     }
   }
   __syncthreads();
@@ -149,9 +192,8 @@ __global__ void __launch_bounds__(kThreads) kpconv_kernel(
   for (int s = warp; s < TQ * K; s += kThreads / 32) {
     const int nb = nbr[s];
     if (nb < 0) continue;
-    const float* row = xb + (size_t)nb * Cin;
     float sum = 0.f;
-    for (int c = lane; c < Cin; c += 32) sum += row[c];
+    for (int c = lane; c < Cin; c += 32) sum += rows.feat(b, nb, c);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
     if (lane == 0 && sum > 0.f) atomicAdd(&cnt[s / K], 1);
@@ -169,12 +211,12 @@ __global__ void __launch_bounds__(kThreads) kpconv_kernel(
     for (int k = 0; k < K; ++k) {
       const int nb = nq[k];
       if (nb < 0) continue;
-      const float xv = xb[(size_t)nb * Cin + c];
+      const float xv = rows.feat(b, nb, c);
 #pragma unroll
       for (int p = 0; p < kP; ++p) a[p] = fmaf(iq[k * kP + p], xv, a[p]);
     }
 #pragma unroll
-    for (int p = 0; p < kP; ++p) acc[qi * PC + p * Cin + c] = a[p];
+    for (int p = 0; p < kP; ++p) acc[qi * PC + p * Cin + c] = Rows::rounded(a[p]);
   }
   __syncthreads();
 
@@ -184,7 +226,7 @@ __global__ void __launch_bounds__(kThreads) kpconv_kernel(
 #pragma unroll
     for (int qi = 0; qi < TQ; ++qi) r[qi] = 0.f;
     for (int j = 0; j < PC; ++j) {
-      const float wv = __ldg(w + (size_t)j * Cout + co);
+      const float wv = rows.weight((size_t)j * Cout + co);
 #pragma unroll
       for (int qi = 0; qi < TQ; ++qi) r[qi] = fmaf(acc[qi * PC + j], wv, r[qi]);
     }
@@ -196,19 +238,37 @@ __global__ void __launch_bounds__(kThreads) kpconv_kernel(
   }
 }
 
-template <int TQ>
-cudaError_t launch(const float* q_pts, const float* s_pts, const int32_t* inds,
-                   const float* x, const float* kp, const float* w, float* out,
-                   int B, int Nq, int Ns, int K, int Cin, int Cout, float extent,
+template <int TQ, class Rows>
+cudaError_t launch(const float* q_pts, Rows rows, const int32_t* inds, const float* kp,
+                   float* out, int B, int Nq, int Ns, int K, int Cin, int Cout, float extent,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(TQ, K, Cin);
   cudaError_t err = cudaFuncSetAttribute(
-      kpconv_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kpconv_kernel<TQ, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Nq + TQ - 1) / TQ, B);
-  kpconv_kernel<TQ><<<grid, kThreads, smem, stream>>>(
-      q_pts, s_pts, inds, x, kp, w, out, Nq, Ns, K, Cin, Cout, extent);
+  kpconv_kernel<TQ, Rows><<<grid, kThreads, smem, stream>>>(
+      q_pts, rows, inds, kp, out, Nq, Ns, K, Cin, Cout, extent);
   return cudaGetLastError();
+}
+
+// The CUDA-core kernel at the largest query tile TQ (16/8/4/2/1) whose
+// shared memory fits.
+template <class Rows>
+cudaError_t launch_cuda_cores(const float* q_pts, Rows rows, const int32_t* inds,
+                              const float* kp, float* out, int B, int Nq, int Ns, int K,
+                              int Cin, int Cout, float extent, cudaStream_t stream) {
+  if (smem_bytes(16, K, Cin) <= kSmemBudget)
+    return launch<16>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, extent, stream);
+  if (smem_bytes(8, K, Cin) <= kSmemBudget)
+    return launch<8>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, extent, stream);
+  if (smem_bytes(4, K, Cin) <= kSmemBudget)
+    return launch<4>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, extent, stream);
+  if (smem_bytes(2, K, Cin) <= kSmemBudget)
+    return launch<2>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, extent, stream);
+  if (smem_bytes(1, K, Cin) <= kSmemBudget)
+    return launch<1>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, extent, stream);
+  return cudaErrorInvalidValue;
 }
 
 // ---- the tensor-core path (Cin >= 64) ----
@@ -499,6 +559,284 @@ cudaError_t launch_tc(const float* q_pts, const float* s_pts, const int32_t* ind
   return cudaGetLastError();
 }
 
+// ---- the bf16 instance (compute_dtype bfloat16) ----
+//
+// The JAX package's bf16 KPConv (diffreg_tpu/ops/kpconv.py:kpconv with
+// compute_dtype; the Pallas kernel has no bf16 path). It reads a bf16
+// support table [B, Ns + 1, 6 + Cin] of rows [hi(pos), lo(pos), features]
+// (the wrapper builds it as JAX does; row Ns is the shadow row), rebuilds
+// each neighbour's position in f32 as hi + lo, computes the influence in f32
+// and rounds it to bf16, sums influence x feature over the neighbours in f32
+// (each product of two bf16 values is exact in f32) and rounds that sum to
+// bf16, then contracts it with the bf16 weights accumulating in f32, and
+// divides by the density count (feature sums of the bf16 features in f32).
+// Half the bytes of the f32 kernel's gathered rows, and one bf16 tensor-core
+// pass (mma.sync m16n8k16) for the contraction in place of three TF32 ones.
+// The paths follow the f32 kernel's:
+//  * Cin a multiple of 32, K <= 40, Cout in {64, 128, 256, 512}: the
+//    tensor-core kernel. A block owns 32 queries; A (the rounded sums) is
+//    built on CUDA cores in shared memory one chunk of 32 channels at a time
+//    (lane = channel; the same loads give the density count), then each
+//    k-step of 16 A columns (one kernel point, 16 channels) is multiplied by
+//    its 16 W rows, which each warp stages for its own 8 NT output columns
+//    with cp.async, three k-steps ahead, and reads with ldmatrix.trans. Each
+//    k-step's product goes to a fresh accumulator and is added to the sum in
+//    f32 on CUDA cores: summing up to 480 k-steps in the tensor core's own
+//    accumulator, which does not round to nearest, would cost accuracy. The
+//    kernel points are split between two blocks when the grid is short.
+//  * any other shape (on the main path the first layer, Cin = 1): the
+//    CUDA-core kernel of the f32 path, reading the table through Bf16Rows,
+//    which applies the same roundings.
+
+constexpr int kBAStride = kP * kCC + 8;  // bf16 A chunk row stride: 976 B, no bank conflicts
+constexpr int kBG = 4;                   // W ring: k-steps of 16 rows, three in flight
+// W's row stride in the ring is w_stride<NT>() bf16: 48, 48, 80 or 144 bytes,
+// odd multiples of 16, so the eight rows of an ldmatrix phase fall in
+// distinct banks
+
+template <int NT>
+size_t tc_bf16_smem_bytes(int K) {
+  return sizeof(__nv_bfloat16) * ((size_t)kTQ * K * kPP + (size_t)kTQ * kBAStride +
+                                  (size_t)kWarps * kBG * 16 * w_stride<NT>()) +
+         sizeof(int) * ((size_t)kTQ * K + kTQ);
+}
+
+// Blocks (tile, pair, split), as kpconv_tc_kernel: warp w builds the A rows of
+// queries [4 w, 4 w + 4) and owns output columns [8 NT w, 8 NT (w + 1)).
+template <int NT>
+__global__ void __launch_bounds__(kThreads) kpconv_tc_bf16_kernel(
+    const float* __restrict__ q_pts, const __nv_bfloat16* __restrict__ table,
+    const int32_t* __restrict__ inds, const float* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ w, float* __restrict__ out, int Nq, int Ns, int K,
+    int Cin, float extent) {
+  constexpr int kCout = 64 * NT, kWS = w_stride<NT>();
+  extern __shared__ __align__(16) unsigned char tc_bf16_smem[];
+  __nv_bfloat16* infl = reinterpret_cast<__nv_bfloat16*>(tc_bf16_smem);  // [TQ][K][PP]
+  __nv_bfloat16* abuf = infl + kTQ * K * kPP;                             // [TQ][kBAStride]
+  __nv_bfloat16* wbuf = abuf + kTQ * kBAStride;                           // [warp][G][16][kWS]
+  int* nbr = reinterpret_cast<int*>(wbuf + kWarps * kBG * 16 * kWS);      // [TQ][K]
+  int* cnt = nbr + kTQ * K;                                               // [TQ]
+  __shared__ float kps[kP * 3];
+  __shared__ float k2s[kP];
+
+  const int row = 6 + Cin;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kTQ;
+  const int p0 = gridDim.z > 1 ? 8 * blockIdx.z : 0;
+  const int np = gridDim.z > 1 ? min(8, kP - p0) : kP;
+  const int n_chunks = Cin / kCC;
+  const int chunk_steps = np * (kCC / 16);                 // k-steps of a chunk
+  const int n_steps = n_chunks * chunk_steps;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int col_w = warp * 8 * NT;
+  const __nv_bfloat16* tb = table + (size_t)b * (Ns + 1) * row;
+  __nv_bfloat16* wring = wbuf + warp * kBG * 16 * kWS;
+
+  // k-step si covers A columns [16 s, 16 s + 16) of chunk si / chunk_steps
+  // (s = si % chunk_steps: kernel point p0 + s / 2, channels 16 (s % 2) ..
+  // + 16) and the matching 16 rows of W, columns [col_w, col_w + 8 NT)
+  auto load_w = [&](int si) {
+    if (si < n_steps) {
+      const int ch = si / chunk_steps, s = si - ch * chunk_steps;
+      const int p = p0 + s / 2;
+      const __nv_bfloat16* src =
+          w + ((size_t)p * Cin + kCC * ch + 16 * (s % 2)) * kCout + col_w;
+      __nv_bfloat16* dst = wring + (si % kBG) * 16 * kWS;
+      for (int i = lane; i < 16 * NT; i += 32) {
+        const int r = i / NT, c = 8 * (i - r * NT);
+        cp_async16_bf16(dst + r * kWS + c, src + (size_t)r * kCout + c, true);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int si = 0; si < kBG - 1; ++si) load_w(si);
+
+  load_kernel_points(kp, kps, k2s);
+  __syncthreads();
+
+  // neighbour index and bf16-rounded influence of every (query, neighbour, kernel point)
+#pragma unroll 4
+  for (int s = tid; s < kTQ * K; s += kThreads) {
+    const int qi = s / K, k = s - qi * K;
+    const int q = min(q0 + qi, Nq - 1);
+    const int nb = q0 + qi < Nq ? inds[((size_t)b * Nq + q) * K + k] : Ns;
+    const bool real = nb >= 0 && nb < Ns;
+    nbr[s] = real ? nb : -1;
+    const float* qp = q_pts + ((size_t)b * Nq + q) * 3;
+    const __nv_bfloat16* sp = tb + (size_t)(real ? nb : 0) * row;
+    const float rx = (load_bf16(sp) + load_bf16(sp + 3)) - qp[0];
+    const float ry = (load_bf16(sp + 1) + load_bf16(sp + 4)) - qp[1];
+    const float rz = (load_bf16(sp + 2) + load_bf16(sp + 5)) - qp[2];
+    const float n2 = rx * rx + ry * ry + rz * rz;
+    uint32_t packed[kPP / 2];
+#pragma unroll
+    for (int j = 0; j < kPP / 2; ++j) {
+      float f[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int p = 2 * j + i;
+        f[i] = (p < kP && real) ? influence(rx, ry, rz, n2, kps, k2s, p, extent) : 0.f;
+      }
+      packed[j] = pack_bf16(f[0], f[1]);
+    }
+    uint4* ip = reinterpret_cast<uint4*>(infl + s * kPP);
+    ip[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    ip[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+  }
+  __syncthreads();
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+
+  float rs[kQW][2];
+#pragma unroll
+  for (int i = 0; i < kQW; ++i) rs[i][0] = rs[i][1] = 0.f;
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    // A[q][32 p + c] = bf16(sum_k infl[q, k, p] * x[nbr[q, k], 32 ch + c])
+#pragma unroll 1
+    for (int i = 0; i < kQW; ++i) {
+      const int aq = kQW * warp + i;
+      const int* nq = nbr + aq * K;
+      const uint4* iq = reinterpret_cast<const uint4*>(infl + aq * K * kPP);
+      const __nv_bfloat16* xc = tb + 6 + kCC * ch + lane;
+      float xv[64];
+#pragma unroll
+      for (int k = 0; k < 64; ++k) {  // all gathered loads in flight at once
+        const int nb = k < kKMax && k < K ? nq[k] : -1;
+        xv[k] = nb >= 0 ? load_bf16(xc + (size_t)nb * row) : 0.f;  // shadow: infl 0
+      }
+      float av[kPP];
+#pragma unroll
+      for (int p = 0; p < kPP; ++p) av[p] = 0.f;
+#pragma unroll
+      for (int k = 0; k < kKMax; ++k) {
+        if (k >= K) break;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint4 f = iq[2 * k + j];  // one address for the warp
+          const uint32_t words[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            av[8 * j + 2 * e] = fmaf(bf16_lo(words[e]), xv[k], av[8 * j + 2 * e]);
+            av[8 * j + 2 * e + 1] = fmaf(bf16_hi(words[e]), xv[k], av[8 * j + 2 * e + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        abuf[aq * kBAStride + p * kCC + lane] = __float2bfloat16_rn(av[p]);
+      warp_reduce_scatter64(xv, lane);
+      rs[i][0] += xv[0];
+      rs[i][1] += xv[1];
+    }
+    __syncthreads();  // the A chunk is complete
+
+    for (int sl = 0; sl < chunk_steps; ++sl) {
+      const int si = ch * chunk_steps + sl;
+      cp_async_wait<kBG - 2>();
+      __syncwarp();  // the warp's W k-step si is in place; k-step si - 1 is consumed
+      load_w(si + kBG - 1);
+      const __nv_bfloat16* ws = wring + (si % kBG) * 16 * kWS;
+      const __nv_bfloat16* as = abuf + p0 * kCC + 16 * sl;
+      uint32_t a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const __nv_bfloat16* ar = as + (16 * m + g) * kBAStride + 2 * t;
+        a[m][0] = ld_pair(ar);
+        a[m][1] = ld_pair(ar + 8 * kBAStride);
+        a[m][2] = ld_pair(ar + 8);
+        a[m][3] = ld_pair(ar + 8 * kBAStride + 8);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t b0, b1;
+        ldmatrix_x2_trans(b0, b1, ws + (lane % 16) * kWS + 8 * n);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          float p[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(p, a[m], b0, b1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][n][i] += p[i];
+        }
+      }
+    }
+    __syncthreads();  // the A chunk is consumed before the next one is built
+  }
+  cp_async_wait<0>();
+
+  // density count: a neighbour counts iff its feature-sum is positive
+#pragma unroll
+  for (int i = 0; i < kQW; ++i) {
+    const int aq = kQW * warp + i;
+    int n_pos = 0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = 2 * lane + j;
+      n_pos += k < K && nbr[aq * K + k] >= 0 && rs[i][j] > 0.f;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) n_pos += __shfl_xor_sync(0xffffffffu, n_pos, off);
+    if (lane == 0) cnt[aq] = n_pos;
+  }
+  __syncthreads();
+
+  const bool split = gridDim.z > 1;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = 16 * m + g + 8 * h;
+      const int q = q0 + qi;
+      if (q >= Nq) continue;
+      const float den = (float)max(cnt[qi], 1);
+      float* orow = out + ((size_t)b * Nq + q) * kCout + col_w + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float v0 = acc[m][n][2 * h] / den, v1 = acc[m][n][2 * h + 1] / den;
+        if (split) {
+          atomicAdd(orow + 8 * n, v0);
+          atomicAdd(orow + 8 * n + 1, v1);
+        } else {
+          *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch_tc_bf16(const float* q_pts, const __nv_bfloat16* table, const int32_t* inds,
+                           const float* kp, const __nv_bfloat16* w, float* out, int B, int Nq,
+                           int Ns, int K, int Cin, float extent, cudaStream_t stream) {
+  const size_t smem = tc_bf16_smem_bytes<NT>(K);
+  cudaError_t err = cudaFuncSetAttribute(
+      kpconv_tc_bf16_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kpconv_tc_bf16_kernel<NT>,
+                                                           kThreads, smem)) != cudaSuccess)
+    return err;
+  const int tiles = (Nq + kTQ - 1) / kTQ;
+  const int splits = tiles * B < 2 * sms * per_sm ? 2 : 1;
+  if (splits > 1 && (err = cudaMemsetAsync(out, 0, sizeof(float) * B * Nq * 64 * NT,
+                                           stream)) != cudaSuccess)
+    return err;
+  dim3 grid(tiles, B, splits);
+  kpconv_tc_bf16_kernel<NT><<<grid, kThreads, smem, stream>>>(
+      q_pts, table, inds, kp, w, out, Nq, Ns, K, Cin, extent);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -527,17 +865,37 @@ int kpconv_forward(const float* q_pts, const float* s_pts, const int32_t* inds,
         break;
     }
   }
-  if (smem_bytes(16, K, Cin) <= kSmemBudget)
-    return (int)launch<16>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, Cout, extent, stream);
-  if (smem_bytes(8, K, Cin) <= kSmemBudget)
-    return (int)launch<8>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, Cout, extent, stream);
-  if (smem_bytes(4, K, Cin) <= kSmemBudget)
-    return (int)launch<4>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, Cout, extent, stream);
-  if (smem_bytes(2, K, Cin) <= kSmemBudget)
-    return (int)launch<2>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, Cout, extent, stream);
-  if (smem_bytes(1, K, Cin) <= kSmemBudget)
-    return (int)launch<1>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, Cout, extent, stream);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_cuda_cores(q_pts, F32Rows{s_pts, x, w, Ns, Cin}, inds, kp, out, B, Nq, Ns,
+                                K, Cin, Cout, extent, stream);
+}
+
+// The bf16 instance. q_pts [B, Nq, 3] f32, table [B, Ns + 1, 6 + Cin] bf16
+// (hi(pos), lo(pos), features; row Ns the shadow row), inds [B, Nq, K] int32
+// (sentinel Ns), kp [P, 3] f32, w [P, Cin, Cout] bf16, out [B, Nq, Cout] f32;
+// all contiguous. Returns a cudaError_t (0 on success).
+int kpconv_forward_bf16(const float* q_pts, const __nv_bfloat16* table, const int32_t* inds,
+                        const float* kp, const __nv_bfloat16* w, float* out, int B, int Nq,
+                        int Ns, int K, int Cin, int Cout, int P, float extent,
+                        cudaStream_t stream) {
+  if (P != kP || B <= 0 || Nq <= 0 || K <= 0 || Cin <= 0 || Cout <= 0)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = ((uintptr_t)w | (uintptr_t)out) % 16 == 0;
+  if (Cin % kCC == 0 && K <= kKMax && aligned) {
+    switch (Cout) {
+      case 64:
+        return (int)launch_tc_bf16<1>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, extent, stream);
+      case 128:
+        return (int)launch_tc_bf16<2>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, extent, stream);
+      case 256:
+        return (int)launch_tc_bf16<4>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, extent, stream);
+      case 512:
+        return (int)launch_tc_bf16<8>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, extent, stream);
+      default:
+        break;
+    }
+  }
+  return (int)launch_cuda_cores(q_pts, Bf16Rows{table, w, Ns, Cin}, inds, kp, out, B, Nq, Ns,
+                                K, Cin, Cout, extent, stream);
 }
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -3,6 +3,7 @@
     python -m diffreg_tpu_torch.main --config configs/test/3dmatch.yaml
     python -m diffreg_tpu_torch.main --config configs/test/4dmatch.yaml --thr 0.55
     python -m diffreg_tpu_torch.main --config configs/test/3dmatch.yaml --demo
+    python -m diffreg_tpu_torch.main --config configs/test/3dmatch_fast.yaml   # bf16 fast path
     python -m diffreg_tpu_torch.main --config configs/train/4dmatch.yaml --mode train --demo
     python -m diffreg_tpu_torch.main --config configs/test/rgbdv2.yaml --demo
     python -m diffreg_tpu_torch.main --config configs/test/7scenes.yaml
@@ -113,7 +114,7 @@ def main(argv=None):
         return run_2d3d(args, raw, mode, batch_size, dataset_name)
     ev = raw.get("eval", {})
     device = resolve_device(args.device)
-    pipeline_cfg = build_pipeline_config(raw)
+    pipeline_cfg = build_pipeline_config({**raw, "mode": mode})
     loss_cfg = build_loss_config(raw)
     seed = int(raw.get("seed", 0))
 
@@ -213,6 +214,10 @@ def pipeline_2d3d_config(raw):
     from .nn.matching import MatchingConfig
     from .nn.point_backbone import PointBackboneConfig
 
+    if raw.get("precision") not in (None, "highest"):
+        raise NotImplementedError(
+            f"precision={raw['precision']!r} on a 2D-3D config: the port's 2D-3D path computes "
+            "in float32 (the policy reaches the 3D matchers only)")
     m = raw.get("model_2d3d", {})
     return Pipeline2D3DConfig(
         img_out_dim=int(m.get("img_out_dim", 128)),

@@ -102,6 +102,20 @@ def preset_tiny(variant: str = "3dmatch", sample_steps: int = 2) -> PipelineConf
                                coarse_matching=matching)
 
 
+def with_fast_path(cfg: PipelineConfig) -> PipelineConfig:
+    """``cfg`` on the JAX package's fast path, as configs/test/3dmatch_fast.yaml
+    and bench.py set it: ``compute_dtype`` bfloat16 in the KPFCN and the
+    transformers, ``precision`` default at the matchers' similarity product."""
+    matching = dataclasses.replace(cfg.coarse_matching, precision="default")
+    transformer = dataclasses.replace(
+        cfg.coarse_transformer, compute_dtype="bfloat16",
+        feature_matching=dataclasses.replace(cfg.coarse_transformer.feature_matching,
+                                             precision="default"))
+    return dataclasses.replace(cfg, kpfcn=dataclasses.replace(cfg.kpfcn,
+                                                              compute_dtype="bfloat16"),
+                               coarse_transformer=transformer, coarse_matching=matching)
+
+
 def with_condition_gate(cfg: PipelineConfig, max_condition_num: float) -> PipelineConfig:
     """``cfg`` with the Procrustes condition gate set in the pipeline and in the
     coarse transformer's positioning layer (40 is the warp-active DDIM variant:

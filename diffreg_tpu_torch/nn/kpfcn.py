@@ -8,6 +8,8 @@ that state_dict keys follow the released checkpoints:
     strided doubles it, the decoder concatenates a skip after each upsample);
   * normalization is the reference's InstanceNorm-as-"BatchNorm" quirk,
     computed under the validity mask; leaky ReLU slope 0.1;
+  * ``compute_dtype`` "bfloat16" runs every KPConv on the bf16 path
+    (``ops.kpconv``), as the JAX package's does; the unary blocks stay f32;
   * ``forward(batch)`` (the coarse phase) returns level ``coarse_level``
     features through the 1x1 ``coarse_out`` head after decoder block 1. The
     remaining decoder blocks and the ``coarse_in``/``fine_out`` heads exist so
@@ -16,7 +18,7 @@ that state_dict keys follow the released checkpoints:
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +43,7 @@ class KPFCNConfig:
     coarse_feature_dim: int = 432
     fine_feature_dim: int = 264
     coarse_level: int = -2
+    compute_dtype: Optional[str] = None    # "bfloat16": the KPConvs' bf16 path
 
 
 def _leaky(x):
@@ -55,13 +58,14 @@ class KPConv(nn.Module):
         super().__init__()
         p = cfg.num_kernel_points
         self.extent = float(extent)
+        self.compute_dtype = cfg.compute_dtype
         self.weights = nn.Parameter(torch.empty(p, in_dim, out_dim))
         self.register_buffer("kernel_points", torch.from_numpy(load_kernel_points(
             radius, p, cfg.in_points_dim, cfg.fixed_kernel_points)))
 
     def forward(self, q_pts, s_pts, neighb_inds, x):
         return kpconv_batched(q_pts, s_pts, neighb_inds, x, self.kernel_points,
-                              self.weights, self.extent)
+                              self.weights, self.extent, self.compute_dtype)
 
 
 class UnaryBlock(nn.Module):

@@ -5,6 +5,8 @@ reference never applies its ``tgt_proj``, so the port has none), and the
 features are divided by sqrt(C) before the similarity product. The 2D-3D
 matcher passes no position code (its fused features carry position) and
 static-padding masks besides the validity masks (see ops/sinkhorn.py).
+The similarity product runs at the config's ``precision``, the one site of
+the JAX matcher that reads ``get_precision()`` (utils/precision.py).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from ..ops.masked import mask_matrix
 from ..ops.position_encoding import embed_rotary
 from ..ops.select import thresholded_mutual_argmax_mask
 from ..ops.sinkhorn import log_sinkhorn
+from ..utils.precision import matmul_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +28,7 @@ class MatchingConfig:
     confidence_threshold: float = 0.2
     skh_init_bin_score: float = 1.0
     skh_iters: int = 3
+    precision: str = "highest"            # "default": TF32 similarity product on CUDA
 
 
 class Matching(nn.Module):
@@ -43,7 +47,8 @@ class Matching(nn.Module):
             src = embed_rotary(src, src_pe[..., 0], src_pe[..., 1])
             tgt = embed_rotary(tgt, tgt_pe[..., 0], tgt_pe[..., 1])
         scale = src.shape[-1] ** 0.5
-        sim = torch.einsum("bsc,btc->bst", src / scale, tgt / scale)
+        with matmul_precision(self.cfg.precision):
+            sim = torch.einsum("bsc,btc->bst", src / scale, tgt / scale)
         conf = self.sinkhorn(sim, src_mask, tgt_mask, src_pad, tgt_pad)
         match_mask = thresholded_mutual_argmax_mask(conf, self.cfg.confidence_threshold)
         return conf, match_mask

@@ -7,6 +7,12 @@ logits_layout) give identical outputs. Attention goes through
 ``ops.attention.masked_attention``: the Hopper kernel for CUDA tensors, the
 plain version on the CPU.
 
+``compute_dtype="bfloat16"`` is the JAX layer's bf16 path: x and source are
+cast to bf16, the projections, the rotary code, the merge and the MLP run in
+bf16 (f32 weights cast at use, f32 accumulation), attention through its bf16
+kernel, the LayerNorms in f32 with their outputs cast back to bf16, and the
+residual is the bf16 x plus the block's output in the input dtype.
+
 The 'positioning' layer re-derives both position codes from a warped source
 cloud. Its warp is one of: 'procrustes' (its own Matching, ``layers.<i>.0``,
 then soft Procrustes with the configured condition gate), 'randSO3' (a
@@ -17,9 +23,10 @@ random rotation about the masked centroid, from Euler angles passed in) or
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..geometry.procrustes import soft_procrustes
@@ -46,14 +53,31 @@ class TransformerConfig:
     voxel_size: float = 0.08
     procrustes: ProcrustesConfig = ProcrustesConfig()
     feature_matching: MatchingConfig = MatchingConfig()
+    compute_dtype: Optional[str] = None       # "bfloat16": the bf16 path
+
+
+def torch_dtype(compute_dtype: Optional[str]):
+    """The torch dtype of a config's ``compute_dtype``: bfloat16, or None for
+    the f32 path (None or "float32")."""
+    if compute_dtype in (None, "float32"):
+        return None
+    if compute_dtype == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype {compute_dtype!r}: bfloat16, float32 or None")
+
+
+def _linear(layer, x):
+    """``layer`` (no bias) applied in x's dtype: f32 weights cast at use."""
+    return F.linear(x, layer.weight.to(x.dtype))
 
 
 class GeometryAttentionLayer(nn.Module):
     """Rotary multi-head attention + gated-concat FFN (transformero.py:13-96)."""
 
-    def __init__(self, d_model: int, n_head: int):
+    def __init__(self, d_model: int, n_head: int, compute_dtype: Optional[str] = None):
         super().__init__()
         self.d_model, self.n_head = d_model, n_head
+        self.dtype = torch_dtype(compute_dtype)
         self.q_proj = nn.Linear(d_model, d_model, bias=False)
         self.k_proj = nn.Linear(d_model, d_model, bias=False)
         self.v_proj = nn.Linear(d_model, d_model, bias=False)
@@ -68,14 +92,23 @@ class GeometryAttentionLayer(nn.Module):
         """x [B, L, C] attends to source [B, S, C]; pe [.., C, 2]; source_mask [B, S]."""
         b, h = x.shape[0], self.n_head
         dim = self.d_model // h
-        q = embed_rotary(self.q_proj(x), x_pe[..., 0], x_pe[..., 1])
-        k = embed_rotary(self.k_proj(source), source_pe[..., 0], source_pe[..., 1])
-        v = self.v_proj(source)
+        in_dtype = x.dtype
+        if self.dtype is not None:
+            same = x is source
+            x = x.to(self.dtype)
+            source = x if same else source.to(self.dtype)
+            x_pe, source_pe = x_pe.to(self.dtype), source_pe.to(self.dtype)
+        q = embed_rotary(_linear(self.q_proj, x), x_pe[..., 0], x_pe[..., 1])
+        k = embed_rotary(_linear(self.k_proj, source), source_pe[..., 0], source_pe[..., 1])
+        v = _linear(self.v_proj, source)
         heads = lambda t: t.reshape(b, -1, h, dim).transpose(1, 2)   # [B, H, N, D]
         o = masked_attention(heads(q), heads(k), heads(v), source_mask, dim ** -0.5)
-        message = self.norm1(self.merge(o.transpose(1, 2).reshape(b, -1, h * dim)))
-        y = self.norm2(self.mlp(torch.cat([x, message], dim=-1)))
-        return x + y
+        message = _linear(self.merge, o.transpose(1, 2).reshape(b, -1, h * dim))
+        message = self.norm1(message.float()).to(x.dtype)
+        y = torch.cat([x, message], dim=-1)
+        y = _linear(self.mlp[2], torch.relu(_linear(self.mlp[0], y)))
+        y = self.norm2(y.float())
+        return x.to(in_dtype) + y.to(in_dtype)
 
 
 class RepositioningTransformer(nn.Module):
@@ -85,7 +118,8 @@ class RepositioningTransformer(nn.Module):
         layers = []
         for lt in cfg.layer_types:
             if lt in ("self", "cross"):
-                layers.append(GeometryAttentionLayer(cfg.feature_dim, cfg.n_head))
+                layers.append(GeometryAttentionLayer(cfg.feature_dim, cfg.n_head,
+                                                     cfg.compute_dtype))
             elif lt == "positioning":
                 if cfg.positioning_type not in ("procrustes", "randSO3", "oracle"):
                     raise KeyError(cfg.positioning_type)

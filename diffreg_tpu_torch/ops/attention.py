@@ -13,6 +13,10 @@ tensor runs the plain version. On CUDA tensors the kernel runs inside
 differentiates it: the dq/dk/dv of the JAX package's ``custom_vjp``
 (``ops/pallas/attention_kernel.py``), with the probabilities rebuilt in the
 backward, not kept from the forward.
+
+bf16 q, k and v are the JAX package's bf16 compute path: the kernel's bf16
+instance on CUDA (forward only: bf16 training is not ported),
+``masked_attention_bf16_plain`` on the CPU; both return bf16.
 """
 from __future__ import annotations
 
@@ -32,19 +36,36 @@ def masked_attention_plain(q, k, v, kv_mask, scale):
     return torch.einsum("bhls,bhsd->bhld", torch.softmax(logits, dim=-1), v)
 
 
-def masked_attention_cuda(q, k, v, kv_mask, scale):
-    """Launch the Hopper attention kernel; same contract as the plain version."""
-    for name, t in {"q": q, "k": k, "v": v}.items():
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"masked_attention_cuda: {name} must be a contiguous "
-                             "float32 CUDA tensor")
+def masked_attention_bf16_plain(q, k, v, kv_mask, scale):
+    """The bf16 instance's function, in f32 with its roundings, which are the
+    JAX layer's XLA path's (nn/transformer.py:414-429): logits of the bf16 q
+    and k summed in f32, masked, scaled and softmaxed in f32, the
+    probabilities rounded to bf16 for P.V (f32 sums), the output rounded to
+    bf16. bf16 in, bf16 out."""
+    logits = torch.einsum("bhld,bhsd->bhls", q.float(), k.float())
+    logits = torch.where(kv_mask[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits * scale, dim=-1)
+    return torch.einsum("bhls,bhsd->bhld", p.to(torch.bfloat16).float(), v.float()).to(
+        torch.bfloat16)
+
+
+def _check_inputs(name, q, k, v, kv_mask, dtype):
+    for arg, t in {"q": q, "k": k, "v": v}.items():
+        if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous {dtype} CUDA tensor")
     if not kv_mask.is_cuda or kv_mask.dtype != torch.bool or not kv_mask.is_contiguous():
-        raise ValueError("masked_attention_cuda: kv_mask must be a contiguous bool CUDA tensor")
+        raise ValueError(f"{name}: kv_mask must be a contiguous bool CUDA tensor")
     b, h, l, d = q.shape
     s = k.shape[2]
     if k.shape != (b, h, s, d) or v.shape != (b, h, s, d) or kv_mask.shape != (b, s):
-        raise ValueError("masked_attention_cuda: inconsistent shapes "
+        raise ValueError(f"{name}: inconsistent shapes "
                          f"{q.shape} {k.shape} {v.shape} {kv_mask.shape}")
+    return b, h, l, s, d
+
+
+def masked_attention_cuda(q, k, v, kv_mask, scale):
+    """Launch the Hopper attention kernel; same contract as the plain version."""
+    b, h, l, s, d = _check_inputs("masked_attention_cuda", q, k, v, kv_mask, torch.float32)
     lib = _library()
     out = torch.empty_like(q)
     err = lib.masked_attention_forward(
@@ -56,6 +77,24 @@ def masked_attention_cuda(q, k, v, kv_mask, scale):
 
 
 masked_attention_cuda.launches = 0
+
+
+def masked_attention_cuda_bf16(q, k, v, kv_mask, scale):
+    """Launch the kernel's bf16 instance (head width up to 144); bf16 q, k, v
+    -> bf16, as ``masked_attention_bf16_plain``."""
+    b, h, l, s, d = _check_inputs("masked_attention_cuda_bf16", q, k, v, kv_mask,
+                                  torch.bfloat16)
+    lib = _library()
+    out = torch.empty_like(q)
+    err = lib.masked_attention_forward_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
+        b, h, l, s, d, float(scale), current_stream(q.device))
+    check(lib, err, "masked_attention_forward_bf16")
+    masked_attention_cuda_bf16.launches += 1
+    return out
+
+
+masked_attention_cuda_bf16.launches = 0
 
 
 class MaskedAttentionFunction(torch.autograd.Function):
@@ -80,12 +119,23 @@ def _library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.masked_attention_forward.argtypes = [vp] * 5 + [ci] * 5 + [ctypes.c_float, vp]
         lib.masked_attention_forward.restype = ci
+        lib.masked_attention_forward_bf16.argtypes = [vp] * 5 + [ci] * 5 + [ctypes.c_float, vp]
+        lib.masked_attention_forward_bf16.restype = ci
     return lib
 
 
 def masked_attention(q, k, v, kv_mask, scale):
     """Masked attention on the tensors' device: the Hopper kernel (under
-    autograd) for CUDA tensors, the plain version for CPU tensors."""
+    autograd) for CUDA tensors, the plain version for CPU tensors; bf16
+    tensors take the bf16 path (forward only on CUDA)."""
+    if q.dtype == torch.bfloat16:
+        if not q.is_cuda:
+            return masked_attention_bf16_plain(q, k, v, kv_mask, scale)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError("attention's bf16 instance has no backward: bf16 "
+                                      "training is not ported (ROADMAP §1: bf16 training)")
+        return masked_attention_cuda_bf16(q.contiguous(), k.contiguous(), v.contiguous(),
+                                          kv_mask.contiguous(), scale)
     if q.is_cuda:
         return MaskedAttentionFunction.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                              kv_mask.contiguous(), scale)

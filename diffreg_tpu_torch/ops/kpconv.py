@@ -13,6 +13,15 @@ whose backward recomputes the plain version at the saved inputs and
 differentiates it, as the JAX package's ``custom_vjp`` does
 (``ops/pallas/kpconv_kernel.py``): the gathered rows are rebuilt one layer at
 a time in the backward and freed after it, never kept from the forward.
+
+``compute_dtype="bfloat16"`` is the JAX package's bf16 path
+(``diffreg_tpu/ops/kpconv.py:kpconv`` with ``compute_dtype``): the support
+table is gathered in bf16 as [hi(pos), lo(pos), feats], positions are
+rebuilt in f32 as hi + lo, the influence is computed in f32 and rounded to
+bf16, the influence-weighted features are summed in f32 and rounded to bf16,
+and the contraction with the bf16 weights accumulates in f32. On CUDA tensors
+it launches the kernel's bf16 instance (``kpconv_cuda_bf16``), forward only:
+bf16 training is not ported.
 """
 from __future__ import annotations
 
@@ -72,6 +81,42 @@ def kpconv_aggregate(q_pts, s_pts, neighb_inds, x, kernel_points, kp_extent):
     return weighted, neighbor_num
 
 
+def kpconv_bf16_table(s_pts, x):
+    """The bf16 support table [B, Ns + 1, 6 + Cin] of the JAX package's bf16
+    path: hi and lo of the positions (pos = hi + lo to ~5e-5 of a metre; plain
+    bf16 would be off by a centimetre at metre scale), then the features, with
+    the shadow row appended (position 1e6, zero features)."""
+    b, _, cin = x.shape
+    pts = torch.cat([s_pts, s_pts.new_full((b, 1, 3), _SHADOW)], dim=1)
+    hi = pts.to(torch.bfloat16)
+    lo = (pts - hi.float()).to(torch.bfloat16)
+    feats = torch.cat([x, x.new_zeros((b, 1, cin))], dim=1).to(torch.bfloat16)
+    return torch.cat([hi, lo, feats], dim=-1)
+
+
+def kpconv_bf16_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+    """Plain KPConv of the bf16 path, in f32 with bf16 roundings where the
+    JAX package rounds (every product of two bf16 values is exact in f32, so
+    f32 sums of them are what an f32-accumulating bf16 product computes).
+    Same arguments as ``kpconv`` (f32 x and weights); returns f32."""
+    gathered = _gather_rows(kpconv_bf16_table(s_pts, x), neighb_inds).float()
+    neighbors = (gathered[..., :3] + gathered[..., 3:6]) - q_pts[:, :, None, :]
+    feats = gathered[..., 6:]
+    n2 = torch.sum(neighbors * neighbors, dim=-1, keepdim=True)
+    k2 = torch.sum(kernel_points * kernel_points, dim=-1)
+    cross = torch.einsum("bnkc,pc->bnkp", neighbors, kernel_points)
+    sq_d = torch.clamp(n2 + k2 - 2.0 * cross, min=0.0)
+    infl = torch.clamp(1.0 - torch.sqrt(sq_d) / kp_extent, min=0.0)
+    weighted = torch.einsum("bnkp,bnkc->bnpc", _round_bf16(infl), feats)
+    out = torch.einsum("bnpc,pcd->bnd", _round_bf16(weighted), _round_bf16(weights))
+    neighbor_num = (feats.sum(dim=-1) > 0.0).sum(dim=-1).clamp_min(1)
+    return out / neighbor_num[..., None].to(out.dtype)
+
+
+def _round_bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
 def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
     """Launch the Hopper KPConv kernel; same contract as ``kpconv``."""
     tensors = {"q_pts": q_pts, "s_pts": s_pts, "x": x,
@@ -104,6 +149,38 @@ def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent)
 kpconv_cuda.launches = 0
 
 
+def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_extent):
+    """Launch the kernel's bf16 instance: ``table`` [B, Ns + 1, 6 + Cin] bf16
+    (``kpconv_bf16_table``), ``weights`` [P, Cin, Cout] bf16, f32 query and
+    kernel points; returns f32 [B, Nq, Cout], as ``kpconv_bf16_plain``."""
+    for name, t, dtype in (("q_pts", q_pts, torch.float32), ("table", table, torch.bfloat16),
+                           ("kernel_points", kernel_points, torch.float32),
+                           ("weights", weights, torch.bfloat16),
+                           ("neighb_inds", neighb_inds, torch.int32)):
+        if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"kpconv_cuda_bf16: {name} must be a contiguous {dtype} CUDA tensor")
+    b, nq, k = neighb_inds.shape
+    p, cin, cout = weights.shape
+    ns = table.shape[1] - 1
+    if (q_pts.shape != (b, nq, 3) or table.shape != (b, ns + 1, 6 + cin)
+            or kernel_points.shape != (p, 3)):
+        raise ValueError("kpconv_cuda_bf16: inconsistent shapes "
+                         f"{q_pts.shape} {table.shape} {neighb_inds.shape} "
+                         f"{kernel_points.shape} {weights.shape}")
+    lib = _library()
+    out = torch.empty((b, nq, cout), device=table.device, dtype=torch.float32)
+    err = lib.kpconv_forward_bf16(
+        q_pts.data_ptr(), table.data_ptr(), neighb_inds.data_ptr(), kernel_points.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), b, nq, ns, k, cin, cout, p, float(kp_extent),
+        current_stream(table.device))
+    check(lib, err, "kpconv_forward_bf16")
+    kpconv_cuda_bf16.launches += 1
+    return out
+
+
+kpconv_cuda_bf16.launches = 0
+
+
 class KPConvFunction(torch.autograd.Function):
     """``kpconv_cuda`` forward; plain-recompute backward for the inputs that
     need a gradient (features and weights on the training path)."""
@@ -127,12 +204,29 @@ def _library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.kpconv_forward.argtypes = [vp] * 7 + [ci] * 7 + [ctypes.c_float, vp]
         lib.kpconv_forward.restype = ci
+        lib.kpconv_forward_bf16.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, vp]
+        lib.kpconv_forward_bf16.restype = ci
     return lib
 
 
-def kpconv_batched(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+def kpconv_batched(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
+                   compute_dtype=None):
     """KPConv on the tensors' device: the Hopper kernel (under autograd) for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors. ``compute_dtype``
+    "bfloat16" takes the bf16 path (its kernel instance on CUDA, forward
+    only); None or "float32" the f32 one."""
+    if compute_dtype == "bfloat16":
+        if not x.is_cuda:
+            return kpconv_bf16_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
+                                     kp_extent)
+        if torch.is_grad_enabled() and (x.requires_grad or weights.requires_grad):
+            raise NotImplementedError("KPConv's bf16 instance has no backward: bf16 training "
+                                      "is not ported (ROADMAP §1: bf16 training)")
+        return kpconv_cuda_bf16(q_pts.contiguous(), kpconv_bf16_table(s_pts, x),
+                                neighb_inds.contiguous(), kernel_points.contiguous(),
+                                weights.to(torch.bfloat16).contiguous(), kp_extent)
+    if compute_dtype not in (None, "float32"):
+        raise ValueError(f"compute_dtype {compute_dtype!r}: bfloat16, float32 or None")
     if x.is_cuda:
         return KPConvFunction.apply(q_pts.contiguous(), s_pts.contiguous(),
                                     neighb_inds.contiguous(), x.contiguous(),

@@ -41,15 +41,17 @@ def load_yaml(path: str) -> Dict[str, Any]:
 
 
 def check_ported(raw: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for a setting the port does not have."""
-    if raw.get("compute_dtype") not in (None, "float32"):
+    """Raise NotImplementedError for a setting the port does not have (and
+    ValueError for a value neither package knows)."""
+    if raw.get("compute_dtype") not in (None, "float32", "bfloat16"):
+        raise ValueError(f"compute_dtype={raw['compute_dtype']!r}: bfloat16, float32 or unset")
+    if raw.get("precision") not in (None, "highest", "default"):
+        raise NotImplementedError(f"precision={raw['precision']!r}: the port has 'highest' "
+                                  "and 'default' (TF32 where JAX reads get_precision())")
+    if raw.get("compute_dtype") == "bfloat16" and raw.get("mode") == "train":
         raise NotImplementedError(
-            f"compute_dtype={raw['compute_dtype']!r}: the bf16 compute path is not ported "
-            "(ROADMAP §1: the bf16 compute path)")
-    if raw.get("precision") not in (None, "highest"):
-        raise NotImplementedError(
-            f"precision={raw['precision']!r}: reduced-precision matmuls belong to the bf16 "
-            "path, not ported (ROADMAP §1); the port computes in float32")
+            "compute_dtype: bfloat16 with mode: train: the bf16 path runs inference only; "
+            "its backward is not ported (ROADMAP §1: bf16 training)")
     if raw.get("exact_topk") is False:
         raise NotImplementedError("exact_topk: False: the port's top-k is exact only")
     kp = raw.get("kpfcn_config", {})
@@ -83,6 +85,7 @@ def build_pipeline_config(raw: Dict[str, Any]):
         confidence_threshold=float(cm.get("confidence_threshold", 0.2)),
         skh_init_bin_score=float(cm.get("skh_init_bin_score", 1.0)),
         skh_iters=int(cm.get("skh_iters", 3)),
+        precision=str(raw.get("precision") or "highest"),
     )
     # masked (real) lengths set the Procrustes budget: bucket padding must not widen it
     procrustes = ProcrustesConfig(
@@ -90,6 +93,7 @@ def build_pipeline_config(raw: Dict[str, Any]):
         max_condition_num=float(pr.get("max_condition_num", 0.0)),
         use_masked_lengths=True,
     )
+    compute_dtype = raw.get("compute_dtype")
     transformer = TransformerConfig(
         feature_dim=int(ct.get("feature_dim", 432)),
         n_head=int(ct.get("n_head", 4)),
@@ -100,6 +104,7 @@ def build_pipeline_config(raw: Dict[str, Any]):
         voxel_size=float(ct.get("voxel_size", 0.08)),
         procrustes=procrustes,
         feature_matching=matching,
+        compute_dtype=compute_dtype,
     )
     kpfcn = KPFCNConfig(
         architecture=tuple(raw.get("architecture", KPFCN_ARCHITECTURE)),
@@ -113,6 +118,7 @@ def build_pipeline_config(raw: Dict[str, Any]):
         coarse_feature_dim=int(kp.get("coarse_feature_dim", 432)),
         fine_feature_dim=int(kp.get("fine_feature_dim", 264)),
         coarse_level=int(kp.get("coarse_level", -2)),
+        compute_dtype=compute_dtype,
     )
     return PipelineConfig(
         kpfcn=kpfcn,

@@ -1,16 +1,53 @@
-"""Precision policy: float32 everywhere, no TF32.
+"""Precision policy: float32 by default, TF32 only where the config asks for it.
 
-The JAX package pins its contractions to ``Precision.HIGHEST``. The port's
-counterpart is plain float32 with TF32 off for matmuls and cuDNN, so that
-the Sinkhorn logits, the pose covariance and the KPConv contractions keep
-full float32 on the card.
+The JAX package pins its contractions to ``Precision.HIGHEST`` unless the
+config says ``precision: default`` (``diffreg_tpu/utils/precision.py``),
+which lowers exactly the contractions that read ``get_precision()``; on an
+NVIDIA card JAX's DEFAULT is one-pass TF32. The port's counterpart:
+
+  * ``pin_float32`` sets the process baseline at model construction: TF32 off
+    for CUDA matmuls and cuDNN, and bf16 GEMMs reduced in f32, so that the
+    Sinkhorn logits, the pose covariance and the convolutions keep full
+    float32 on the card, and the bf16 path accumulates in f32 as JAX's
+    ``preferred_element_type=float32`` does;
+  * ``matmul_precision(policy)`` wraps one call site that JAX runs at
+    ``get_precision()``: TF32 inside it under "default", float32 under
+    "highest", and the flag restored after. The policy travels in the
+    configs to the site (``MatchingConfig.precision``), never through a flag
+    set before construction, so two models with different policies coexist.
+
+Of JAX's ``get_precision()`` sites, the port's plain matmuls are the
+matcher's similarity product (``nn/matching.py``). The others are the f32
+branches of KPConv and of the transformer's attention, which the port runs
+through its kernels: those keep f32 accuracy (3xTF32) under either policy.
+On the CPU TF32 does not exist, so both packages compute float32 there.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+PRECISIONS = ("highest", "default")
 
 
 def pin_float32() -> None:
-    """Turn TF32 off for CUDA matmuls and cuDNN (process-wide)."""
+    """Turn TF32 off for CUDA matmuls and cuDNN and keep bf16 GEMM reductions in
+    f32 (process-wide)."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def matmul_precision(policy: str):
+    """CUDA matmuls inside run in TF32 when ``policy`` is "default", in float32
+    when it is "highest"; the previous setting is restored on exit."""
+    if policy not in PRECISIONS:
+        raise ValueError(f"precision {policy!r}: one of {PRECISIONS}")
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = policy == "default"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before

@@ -253,8 +253,10 @@ def test_presets_match_jax():
         for sub in ("kpfcn", "coarse_transformer", "coarse_matching"):
             g, r = getattr(got, sub), getattr(ref, sub)
             for f in dataclasses.fields(g):
-                if f.name not in ("procrustes", "feature_matching"):
+                if f.name not in ("procrustes", "feature_matching", "precision"):
                     assert getattr(g, f.name) == getattr(r, f.name), (sub, f.name)
+        # JAX keeps the precision policy in a global, HIGHEST unless a config sets it
+        assert got.coarse_matching.precision == "highest"
     cfg = preset_4dmatch()
     assert cfg.coarse_transformer.feature_dim // cfg.coarse_transformer.n_head == 132
 

@@ -63,10 +63,17 @@ def _two_threads():
     torch.set_num_threads(n)
 
 
+# the port's own fields: JAX keeps the precision policy in a global
+# (diffreg_tpu/utils/precision.py), the port in the matcher's config
+PORT_ONLY = {"precision"}
+
+
 def _same_fields(got, ref, where=""):
     """Every field of the port's dataclass equals the JAX one's of that name
-    (nested configs field by field)."""
+    (nested configs field by field), but for ``PORT_ONLY``."""
     for f in dataclasses.fields(got):
+        if f.name in PORT_ONLY:
+            continue
         g = getattr(got, f.name)
         r = getattr(ref, f.name)
         if dataclasses.is_dataclass(g):
@@ -80,13 +87,14 @@ def test_build_configs_match_jax(name):
     path = os.path.join(REPO, "configs", name)
     raw = pc.load_yaml(path)
     assert raw == jc.load_yaml(path)
-    if raw.get("compute_dtype") == "bfloat16":      # the TPU fast-path config
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pc.build_pipeline_config(raw)
-        return
     got = pc.build_pipeline_config(raw)
     ref = jc.build_pipeline_config(raw)
     _same_fields(got, ref)
+    precision = raw.get("precision", "highest")     # what diffreg_tpu.main sets globally
+    assert got.coarse_matching.precision == precision
+    assert got.coarse_transformer.feature_matching.precision == precision
+    assert got.kpfcn.compute_dtype == got.coarse_transformer.compute_dtype \
+        == raw.get("compute_dtype")
     assert got.variant == raw["dataset"] and ref.stochastic_ddim == (got.variant == "4dmatch")
     _same_fields(pc.build_loss_config(raw), jc.build_loss_config(raw))
     _same_fields(pc.build_optim_config(raw, steps_per_epoch=7),
@@ -97,7 +105,7 @@ def test_build_configs_match_jax(name):
 
 
 @pytest.mark.parametrize("change", [
-    {"compute_dtype": "bfloat16"}, {"precision": "default"}, {"exact_topk": False},
+    {"mode": "train", "compute_dtype": "bfloat16"}, {"exact_topk": False},
     {"kpfcn_config": {"modulated": True}},
     {"architecture": ["simple", "resnetb_deformable"]},
     {"coarse_matching": {"match_type": "dual_softmax"}},
@@ -312,6 +320,33 @@ def test_main_test_4dmatch_on_disk(tmp_path, monkeypatch, rng):
     assert summary == ref
 
 
+def test_main_fast_path_on_disk(tmp_path, monkeypatch, rng):
+    """configs/test/3dmatch_fast.yaml's keys (compute_dtype bfloat16,
+    precision default) on an on-disk 3DMatch split: the reader, calibration,
+    the loader, the weights guard and a restored checkpoint on the bf16 path."""
+    from diffreg_tpu_torch.engine.checkpoint import CheckpointManager
+    from diffreg_tpu_torch.engine.train import OptimConfig, create_train_state
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+
+    monkeypatch.chdir(tmp_path)
+    fast = pc.load_yaml(os.path.join(REPO, "configs", "test", "3dmatch_fast.yaml"))
+    info = _write_3dmatch(tmp_path / "indoor", rng)
+    args = dict(dataset="3dmatch", data_root=str(tmp_path / "indoor"), split={"test": info},
+                exp_dir="fast", compute_dtype=fast["compute_dtype"], precision=fast["precision"])
+    cfg = _tiny_yaml(tmp_path / "t.yaml", **args)
+    with pytest.raises(SystemExit, match="random weights"):
+        main(["--config", cfg, "--device", "cpu"])
+    pipeline = pc.build_pipeline_config(pc.load_yaml(cfg))
+    assert pipeline.kpfcn.compute_dtype == "bfloat16"
+    assert pipeline.coarse_matching.precision == "default"
+    model = DiffusionMatchingModel(pipeline, device="cpu", seed=7)
+    CheckpointManager(str(tmp_path / "ckpt")).save(1, create_train_state(model, OptimConfig()))
+    summary = main(["--config", _tiny_yaml(tmp_path / "t.yaml", pretrain=str(tmp_path / "ckpt"),
+                                           **args), "--device", "cpu"])
+    assert summary["pairs"] == 4
+    _finite(summary, ["IR", "FMR", "RR"])
+
+
 def test_main_train_4dmatch_and_resume(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     cfg = _tiny_yaml(tmp_path / "t.yaml", dataset="4dmatch", exp_dir="train4d", max_epoch=1,
@@ -463,20 +498,30 @@ def _port_checkpoint(directory, raw, variables):
     return str(directory)
 
 
-@pytest.mark.parametrize("case", ["3dmatch-demo", "4dmatch-disk"])
+@pytest.mark.parametrize("case", ["3dmatch-demo", "3dmatch_fast-demo", "4dmatch-disk"])
 def test_main_test_matches_jax(tmp_path, monkeypatch, rng, case):
     """``main`` in test mode against ``diffreg_tpu.main`` on one YAML: 3DMatch
     on the demo pairs (IR, FMR, RR: the DDIM, extraction and device RANSAC),
-    and 4DMatch on an on-disk split (calibration, loader, thresholded
-    extraction, IR under the flow, NFMR on the metric_index points), two
-    batches each."""
+    the same with configs/test/3dmatch_fast.yaml's fast path (compute_dtype
+    bfloat16, precision default), and 4DMatch on an on-disk split
+    (calibration, loader, thresholded extraction, IR under the flow, NFMR on
+    the metric_index points), two batches each."""
     import diffreg_tpu.main as jax_main
+    from diffreg_tpu.utils import precision as jax_precision
 
     monkeypatch.chdir(tmp_path)
-    dataset = case.split("-")[0]
+    # the JAX main sets its precision policy process-wide: restored after the test
+    monkeypatch.setattr(jax_precision, "_PRECISION", jax_precision.get_precision())
+    dataset = case.split("-")[0].replace("_fast", "")
     extra = {"dataset": dataset, "exp_dir": "parity", "batch_size": 2}
+    if case == "3dmatch_fast-demo":
+        fast = pc.load_yaml(os.path.join(REPO, "configs", "test", "3dmatch_fast.yaml"))
+        gate = fast["coarse_transformer"]["procrustes"]["max_condition_num"]
+        extra.update(compute_dtype=fast["compute_dtype"], precision=fast["precision"],
+                     coarse_transformer={"feature_dim": 48, "n_head": 2, "voxel_size": 0.04,
+                                         "procrustes": {"max_condition_num": gate}})
     argv = ["--device", "cpu"]
-    if case == "3dmatch-demo":
+    if dataset == "3dmatch":
         argv += ["--demo", "--num-pairs", "4"]
     else:
         # a scene of 0.18 m with a 0.012 m first voxel, so that some of the
@@ -490,6 +535,29 @@ def test_main_test_matches_jax(tmp_path, monkeypatch, rng, case):
     # the JAX run restores no checkpoint (an empty directory) and so keeps the
     # weights it initialises from the config's seed; the port restores those
     runs = _record_jax_testers(monkeypatch)
+    if case == "3dmatch_fast-demo":
+        from diffreg_tpu.engine import tester as jt
+        from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+
+        outputs = {"jax": [], "port": []}
+
+        def init(self, *args, _orig=jt.ThreeDMatchTester.__init__, **kwargs):
+            _orig(self, *args, **kwargs)
+            forward = self._forward
+
+            def recording(*a):
+                out = forward(*a)
+                outputs["jax"].append({k: np.asarray(out[k])
+                                       for k in ("conf_matrix_pred", "corr_mask")})
+                return out
+            self._forward = recording
+        monkeypatch.setattr(jt.ThreeDMatchTester, "__init__", init)
+
+        def ddim_sample(self, *a, _orig=DiffusionMatchingModel.ddim_sample, **kw):
+            out = _orig(self, *a, **kw)
+            outputs["port"].append({k: out[k].numpy() for k in ("conf_matrix_pred", "corr_mask")})
+            return out
+        monkeypatch.setattr(DiffusionMatchingModel, "ddim_sample", ddim_sample)
     os.makedirs(tmp_path / "empty")
     jax_main.main(["--config", _tiny_yaml(tmp_path / "jax.yaml", pretrain=str(tmp_path / "empty"),
                                           **extra), *argv[2:]])
@@ -524,6 +592,25 @@ def test_main_test_matches_jax(tmp_path, monkeypatch, rng, case):
     if dataset == "4dmatch":
         # the threshold cut some candidates, and IR and NFMR are not 0
         assert sum(margins) > 0 and got["matches"] > 0 and ref["IR"] > 0 and ref["NFMR"] > 0
+    if case == "3dmatch_fast-demo":
+        # bf16: roundings flip where the packages' f32 sums differ, so the
+        # confidences agree to 5e-3 of their largest (measured 1.0e-3;
+        # tests/test_torch_bf16.py), the union masks up to near-ties, and IR
+        # up to what the differing mask entries can move it
+        assert len(outputs["jax"]) == len(outputs["port"]) == 2
+        ir_bound = 0.0
+        for r, g in zip(outputs["jax"], outputs["port"]):
+            conf = r["conf_matrix_pred"]
+            limit = 5e-3 * np.abs(conf).max()
+            assert np.abs(g["conf_matrix_pred"] - conf).max() <= limit
+            rows, cols = -np.partition(-conf, 1, axis=2), -np.partition(-conf, 1, axis=1)
+            tie = ((rows[:, :, 0] - rows[:, :, 1] <= 2 * limit)[:, :, None]
+                   | (cols[:, 0, :] - cols[:, 1, :] <= 2 * limit)[:, None, :])
+            differ = g["corr_mask"] != r["corr_mask"]
+            assert not (differ & ~tie).any()
+            ir_bound += float((differ.sum(axis=(1, 2)) / r["corr_mask"].sum(axis=(1, 2))).sum())
+        assert got["IR"] == pytest.approx(ref["IR"], abs=ir_bound / got["pairs"] + 1e-5)
+        ref = {k: v for k, v in ref.items() if k != "IR"}
     for key in ref:
         assert got[key] == pytest.approx(ref[key], rel=1e-5, abs=1e-5), key
 
