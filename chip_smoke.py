@@ -7,8 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 In order, it
-  1. prints the card's name and power limit (nvidia-smi); with
-     CHIP_SMOKE_LOG set, it also writes its whole output to that file;
+  1. prints the card's name and power limit (nvidia-smi);
   2. builds the port's CUDA kernels (nvcc, sm_90a) from csrc/ and prints the
      build seconds and ptxas' register/shared-memory report;
   3. holds each kernel against its plain PyTorch version on the card, at the
@@ -119,10 +118,6 @@ In order, it
      in a gap wider than the two devices' difference there); and
      ``diffreg_tpu_torch.main --mode train`` on configs/train/rgbdv2.yaml
      with that split (one epoch), its loss terms and checkpoint checked;
-     then the test split's pair 0 on trained weights: 200 Adam steps on it,
-     each checked, and the share of real node rows of its DDIM output free
-     of a near-tie printed after 0, 50, 100 and 200 (ROADMAP §3: the DDIM
-     mask check waits for that share to reach TIE_FREE_ROWS_MIN);
  17. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
@@ -242,16 +237,15 @@ CUT_GAP_MIN = 1e-7         # soft Procrustes' top-k cut must not fall on a near-
 KPCONV_BF16_REL_TOL = 2e-3     # of max |plain output|
 ATTENTION_BF16_REL_TOL = 1e-2  # of max |plain output|
 # pair 0 of the bf16 DDIM, card (kernels) against CPU (plain bf16 versions):
-# the confidences relative to their largest (measured 1.1e-3; the card's f32
-# path is 4.3e-3 away), the union mask's agreement (measured 0.99975: 64 of
-# 253,967 entries, near-ties flipped by those differences) and no difference
-# outside a near-tie, the pose solve on the same confidences (measured
-# 1.3e-6 against POSE_ABS_TOL; bf16_pair_check)
-CONF_BF16_REL_TOL = 5e-3
-MASK_BF16_AGREEMENT = 0.999
-# 2D-3D pair 0's DDIM on trained weights (ROADMAP §3): Adam steps on that pair,
-# the tie-free share printed at each count
-MASK_TRAIN_STEPS_2D3D = (0, 50, 100, 200)
+# the confidences relative to their largest (measured 1.0e-3 to 1.1e-3; the
+# card's f32 path is 4.2e-3 to 4.3e-3 away, so the limit tells the two paths
+# apart), the union mask's agreement (measured 0.99975 and 0.99977: 64 and 58
+# of 253,967 entries, near-ties flipped by those differences; the limit
+# allows twice the larger count) and no difference outside a near-tie, the
+# pose solve on the same confidences (measured 1.3e-6 against POSE_ABS_TOL;
+# bf16_pair_check)
+CONF_BF16_REL_TOL = 2e-3
+MASK_BF16_AGREEMENT = 0.9995
 # With random weights the 4DMatch sigmoid confidences sit just above 0.5, so
 # the protocol's threshold 0.55 extracts no match; the 4DMatch phase and the
 # CLI's on-disk run extract at 0.5 (the mutual-argmax matches), so that IR
@@ -267,13 +261,8 @@ METRIC_4D_ABS_TOL = 1e-2   # IR and NFMR: a flipped match moves IR by 1/n_corr
 NO_GRADIENT = "coarse_transformer.layers.2.0."
 
 
-LOG_FILES = []  # the file named by CHIP_SMOKE_LOG, opened by main()
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
-    for f in LOG_FILES:
-        print(msg, file=f, flush=True)
 
 
 def time_cuda(fn, iters: int, warmup: int = 2) -> float:
@@ -1612,36 +1601,27 @@ def check_pnp_2d3d(batch_cpu, u, gen):
             raise AssertionError(f"PnP on the {name} missed the ground-truth pose by {err}")
 
 
-def near_ties_2d3d(out):
-    """Of pair 0's 2D-3D output (on the CPU): the valid entries, the node rows
-    and image columns whose best two confidences lie within twice the
-    confidence limit (near-ties), and the share of real node rows free of one."""
-    import torch
-
-    valid = out["node_masks"][:, :, None] & out["img_valid_c"][:, None, :]
-    c = torch.where(valid, out["conf_matrix_pred"], torch.full_like(out["conf_matrix_pred"], -1.0))
-    top_r, top_c = c.topk(2, dim=2).values, c.topk(2, dim=1).values
-    row_tie = (top_r[..., 0] - top_r[..., 1]) <= 2 * CONF_2D3D_ABS_TOL        # [1, N]
-    col_tie = (top_c[:, 0] - top_c[:, 1]) <= 2 * CONF_2D3D_ABS_TOL            # [1, M]
-    real = out["node_masks"][0]
-    return valid, row_tie, col_tie, float((~row_tie[0] & real).sum()) / max(int(real.sum()), 1)
-
-
 def mask_agreement(got, ref):
     """Pair 0's top-1 union masks, card (``got``) against CPU (``ref``): the
     confidences' largest difference on valid entries, the entries that differ
     (and the cap, 1% of the CPU mask's entries plus 2), those outside a
     near-tie (a row's or column's best two CPU confidences within twice the
     confidence limit), and the share of real node rows free of a near-tie."""
-    valid, row_tie, col_tie, tie_free = near_ties_2d3d(ref)
+    import torch
+
+    valid = ref["node_masks"][:, :, None] & ref["img_valid_c"][:, None, :]
     conf = ref["conf_matrix_pred"]
     conf_err = float((got["conf_matrix_pred"].cpu() - conf).abs()[valid].max())
     differ = (got["corr_mask"].cpu() != ref["corr_mask"]) & valid
+    c = torch.where(valid, conf, torch.full_like(conf, -1.0))
+    top_r, top_c = c.topk(2, dim=2).values, c.topk(2, dim=1).values
+    row_tie = (top_r[..., 0] - top_r[..., 1]) <= 2 * CONF_2D3D_ABS_TOL        # [1, N]
+    col_tie = (top_c[:, 0] - top_c[:, 1]) <= 2 * CONF_2D3D_ABS_TOL            # [1, M]
     real = ref["node_masks"][0]
     out = {"conf_err": conf_err, "differ": int(differ.sum()),
            "cap": MASK_DIFFER_SHARE * max(int(ref["corr_mask"].sum()), 1) + 2,
            "unexplained": int((differ & ~(row_tie[:, :, None] | col_tie[:, None, :])).sum()),
-           "tie_free": tie_free}
+           "tie_free": float((~row_tie[0] & real).sum()) / max(int(real.sum()), 1)}
     out["text"] = (f"conf {conf_err:.3e} (limit {CONF_2D3D_ABS_TOL:.0e}, max conf "
                    f"{float(conf.max()):.3e}), {out['differ']} of {int(valid.sum())} valid mask "
                    f"entries differ (cap {out['cap']:.0f}), {out['unexplained']} outside a "
@@ -2095,60 +2075,9 @@ def run_cli_train_2d3d(repo, split_root, launches):
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in summary.items()))
 
 
-def trained_pair0_2d3d(cfg, one, circle_cfg, fine_cfg, launches, gen):
-    """Pair 0 of the test split on trained weights, a measurement for the open
-    fault of ROADMAP §3 (the 2D-3D DDIM mask check cannot fail while the
-    DDIM's confidences are flat): the full-width model (cfg at STEPS_2D3D_CPU
-    DDIM steps, matchers not sharpened) takes MASK_TRAIN_STEPS_2D3D[-1] Adam
-    steps (lr 1e-4) on pair 0, each counted and checked as in phase 16, and
-    the share of real node rows of its DDIM output free of a near-tie is
-    printed at each count of MASK_TRAIN_STEPS_2D3D. A card-vs-CPU mask check
-    on these weights could assert the share and the cap only once that share
-    reaches TIE_FREE_ROWS_MIN."""
-    import torch
-
-    from diffreg_tpu_torch.engine.losses import LossConfig
-    from diffreg_tpu_torch.engine.tester2d3d import Test2D3DConfig
-    from diffreg_tpu_torch.engine.train import OptimConfig
-    from diffreg_tpu_torch.engine.train2d3d import create_train_state_2d3d, make_train_step_2d3d
-    from diffreg_tpu_torch.models.pipeline_2d3d import DiffReg2D3D
-
-    cfg_short = dataclasses.replace(cfg, sample_steps=STEPS_2D3D_CPU)
-    tcfg = Test2D3DConfig(fine_threshold=FINE_THR_2D3D)
-    state = create_train_state_2d3d(DiffReg2D3D(cfg_short, device="cuda", seed=0),
-                                    OptimConfig(optimizer="adam", lr=1e-4))
-    rows = []
-    step = counted_train_step_2d3d(make_train_step_2d3d(circle_cfg, LossConfig(), fine_cfg),
-                                   rows, launches)
-    batch = one.to("cuda")
-    x_init = torch.randn(1, one.points[-1].shape[1], one.image.shape[1] * one.image.shape[2] // 64,
-                         generator=gen)
-    u = torch.rand(1, PNP_HYPOTHESES, 6, generator=gen)
-    draws = torch.Generator("cuda").manual_seed(0)
-    shares, done, train_s = [], 0, 0.0
-    for count in MASK_TRAIN_STEPS_2D3D:
-        t0 = time.perf_counter()
-        while done < count:
-            state, _ = step(state, batch, state.model.draw_train_inputs(batch, draws))
-            done += 1
-        torch.cuda.synchronize()
-        train_s += time.perf_counter() - t0
-        with torch.inference_mode():
-            got = fixed_draws_tester(state.model, tcfg, "cuda", x_init, u).forward(batch, None)[0]
-        got = {k: got[k].cpu() for k in ("node_masks", "img_valid_c", "conf_matrix_pred")}
-        shares.append(f"{count} steps {near_ties_2d3d(got)[3]:.4f} (max conf "
-                      f"{float(got['conf_matrix_pred'].max()):.3e})")
-    log(f"2D-3D pair 0 on trained weights ({done} Adam steps on it in {train_s:.1f} s; circle "
-        f"{rows[0]['circle']:.4f} -> {rows[-1]['circle']:.4f}, gt_hat {rows[0]['gt_hat']:.4f} "
-        f"-> {rows[-1]['gt_hat']:.4f}): real node rows of the card's DDIM ({STEPS_2D3D_CPU} "
-        f"steps) free of a near-tie after {'; '.join(shares)} (a mask check needs "
-        f"{TIE_FREE_ROWS_MIN})")
-
-
-def run_train_2d3d_phase(repo, split_root, launches, one, gen):
+def run_train_2d3d_phase(repo, split_root, launches):
     """Phase 16: the train subset beside the test split, the Trainer, one step
-    card against CPU, and the CLI's train path; then the test split's pair 0
-    (``one``) on trained weights."""
+    card against CPU, and the CLI's train path."""
     from diffreg_tpu_torch.main import loss_2d3d_configs, pipeline_2d3d_config
     from diffreg_tpu_torch.utils.config import load_yaml
 
@@ -2165,9 +2094,6 @@ def run_train_2d3d_phase(repo, split_root, launches, one, gen):
     result = train_2d3d_trainer(cfg, batch_cpu, circle_cfg, fine_cfg, launches)
     train_step_2d3d_card_vs_cpu(cfg, batch_cpu.select(slice(0, 1)), circle_cfg, fine_cfg)
     run_cli_train_2d3d(repo, split_root, launches)
-    test_cfg = pipeline_2d3d_config(load_yaml(os.path.join(repo, "configs", "test",
-                                                           "rgbdv2.yaml")))
-    trained_pair0_2d3d(test_cfg, one, circle_cfg, fine_cfg, launches, gen)
     return result
 
 
@@ -2223,8 +2149,7 @@ def run_2d3d_phases(repo, kernels, launches, gen):
         run_cli_2d3d(repo, split_root, launches)
 
         # ---- 16. 2D-3D training: the Trainer, card vs CPU, the entry point ----
-        kernels[1]["d64"]["train_2d3d"] = run_train_2d3d_phase(
-            repo, split_root, launches, batch_cpu.select(slice(0, 1)), gen)
+        kernels[1]["d64"]["train_2d3d"] = run_train_2d3d_phase(repo, split_root, launches)
 
 
 def main() -> int:
@@ -2256,11 +2181,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    # the whole log, for a caller that keeps only the end of the output
-    if os.environ.get("CHIP_SMOKE_LOG"):
-        path = os.path.abspath(os.environ["CHIP_SMOKE_LOG"])
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        LOG_FILES.append(open(path, "w"))
     t_start = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,

@@ -558,6 +558,24 @@ def test_main_test_matches_jax(tmp_path, monkeypatch, rng, case):
             outputs["port"].append({k: out[k].numpy() for k in ("conf_matrix_pred", "corr_mask")})
             return out
         monkeypatch.setattr(DiffusionMatchingModel, "ddim_sample", ddim_sample)
+
+        # the port's calls of each kernel's plain versions, bf16 and f32 (the
+        # CPU counterparts of the kernels' bf16 and f32 instances)
+        import diffreg_tpu_torch.ops.attention as port_attention
+        import diffreg_tpu_torch.ops.kpconv as port_kpconv
+        calls = {}
+
+        def counted(module, name):
+            fn = getattr(module, name)
+
+            def wrapper(*a, **kw):
+                calls[name] = calls.get(name, 0) + 1
+                return fn(*a, **kw)
+            monkeypatch.setattr(module, name, wrapper)
+        for module, name in ((port_kpconv, "kpconv_bf16_plain"), (port_kpconv, "kpconv"),
+                             (port_attention, "masked_attention_bf16_plain"),
+                             (port_attention, "masked_attention_plain")):
+            counted(module, name)
     os.makedirs(tmp_path / "empty")
     jax_main.main(["--config", _tiny_yaml(tmp_path / "jax.yaml", pretrain=str(tmp_path / "empty"),
                                           **extra), *argv[2:]])
@@ -593,15 +611,20 @@ def test_main_test_matches_jax(tmp_path, monkeypatch, rng, case):
         # the threshold cut some candidates, and IR and NFMR are not 0
         assert sum(margins) > 0 and got["matches"] > 0 and ref["IR"] > 0 and ref["NFMR"] > 0
     if case == "3dmatch_fast-demo":
+        # the port ran the bf16 path only: bf16 KPConv and attention, no f32
+        assert calls.get("kpconv_bf16_plain", 0) > 0 and calls.get("kpconv", 0) == 0, calls
+        assert calls.get("masked_attention_bf16_plain", 0) > 0, calls
+        assert calls.get("masked_attention_plain", 0) == 0, calls
         # bf16: roundings flip where the packages' f32 sums differ, so the
-        # confidences agree to 5e-3 of their largest (measured 1.0e-3;
-        # tests/test_torch_bf16.py), the union masks up to near-ties, and IR
-        # up to what the differing mask entries can move it
+        # confidences agree to 2e-3 of their largest (measured 1.0e-3 and
+        # 5.2e-4 on the two batches; the f32 path lies 5.4e-3 away in
+        # tests/test_torch_bf16.py's DDIM), the union masks up to near-ties,
+        # and IR up to what the differing mask entries can move it
         assert len(outputs["jax"]) == len(outputs["port"]) == 2
         ir_bound = 0.0
         for r, g in zip(outputs["jax"], outputs["port"]):
             conf = r["conf_matrix_pred"]
-            limit = 5e-3 * np.abs(conf).max()
+            limit = 2e-3 * np.abs(conf).max()
             assert np.abs(g["conf_matrix_pred"] - conf).max() <= limit
             rows, cols = -np.partition(-conf, 1, axis=2), -np.partition(-conf, 1, axis=1)
             tie = ((rows[:, :, 0] - rows[:, :, 1] <= 2 * limit)[:, :, None]

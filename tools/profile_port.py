@@ -2,10 +2,8 @@
 
 Builds chip_smoke.py's configuration (preset_3dmatch at full width, 4 pairs
 of 4096 points per side, 20 DDIM steps, 8192 RANSAC hypotheses, random
-weights from seed 0), in f32 and on the bf16 fast path (``with_fast_path``,
-configs/test/3dmatch_fast.yaml's settings), warms ``register`` up, then
-records one ``register`` call per path and condition gate (0 and 40) with
-``torch.profiler`` and prints, from
+weights from seed 0), warms ``register`` up, then records one ``register``
+call per condition gate (0 and 40) with ``torch.profiler`` and prints, from
 the recorded trace: the call's wall time, the device's busy time (union of
 kernel, memcpy and memset intervals) and idle share, the device launches
 per DDIM step, and the kernels that take the most device time. The last
@@ -67,8 +65,7 @@ def main() -> int:
     from diffreg_tpu_torch.data.synthetic import make_pair, synthetic_batch
     from diffreg_tpu_torch.eval.register import register
     from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
-    from diffreg_tpu_torch.models.presets import (preset_3dmatch, with_condition_gate,
-                                                  with_fast_path)
+    from diffreg_tpu_torch.models.presets import preset_3dmatch, with_condition_gate
 
     pairs, n_points, steps, hypotheses = 4, 4096, 20, 8192
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -87,9 +84,9 @@ def main() -> int:
     u = torch.rand(pairs, hypotheses, 3, generator=gen)
 
     results = {}
-    paths = {"f32": preset_3dmatch(steps), "bf16": with_fast_path(preset_3dmatch(steps))}
-    for (path_name, cfg), gate in ((p, g) for p in paths.items() for g in (0.0, 40.0)):
-        model = DiffusionMatchingModel(with_condition_gate(cfg, gate), device="cuda", seed=0)
+    for gate in (0.0, 40.0):
+        model = DiffusionMatchingModel(with_condition_gate(preset_3dmatch(steps), gate),
+                                       device="cuda", seed=0)
         register(model, batch, x_init, u)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -102,8 +99,8 @@ def main() -> int:
             prof.export_chrome_trace(path)
             summary = summarize(path, wall_s)
         summary["launches_per_ddim_step"] = summary["kernel_launches"] / steps
-        results[f"{path_name}_gate_{gate:g}"] = summary
-        print(f"{path_name} gate {gate}: wall {wall_s:.4f} s (profiled), device busy "
+        results[f"gate_{gate:g}"] = summary
+        print(f"gate {gate}: wall {wall_s:.4f} s (profiled), device busy "
               f"{summary['device_busy_s']:.4f} s, idle share {summary['idle_share']:.3f}, "
               f"{summary['kernel_launches']} kernel launches "
               f"({summary['launches_per_ddim_step']:.0f} per DDIM step)", flush=True)
