@@ -48,7 +48,10 @@ In order, it
      against its plain bf16 version (KPConv at the 11 layers of a bf16 encode
      on the activations it feeds them, attention at the 3DMatch self and
      cross shapes, D = 108, and at the 4DMatch shapes, D = 132), timed beside
-     the plain version and, for attention, SDPA in bf16; the bf16 DDIM path
+     the plain version and, for attention, SDPA in bf16, and at the edges
+     of their tilings (attention at 70 x 45, 1 x 768, 768 x 1, one valid
+     key, a key range past the kept logits; KPConv at K 1 and 40, a short
+     tile, the kernel-point split on and off, Cin 32 and 512); the bf16 DDIM path
      at full width, gate 0 and 40, one warm-up and three timed runs (pairs/s
      beside the f32 path's of phase 4, peak memory), 11 bf16 KPConv and 180
      bf16 attention launches asserted per run and no f32 kernel launch;
@@ -304,10 +307,13 @@ def bound_ms(nbytes: float, mma_flops: float, f32_flops: float,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kpconv_work(q, s, inds, x, w, bf16=False):
+def kpconv_work(q, s, inds, x, w, bf16=False, aggregation_on_tensor_cores=None):
     """(bytes, matrix-product flops, other flops) of one KPConv call on these
     inputs; ``bf16``: the bf16 instance's, whose support table (hi, lo,
-    features) and weights are bf16."""
+    features) and weights are bf16, and whose aggregation (influence x
+    features, 2 P Cin flops a real neighbour) is a matrix product on the
+    tensor cores (``aggregation_on_tensor_cores`` False counts it as other
+    flops, the f32 rate, as the first bf16 version's bound did)."""
     b, nq, k = inds.shape
     ns, cin = x.shape[1], x.shape[2]
     p, _, cout = w.shape
@@ -323,6 +329,11 @@ def kpconv_work(q, s, inds, x, w, bf16=False):
     # (13), feature-sum test (Cin), influence x features (2 P Cin);
     # per query: the division, and the [P Cin] x Cout contraction (the product)
     flops = n_nb * (8 + 13 * p + cin + 2 * p * cin) + n_q * cout
+    if aggregation_on_tensor_cores is None:
+        aggregation_on_tensor_cores = bf16
+    if aggregation_on_tensor_cores:
+        aggregation = n_nb * 2 * p * cin
+        return nbytes, n_q * 2 * p * cin * cout + aggregation, flops - aggregation
     return nbytes, n_q * 2 * p * cin * cout, flops
 
 
@@ -371,15 +382,16 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False):
     layers {(nq, ns, k, cin, cout): (inputs, calls)}."""
     import torch
 
-    from diffreg_tpu_torch.ops.kpconv import (kpconv, kpconv_bf16_plain, kpconv_bf16_table,
-                                              kpconv_cuda, kpconv_cuda_bf16)
+    from diffreg_tpu_torch.ops.kpconv import (kpconv, kpconv_bf16_plain,
+                                              kpconv_bf16_table_aligned, kpconv_cuda,
+                                              kpconv_cuda_bf16)
 
     if bf16:
         # the kernel's own inputs (the bf16 table and weights), built once a shape
         def kernel(q, s, inds, x, kp, w, extent):
             return kpconv_cuda_bf16(q, tables[id(x)], inds, kp, weights[id(w)], extent)
         counted, plain, limit = kpconv_cuda_bf16, kpconv_bf16_plain, KPCONV_BF16_REL_TOL
-        tables = {id(a[3]): kpconv_bf16_table(a[1], a[3]) for a in calls}
+        tables = {id(a[3]): kpconv_bf16_table_aligned(a[1], a[3]) for a in calls}
         weights = {id(a[5]): a[5].to(torch.bfloat16).contiguous() for a in calls}
     else:
         kernel, counted, plain, limit = kpconv_cuda, kpconv_cuda, kpconv, KPCONV_REL_TOL
@@ -392,6 +404,7 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False):
         key = (q.shape[1], s.shape[1], inds.shape[2], x.shape[2], w.shape[2])
         shapes.setdefault(key, [args, 0])[1] += 1
     totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "mma_flops": 0.0, "flops": 0.0}
+    first_bound = {"bytes": 0.0, "mma_flops": 0.0, "flops": 0.0}  # bf16: aggregation at the f32 rate
     worst, per_shape = 0.0, []
     with torch.inference_mode():
         for (nq, ns, k, cin, cout), (args, count) in shapes.items():
@@ -427,6 +440,11 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False):
             totals["plain_ms"] += count * plain_ms
             for key, val in zip(("bytes", "mma_flops", "flops"), work):
                 totals[key] += count * val
+            if bf16:
+                old = kpconv_work(q, s, inds, x, w, True, aggregation_on_tensor_cores=False)
+                per_shape[-1]["bound_ms_aggregation_f32"] = bound_ms(*old, BF16_FLOPS_PER_S)[0]
+                for key, val in zip(("bytes", "mma_flops", "flops"), old):
+                    first_bound[key] += count * val
     bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"],
                        BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
     entry = {"name": "kpconv_bf16" if bf16 else "kpconv", "route": "cuda",
@@ -435,6 +453,11 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False):
              "launches": None, "max_abs_err": worst, "ms": totals["ms"],
              "plain_ms": totals["plain_ms"], "bound_ms": bms, "bound_by": by,
              "library_ms": None, "per": per, "shapes": per_shape}
+    if bf16:
+        entry["bound_ms_aggregation_f32"], _ = bound_ms(
+            first_bound["bytes"], first_bound["mma_flops"], first_bound["flops"], BF16_FLOPS_PER_S)
+        log(f"kpconv{tag}: bound {bms:.4f} ms ({by}; aggregation as bf16 matrix flops), "
+            f"{entry['bound_ms_aggregation_f32']:.4f} ms with it at the f32 rate")
     return entry, shapes
 
 
@@ -1208,12 +1231,109 @@ def bf16_pair_check(got, ref, f32, one, cpu_model, tag):
                              f"{unexplained} entries outside a near-tie, pose solve {solve_err}")
 
 
+def bf16_edge_cases(gen):
+    """Both bf16 kernels against their plain bf16 versions, at the limits of
+    the main-path check, where the new tilings and splits have edges:
+    attention at L x S of 70 x 45, 1 x 768 and 768 x 1, with a batch row
+    whose key mask holds one valid key, and at S = 1500 (a block's key range
+    past the kept-logits limit: the recompute branch), at both head widths;
+    KPConv at K = 1 and K = 40, Nq short of one 32-query tile, grids short of
+    two waves (the kernel-point split on) and long (off), and Cin = 32 and
+    512. Returns (attention cases, KPConv cases)."""
+    import torch
+
+    from diffreg_tpu_torch.ops.attention import (masked_attention_bf16_plain,
+                                                 masked_attention_cuda_bf16)
+    from diffreg_tpu_torch.ops.kpconv import (kpconv_bf16_plain, kpconv_bf16_table_aligned,
+                                              kpconv_cuda_bf16)
+
+    att, kp = [], []
+    with torch.inference_mode():
+        for d in (108, 132):
+            for name, b, length, keys, one_valid in (
+                    ("70x45", 2, 70, 45, False), ("1x768", 2, 1, 768, False),
+                    ("768x1", 2, 768, 1, False), ("one valid key", 2, 704, 704, True),
+                    ("recompute 1500", 2, 300, 1500, False)):
+                q = torch.randn(b, 4, length, d, generator=gen).to("cuda", torch.bfloat16)
+                k, v = (torch.randn(b, 4, keys, d, generator=gen).to("cuda", torch.bfloat16)
+                        for _ in range(2))
+                mask = torch.arange(keys)[None] < torch.tensor([keys, max(keys - 37, 1)])[:, None]
+                if one_valid:
+                    mask[0] = False
+                    mask[0, keys // 2] = True
+                mask = mask.cuda()
+                got = masked_attention_cuda_bf16(q, k, v, mask, d ** -0.5).float()
+                ref = masked_attention_bf16_plain(q, k, v, mask, d ** -0.5).float()
+                err, top = float((got - ref).abs().max()), float(ref.abs().max())
+                log(f"attention bf16 edge {name}, D {d}: err {err:.3e} = {err / top:.3e} of max "
+                    f"|plain| (limit {ATTENTION_BF16_REL_TOL:.0e})")
+                if not math.isfinite(err) or err > ATTENTION_BF16_REL_TOL * top:
+                    raise AssertionError(f"attention bf16 edge {name}, D {d}: err {err}")
+                att.append({"case": name, "d": d, "l": length, "s": keys, "max_abs_err": err,
+                            "max_abs_plain": top})
+        for name, b, nq, ns, k, cin, cout in (
+                ("K 1, split off", 4, 8704, 8704, 1, 64, 64),
+                ("K 40, split on", 4, 1536, 1536, 40, 128, 128),
+                ("Nq 20 (short of a tile)", 4, 20, 300, 40, 64, 64),
+                ("Nq 5, K 7, Cin 32", 1, 5, 40, 7, 32, 128),
+                ("Cin 32, split off", 4, 8704, 8704, 34, 32, 64),
+                ("Cin 512, K 16, split on", 2, 300, 1000, 16, 512, 512),
+                ("Cin 512, split off", 4, 4352, 4352, 40, 512, 64)):
+            s_pts = torch.rand(b, ns, 3, generator=gen) * 2.0 + torch.tensor([3.2, -2.1, 1.7])
+            q_pts = s_pts[:, torch.randint(0, ns, (nq,), generator=gen)] + \
+                0.01 * torch.randn(b, nq, 3, generator=gen)
+            inds = torch.randint(0, ns + 1, (b, nq, k), generator=gen).int()
+            x = torch.randn(b, ns, cin, generator=gen)
+            kpts = torch.randn(15, 3, generator=gen) * 0.3
+            w = torch.randn(15, cin, cout, generator=gen) * 0.05
+            q_pts, s_pts, inds, x, kpts, w = (t.cuda().contiguous()
+                                               for t in (q_pts, s_pts, inds, x, kpts, w))
+            got = kpconv_cuda_bf16(q_pts, kpconv_bf16_table_aligned(s_pts, x), inds, kpts,
+                                   w.to(torch.bfloat16).contiguous(), 0.6)
+            ref = kpconv_bf16_plain(q_pts, s_pts, inds, x, kpts, w, 0.6)
+            err, top = float((got - ref).abs().max()), float(ref.abs().max())
+            log(f"kpconv bf16 edge {name} (B {b}, Nq {nq}, K {k}, {cin}->{cout}): err {err:.3e} "
+                f"= {err / top:.3e} of max |plain| (limit {KPCONV_BF16_REL_TOL:.0e})")
+            if not math.isfinite(err) or err > KPCONV_BF16_REL_TOL * top:
+                raise AssertionError(f"kpconv bf16 edge {name}: err {err}")
+            kp.append({"case": name, "b": b, "nq": nq, "k": k, "cin": cin, "cout": cout,
+                       "max_abs_err": err, "max_abs_plain": top})
+    return att, kp
+
+
+def profile_call(repo, fn):
+    """One call of ``fn`` (ending in a synchronize) under torch.profiler,
+    summarised by tools/profile_port.py:summarize: wall time, the device's
+    busy time and idle share, kernel launches and the top kernels."""
+    import importlib.util
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_port", os.path.join(repo, "tools", "profile_port.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        return module.summarize(path, wall_s)
+
+
 def run_bf16(repo, batch, batch_cpu, spec, x_init, u, f32_ref, batch4_cpu, gen, launches):
     """Phase 8b, the bf16 fast path (configs/test/3dmatch_fast.yaml): each
     bf16 instance against its plain bf16 version at the main path's shapes
     (KPConv at the 11 layers of a bf16 encode, attention at the 3DMatch self
     and cross shapes, D = 108, and the 4DMatch ones, D = 132), with SDPA in
-    bf16 as the attention yardstick; the bf16 DDIM at full width, gate 0 and
+    bf16 as the attention yardstick, and at the edges of their tilings
+    (``bf16_edge_cases``); the bf16 DDIM at full width, gate 0 and
     40 (one warm-up and three timed runs, the bf16 launches asserted and no
     f32 kernel launched), pair 0 against the CPU, and ``main`` on
     3dmatch_fast.yaml with --demo. Returns the two kernels' JSON entries and
@@ -1244,10 +1364,11 @@ def run_bf16(repo, batch, batch_cpu, spec, x_init, u, f32_ref, batch4_cpu, gen, 
                                        "library_ms", "per")}
     at["shapes"] += at4["shapes"]
     at["max_abs_err"] = max(at["max_abs_err"], at4["max_abs_err"])
+    at["edge_cases"], kp["edge_cases"] = bf16_edge_cases(gen)
 
     torch.cuda.reset_peak_memory_stats()
     per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
-    pairs_per_s, outs = {}, {}
+    pairs_per_s, outs, profiles = {}, {}, {}
     for gate, model in models.items():
         register(model, batch, x_init, u)                      # warm-up
         times = []
@@ -1281,6 +1402,14 @@ def run_bf16(repo, batch, batch_cpu, spec, x_init, u, f32_ref, batch4_cpu, gen, 
             f"(f32 path {f32_ref[gate]['pairs_per_s']:.3f}); encode {enc_s:.4f} s, DDIM "
             f"{ddim_s - enc_s:.4f} s; launches bf16 kpconv {n_kp} attention {n_at}, f32 0"
             f"{accepted}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        prof = profile_call(repo, lambda: register(model, batch, x_init, u))
+        profiles[str(gate)] = {k: prof[k] for k in ("wall_s", "device_busy_s", "idle_share",
+                                                    "kernel_launches", "top_kernels_ms")}
+        log(f"bf16 path gate {gate}, one profiled call: wall {prof['wall_s']:.4f} s, device "
+            f"busy {prof['device_busy_s']:.4f} s, idle share {prof['idle_share']:.3f}, "
+            f"{prof['kernel_launches']} kernel launches "
+            f"({prof['kernel_launches'] / STEPS:.0f} per DDIM step); top kernels (ms): "
+            + "; ".join(f"{ms:.3f} {name}" for name, ms in prof["top_kernels_ms"][:6]))
     del models
 
     one = batch_cpu.select(slice(0, 1))
@@ -1319,6 +1448,7 @@ def run_bf16(repo, batch, batch_cpu, spec, x_init, u, f32_ref, batch4_cpu, gen, 
     log(f"main 3DMatch fast (configs/test/3dmatch_fast.yaml, demo), {BATCH_PAIRS} pairs: "
         f"{seconds:.2f} s, launches bf16 kpconv {n_kp} attention {n_at}, f32 0; " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in summary.items()))
+    at["ddim_profile"] = profiles
     return [kp, at], pairs_per_s
 
 

@@ -62,6 +62,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "bf16.cuh"
 #include "tf32.cuh"
 
@@ -298,92 +300,201 @@ int launch(const float* q, const float* k, const float* v, const uint8_t* kv_mas
 // flash_out_f32 output as the merge reads it.
 //
 // Rounding the normalised probability needs the row's max and sum before
-// any P.V, so the kernel makes two passes over the keys: the first computes
-// S = q.k^T tile by tile and keeps the running max and the running sum of
-// exp(s - max) (rescaled as the max grows); the second computes S again,
-// p = exp(s - max) / sum rounded to bf16, and O += P.V. That is 1.5x the
-// products of a one-pass online softmax, on a card whose bf16 tensor cores
-// are far from the limit at these shapes.
+// any P.V (a one-pass online softmax that rounds exp(s - running max) is as
+// far from the XLA path as f32 is), so every row's max and sum are known
+// before its first P.V. What bounds it on an H100 at the main path's shapes
+// ([4 or 8, 4, 704-768 x 704-768], D 108 or 132): neither bytes nor tensor-
+// core flops (a few microseconds each) but latency, the exp and the loads.
+// The first version (two passes over all keys in one 64-query block, 4
+// warps, one mask byte from global memory per score) took 0.110 ms for the
+// cross call at B = 4 and 0.126 for the self call at B = 8 (NVIDIA H100 80GB
+// HBM3, 700 W): 176 blocks of 4 warps left the card's SMs with about five
+// resident warps, pass 1 took 43% of the time, pass 2 54%, the mask loads
+// 16-23%.
 //
-// One bf16 tensor-core pass per product (mma.sync m16n8k16, f32
-// accumulate). A warp owns 16 query rows, whose q fragments stay in
-// registers for both passes; per 32-key tile S goes to 4 n-tiles of
-// accumulators, whose registers are, after the softmax and the rounding, the
-// A fragments of P.V (bf16.cuh). K's B fragments are 32-bit shared loads
-// (k-major rows); V's come from ldmatrix.trans. O accumulates in the tensor
-// core: its sum of normalised terms over at most a few hundred k-steps
-// stays far below the bf16 output's rounding. K and V tiles are staged by
-// 8-byte cp.async (a 108-wide bf16 row is 216 bytes, not a multiple of 16),
-// double-buffered: the next step's tiles load while this one's products
-// run. D is padded to a multiple of the k-depth 16: instances 112 (D = 108)
-// and 144 (D = 132); shared rows are DPad + 8 bf16 apart (240 or 304 bytes,
-// odd multiples of 16: no bank conflicts for the fragment loads or
-// ldmatrix).
+// Design (0.091 ms for that self call, 0.049 for the cross call, same card):
+//  * A cluster of four blocks (thread block clusters, sm_90) owns one tile of
+//    64 queries; block r of the cluster takes a quarter of the key tiles (32
+//    keys each), so the grid has 4x the blocks: 704 of 4 warps at the cross
+//    shape, two to three resident per SM (registers and shared memory).
+//  * Pass 1, over the block's K tiles: S = q.k^T on tensor cores (mma.sync
+//    m16n8k16 bf16, f32 accumulate; a warp owns 16 query rows, its q
+//    fragments in registers), masked and scaled in f32 and kept in shared
+//    memory (at most kKeepMax = 256 keys a block, i.e. S <= 1024: 64 KB of
+//    f32 logits), with the row's running max and its running sum of
+//    exp(s - max). Each block then stores its rows' (max, sum) into every
+//    block of the cluster (distributed shared memory), one cluster barrier,
+//    and each forms the row's max M and sum L over all keys, in rank order.
+//    (A max-only pass 1, then a pass over the kept logits for the sums, one
+//    exp a score instead of two, measured slower: a second cluster barrier.)
+//  * Pass 2, over the block's V tiles: p = exp(s - M) (1 / L) from the kept
+//    logits, rounded to bf16, straight into the A fragments of P.V (the
+//    accumulator layout, bf16.cuh); V's B fragments by ldmatrix.trans. For a
+//    longer key range the block takes its K tiles again in pass 2 and
+//    recomputes S (the same kernel, a branch on the range's length). An
+//    IEEE division per probability in place of the reciprocal cost 20-25%.
+//  * The blocks' partial P.V sums (f32, in registers) are stored into the
+//    block that writes their rows (block r writes rows [16 r, 16 r + 16)) and
+//    added there in f32, in rank order; each block writes 16 of the 64 rows
+//    in bf16. P is normalised and rounded per entry before P.V, so splitting
+//    the keys changes only the order of the f32 sums.
+//  * The key mask is read once per block into shared memory (a byte per
+//    key of its range). K and V tiles are staged by 8-byte cp.async (a
+//    108-wide bf16 row is 216 bytes, not a multiple of 16), a warp per 8
+//    rows and a lane per 8 bytes, two slots, the next tile in flight during
+//    this one's products (staging by a flat index with a division per copy
+//    took a quarter of the kernel's time). D is padded to a multiple of the
+//    k-depth 16: instances 112 (D = 108) and 144 (D = 132); shared rows are
+//    DPad + 8 bf16 apart (odd multiples of 16 bytes: no bank conflicts for
+//    the fragment loads or ldmatrix), logit rows C + 8 floats and partial-sum
+//    rows DPad + 24 floats (8 mod 32 words: float2 stores of a half-warp hit
+//    distinct banks).
+//  * Where a block's time goes (globaltimer stamps, cross call): the start
+//    2.3 us, pass 1 6.4, the exchange 2.4, pass 2 4.9, the partial sums 4.8;
+//    clusters of eight (half the keys a block), three tile slots and
+//    16-key tiles measured no faster.
+//  * mma.sync, not wgmma or TMA: TMA needs 16-byte global strides, which a
+//    216-byte row does not have, and a padded q/k/v layout would add copies
+//    to a host-bound step.
+
+constexpr int kClusterBlocks = 4;  // blocks per query tile, each a quarter of the key tiles
+constexpr int kKeepMax = 256;      // a block's key range up to which its logits are kept
+constexpr int kRing = 2;           // K/V tile slots: kRing - 1 tiles in flight
+constexpr int kBKT = 32;           // keys per tile
 
 template <int kDPad>
 __host__ __device__ constexpr int bf16_stride() { return kDPad + 8; }
-
-// two buffers each of K and V tiles
 template <int kDPad>
-constexpr size_t smem_bytes_bf16() { return sizeof(__nv_bfloat16) * bf16_stride<kDPad>() * 4 * kKT; }
+__host__ __device__ constexpr int partial_stride() { return kDPad + 24; }
 
-// Stage rows [s0, s0 + kKT) of k or v (bf16) into a shared buffer; rows past
-// S are zeros. The caller commits the group.
+// Shared memory of a block whose key range is `range` keys: [logits, then
+// the partial sums (f32)][kRing K/V tile slots][each block's row max and sum]
+// [mask bytes].
+template <int kDPad>
+__host__ __device__ constexpr int region_floats(int range, bool keep) {
+  return keep && kQT * (range + 8) > kQT * partial_stride<kDPad>() ? kQT * (range + 8)
+                                                                   : kQT * partial_stride<kDPad>();
+}
+template <int kDPad>
+size_t smem_bytes_bf16(int range, bool keep) {
+  return sizeof(float) * region_floats<kDPad>(range, keep) +
+         sizeof(__nv_bfloat16) * kRing * kBKT * bf16_stride<kDPad>() +
+         sizeof(float) * 2 * kQT * kClusterBlocks +
+         (size_t)range;
+}
+
+// Stage rows [s0, s0 + kBKT) of k or v (bf16) into a shared buffer; rows past
+// S are zeros. Warp w copies rows [8 w, 8 w + 8), lane c the row's 8-byte
+// chunk c (and c + 32: D <= 144 has at most 36 chunks). The caller commits
+// the group.
 template <int kStride>
 __device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int s0, int S, int D) {
+                                               int s0, int S, int D, int warp, int lane) {
   const int chunks = D / 4;
-  for (int i = threadIdx.x; i < kKT * chunks; i += kThreads) {
-    const int r = i / chunks, c = 4 * (i - r * chunks);
+  const bool c0 = lane < chunks, c1 = lane + 32 < chunks;
+#pragma unroll
+  for (int i = 0; i < kBKT / kWarps; ++i) {
+    const int r = warp * (kBKT / kWarps) + i;
     const bool in = s0 + r < S;
-    cp_async8_bf16(dst + r * kStride + c, src + (in ? (size_t)(s0 + r) * D + c : 0), in);
+    const __nv_bfloat16* row = src + (size_t)(in ? s0 + r : 0) * D + 4 * lane;
+    __nv_bfloat16* to = dst + r * kStride + 4 * lane;
+    if (c0) cp_async8_bf16(to, row, in);
+    if (c1) cp_async8_bf16(to + 128, row + 128, in);
+  }
+}
+
+// S = q k^T of one 32-key tile for the warp's 16 rows: thread holds keys
+// 8n + 2t, 8n + 2t + 1 of rows g (entries 0, 1) and g + 8 (entries 2, 3);
+// then masked and scaled: the tile's keys start at index lk0 of the block's
+// mask bytes (1 valid, 0 masked: -1e9, 2 past S: -inf).
+template <int kDPad>
+__device__ __forceinline__ void logits_tile(float (&sc)[kBKT / 8][4],
+                                            const uint32_t (&qa)[kDPad / 16][4],
+                                            const __nv_bfloat16* kt, const uint8_t* msk,
+                                            int lk0, float scale, int g, int t) {
+  constexpr int kStride = bf16_stride<kDPad>();
+#pragma unroll
+  for (int n = 0; n < kBKT / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kDPad / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < kBKT / 8; ++n) {
+      const __nv_bfloat16* kr = kt + (8 * n + g) * kStride + 16 * kk + 2 * t;
+      mma_bf16(sc[n], qa[kk], ld_pair(kr), ld_pair(kr + 8));
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kBKT / 8; ++n) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int m = msk[lk0 + 8 * n + 2 * t + j];
+      const float fill = m == 0 ? -1.0e9f : -INFINITY;
+      const bool valid = m == 1;
+      sc[n][j] = valid ? sc[n][j] * scale : fill;
+      sc[n][2 + j] = valid ? sc[n][2 + j] * scale : fill;
+    }
   }
 }
 
 template <int kDPad>
-__global__ void __launch_bounds__(kThreads) masked_attention_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-    __nv_bfloat16* __restrict__ out, int H, int L, int S, int D, float scale) {
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(kThreads, 3)
+    masked_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                 const __nv_bfloat16* __restrict__ k,
+                                 const __nv_bfloat16* __restrict__ v,
+                                 const uint8_t* __restrict__ kv_mask,
+                                 __nv_bfloat16* __restrict__ out, int H, int L, int S, int D,
+                                 float scale, int tiles_per_block, int keep) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
   constexpr int kStride = bf16_stride<kDPad>();
+  constexpr int kPS = partial_stride<kDPad>();
   constexpr int kKSteps = kDPad / 16;  // k-steps of q.k^T
   constexpr int kNT = kDPad / 8;       // n-tiles of P.V
-  constexpr int kTile = kKT * kStride; // one K or V tile buffer (bf16)
+  constexpr int kTile = kBKT * kStride; // one K or V tile slot (bf16)
+  constexpr int kRows = kQT / kClusterBlocks;  // output rows a block writes
+  const int range = tiles_per_block * kBKT, ls = range + 8;  // keys of a block; logit row stride
   extern __shared__ __align__(16) unsigned char bf16_smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bf16_smem);  // [2][KT][kStride]
-  __nv_bfloat16* vs = ks + 2 * kTile;                                // [2][KT][kStride]
+  // [QT][ls] logits; then [cluster rank][kRows][kPS] the partial sums of the rows this block writes
+  float* region = reinterpret_cast<float*>(bf16_smem);
+  __nv_bfloat16* ring =
+      reinterpret_cast<__nv_bfloat16*>(region + region_floats<kDPad>(range, keep));  // [kRing][KT][kStride]
+  float* ml = reinterpret_cast<float*>(ring + kRing * kTile);  // [cluster rank][QT][2]: max, sum
+  uint8_t* msk = reinterpret_cast<uint8_t*>(ml + 2 * kQT * kClusterBlocks);  // [range]
 
+  const int rank = (int)cluster.block_rank();
   const int bh = blockIdx.y;
   const int b = bh / H;
+  const int q0 = (blockIdx.x / kClusterBlocks) * kQT;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * kQT + warp * 16 + g, r1 = r0 + 8;
+  const int w0 = warp * 16 + g, w1 = w0 + 8;  // the thread's rows in the tile
+  const int r0 = q0 + w0, r1 = q0 + w1;
   const __nv_bfloat16* qb = q + (size_t)bh * L * D;
   const __nv_bfloat16* kb = k + (size_t)bh * S * D;
   const __nv_bfloat16* vb = v + (size_t)bh * S * D;
   const uint8_t* mb = kv_mask + (size_t)b * S;
-  const int n_tiles = (S + kKT - 1) / kKT;
-  const int n_steps = 2 * n_tiles;     // pass 1: K tiles; pass 2: K and V tiles
+  const int n_tiles = (S + kBKT - 1) / kBKT;
+  const int my_tiles = max(0, min(tiles_per_block, n_tiles - rank * tiles_per_block));
+  const int key0 = rank * range;                 // the block's first key
+  const int n_a = my_tiles;                      // pass 1: K tiles
+  const int n_steps = n_a + (keep ? my_tiles : 2 * my_tiles);  // pass 2: V (or K, V) tiles
 
-  // stage step `step`'s tiles into buffer step % 2 (one commit group a step)
-  auto stage = [&](int step) {
-    if (step < n_steps) {
-      const int pass2 = step >= n_tiles;
-      const int s0 = (step - pass2 * n_tiles) * kKT;
-      load_rows_bf16<kStride>(ks + (step & 1) * kTile, kb, s0, S, D);
-      if (pass2) load_rows_bf16<kStride>(vs + (step & 1) * kTile, vb, s0, S, D);
+  // stage step `st`'s tile into slot st % kRing (one commit group a step)
+  auto stage = [&](int st) {
+    if (st < n_steps) {
+      const int u = st - n_a;
+      const bool is_v = st >= n_a && (keep || (u & 1));
+      const int tile = st < n_a ? st : keep ? u : u >> 1;
+      load_rows_bf16<kStride>(ring + (st % kRing) * kTile, is_v ? vb : kb, key0 + tile * kBKT, S,
+                              D, warp, lane);
     }
     cp_async_commit();
   };
-  stage(0);
+  for (int st = 0; st < kRing - 1; ++st) stage(st);
 
-  // the zero columns [D, kDPad) of all four buffers (contiguous rows)
-  for (int i = tid; i < 4 * kKT * (kDPad - D); i += kThreads) {
-    const int r = i / (kDPad - D), c = D + i - r * (kDPad - D);
-    ks[r * kStride + c] = __float2bfloat16_rn(0.f);
-  }
-
-  // q fragments of rows r0, r1 (zero past L and past D), kept for both passes
+  // q fragments of rows r0, r1 (zero past L and past D)
   uint32_t qa[kKSteps][4];
   const uint32_t* q0p = reinterpret_cast<const uint32_t*>(qb + (size_t)min(r0, L - 1) * D);
   const uint32_t* q1p = reinterpret_cast<const uint32_t*>(qb + (size_t)min(r1, L - 1) * D);
@@ -395,122 +506,169 @@ __global__ void __launch_bounds__(kThreads) masked_attention_bf16_kernel(
     qa[kk][2] = (r0 < L && c1 < D) ? __ldg(q0p + c1 / 2) : 0u;
     qa[kk][3] = (r1 < L && c1 < D) ? __ldg(q1p + c1 / 2) : 0u;
   }
+  // the zero columns [D, kDPad) of every slot (contiguous rows); the mask
+  // bytes of the block's keys (1 valid, 0 masked, 2 past S)
+  for (int i = tid; i < kRing * kBKT * (kDPad - D); i += kThreads) {
+    const int r = i / (kDPad - D), c = D + i - r * (kDPad - D);
+    ring[r * kStride + c] = __float2bfloat16_rn(0.f);
+  }
+  for (int i = tid; i < range; i += kThreads) msk[i] = key0 + i < S ? mb[key0 + i] != 0 : 2;
 
+  // pass 1: logits (kept in shared memory), the rows' running max and sum of
+  // exp(s - max), rescaled as the max grows (this thread's keys; summed over
+  // the quad after the pass)
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float sc[kBKT / 8][4];
+  for (int st = 0; st < n_a; ++st) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();  // the tile is in place for all; the slot of step st - 1 is free
+    stage(st + kRing - 1);
+    logits_tile<kDPad>(sc, qa, ring + (st % kRing) * kTile, msk, st * kBKT, scale, g, t);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kBKT / 8; ++n) {
+      if (keep) {
+        const int c = st * kBKT + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(region + w0 * ls + c) = make_float2(sc[n][0], sc[n][1]);
+        *reinterpret_cast<float2*>(region + w1 * ls + c) = make_float2(sc[n][2], sc[n][3]);
+      }
+      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: the tile holds a key < S
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < kBKT / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        ps0 += expf(sc[n][j] - mn0);
+        ps1 += expf(sc[n][2 + j] - mn1);
+      }
+    }
+    l0 = l0 * expf(m0 - mn0) + ps0;
+    l1 = l1 * expf(m1 - mn1) + ps1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // every block of the cluster gets this block's (max, sum) of each row, in
+  // its slot `rank` (stores to distributed shared memory)
+  if (t < kClusterBlocks) {
+    float* dst = cluster.map_shared_rank(ml, t) + rank * 2 * kQT;
+    dst[2 * w0] = m0;
+    dst[2 * w0 + 1] = l0;
+    dst[2 * w1] = m1;
+    dst[2 * w1 + 1] = l1;
+  }
+  cluster.sync();  // every block's row maxima and sums are in place
+
+  // each row's max M and sum L of exp(s - M) over all keys, from the blocks'
+  // in rank order (every block computes the same values)
+  float mm0 = -INFINITY, mm1 = -INFINITY, ll0 = 0.f, ll1 = 0.f;
+#pragma unroll
+  for (int r = 0; r < kClusterBlocks; ++r) {
+    mm0 = fmaxf(mm0, ml[r * 2 * kQT + 2 * w0]);
+    mm1 = fmaxf(mm1, ml[r * 2 * kQT + 2 * w1]);
+  }
+#pragma unroll
+  for (int r = 0; r < kClusterBlocks; ++r) {
+    const float* mr = ml + r * 2 * kQT;
+    if (mr[2 * w0 + 1] > 0.f) ll0 += mr[2 * w0 + 1] * expf(mr[2 * w0] - mm0);
+    if (mr[2 * w1 + 1] > 0.f) ll1 += mr[2 * w1 + 1] * expf(mr[2 * w1] - mm1);
+  }
+  const float inv0 = 1.f / ll0, inv1 = 1.f / ll1;  // the sums are >= 1
+
+  // pass 2: O += P V over the block's keys, P = exp(s - M) (1 / L) rounded to
+  // bf16; the logits from shared memory, or (a longer key range) from the K
+  // tiles again
   float o[kNT][4];
 #pragma unroll
   for (int n = 0; n < kNT; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // max of rows g and g + 8
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums, then the sums
-
-  for (int step = 0; step < n_steps; ++step) {
-    const bool pass2 = step >= n_tiles;
-    const int s0 = (step - (pass2 ? n_tiles : 0)) * kKT;
-    const __nv_bfloat16* kt = ks + (step & 1) * kTile;
-    const __nv_bfloat16* vt = vs + (step & 1) * kTile;
-    stage(step + 1);
-    cp_async_wait<1>();  // this step's tiles have landed (the next step's may be in flight)
-    __syncthreads();     // ... for every thread (and, at step 0, the pad columns)
-
-    // S = q k^T for 16 rows x 32 keys, scaled and masked; thread holds keys
-    // 8n + 2t, 8n + 2t + 1 of rows g (entries 0, 1) and g + 8 (entries 2, 3)
-    float sc[kKT / 8][4];
+  for (int st = n_a; st < n_steps; ++st) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+    stage(st + kRing - 1);
+    const __nv_bfloat16* tile_p = ring + (st % kRing) * kTile;
+    const int u = st - n_a;
+    if (!keep && !(u & 1)) {  // a K tile: the logits again
+      logits_tile<kDPad>(sc, qa, tile_p, msk, (u >> 1) * kBKT, scale, g, t);
+      continue;
+    }
+    if (keep) {
 #pragma unroll
-    for (int n = 0; n < kKT / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kKT / 8; ++n) {
-        const __nv_bfloat16* kr = kt + (8 * n + g) * kStride + 16 * kk + 2 * t;
-        mma_bf16(sc[n], qa[kk], ld_pair(kr), ld_pair(kr + 8));
+      for (int n = 0; n < kBKT / 8; ++n) {
+        const int c = u * kBKT + 8 * n + 2 * t;
+        const float2 a = *reinterpret_cast<const float2*>(region + w0 * ls + c);
+        const float2 e = *reinterpret_cast<const float2*>(region + w1 * ls + c);
+        sc[n][0] = a.x;
+        sc[n][1] = a.y;
+        sc[n][2] = e.x;
+        sc[n][3] = e.y;
       }
     }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < kKT / 8; ++n) {
+    for (int n = 0; n < kBKT / 8; ++n) {
+      sc[n][0] = expf(sc[n][0] - mm0) * inv0;
+      sc[n][1] = expf(sc[n][1] - mm0) * inv0;
+      sc[n][2] = expf(sc[n][2] - mm1) * inv1;
+      sc[n][3] = expf(sc[n][3] - mm1) * inv1;
+    }
+    // k-step j covers keys 16 j .. 16 j + 15, whose probabilities are n-tiles
+    // 2 j and 2 j + 1 of sc
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int s = s0 + 8 * n + 2 * t + j;
-        const float fill = s < S ? -1.0e9f : -INFINITY;
-        const bool valid = s < S && __ldg(mb + s) != 0;
-        sc[n][j] = valid ? sc[n][j] * scale : fill;
-        sc[n][2 + j] = valid ? sc[n][2 + j] * scale : fill;
-        mx0 = fmaxf(mx0, sc[n][j]);
-        mx1 = fmaxf(mx1, sc[n][2 + j]);
+    for (int j = 0; j < kBKT / 16; ++j) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(sc[2 * j][0], sc[2 * j][1]);
+      pa[1] = pack_bf16(sc[2 * j][2], sc[2 * j][3]);
+      pa[2] = pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]);
+      pa[3] = pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3]);
+      const __nv_bfloat16* vrow = tile_p + (16 * j + lane % 16) * kStride;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        uint32_t b0, b1;
+        ldmatrix_x2_trans(b0, b1, vrow + 8 * n);
+        mma_bf16(o[n], pa, b0, b1);
       }
     }
-
-    if (!pass2) {
-      // running max and sum of exp(s - max)
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: the tile holds a key < S
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < kKT / 8; ++n) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          ps0 += expf(sc[n][j] - mn0);
-          ps1 += expf(sc[n][2 + j] - mn1);
-        }
-      }
-      l0 = l0 * expf(m0 - mn0) + ps0;
-      l1 = l1 * expf(m1 - mn1) + ps1;
-      m0 = mn0;
-      m1 = mn1;
-      if (step == n_tiles - 1) {  // the rows' sums, over the quad
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-        l0 = 1.f / l0;  // from here on, the reciprocals (the sums are >= 1)
-        l1 = 1.f / l1;
-      }
-    } else {
-      // O += P V: k-step j covers keys 16 j .. 16 j + 15, whose probabilities
-      // are n-tiles 2 j and 2 j + 1 of sc, rounded to bf16
-#pragma unroll
-      for (int n = 0; n < kKT / 8; ++n) {
-        sc[n][0] = expf(sc[n][0] - m0) * l0;
-        sc[n][1] = expf(sc[n][1] - m0) * l0;
-        sc[n][2] = expf(sc[n][2] - m1) * l1;
-        sc[n][3] = expf(sc[n][3] - m1) * l1;
-      }
-#pragma unroll
-      for (int j = 0; j < kKT / 16; ++j) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(sc[2 * j][0], sc[2 * j][1]);
-        pa[1] = pack_bf16(sc[2 * j][2], sc[2 * j][3]);
-        pa[2] = pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]);
-        pa[3] = pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3]);
-        const __nv_bfloat16* vrow = vt + (16 * j + lane % 16) * kStride;
-#pragma unroll
-        for (int n = 0; n < kNT; ++n) {
-          uint32_t b0, b1;
-          ldmatrix_x2_trans(b0, b1, vrow + 8 * n);
-          mma_bf16(o[n], pa, b0, b1);
-        }
-      }
-    }
-    __syncthreads();  // this step's buffers are consumed before step + 2 refills them
   }
   cp_async_wait<0>();
+  cluster.sync();  // every block is done with its logits: the regions take the partial sums
 
+  // warp w's rows [16 w, 16 w + 16) are written by block w (kRows = 16): its
+  // partial sums go to slot `rank` of that block's region
+  static_assert(kRows == 16, "a warp's 16 rows are one block's share");
+  float* dst = cluster.map_shared_rank(region, warp) + rank * kRows * kPS;
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
-    const int d = 8 * n + 2 * t;  // D is a multiple of 4, so d < D implies d + 1 < D
-    if (d >= D) continue;
-    if (r0 < L)
-      *reinterpret_cast<uint32_t*>(out + ((size_t)bh * L + r0) * D + d) =
-          pack_bf16(o[n][0], o[n][1]);
-    if (r1 < L)
-      *reinterpret_cast<uint32_t*>(out + ((size_t)bh * L + r1) * D + d) =
-          pack_bf16(o[n][2], o[n][3]);
+    *reinterpret_cast<float2*>(dst + g * kPS + 8 * n + 2 * t) = make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(dst + (g + 8) * kPS + 8 * n + 2 * t) =
+        make_float2(o[n][2], o[n][3]);
+  }
+  cluster.sync();  // every block's partial sums of this block's rows are in place
+
+  // the four partial sums of rows [16 rank, 16 rank + 16), added in rank order
+  const int half = D / 2;
+  for (int i = tid; i < kRows * half; i += kThreads) {
+    const int rr = i / half, c = 2 * (i - rr * half);
+    float sx = 0.f, sy = 0.f;
+#pragma unroll
+    for (int r = 0; r < kClusterBlocks; ++r) {
+      const float2 p = *reinterpret_cast<const float2*>(region + (r * kRows + rr) * kPS + c);
+      sx += p.x;
+      sy += p.y;
+    }
+    const int row = q0 + kRows * rank + rr;
+    if (row < L)
+      *reinterpret_cast<uint32_t*>(out + ((size_t)bh * L + row) * D + c) = pack_bf16(sx, sy);
   }
 }
 
@@ -519,9 +677,21 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloa
                 const uint8_t* kv_mask, __nv_bfloat16* out, int B, int H, int L, int S, int D,
                 float scale, cudaStream_t stream) {
   auto kernel = masked_attention_bf16_kernel<kDPad>;
-  constexpr size_t bytes = smem_bytes_bf16<kDPad>();
-  dim3 grid((L + kQT - 1) / kQT, B * H);
-  kernel<<<grid, kThreads, bytes, stream>>>(q, k, v, kv_mask, out, H, L, S, D, scale);
+  const int n_tiles = (S + kBKT - 1) / kBKT;
+  const int tiles_per_block = (n_tiles + kClusterBlocks - 1) / kClusterBlocks;
+  const int range = tiles_per_block * kBKT;
+  const bool keep = range <= kKeepMax;
+  const size_t bytes = smem_bytes_bf16<kDPad>(range, keep);
+  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(kClusterBlocks * ((L + kQT - 1) / kQT), B * H);
+  kernel<<<grid, kThreads, bytes, stream>>>(q, k, v, kv_mask, out, H, L, S, D, scale,
+                                            tiles_per_block, keep ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
@@ -548,12 +718,14 @@ int masked_attention_forward(const float* q, const float* k, const float* v,
 
 // The bf16 instance: q [B, H, L, D], k/v [B, H, S, D] bf16, kv_mask [B, S]
 // bool (1 byte), out [B, H, L, D] bf16; contiguous, 8-byte aligned; D a
-// multiple of 4, at most 144. Returns a cudaError_t (0 on success).
+// multiple of 4, at most 144; S at most 2^19 (the mask bytes of a block's key
+// range in shared memory). Returns a cudaError_t (0 on success).
 int masked_attention_forward_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                   const __nv_bfloat16* v, const uint8_t* kv_mask,
                                   __nv_bfloat16* out, int B, int H, int L, int S, int D,
                                   float scale, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || S <= 0 || D <= 0 || D > kDMaxBf16 || D % 4 != 0)
+  if (B <= 0 || H <= 0 || L <= 0 || S <= 0 || D <= 0 || D > kDMaxBf16 || D % 4 != 0 ||
+      S > (1 << 19) || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 8 != 0)
     return (int)cudaErrorMisalignedAddress;

@@ -16,7 +16,9 @@ a time in the backward and freed after it, never kept from the forward.
 
 ``compute_dtype="bfloat16"`` is the JAX package's bf16 path
 (``diffreg_tpu/ops/kpconv.py:kpconv`` with ``compute_dtype``): the support
-table is gathered in bf16 as [hi(pos), lo(pos), feats], positions are
+table is gathered in bf16 as [hi(pos), lo(pos), feats] (the CUDA route
+reads the same values with the features moved to a 16-byte boundary,
+``kpconv_bf16_table_aligned``), positions are
 rebuilt in f32 as hi + lo, the influence is computed in f32 and rounded to
 bf16, the influence-weighted features are summed in f32 and rounded to bf16,
 and the contraction with the bf16 weights accumulates in f32. On CUDA tensors
@@ -94,6 +96,19 @@ def kpconv_bf16_table(s_pts, x):
     return torch.cat([hi, lo, feats], dim=-1)
 
 
+def kpconv_bf16_table_aligned(s_pts, x):
+    """The CUDA route's bf16 support table [B, Ns + 1, 8 + Cin]: the rows of
+    ``kpconv_bf16_table`` with two zero columns after the positions, so that
+    the features start at a 16-byte boundary (the kernel stages them with
+    16-byte copies): [hi(pos), lo(pos), 0, 0, features]."""
+    b, _, cin = x.shape
+    pts = torch.cat([s_pts, s_pts.new_full((b, 1, 3), _SHADOW)], dim=1)
+    hi = pts.to(torch.bfloat16)
+    lo = (pts - hi.float()).to(torch.bfloat16)
+    feats = torch.cat([x, x.new_zeros((b, 1, cin))], dim=1).to(torch.bfloat16)
+    return torch.cat([hi, lo, hi.new_zeros((b, hi.shape[1], 2)), feats], dim=-1)
+
+
 def kpconv_bf16_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
     """Plain KPConv of the bf16 path, in f32 with bf16 roundings where the
     JAX package rounds (every product of two bf16 values is exact in f32, so
@@ -150,9 +165,10 @@ kpconv_cuda.launches = 0
 
 
 def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_extent):
-    """Launch the kernel's bf16 instance: ``table`` [B, Ns + 1, 6 + Cin] bf16
-    (``kpconv_bf16_table``), ``weights`` [P, Cin, Cout] bf16, f32 query and
-    kernel points; returns f32 [B, Nq, Cout], as ``kpconv_bf16_plain``."""
+    """Launch the kernel's bf16 instance: ``table`` [B, Ns + 1, 8 + Cin] bf16
+    (``kpconv_bf16_table_aligned``), ``weights`` [P, Cin, Cout] bf16, f32
+    query and kernel points; returns f32 [B, Nq, Cout], as
+    ``kpconv_bf16_plain``."""
     for name, t, dtype in (("q_pts", q_pts, torch.float32), ("table", table, torch.bfloat16),
                            ("kernel_points", kernel_points, torch.float32),
                            ("weights", weights, torch.bfloat16),
@@ -162,7 +178,7 @@ def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_exten
     b, nq, k = neighb_inds.shape
     p, cin, cout = weights.shape
     ns = table.shape[1] - 1
-    if (q_pts.shape != (b, nq, 3) or table.shape != (b, ns + 1, 6 + cin)
+    if (q_pts.shape != (b, nq, 3) or table.shape != (b, ns + 1, 8 + cin)
             or kernel_points.shape != (p, 3)):
         raise ValueError("kpconv_cuda_bf16: inconsistent shapes "
                          f"{q_pts.shape} {table.shape} {neighb_inds.shape} "
@@ -222,7 +238,7 @@ def kpconv_batched(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_exte
         if torch.is_grad_enabled() and (x.requires_grad or weights.requires_grad):
             raise NotImplementedError("KPConv's bf16 instance has no backward: bf16 training "
                                       "is not ported (ROADMAP §1: bf16 training)")
-        return kpconv_cuda_bf16(q_pts.contiguous(), kpconv_bf16_table(s_pts, x),
+        return kpconv_cuda_bf16(q_pts.contiguous(), kpconv_bf16_table_aligned(s_pts, x),
                                 neighb_inds.contiguous(), kernel_points.contiguous(),
                                 weights.to(torch.bfloat16).contiguous(), kp_extent)
     if compute_dtype not in (None, "float32"):

@@ -97,6 +97,23 @@ def test_kpconv_bf16_plain_matches_jax(rng):
     np.testing.assert_array_equal(kpconv_batched(*args, compute_dtype="bfloat16").numpy(), got)
 
 
+def test_kpconv_bf16_table_aligned(rng):
+    """The CUDA route's table holds JAX's bf16 table column for column, with
+    two zero columns between the positions and the features (which then
+    start at a 16-byte boundary), the shadow row included."""
+    from diffreg_tpu_torch.ops.kpconv import kpconv_bf16_table, kpconv_bf16_table_aligned
+
+    s = T((np.array([3.2, -2.1, 1.7]) + rng.rand(2, 30, 3)).astype(np.float32))
+    x = T(rng.randn(2, 30, 64).astype(np.float32))
+    ref = kpconv_bf16_table(s, x)
+    got = kpconv_bf16_table_aligned(s, x)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 31, 8 + 64)
+    assert torch.equal(got[..., :6], ref[..., :6])
+    assert torch.equal(got[..., 8:], ref[..., 6:])
+    assert not got[..., 6:8].float().any()
+    assert (got.shape[-1] * got.element_size()) % 16 == 0 and 8 * got.element_size() == 16
+
+
 # ---------------------------------------------------------------- attention
 
 
@@ -129,12 +146,66 @@ def test_masked_attention_bf16_plain_matches_jax(rng):
     assert worst <= 8e-3 and mean <= 1e-3, (worst, mean)
 
 
+def _jax_xla_attention(q, k, v, mask):
+    """JAX's bf16 XLA attention path (nn/transformer.py:414-429) in jnp, f32 out."""
+    jq, jk, jv = (jnp.asarray(t).astype(jnp.bfloat16) for t in (q, k, v))
+    a = jnp.einsum("bhld,bhsd->bhls", jq, jk, preferred_element_type=jnp.float32)
+    a = jnp.where(jnp.asarray(mask)[:, None, None, :], a, -1e9)
+    a = jax.nn.softmax(a / jnp.sqrt(jnp.asarray(q.shape[-1], a.dtype)), axis=-1)
+    return np.asarray(jnp.einsum("bhls,bhsd->bhld", a.astype(jnp.bfloat16), jv,
+                                 preferred_element_type=jnp.float32).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+def _split_attention(q, k, v, mask, scale, blocks=4, tile=32):
+    """The arithmetic of the bf16 kernel (csrc/attention.cu) in torch: the
+    keys split into ``blocks`` ranges of whole 32-key tiles (one block of a
+    cluster each); logits masked (-1e9) and scaled in f32; the row max over
+    the ranges; each range's sum of exp(s - max), added in range order;
+    p = exp(s - max) * (1 / sum) rounded to bf16; each range's P.V in f32,
+    the ranges' partial sums added in order; bf16 out."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    n_keys = k.shape[2]
+    per = -(-(-(-n_keys // tile)) // blocks) * tile
+    ranges = [(a, min(a + per, n_keys)) for a in range(0, n_keys, per)]
+    s = torch.einsum("bhld,bhsd->bhls", qf, kf)
+    s = torch.where(mask[:, None, None, :], s * scale, torch.full_like(s, -1e9))
+    m = torch.stack([s[..., a:b].amax(-1) for a, b in ranges]).amax(0)
+    e = torch.exp(s - m[..., None])
+    total = sum(e[..., a:b].sum(-1) for a, b in ranges)
+    p = (e * (1.0 / total)[..., None]).to(torch.bfloat16).float()
+    out = sum(torch.einsum("bhls,bhsd->bhld", p[..., a:b], vf[:, :, a:b]) for a, b in ranges)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("length,keys,d,one_valid", [
+    (704, 704, 108, False), (70, 45, 108, False), (1, 768, 132, False), (768, 1, 132, False),
+    (96, 768, 132, True)], ids=["3dmatch", "70x45", "1x768", "768x1", "one-valid-key"])
+def test_split_attention_matches_jax(rng, length, keys, d, one_valid):
+    """The bf16 kernel's split of the keys over a cluster's four blocks (the
+    row max and sum combined across them, the partial P.V sums added in
+    f32) changes only the order of f32 sums: held against JAX's XLA path at
+    chip_smoke's kernel limit, 1e-2 of the largest entry (one bf16 ulp is
+    3.9e-3 of an entry), and 1e-4 in the mean (measured at most 2.5e-3, one
+    flipped rounding, and 4.7e-7)."""
+    b, h = 2, 2
+    q, k, v = (_bf16(rng.randn(b, h, n, d).astype(np.float32)) for n in (length, keys, keys))
+    mask = np.arange(keys)[None] < np.array([[keys], [max(keys - 37, 1)]])
+    if one_valid:
+        mask[0] = False
+        mask[0, keys // 2] = True
+    ref = _jax_xla_attention(q, k, v, mask)
+    got = _split_attention(*(T(t).bfloat16() for t in (q, k, v)), T(mask), d ** -0.5)
+    worst, mean = _rel(got.float().numpy(), ref)
+    assert worst <= 1e-2 and mean <= 1e-4, (worst, mean)
+
+
 def test_bf16_wrappers_on_the_cpu(rng):
     """CPU tensors take the plain bf16 versions and launch nothing; the bf16
     kernels' wrappers refuse CPU tensors (a CUDA tensor launches them or
     raises), and so does a dtype they do not take."""
     from diffreg_tpu_torch.ops.attention import masked_attention_cuda_bf16
-    from diffreg_tpu_torch.ops.kpconv import kpconv_bf16_table, kpconv_cuda_bf16
+    from diffreg_tpu_torch.ops.kpconv import kpconv_bf16_table_aligned, kpconv_cuda_bf16
 
     (q, k, v), mask, scale = _attention_inputs(rng)
     tq, tk, tv = (T(t).bfloat16() for t in (q, k, v))
@@ -149,7 +220,7 @@ def test_bf16_wrappers_on_the_cpu(rng):
     with pytest.raises(ValueError, match="CUDA"):
         masked_attention_cuda_bf16(tq, tk, tv, T(mask), scale)
     with pytest.raises(ValueError, match="CUDA"):
-        kpconv_cuda_bf16(qp, kpconv_bf16_table(sp, x), inds, kp, w.bfloat16(), 0.05)
+        kpconv_cuda_bf16(qp, kpconv_bf16_table_aligned(sp, x), inds, kp, w.bfloat16(), 0.05)
     with pytest.raises(ValueError, match="compute_dtype"):
         kpconv_batched(qp, sp, inds, x, kp, w, 0.05, compute_dtype="float16")
 
