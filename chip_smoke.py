@@ -1,6 +1,7 @@
 """Drive the PyTorch port's 3DMatch registration (f32 and the bf16 fast path)
 and training, its 4DMatch registration, its 2D-3D registration and training
-and its CLI on one CUDA card.
+(with and without the DINOv2 / DepthAnything towers) and its CLI on one CUDA
+card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -121,7 +122,21 @@ In order, it
      in a gap wider than the two devices' difference there); and
      ``diffreg_tpu_torch.main --mode train`` on configs/train/rgbdv2.yaml
      with that split (one epoch), its loss terms and checkpoint checked;
- 17. prints the kernels' JSON line, and as its last line
+ 17. runs the published model (configs/test/rgbdv2_dino.yaml: DINOv2 tokens
+     fused, DepthAnything centres, stride 14): builds ViT-L/14 DINOv2 and
+     DepthAnything with weights from a seed and holds the card's tokens and
+     depth on pair 0's 476 x 630 image against the CPU's, with each tower's
+     ms an image and peak memory; reads the split at stride 14 (34 x 45 =
+     1530 image tokens) with each pair's tower outputs from the card; holds
+     KPConv per point-backbone layer and attention in the fusion's four
+     shapes (head width 64) against their plain versions; runs the path
+     through TwoDThreeDTester (SAMPLE_STEP 50; one warm-up and three timed
+     runs, 8 KPConv and 612 attention launches asserted per forward, ms a
+     DDIM step, peak memory), pair 0 on the CPU against the card (the 2D-3D
+     limits of phase 14) and PnP; and ``diffreg_tpu_torch.main`` on a copy of
+     the YAML whose ``towers`` are the seeded towers' state_dicts, on the
+     split with a checkpoint of random weights;
+ 18. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
@@ -184,6 +199,9 @@ FINE_2D3D_AGREEMENT = 0.99  # fine correspondences: shared share of the union (m
 PNP_POSE_TOL = 1e-3        # PnP on a known pose (measured 9.6e-6 card, 1.2e-4 CPU)
 TIE_FREE_ROWS_MIN = 0.5    # (measured 0.989 of 750 rows, coarse matcher)
 MASK_DIFFER_SHARE = 0.01   # plus 2: the CPU test's cap (measured 0 of 5322 entries differ)
+# the published model's towers (ViT-L/14, weights from a seed), card against
+# CPU: plain f32 (TF32 off) in both, in different orders of summation
+TOWER_REL_TOL = 1e-4       # of max |CPU output| (measured 2.0e-6 tokens, 1.3e-5 depth)
 # 2D-3D training (configs/train/rgbdv2.yaml, batch 1, Adam lr 1e-4): a step runs
 # the coarse and the denoising fusion passes (12 attention calls each) and one
 # point-backbone pass (8 KPConv calls); the card-vs-CPU step keeps the 3D
@@ -1560,10 +1578,12 @@ def write_2d3d_split(root, subset="test", seed=7):
         pickle.dump(meta, f)
 
 
-def data_2d3d(root, subset="test", augment=False):
+def data_2d3d(root, subset="test", augment=False, stride=8, towers=None):
     """A subset of the split read back through the port's reader (with the
-    training augmentation when ``augment``), calibrated and cropped as main.py
-    does: (batch of CPU tensors, spec, scene names, pixels a pair)."""
+    training augmentation when ``augment``), calibrated and cropped to the
+    coarse ``stride`` as main.py does, with each pair's tower outputs from the
+    TowerRunner ``towers`` when given: (batch of CPU tensors, spec, scene
+    names, pixels a pair)."""
     import numpy as np
 
     from diffreg_tpu_torch.data.calibrate import calibrate_spec_2d3d
@@ -1575,10 +1595,13 @@ def data_2d3d(root, subset="test", augment=False):
     spec = calibrate_spec_2d3d([r["points"] for r in raws])
     samples = []
     for r in raws:
-        h, w = (n // 8 * 8 for n in r["depth"].shape)
+        h, w = (n // stride * stride for n in r["depth"].shape)
         for key in ("depth", "image", "image_gray"):
             r[key] = r[key][:h, :w]
-        samples.append(build_2d3d_sample(r, spec, 8))
+        samples.append(build_2d3d_sample(r, spec, stride))
+        if towers is not None:
+            samples[-1]["dino_feats"] = towers.dino_tokens(r["image"][None])[0]
+            samples[-1]["mono_depth"] = towers.mono_depth(r["image"][None])[0]
     batch = batch_2d3d(samples)
     return batch, spec, [r["scene_name"] for r in raws], int(np.prod(batch.image.shape[1:3]))
 
@@ -1761,83 +1784,20 @@ def mask_agreement(got, ref):
     return out
 
 
-def run_2d3d(batch_cpu, spec, scenes, cfg, launches, gen):
-    """The 2D-3D path at full width through TwoDThreeDTester (one warm-up, three
-    timed runs, launches asserted), where its time goes, pair 0 on the CPU
-    against the card at STEPS_2D3D_CPU steps, and PnP on a known pose."""
+def pair0_2d3d(cfg, tcfg, batch_cpu, x_init, u, launches, key, tag):
+    """Pair 0 on the card and on the CPU (plain versions) at STEPS_2D3D_CPU DDIM
+    steps with the same weights and draws, the matchers sharpened: the DDIM's
+    and the coarse matcher's confidences and top-1 masks (mask_agreement's
+    limits), and the fine matches on the card's coarse correspondences. The
+    card's attention launches count under ``launches[key]``."""
     import torch
 
-    from diffreg_tpu_torch.engine.tester2d3d import Test2D3DConfig, TwoDThreeDTester
     from diffreg_tpu_torch.models.pipeline_2d3d import (DiffReg2D3D, fine_matching,
                                                         patch_pixel_table)
     from diffreg_tpu_torch.ops.attention import masked_attention_cuda
     from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
-    from diffreg_tpu_torch.ops.partition import point_to_node_partition
     from diffreg_tpu_torch.ops.vision import create_meshgrid
 
-    per_forward = 12 * (1 + cfg.sample_steps)
-    tcfg = Test2D3DConfig(fine_threshold=FINE_THR_2D3D)
-    model = DiffReg2D3D(cfg, device="cuda", seed=0)
-    tester = TwoDThreeDTester(model, tcfg, device="cuda")
-    batch = batch_cpu.to("cuda")
-    make_iter = lambda: iter([(batch, scenes)])  # noqa: E731
-    torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
-        tester.test(make_iter, torch.Generator("cuda").manual_seed(0))           # warm-up
-        times = []
-        for run in range(TIMED_RUNS):
-            kpconv_cuda.launches = 0
-            masked_attention_cuda.launches = 0
-            summary, seconds = wall(lambda: tester.test(
-                make_iter, torch.Generator("cuda").manual_seed(1 + run)))
-            n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
-            if n_kp != 8 or n_at != per_forward:
-                raise AssertionError(f"2D-3D tester: {n_kp} KPConv launches (want 8), {n_at} "
-                                     f"attention launches (want {per_forward})")
-            launches["kpconv"] += n_kp
-            launches["masked_attention_d64"] += n_at
-            times.append(seconds)
-            if not (summary["pairs"] == BATCH_PAIRS and summary["n_corr"] > 0
-                    and all(math.isfinite(summary[k]) for k in ("IR", "PIR", "RR", "RRE",
-                                                                  "RTE"))):
-                raise AssertionError(f"2D-3D tester summary {summary}")
-        seconds = sorted(times)[TIMED_RUNS // 2]
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        n = batch.points[-1].shape[1]
-        m = batch.image.shape[1] * batch.image.shape[2] // 64
-        x_init = torch.randn(BATCH_PAIRS, n, m, generator=gen)
-        u = torch.rand(BATCH_PAIRS, PNP_HYPOTHESES, 6, generator=gen)
-        fixed = fixed_draws_tester(model, tcfg, "cuda", x_init, u)
-        _, enc_s = wall(lambda: model.encode(batch))
-        _, part_s = wall(lambda: point_to_node_partition(
-            batch.points[0], batch.points[-1], batch.masks[0], batch.masks[-1],
-            cfg.pcd_num_points_in_patch))
-        _, bb_s = wall(lambda: model(batch, mode="backbone"))
-        kpconv_cuda.launches = 0
-        masked_attention_cuda.launches = 0
-        _, ddim_s = wall(lambda: model(batch, mode="ddim", x_init=x_init.cuda()))
-        (out, corrs, pairs), fwd_s = wall(lambda: fixed.forward(batch, None))
-        n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
-        if n_kp != 16 or n_at != 2 * per_forward:
-            raise AssertionError(f"2D-3D forwards: {n_kp} KPConv, {n_at} attention launches")
-        launches["kpconv"] += n_kp
-        launches["masked_attention_d64"] += n_at
-    coarse = [int(c) for c in out["corr_mask"].sum(dim=(1, 2))]
-    fine = [int(p["n_corr"]) for p in pairs]
-    log(f"2D-3D path (TwoDThreeDTester, configs/test/rgbdv2.yaml widths, SAMPLE_STEP "
-        f"{cfg.sample_steps}, fine threshold {FINE_THR_2D3D}): {BATCH_PAIRS} pairs in "
-        f"{seconds:.4f} s (median of {', '.join(f'{t:.4f}' for t in times)}) = "
-        f"{BATCH_PAIRS / seconds:.3f} pairs/s; IR {summary['IR']:.4f} PIR {summary['PIR']:.4f} "
-        f"RR {summary['RR']:.4f} RRE {summary['RRE']:.3f} RTE {summary['RTE']:.4f}; coarse "
-        f"correspondences {coarse}, fine {fine}; launches kpconv {n_kp // 2} attention "
-        f"{n_at // 2} a forward; peak memory {peak:.2f} GiB")
-    log(f"2D-3D where the time goes ({BATCH_PAIRS} pairs): encode {enc_s:.4f} s, partition "
-        f"{part_s:.4f} s, backbone mode (encode, partition, one fusion pass, matcher) "
-        f"{bb_s:.4f} s, ddim forward {ddim_s:.4f} s (so {cfg.sample_steps} DDIM steps "
-        f"{ddim_s - bb_s:.4f} s = {(ddim_s - bb_s) / cfg.sample_steps * 1e3:.2f} ms a step), "
-        f"fine matching + PnP {fwd_s - ddim_s:.4f} s")
-
-    # ---- pair 0 on the CPU, same weights and draws, at STEPS_2D3D_CPU ----
     cfg_short = dataclasses.replace(cfg, sample_steps=STEPS_2D3D_CPU)
     one = batch_cpu.select(slice(0, 1))
     res = {}
@@ -1857,9 +1817,9 @@ def run_2d3d(batch_cpu, spec, scenes, cfg, launches, gen):
         if dev == "cuda":
             n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
             if n_kp != 16 or n_at != 12 * (2 + STEPS_2D3D_CPU):
-                raise AssertionError(f"2D-3D pair 0: {n_kp} KPConv, {n_at} attention launches")
+                raise AssertionError(f"{tag} pair 0: {n_kp} KPConv, {n_at} attention launches")
             launches["kpconv"] += n_kp
-            launches["masked_attention_d64"] += n_at
+            launches[key] += n_at
     (got, got_corrs, got_pairs), (ref, _, ref_pairs) = res["cuda"], res["cpu"]
     ddim = mask_agreement(got, ref)
     coarse = mask_agreement(res["cuda_backbone"], res["cpu_backbone"])
@@ -1881,7 +1841,7 @@ def run_2d3d(batch_cpu, spec, scenes, cfg, launches, gen):
                        fm["pcd_corr_indices"].cpu()[v].tolist()))
     fg, fr = fine_set(got_pairs[0]["fm"]), fine_set(fm_ref)
     fine_agree = len(fg & fr) / max(len(fg | fr), 1)
-    log(f"2D-3D card vs CPU, pair 0 ({STEPS_2D3D_CPU} steps, matchers sharpened x{SHARPEN_2D3D}, "
+    log(f"{tag} card vs CPU, pair 0 ({STEPS_2D3D_CPU} steps, matchers sharpened x{SHARPEN_2D3D}, "
         f"CPU {res['cpu_s']:.1f} s, card {res['cuda_s']:.2f} s): DDIM {ddim['text']}; coarse "
         f"matcher (backbone mode) {coarse['text']}; fine correspondences on the card's coarse "
         f"ones {len(fg)} vs {len(fr)}, shared {fine_agree:.4f} of the union (limit "
@@ -1889,19 +1849,102 @@ def run_2d3d(batch_cpu, spec, scenes, cfg, launches, gen):
         f"{float(got_pairs[0]['IR']):.4f} vs {float(ref_pairs[0]['IR']):.4f}")
     for name, agree in (("DDIM", ddim), ("coarse matcher", coarse)):
         if not agree["conf_err"] <= CONF_2D3D_ABS_TOL:
-            raise AssertionError(f"2D-3D {name}: confidences differ from the CPU's by "
+            raise AssertionError(f"{tag} {name}: confidences differ from the CPU's by "
                                  f"{agree['conf_err']}")
         if agree["unexplained"]:
-            raise AssertionError(f"2D-3D {name}: {agree['unexplained']} corr_mask entries differ "
+            raise AssertionError(f"{tag} {name}: {agree['unexplained']} corr_mask entries differ "
                                  "outside near-ties")
     # the cap and the tie-free share hold the coarse matcher's mask, not the
     # DDIM's: with random weights the DDIM's rows are all near-ties
     if not (coarse["differ"] <= coarse["cap"] and coarse["tie_free"] >= TIE_FREE_ROWS_MIN):
-        raise AssertionError(f"2D-3D coarse matcher: {coarse['text']}")
+        raise AssertionError(f"{tag} coarse matcher: {coarse['text']}")
     if not (len(fr) > 0 and fine_agree >= FINE_2D3D_AGREEMENT):
-        raise AssertionError(f"2D-3D: fine correspondences share {fine_agree} of the union")
+        raise AssertionError(f"{tag}: fine correspondences share {fine_agree} of the union")
+
+
+def run_2d3d(batch_cpu, scenes, cfg, launches, gen, key="masked_attention_d64", tag="2D-3D",
+             config="configs/test/rgbdv2.yaml"):
+    """The 2D-3D path at full width through TwoDThreeDTester (one warm-up, three
+    timed runs, launches asserted), where its time goes, pair 0 on the CPU
+    against the card at STEPS_2D3D_CPU steps, and PnP on a known pose. The
+    attention launches count under ``launches[key]``."""
+    import torch
+
+    from diffreg_tpu_torch.engine.tester2d3d import Test2D3DConfig, TwoDThreeDTester
+    from diffreg_tpu_torch.models.pipeline_2d3d import DiffReg2D3D
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+    from diffreg_tpu_torch.ops.partition import point_to_node_partition
+
+    per_forward = 12 * (1 + cfg.sample_steps)
+    tcfg = Test2D3DConfig(fine_threshold=FINE_THR_2D3D)
+    model = DiffReg2D3D(cfg, device="cuda", seed=0)
+    tester = TwoDThreeDTester(model, tcfg, device="cuda")
+    batch = batch_cpu.to("cuda")
+    make_iter = lambda: iter([(batch, scenes)])  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        tester.test(make_iter, torch.Generator("cuda").manual_seed(0))           # warm-up
+        times = []
+        for run in range(TIMED_RUNS):
+            kpconv_cuda.launches = 0
+            masked_attention_cuda.launches = 0
+            summary, seconds = wall(lambda: tester.test(
+                make_iter, torch.Generator("cuda").manual_seed(1 + run)))
+            n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+            if n_kp != 8 or n_at != per_forward:
+                raise AssertionError(f"{tag} tester: {n_kp} KPConv launches (want 8), {n_at} "
+                                     f"attention launches (want {per_forward})")
+            launches["kpconv"] += n_kp
+            launches[key] += n_at
+            times.append(seconds)
+            if not (summary["pairs"] == BATCH_PAIRS and summary["n_corr"] > 0
+                    and all(math.isfinite(summary[k]) for k in ("IR", "PIR", "RR", "RRE",
+                                                                  "RTE"))):
+                raise AssertionError(f"{tag} tester summary {summary}")
+        seconds = sorted(times)[TIMED_RUNS // 2]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = batch.points[-1].shape[1]
+        s = cfg.coarse_stride
+        m = (batch.image.shape[1] // s) * (batch.image.shape[2] // s)
+        x_init = torch.randn(BATCH_PAIRS, n, m, generator=gen)
+        u = torch.rand(BATCH_PAIRS, PNP_HYPOTHESES, 6, generator=gen)
+        fixed = fixed_draws_tester(model, tcfg, "cuda", x_init, u)
+        _, enc_s = wall(lambda: model.encode(batch))
+        _, part_s = wall(lambda: point_to_node_partition(
+            batch.points[0], batch.points[-1], batch.masks[0], batch.masks[-1],
+            cfg.pcd_num_points_in_patch))
+        _, bb_s = wall(lambda: model(batch, mode="backbone"))
+        kpconv_cuda.launches = 0
+        masked_attention_cuda.launches = 0
+        _, ddim_s = wall(lambda: model(batch, mode="ddim", x_init=x_init.cuda()))
+        (out, corrs, pairs), fwd_s = wall(lambda: fixed.forward(batch, None))
+        n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+        if n_kp != 16 or n_at != 2 * per_forward:
+            raise AssertionError(f"{tag} forwards: {n_kp} KPConv, {n_at} attention launches")
+        launches["kpconv"] += n_kp
+        launches[key] += n_at
+    coarse = [int(c) for c in out["corr_mask"].sum(dim=(1, 2))]
+    fine = [int(p["n_corr"]) for p in pairs]
+    log(f"{tag} path (TwoDThreeDTester, {config} widths, SAMPLE_STEP "
+        f"{cfg.sample_steps}, fine threshold {FINE_THR_2D3D}): {BATCH_PAIRS} pairs in "
+        f"{seconds:.4f} s (median of {', '.join(f'{t:.4f}' for t in times)}) = "
+        f"{BATCH_PAIRS / seconds:.3f} pairs/s; IR {summary['IR']:.4f} PIR {summary['PIR']:.4f} "
+        f"RR {summary['RR']:.4f} RRE {summary['RRE']:.3f} RTE {summary['RTE']:.4f}; coarse "
+        f"correspondences {coarse}, fine {fine}; launches kpconv {n_kp // 2} attention "
+        f"{n_at // 2} a forward; peak memory {peak:.2f} GiB")
+    log(f"{tag} where the time goes ({BATCH_PAIRS} pairs): encode {enc_s:.4f} s, partition "
+        f"{part_s:.4f} s, backbone mode (encode, partition, one fusion pass, matcher) "
+        f"{bb_s:.4f} s, ddim forward {ddim_s:.4f} s (so {cfg.sample_steps} DDIM steps "
+        f"{ddim_s - bb_s:.4f} s = {(ddim_s - bb_s) / cfg.sample_steps * 1e3:.2f} ms a step), "
+        f"fine matching + PnP {fwd_s - ddim_s:.4f} s")
+
+    # ---- pair 0 on the CPU, same weights and draws, at STEPS_2D3D_CPU ----
+    pair0_2d3d(cfg, tcfg, batch_cpu, x_init, u, launches, key, tag)
     check_pnp_2d3d(batch_cpu, u[0], gen)
-    return {"pairs_per_s": BATCH_PAIRS / seconds, "peak_gib": peak}
+    return {"pairs_per_s": BATCH_PAIRS / seconds, "peak_gib": peak,
+            "ms_per_ddim_step": (ddim_s - bb_s) / cfg.sample_steps * 1e3, "encode_s": enc_s,
+            "backbone_s": bb_s, "ddim_s": ddim_s, "fine_and_pnp_s": fwd_s - ddim_s}
 
 
 def run_cli_2d3d(repo, split_root, launches):
@@ -2227,9 +2270,203 @@ def run_train_2d3d_phase(repo, split_root, launches):
     return result
 
 
+# ---------------------------------------------------------------- 2D-3D with the towers
+
+
+def vit_flops(cfg, tokens):
+    """Float operations of one DINOv2 forward over ``tokens`` tokens (the
+    matrix products: qkv, attention's two, proj, the MLP's two)."""
+    d = cfg.embed_dim
+    per_block = 2 * tokens * d * (3 * d + d + 2 * int(d * cfg.mlp_ratio)) + 4 * tokens ** 2 * d
+    return cfg.depth * per_block
+
+
+def seeded_towers():
+    """ViT-L/14 DINOv2 and DepthAnything (DPT 256, out channels 256/512/1024/1024)
+    on the CPU, with weights from seeds 0 and 1."""
+    from diffreg_tpu_torch.models.towers import synthesise_tower_weights
+    from diffreg_tpu_torch.nn.depth_anything import DepthAnything, DPTConfig
+    from diffreg_tpu_torch.nn.dinov2 import DinoVisionTransformer, vit_large_config
+
+    vit = vit_large_config()
+    dino, da = DinoVisionTransformer(vit), DepthAnything(vit, DPTConfig())
+    synthesise_tower_weights(dino, 0)
+    synthesise_tower_weights(da, 1)
+    return dino, da
+
+
+def check_towers(image_rgb):
+    """The seeded towers (``seeded_towers``) on one RGB image [1, H, W, 3]: the card's
+    tokens and depth against the CPU's, the times of each tower an image on
+    the card (the module alone, and TowerRunner's call with its host copies),
+    peak memory. Returns (the card's TowerRunner, the CPU's modules, numbers)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from diffreg_tpu_torch.models.towers import IMAGENET_MEAN, IMAGENET_STD, TowerRunner
+    from diffreg_tpu_torch.nn.dinov2 import vit_large_config
+
+    dino, da = seeded_towers()
+    cpu = TowerRunner(copy.deepcopy(dino), copy.deepcopy(da), device="cpu")
+    t0 = time.perf_counter()
+    ref_tokens, ref_depth = cpu.dino_tokens(image_rgb), cpu.mono_depth(image_rgb)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    card = TowerRunner(dino, da, device="cuda")
+    tokens, depth = card.dino_tokens(image_rgb), card.mono_depth(image_rgb)
+    errs = {}
+    for name, got, ref in (("tokens", tokens, ref_tokens), ("depth", depth, ref_depth)):
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"tower {name}: shape {got.shape} vs {ref.shape} or non-finite")
+        errs[name] = float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+        if not errs[name] <= TOWER_REL_TOL:
+            raise AssertionError(f"tower {name}: card vs CPU {errs[name]:.3e} of the scale "
+                                 f"(limit {TOWER_REL_TOL:.0e})")
+    if not float(ref_depth.max()) > 0:
+        raise AssertionError("DepthAnything's depth is zero everywhere")
+    x = torch.from_numpy(image_rgb).cuda().permute(0, 3, 1, 2).contiguous()
+    xn = torch.from_numpy((image_rgb - IMAGENET_MEAN) / IMAGENET_STD).cuda().permute(
+        0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        dino_ms = time_cuda(lambda: card.dino(x), 5, warmup=1)
+        da_ms = time_cuda(lambda: card.depth_anything(xn), 5, warmup=1)
+    _, runner_s = wall(lambda: (card.dino_tokens(image_rgb), card.mono_depth(image_rgb)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_tokens = (image_rgb.shape[1] // 14) * (image_rgb.shape[2] // 14) + 1
+    vit = vit_large_config()
+    flops = vit_flops(vit, n_tokens)
+    out = {"dino_ms": dino_ms, "depth_anything_ms": da_ms, "runner_ms": runner_s * 1e3,
+           "peak_gib": peak, "tokens_rel_err": errs["tokens"], "depth_rel_err": errs["depth"],
+           "vit_tflop": flops / 1e12}
+    log(f"towers (ViT-L/14, weights from a seed) on one {image_rgb.shape[1]} x "
+        f"{image_rgb.shape[2]} image, f32 with TF32 off: DINOv2 {dino_ms:.3f} ms "
+        f"({flops / 1e12:.3f} TFLOP of matrix products, {flops / dino_ms / 1e9:.1f} TFLOP/s), "
+        f"DepthAnything {da_ms:.3f} ms, TowerRunner's two calls with host copies "
+        f"{runner_s * 1e3:.1f} ms; card vs CPU: tokens {errs['tokens']:.3e}, depth "
+        f"{errs['depth']:.3e} of the scale (limit {TOWER_REL_TOL:.0e}); CPU {cpu_s:.1f} s; "
+        f"peak memory {peak:.2f} GiB")
+    return card, cpu, out
+
+
+def run_cli_dino(repo, split_root, cpu_towers, launches):
+    """``diffreg_tpu_torch.main`` on a written copy of configs/test/
+    rgbdv2_dino.yaml: ``towers`` at the seeded towers' state_dicts, the split
+    under ``split_root`` and a checkpoint of random weights; its summary,
+    eval_from_cache and launches checked."""
+    import tempfile
+
+    import torch
+    import yaml
+
+    from diffreg_tpu_torch.engine.checkpoint import CheckpointManager
+    from diffreg_tpu_torch.engine.train import OptimConfig, create_train_state
+    from diffreg_tpu_torch.main import main as cli
+    from diffreg_tpu_torch.main import pipeline_2d3d_config
+    from diffreg_tpu_torch.models.pipeline_2d3d import DiffReg2D3D
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+    from diffreg_tpu_torch.utils.config import load_yaml
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = load_yaml(os.path.join(repo, "configs", "test", "rgbdv2_dino.yaml"))
+        raw.update(data_root=split_root, exp_dir="disk-rgbdv2-dino",
+                   pretrain=os.path.join(tmp, "ckpt"),
+                   towers={"dinov2": os.path.join(tmp, "dinov2.pth"),
+                           "depth_anything": os.path.join(tmp, "depth_anything.pth")})
+        t0 = time.perf_counter()
+        torch.save(cpu_towers.dino.state_dict(), raw["towers"]["dinov2"])
+        torch.save(cpu_towers.depth_anything.state_dict(), raw["towers"]["depth_anything"])
+        CheckpointManager(raw["pretrain"]).save(1, create_train_state(
+            DiffReg2D3D(pipeline_2d3d_config(raw), device="cpu", seed=0), OptimConfig()))
+        path = os.path.join(tmp, "rgbdv2_dino.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(raw, f)
+        write_s = time.perf_counter() - t0
+        os.chdir(tmp)
+        try:
+            kpconv_cuda.launches = 0
+            masked_attention_cuda.launches = 0
+            argv = ["--config", path, "--num-pairs", str(BATCH_PAIRS), "--batch-size",
+                    str(BATCH_PAIRS)]
+            summary, seconds = wall(lambda: cli(argv))
+        finally:
+            os.chdir(cwd)
+    n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+    steps = int(raw["SAMPLE_STEP"])
+    if n_kp != 8 or n_at != 12 * (1 + steps):
+        raise AssertionError(f"main rgbdv2_dino: {n_kp} KPConv, {n_at} attention launches")
+    ev = summary.get("eval", {})
+    if not (summary["pairs"] == BATCH_PAIRS and all(
+            math.isfinite(summary[k]) for k in ("IR", "PIR", "RR", "RRE", "RTE"))
+            and sorted(ev.get("scenes", {})) == ["scene_00", "scene_01"]
+            and math.isfinite(ev.get("PIR", math.nan))):
+        raise AssertionError(f"main rgbdv2_dino: summary {summary}")
+    launches["kpconv"] += n_kp
+    launches["masked_attention_d64_dino"] += n_at
+    log(f"main rgbdv2_dino test (on disk, towers from state_dicts, {BATCH_PAIRS} pairs): "
+        f"{seconds:.2f} s (the towers' and checkpoint's files written in {write_s:.1f} s), "
+        f"launches kpconv {n_kp} attention {n_at}; " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in summary.items() if k != "eval"))
+
+
+def run_dino_phase(repo, split_root, kernels, launches, gen):
+    """Phase 17, the published model (configs/test/rgbdv2_dino.yaml): the towers
+    card against CPU, the split at stride 14 with the card's tower outputs,
+    both kernels at its shapes, the path through TwoDThreeDTester, pair 0 on
+    the CPU, PnP, and the CLI on a copy of the YAML."""
+    import torch
+
+    from diffreg_tpu_torch.data.datasets2d3d import RGBDScenes2D3DPairDataset
+    from diffreg_tpu_torch.main import pipeline_2d3d_config
+    from diffreg_tpu_torch.models.pipeline_2d3d import DiffReg2D3D
+    from diffreg_tpu_torch.nn.point_backbone import KPConvBias
+    from diffreg_tpu_torch.utils.config import load_yaml
+
+    cfg = pipeline_2d3d_config(load_yaml(os.path.join(repo, "configs", "test",
+                                                      "rgbdv2_dino.yaml")))
+    s = cfg.coarse_stride
+    image = RGBDScenes2D3DPairDataset(split_root, "test")[0]["image"]
+    image = image[:image.shape[0] // s * s, :image.shape[1] // s * s][None]
+    card, cpu_towers, tower_numbers = check_towers(image)
+    t0 = time.perf_counter()
+    batch_cpu, _, scenes, pixels = data_2d3d(split_root, stride=s, towers=card)
+    n_tokens = pixels // (s * s)
+    log(f"2D-3D dino data: read, calibrated, collated with the towers' outputs in "
+        f"{time.perf_counter() - t0:.2f} s; image {tuple(batch_cpu.image.shape)}, {n_tokens} "
+        f"image tokens, dino_feats {tuple(batch_cpu.dino_feats.shape)}, mono_depth "
+        f"{tuple(batch_cpu.mono_depth.shape)}")
+    del card
+
+    batch = batch_cpu.to("cuda")
+    model = DiffReg2D3D(cfg, device="cuda", seed=0)
+    kp, _ = check_kpconv(
+        kpconv_layer_calls(model, lambda: model.pcd_backbone(batch), KPConvBias), 8,
+        "one point-backbone pass (8 calls)", tag=" (2D-3D dino)")
+    kernels[0]["2d3d_dino"] = {k: kp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "per")}
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], kp["max_abs_err"])
+    del model, batch
+    torch.cuda.empty_cache()
+    at, at_shapes, _ = check_attention_2d3d(batch_cpu, n_tokens, cfg, gen)
+    kernels[1]["d64_dino"] = at
+    kernels[1]["shapes"] += [dict(row, case=row["case"].replace("(2D-3D)", "(2D-3D dino)"))
+                             for row in at_shapes]
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], at["max_abs_err"])
+
+    result = run_2d3d(batch_cpu, scenes, cfg, launches, gen, key="masked_attention_d64_dino",
+                      tag="2D-3D dino", config="configs/test/rgbdv2_dino.yaml")
+    kernels[1]["d64_dino"]["path"] = {**result, "towers": tower_numbers}
+    run_cli_dino(repo, split_root, cpu_towers, launches)
+
+
 def run_2d3d_phases(repo, kernels, launches, gen):
-    """Phases 12-16: the kernels at the 2D-3D shapes, the 2D-3D path, pair 0 on
-    the CPU, PnP, the CLI on the 2D-3D configs, and 2D-3D training."""
+    """Phases 12-17: the kernels at the 2D-3D shapes, the 2D-3D path, pair 0 on
+    the CPU, PnP, the CLI on the 2D-3D configs, 2D-3D training, and the
+    published model with its towers."""
     import tempfile
 
     from diffreg_tpu_torch.main import pipeline_2d3d_config
@@ -2273,13 +2510,16 @@ def run_2d3d_phases(repo, kernels, launches, gen):
         del cases
 
         # ---- 13-14. the 2D-3D path; pair 0 on the CPU; PnP ----
-        run_2d3d(batch_cpu, spec, scenes, cfg, launches, gen)
+        run_2d3d(batch_cpu, scenes, cfg, launches, gen)
 
         # ---- 15. the entry point on the 2D-3D configs ----
         run_cli_2d3d(repo, split_root, launches)
 
         # ---- 16. 2D-3D training: the Trainer, card vs CPU, the entry point ----
         kernels[1]["d64"]["train_2d3d"] = run_train_2d3d_phase(repo, split_root, launches)
+
+        # ---- 17. the published model: the towers, rgbdv2_dino.yaml's path, the CLI ----
+        run_dino_phase(repo, split_root, kernels, launches, gen)
 
 
 def main() -> int:
@@ -2382,7 +2622,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()      # the gradient checks above are not its peak
     results = {}
     launches = {"kpconv": 0, "masked_attention": 0, "masked_attention_d132": 0,
-                "masked_attention_d64": 0, "kpconv_train_2d3d": 0,
+                "masked_attention_d64": 0, "masked_attention_d64_dino": 0, "kpconv_train_2d3d": 0,
                 "masked_attention_train_2d3d": 0, "kpconv_bf16": 0,
                 "masked_attention_bf16": 0}
     f32_ref = {}
@@ -2465,17 +2705,18 @@ def main() -> int:
     # ---- 11. the entry point: 4DMatch test, 3DMatch test, 4DMatch train ----
     run_cli(repo, pairs4, meta4, launches)
 
-    # ---- 12-16. 2D-3D: kernels at its shapes, the tester path, pair 0, the CLI,
-    # training ----
+    # ---- 12-17. 2D-3D: kernels at its shapes, the tester path, pair 0, the CLI,
+    # training, the published model with its towers ----
     run_2d3d_phases(repo, kernels, launches, gen)
 
     kernels[0]["launches"] = launches["kpconv"] + launches["kpconv_train_2d3d"]
     kernels[0]["launches_train_2d3d"] = launches["kpconv_train_2d3d"]
     d64 = launches["masked_attention_d64"] + launches["masked_attention_train_2d3d"]
     kernels[1]["launches"] = (launches["masked_attention"] + launches["masked_attention_d132"]
-                              + d64)
+                              + d64 + launches["masked_attention_d64_dino"])
     kernels[1]["launches_d132"] = launches["masked_attention_d132"]
     kernels[1]["launches_d64"] = d64
+    kernels[1]["launches_d64_dino"] = launches["masked_attention_d64_dino"]
     kernels[1]["launches_train_2d3d"] = launches["masked_attention_train_2d3d"]
     kernels[2]["launches"] = launches["kpconv_bf16"]
     kernels[3]["launches"] = launches["masked_attention_bf16"]

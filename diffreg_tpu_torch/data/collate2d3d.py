@@ -451,7 +451,9 @@ def build_2d3d_sample(raw: dict, spec: Spec2D3D, coarse_stride: int = 8) -> dict
 
 
 def batch_2d3d(samples: Sequence[dict]):
-    """Stack ``build_2d3d_sample`` dicts into a ``Batch2D3D`` of CPU tensors."""
+    """Stack ``build_2d3d_sample`` dicts into a ``Batch2D3D`` of CPU tensors
+    (with the tower outputs ``dino_feats`` / ``mono_depth`` where the samples
+    carry them, as the CLI attaches them)."""
     from ..models.pipeline_2d3d import Batch2D3D
 
     return Batch2D3D.from_numpy(stack_pairs(list(samples)))

@@ -52,12 +52,17 @@ def _pyramid_3lvl(points, caps, ks, radius0):
 
 def synthetic_2d3d_batch(batch_size=1, img_hw=(64, 96), n_points=512, seed=0,
                          coarse_stride=8, n_gt=64, with_full_gt=False, n_overlap=256,
-                         n_fine_gt=64, gt_radius_3d=0.05):
+                         n_fine_gt=64, gt_radius_3d=0.05, with_dino=False, dino_dim=1024,
+                         with_mono_depth=False):
     """A ``Batch2D3D`` of CPU tensors: ``batch_size`` synthetic pairs.
     ``with_full_gt`` adds the training losses' ground truth through the
     collate helpers: the node <-> patch overlap pairs (up to ``n_overlap``)
     and the fine pixel <-> point pairs (up to ``n_fine_gt``), both within
-    ``gt_radius_3d`` and 8 px."""
+    ``gt_radius_3d`` and 8 px. ``with_dino`` / ``with_mono_depth`` attach
+    stand-in tower outputs: random DINO tokens [H/14, W/14, dino_dim] (normal,
+    0.02), and the true depth x 100 as the DepthAnything map (the pipeline's
+    MONO_DEPTH_SCALE 0.01 and the affine (1, 0) lift it back to the camera
+    points)."""
     from ..models.pipeline_2d3d import Batch2D3D
     from .collate2d3d import fine_gt_correspondences, node_patch_overlaps
 
@@ -69,8 +74,9 @@ def synthetic_2d3d_batch(batch_size=1, img_hw=(64, 96), n_points=512, seed=0,
     caps, ks = (n_points,) * 3, (16,) * 3
     full_gt = ("ov_src", "ov_tgt", "ov_min", "ov_max", "ov_valid", "fine_pixels",
                "fine_pcd_idx", "fine_valid") if with_full_gt else ()
+    towers = ("dino_feats",) * with_dino + ("mono_depth",) * with_mono_depth
     cols = {k: [] for k in ("image", "img_points", "img_valid", "pcd_feats", "transform",
-                            "gt_src", "gt_tgt", "gt_valid") + full_gt}
+                            "gt_src", "gt_tgt", "gt_valid") + towers + full_gt}
     pyrs = []
     for _ in range(batch_size):
         base = rng.rand(-(-h // 8), -(-w // 8)).astype(np.float32)
@@ -112,6 +118,12 @@ def synthetic_2d3d_batch(batch_size=1, img_hw=(64, 96), n_points=512, seed=0,
         cols["gt_src"].append(gt[0])
         cols["gt_tgt"].append(gt[1])
         cols["gt_valid"].append(gt[2].astype(bool))
+        # drawn here, before the fine GT's draws, as the JAX package draws them
+        if with_dino:
+            grid = (max(1, h // 14), max(1, w // 14), dino_dim)
+            cols["dino_feats"].append(rng.randn(*grid).astype(np.float32) * 0.02)
+        if with_mono_depth:
+            cols["mono_depth"].append(depth * 100.0)
         if with_full_gt:
             valid = z > 0
             ov = node_patch_overlaps(world_pts, nodes, cam_pts, valid, tfm, intrinsics, (h, w),

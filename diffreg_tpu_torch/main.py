@@ -6,6 +6,7 @@
     python -m diffreg_tpu_torch.main --config configs/test/3dmatch_fast.yaml   # bf16 fast path
     python -m diffreg_tpu_torch.main --config configs/train/4dmatch.yaml --mode train --demo
     python -m diffreg_tpu_torch.main --config configs/test/rgbdv2.yaml --demo
+    python -m diffreg_tpu_torch.main --config configs/test/rgbdv2_dino.yaml  # needs the towers
     python -m diffreg_tpu_torch.main --config configs/test/7scenes.yaml
     python -m diffreg_tpu_torch.main --config configs/train/rgbdv2.yaml --mode train
     python -m diffreg_tpu_torch.main --config ... --device cpu     # the plain CPU path
@@ -15,13 +16,15 @@ Diff-Reg-3dmatch/main.py): YAML with ``!join`` tags -> typed configs -> model,
 loaders and engine. 3DMatch and 4DMatch, test (``ThreeDMatchTester``,
 ``FourDMatchTester``) and train (``Trainer``); 2D-3D (RGB-D Scenes V2,
 7Scenes) test (``TwoDThreeDTester``, then ``eval_from_cache``) and train
-(``engine.train2d3d`` with Adam, the ``Trainer``); the frozen towers and the
-host estimators are not ported (ROADMAP §1): where the estimator's library
-is missing, the device estimator runs, as in the JAX package. ``--demo``, or
-a missing ``data_root``, runs on synthetic pairs. A metric run on real data
-refuses random weights. One process on one device: there is no mesh (data
-parallel is in ROADMAP §1). Runs write under ``snapshot/<exp_dir>`` in the
-working directory.
+(``engine.train2d3d`` with Adam, the ``Trainer``), with the frozen towers
+(``use_dino`` / ``use_mono_depth``: torch state_dicts at the YAML's
+``towers.dinov2`` / ``towers.depth_anything``, run once per pair). The host
+estimators are not ported (ROADMAP §1): where the estimator's library is
+missing, the device estimator runs, as in the JAX package. ``--demo``, or a
+missing ``data_root``, runs on synthetic pairs, which carry no tower
+outputs. A metric run on real data refuses random weights. One process on
+one device: there is no mesh (data parallel is in ROADMAP §1). Runs write
+under ``snapshot/<exp_dir>`` in the working directory.
 """
 from __future__ import annotations
 
@@ -234,6 +237,7 @@ def pipeline_2d3d_config(raw):
         sample_steps=int(raw.get("SAMPLE_STEP", 10)),
         use_dino=bool(m.get("use_dino", False)),
         use_mono_depth=bool(m.get("use_mono_depth", False)),
+        dino_dim=int(m.get("dino_dim", 1024)),
         procrustes_max_condition=float(raw.get("procrustes", {}).get("max_condition_num", 200.0)))
 
 
@@ -255,9 +259,11 @@ def loss_2d3d_configs(raw):
 
 def run_2d3d(args, raw, mode, batch_size, dataset_name):
     """2D-3D (RGB-D Scenes V2 / 7Scenes): the model, demo or on-disk pairs
-    (calibrated from the data), then test (the weights, ``TwoDThreeDTester``
-    and, on real data or with ``eval.write_cache``, ``eval_from_cache``) or
-    train (Adam at the YAML's ``lr``, the ``Trainer``)."""
+    (calibrated from the data; with ``use_dino`` / ``use_mono_depth`` each
+    pair's tower outputs from ``models.towers.load_tower_runner``), then test
+    (the weights, ``TwoDThreeDTester`` and, on real data or with
+    ``eval.write_cache``, ``eval_from_cache``) or train (Adam at the YAML's
+    ``lr``, the ``Trainer``)."""
     import numpy as np
     import torch
 
@@ -281,6 +287,9 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
 
     data_root = raw.get("data_root", "")
     demo = args.demo or not (data_root and os.path.exists(data_root))
+    towers = None
+    if not demo and (cfg.use_dino or cfg.use_mono_depth):
+        towers = _tower_runner(cfg, raw.get("towers", {}), device)
     if not train:
         pretrain = raw.get("pretrain", "")
         if pretrain and os.path.exists(pretrain):
@@ -330,6 +339,12 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
                     sample = build_2d3d_sample(raw_s, spec, st)
                 except ValueError:
                     continue
+                if towers is not None:
+                    rgb = raw_s["image"][None]
+                    if cfg.use_dino:
+                        sample["dino_feats"] = towers.dino_tokens(rgb)[0]
+                    if cfg.use_mono_depth:
+                        sample["mono_depth"] = towers.mono_depth(rgb)[0]
                 buf.append(sample)
                 metas.append(raw_s["scene_name"])
                 if len(buf) == batch_size:
@@ -371,6 +386,20 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
                                          device=device)
     logger.close()
     return result
+
+
+def _tower_runner(cfg, tw, device):
+    """The frozen towers the config asks for, from the YAML's ``towers``
+    section; exits with the JAX package's message when a path is missing."""
+    from .models import towers
+
+    dino_ckpt = tw.get("dinov2") if cfg.use_dino else None
+    da_ckpt = tw.get("depth_anything") if cfg.use_mono_depth else None
+    if (cfg.use_dino and not (dino_ckpt and os.path.exists(dino_ckpt))) \
+            or (cfg.use_mono_depth and not (da_ckpt and os.path.exists(da_ckpt))):
+        raise SystemExit("use_dino/use_mono_depth need converted tower checkpoints: "
+                         f"towers={tw!r} (run tools/convert_towers.py)")
+    return towers.load_tower_runner(dino_ckpt, da_ckpt, device=device)
 
 
 def _train_2d3d(args, raw, model, make_iter, save_dir, logger, device, seed):

@@ -3,12 +3,20 @@ encoders, cross-modal fusion, coarse matcher, DDIM over the node x patch
 matching matrix, and patch-level fine matching.
 
 Counterpart of the JAX package's models/pipeline_2d3d.py (the reference
-MATR2D3D), without the frozen towers (``use_dino``, ``use_mono_depth``):
+MATR2D3D). The frozen towers (``models/towers.py``) run outside the model;
+their outputs ride the batch:
 
   * ``encode``: the image UNet (NCHW) and the KPConv point backbone; coarse
-    image tokens on the stride-8 grid with their normalised pixel positions;
+    image tokens on the ``coarse_stride`` grid with their normalised pixel
+    positions. With ``use_dino`` the DINOv2 tokens (``batch.dino_feats``),
+    projected by ``dino_proj``, are added to the UNet's 1/8 map, and the raw
+    tokens on the coarse grid enter both fusion modules;
   * the point-to-node partition gates the nodes by their member count, and
-    each image patch's centre is the mean of its valid stride-2 pixels;
+    each image patch's centre is the mean of its valid stride-2 pixels. With
+    ``use_mono_depth`` and ``batch.mono_depth`` the node warp targets the
+    centres of the DepthAnything map lifted through the trainable affine
+    ``depth_coffa`` / ``depth_coffb`` (the matchers keep the real depth's
+    patch validity);
   * mode "backbone": the fusion transformer and coarse matcher once, then the
     top-1 union correspondence mask;
   * ``train_forward``: the same coarse pass; the GT matrix noised at passed-in
@@ -54,6 +62,9 @@ from ..ops.vision import create_meshgrid, l2_normalize, resize_align_corners
 from ..utils.device import resolve_device
 from ..utils.precision import pin_float32
 
+MONO_DEPTH_SCALE = 0.01   # the reference lifts image_depth_any / 100
+DEPTH_LIMIT = 6.0         # lifted depths beyond it are dropped
+
 
 @dataclasses.dataclass(frozen=True)
 class Batch2D3D:
@@ -70,6 +81,8 @@ class Batch2D3D:
     pcd_feats: torch.Tensor          # [B, N0, 1]
     transform: torch.Tensor          # [B, 4, 4] camera-from-cloud ground truth
     intrinsics: torch.Tensor         # [B, 3, 3]
+    dino_feats: Optional[torch.Tensor] = None  # [B, H/14, W/14, D] DINOv2 patch tokens
+    mono_depth: Optional[torch.Tensor] = None  # [B, H, W] raw DepthAnything output
     gt_src: Optional[torch.Tensor] = None      # [B, G] escalated coarse GT (node)
     gt_tgt: Optional[torch.Tensor] = None      # [B, G] (patch)
     gt_valid: Optional[torch.Tensor] = None
@@ -133,6 +146,7 @@ class Pipeline2D3DConfig:
     procrustes_max_condition: float = 200.0
     use_dino: bool = False
     use_mono_depth: bool = False
+    dino_dim: int = 1024            # DINOv2 ViT-L patch-token width
 
 
 class DiffReg2D3D(nn.Module):
@@ -142,9 +156,6 @@ class DiffReg2D3D(nn.Module):
 
     def __init__(self, cfg: Pipeline2D3DConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.use_dino or cfg.use_mono_depth:
-            raise NotImplementedError("use_dino / use_mono_depth: the frozen towers are not "
-                                      "ported yet (ROADMAP §1: 2D-3D towers)")
         device = resolve_device(device)
         pin_float32()
         self.cfg = cfg
@@ -152,11 +163,19 @@ class DiffReg2D3D(nn.Module):
         self.pcd_backbone = PointBackbone(cfg.pcd_backbone)
         fusion = lambda: CrossModalFusionModule(  # noqa: E731
             4 * cfg.img_base_dim, 8 * cfg.pcd_backbone.init_dim, cfg.output_dim,
-            cfg.hidden_dim, cfg.num_heads, cfg.fusion_blocks)
+            cfg.hidden_dim, cfg.num_heads, cfg.fusion_blocks,
+            dino_dim=cfg.dino_dim if cfg.use_dino else None)
         self.transformer = fusion()
         self.denoising_transformer = fusion()
         self.coarse_matching = Matching(cfg.matching)
         self.denoising_coarse_matching = Matching(cfg.matching)
+        if cfg.use_dino:
+            # the reference's dino_2_u: DINO tokens to the UNet's 1/8 width
+            self.dino_proj = nn.Linear(cfg.dino_dim, 4 * cfg.img_base_dim)
+        if cfg.use_mono_depth:
+            # the monocular depth's affine z = depth * scale * a + b, trained
+            self.depth_coffa = nn.Parameter(torch.ones(1))
+            self.depth_coffb = nn.Parameter(torch.zeros(1))
         self.schedule = make_schedule(cfg.timesteps)
         init_weights(self, seed)
         self.to(device)
@@ -169,33 +188,72 @@ class DiffReg2D3D(nn.Module):
     def encode(self, batch: Batch2D3D) -> dict:
         """Both encoders: fine image features [B, H, W, C], coarse image tokens
         [B, hc*wc, 4 base] with their normalised pixels, fine and node point
-        features."""
+        features, and with ``use_dino`` the DINO tokens on the coarse grid
+        [B, hc*wc, dino_dim] (else None)."""
         b, h, w, _ = batch.image.shape
         s = self.cfg.coarse_stride
         hc, wc = h // s, w // s
-        feats = self.img_backbone(batch.image.permute(0, 3, 1, 2))
+        dino = dino_tokens = None
+        if self.cfg.use_dino:
+            if batch.dino_feats is None:
+                raise ValueError("use_dino needs batch.dino_feats, the DINOv2 tower's tokens "
+                                 "(models/towers.py); the synthetic demo pairs carry none")
+            dino = batch.dino_feats.permute(0, 3, 1, 2)                 # [B, D, h14, w14]
+            dino_tokens = resize_align_corners(dino, (hc, wc)).flatten(2).transpose(1, 2)
+            # the UNet gets the projected tokens, the fusion modules the raw ones
+            dino = self.dino_proj(batch.dino_feats).permute(0, 3, 1, 2)
+        feats = self.img_backbone(batch.image.permute(0, 3, 1, 2), dino)
         coarse = resize_align_corners(feats[-1], (hc, wc))
         pcd = self.pcd_backbone(batch)
         pix = create_meshgrid(hc, wc, normalized=True, flatten=True, device=coarse.device)
         return {"img_feats_f": feats[0].permute(0, 2, 3, 1),
                 "img_feats_c": coarse.flatten(2).transpose(1, 2),
-                "img_pixels_c": pix[None].expand(b, hc * wc, 2),
+                "img_pixels_c": pix[None].expand(b, hc * wc, 2), "dino_tokens": dino_tokens,
                 "pcd_feats_f": pcd[0], "pcd_feats_c": pcd[-1], "hc": hc, "wc": wc}
 
-    def patch_centers(self, batch: Batch2D3D):
-        """Each patch's centre: the mean of its valid back-projected points over
-        the stride-2 pixel subset (the reference's patchify(stride=2)) ->
-        (centres [B, hc*wc, 3], valid [B, hc*wc])."""
-        b, h, w, _ = batch.image.shape
+    def _centers_of(self, points, valid, shape):
+        """Each patch's centre: the mean of its valid points [B, H*W, 3] over the
+        stride-2 pixel subset (the reference's patchify(stride=2)) -> (centres
+        [B, hc*wc, 3], valid [B, hc*wc])."""
+        b, h, w, _ = shape
         s = self.cfg.coarse_stride
         hc, wc = h // s, w // s
-        pts = batch.img_points.reshape(b, hc, s, wc, s, 3)[:, :, ::2, :, ::2]
+        pts = points.reshape(b, hc, s, wc, s, 3)[:, :, ::2, :, ::2]
         ss = pts.shape[2] * pts.shape[4]
         pts = pts.permute(0, 1, 3, 2, 4, 5).reshape(b, hc * wc, ss, 3)
-        val = batch.img_valid.reshape(b, hc, s, wc, s)[:, :, ::2, :, ::2]
+        val = valid.reshape(b, hc, s, wc, s)[:, :, ::2, :, ::2]
         val = val.permute(0, 1, 3, 2, 4).reshape(b, hc * wc, ss)
         cnt = val.sum(dim=-1, keepdim=True).clamp_min(1).to(pts.dtype)
         return torch.sum(pts * val[..., None].to(pts.dtype), dim=2) / cnt, val.any(dim=-1)
+
+    def patch_centers(self, batch: Batch2D3D):
+        """The patch centres of the back-projected depth -> (centres [B, hc*wc,
+        3], valid [B, hc*wc])."""
+        return self._centers_of(batch.img_points, batch.img_valid, batch.image.shape)
+
+    def patch_centers_da(self, batch: Batch2D3D):
+        """The centres the node warp targets: with ``use_mono_depth`` and a
+        ``batch.mono_depth``, those of the lifted DepthAnything map; else the
+        real depth's (``patch_centers``)."""
+        if not (self.cfg.use_mono_depth and batch.mono_depth is not None):
+            return self.patch_centers(batch)
+        return self._centers_of(*self.lift_mono_depth(batch), batch.image.shape)
+
+    def lift_mono_depth(self, batch: Batch2D3D):
+        """The DepthAnything map to camera-frame points [B, H*W, 3] through the
+        trainable affine (the reference's back_project_depth): z = depth *
+        MONO_DEPTH_SCALE * depth_coffa + depth_coffb, zeroed beyond
+        DEPTH_LIMIT; valid [B, H*W] where z > 0."""
+        b, h, w, _ = batch.image.shape
+        z = batch.mono_depth.reshape(b, h * w) * MONO_DEPTH_SCALE
+        z = z * self.depth_coffa + self.depth_coffb
+        z = torch.where(z > DEPTH_LIMIT, torch.zeros_like(z), z)
+        k = batch.intrinsics
+        fx, fy, cx, cy = (k[:, i, j][:, None] for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
+        grid = create_meshgrid(h, w, flatten=True, device=z.device)      # [HW, 2] (v, u)
+        x = (grid[None, :, 1] - cx) * z / fx
+        y = (grid[None, :, 0] - cy) * z / fy
+        return torch.stack([x, y, z], dim=-1), z > 0.0
 
     def _warp_nodes(self, x, nodes, centers, node_masks, center_masks, node_pad):
         """Sinkhorn-project the noisy matrix, soft Procrustes of the nodes onto
@@ -212,15 +270,16 @@ class DiffReg2D3D(nn.Module):
         """Fusion (no image-token mask; the nodes' padding masked) and matcher
         (gated node masks, patch validity) -> confidences [B, N, M]."""
         img_t, pcd_t = fusion(enc["img_feats_c"], enc["img_pixels_c"], enc["pcd_feats_c"],
-                              nodes, img_valid=None, pcd_valid=batch.masks[-1])
+                              nodes, img_valid=None, pcd_valid=batch.masks[-1],
+                              img_feats_dino=enc["dino_tokens"])
         conf, _ = matcher(pcd_t, img_t, None, None, node_masks, img_valid_c,
                           src_pad=batch.masks[-1], tgt_pad=torch.ones_like(img_valid_c))
         return conf, img_t, pcd_t
 
     def _coarse_pass(self, batch: Batch2D3D) -> Tuple[dict, dict]:
         """Both encoders, the partition (nodes gated by their member count), the
-        patch centres, the fusion transformer and the coarse matcher -> (the
-        outputs every mode returns, the encoder's)."""
+        patch centres (real, and the warp's), the fusion transformer and the
+        coarse matcher -> (the outputs every mode returns, the encoder's)."""
         cfg = self.cfg
         enc = self.encode(batch)
         nodes, node_pad = batch.points[-1], batch.masks[-1]
@@ -228,19 +287,22 @@ class DiffReg2D3D(nn.Module):
                                        cfg.pcd_num_points_in_patch)
         node_masks = part.node_masks & (part.node_sizes > cfg.pcd_min_node_size)
         centers, img_valid_c = self.patch_centers(batch)
+        centers_da, valid_da = self.patch_centers_da(batch)
         conf, img_t, pcd_t = self._match(self.transformer, self.coarse_matching, enc, batch,
                                          nodes, node_masks, img_valid_c)
         out = {"conf_matrix_pred": conf, "node_masks": node_masks, "img_valid_c": img_valid_c,
-               "nodes": nodes, "patch_centers": centers, "pcd_feats_c": pcd_t,
+               "nodes": nodes, "patch_centers": centers, "patch_centers_da": centers_da,
+               "patch_valid_da": valid_da, "pcd_feats_c": pcd_t,
                "img_feats_c": img_t, "partition": part, "img_feats_f": enc["img_feats_f"],
                "pcd_feats_f": enc["pcd_feats_f"]}
         return out, enc
 
     def _denoise(self, enc, batch, x, out):
-        """Warp the nodes by the noisy matrix ``x``, then the denoising fusion
-        and matcher -> the x0 prediction [B, N, M]."""
+        """Warp the nodes by the noisy matrix ``x`` onto the warp's patch centres,
+        then the denoising fusion and matcher -> the x0 prediction [B, N, M]."""
         nodes, masks, valid = out["nodes"], out["node_masks"], out["img_valid_c"]
-        warped = self._warp_nodes(x, nodes, out["patch_centers"], masks, valid, batch.masks[-1])
+        warped = self._warp_nodes(x, nodes, out["patch_centers_da"], masks, out["patch_valid_da"],
+                                  batch.masks[-1])
         return self._match(self.denoising_transformer, self.denoising_coarse_matching, enc,
                            batch, warped, masks, valid)[0]
 

@@ -1,16 +1,18 @@
 """Cross-modal fusion transformer: image tokens <-> point tokens.
 
 Counterpart of the JAX package's nn/fusion.py (the 2D-3D experiment's
-CrossModalFusionModule, without the DINO tokens): linear projections of both
-sides into the hidden width, Fourier embeddings of the normalised pixels and
-of the centred points, then interleaved self and cross TransformerLayers.
+CrossModalFusionModule): linear projections of both sides into the hidden
+width (with ``dino_dim``, the image side's projection concatenated with a
+projection of the DINOv2 tokens, a ReLU and a projection back to the hidden
+width), Fourier embeddings of the normalised pixels and of the centred
+points, then interleaved self and cross TransformerLayers.
 One layer serves both sides of a block. Its 12 attention calls per pass
 (image self, node self, image -> node, node -> image, three times) go
 through the masked-attention kernel on CUDA tensors.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,11 +23,15 @@ from .layers2d3d import TransformerLayer, fourier_embedding
 class CrossModalFusionModule(nn.Module):
     def __init__(self, img_dim: int, pcd_dim: int, output_dim: int, hidden_dim: int,
                  num_heads: int, blocks: Tuple[str, ...] = ("self", "cross") * 3,
-                 embedding_dim: int = 10):
+                 embedding_dim: int = 10, dino_dim: Optional[int] = None):
         super().__init__()
         self.blocks = tuple(blocks)
         self.embedding_dim = embedding_dim
         self.img_in_proj = nn.Linear(img_dim, hidden_dim)
+        self.use_dino = bool(dino_dim)
+        if self.use_dino:
+            self.img_in_proj_dino = nn.Linear(dino_dim, hidden_dim)
+            self.img_in_proj_all = nn.Linear(2 * hidden_dim, hidden_dim)
         self.pcd_in_proj = nn.Linear(pcd_dim, hidden_dim)
         self.img_emb_proj = nn.Linear(2 * (2 * embedding_dim + 1), hidden_dim)
         self.pcd_emb_proj = nn.Linear(3 * (2 * embedding_dim + 1), hidden_dim)
@@ -34,11 +40,15 @@ class CrossModalFusionModule(nn.Module):
         self.out_proj = nn.Linear(hidden_dim, output_dim)
 
     def forward(self, img_feats, img_pixels, pcd_feats, pcd_points, img_valid=None,
-                pcd_valid=None):
+                pcd_valid=None, img_feats_dino=None):
         """img_feats [B, HW, Ci], img_pixels [B, HW, 2] (normalised), pcd_feats
-        [B, N, Cp], pcd_points [B, N, 3] -> (image tokens, point tokens)."""
-        img = self.img_in_proj(img_feats) + self.img_emb_proj(
-            fourier_embedding(img_pixels, self.embedding_dim))
+        [B, N, Cp], pcd_points [B, N, 3], with ``dino_dim`` img_feats_dino
+        [B, HW, dino_dim] -> (image tokens, point tokens)."""
+        img = self.img_in_proj(img_feats)
+        if self.use_dino:
+            img = self.img_in_proj_all(torch.relu(torch.cat(
+                [img, self.img_in_proj_dino(img_feats_dino)], dim=-1)))
+        img = img + self.img_emb_proj(fourier_embedding(img_pixels, self.embedding_dim))
         # the centroid is taken over the valid nodes only: padding must not move it
         if pcd_valid is not None:
             w = pcd_valid[..., None].to(pcd_points.dtype)

@@ -1,5 +1,5 @@
 """Image backbone: a ResNet-basic-block UNet (the 2D-3D experiment's
-ImageBackbone, without the DINO injection).
+ImageBackbone) with the optional DINO injection at the 1/8 level.
 
 Counterpart of the JAX package's nn/image_backbone.py, in NCHW with cuDNN's
 convolutions (float32: ``utils/precision.py`` keeps TF32 off), the
@@ -52,11 +52,15 @@ class ImageBackbone(nn.Module):
         self.decoder1_2 = nn.Sequential(ConvBlock(c, c, 3), _plain(c, c, 3))
         self.out_proj = _plain(c, out_channels, 1)
 
-    def forward(self, image):
+    def forward(self, image, dino_feat=None):
+        """``dino_feat`` [B, 4 base, h, w] (projected DINO tokens) or None: added
+        to the 1/8 encoder map after an align-corners resize to its size."""
         s1 = self.encoder1(image)                                   # 1/2
         s2 = self.encoder2(s1)
         s3 = self.encoder3(s2)                                      # 1/4
         s4 = self.encoder4(s3)                                      # 1/8
+        if dino_feat is not None:
+            s4 = s4 + resize_align_corners(dino_feat, s4.shape[-2:])
         latent4 = self.decoder4_1(s4)
         latent3 = self.decoder3_2(self.decoder3_1(s3)
                                   + resize_align_corners(latent4, s3.shape[-2:]))

@@ -1,5 +1,5 @@
-"""2D<->3D geometry ops: meshgrid, align-corners resize, back-projection,
-rendering, patchify, pairwise distances.
+"""2D<->3D geometry ops: meshgrid, align-corners and half-pixel resizes,
+back-projection, rendering, patchify, pairwise distances.
 
 Counterpart of the JAX package's ops/vision.py. Pixels are (row, col) =
 (v, u) ordered; intrinsics K = [[fx, 0, cx], [0, fy, cy], [0, 0, 1]].
@@ -44,6 +44,17 @@ def resize_align_corners(x, hw):
     if tuple(hw) == tuple(x.shape[-2:]):
         return x
     return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=True)
+
+
+def resize(x, hw, method: str):
+    """Resize x [B, C, H, W] to ``hw`` as ``jax.image.resize`` does: half-pixel
+    centres, ``method`` "bicubic" (Keys, a = -0.5) or "bilinear", the kernel
+    widened when downsampling (antialiased), the weights renormalised at the
+    borders. PyTorch's antialiased interpolation has these semantics (its
+    plain bicubic has a = -0.75 and no widening)."""
+    if tuple(hw) == tuple(x.shape[-2:]):
+        return x
+    return F.interpolate(x, size=tuple(hw), mode=method, align_corners=False, antialias=True)
 
 
 def back_project(depth, intrinsics, depth_limit=6.0, depth_min=0.0):

@@ -424,10 +424,19 @@ def test_model(runs, setup, mode):
 
 
 def test_model_refuses_what_is_not_ported(setup):
-    """The towers are not ported; training is (tests/test_torch_train2d3d.py),
-    and the DDIM needs its start."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pp.DiffReg2D3D(_port_cfg(use_dino=True), device="cpu")
+    """The tower variant builds, as the JAX package's does (its parameters:
+    dino_proj, both fusions' DINO projections, the depth affine;
+    tests/test_torch_towers.py runs it); the DDIM needs its start, and the
+    modes are ddim and backbone (training is ``train_forward``)."""
+    model = pp.DiffReg2D3D(_port_cfg(use_dino=True, use_mono_depth=True, dino_dim=24),
+                           device="cpu")
+    names = dict(model.named_parameters())
+    assert names["dino_proj.weight"].shape == (64, 24)
+    assert names["transformer.img_in_proj_dino.weight"].shape == (64, 24)
+    assert names["denoising_transformer.img_in_proj_all.weight"].shape == (64, 128)
+    assert float(names["depth_coffa"].detach()) == 1.0
+    assert float(names["depth_coffb"].detach()) == 0.0
+    assert not any("dino" in n or "coff" in n for n, _ in setup["port"].named_parameters())
     with pytest.raises(ValueError, match="x_init"):
         setup["port"](setup["batch"], mode="ddim")
     with pytest.raises(KeyError):

@@ -7,7 +7,11 @@ draws (the DDIM start, the PnP hypotheses of the tester and of
 so ``eval_from_cache`` is held too. A third run asks for the host PnP
 (``parity_eval``) with cv2 made to look missing, and for a fine threshold of
 0.5: both mains fall back to the device PnP and match at the tester's 0.75.
-The port refuses what it lacks.
+A fourth runs the tower variant (``use_dino``, ``use_mono_depth``, stride 14,
+as configs/test/rgbdv2_dino.yaml) on the on-disk split, with
+``load_tower_runner`` patched in both packages to the same tiny towers (the
+port's carrying the JAX towers' weights). Both mains exit alike when the
+tower checkpoints are missing; the port refuses what it lacks.
 
 The JAX main's initial weights have both matchers' projections scaled by
 ``SHARPEN``: with plain random weights the confidences are near-uniform, the
@@ -173,7 +177,57 @@ def _same(got, ref, what):
         assert got[key] == pytest.approx(float(val), rel=1e-5, abs=1e-5), f"{what} {key}"
 
 
-@pytest.mark.parametrize("case", ["demo", "disk", "parity-without-cv2"])
+def _tiny_towers(monkeypatch):
+    """``load_tower_runner`` of both packages patched to the same tiny towers
+    (DINOv2 embed 64, 2 blocks; DepthAnything embed 32, 4 blocks, DPT
+    features 16), with weights drawn from a seed."""
+    from flax.traverse_util import unflatten_dict
+
+    from diffreg_tpu.models import towers as jtowers
+    from diffreg_tpu.nn import depth_anything as jda
+    from diffreg_tpu.nn import dinov2 as jdino
+    from diffreg_tpu_torch.convert import (depth_anything_state_dict_from_flax,
+                                           dinov2_state_dict_from_flax)
+    from diffreg_tpu_torch.models import towers as ptowers
+    from diffreg_tpu_torch.nn import depth_anything as pda
+    from diffreg_tpu_torch.nn import dinov2 as pdino
+
+    dino_cfg = dict(embed_dim=64, depth=2, num_heads=2, img_size=140)
+    vit_cfg = dict(embed_dim=32, depth=4, num_heads=2, img_size=140)
+    dpt_cfg = dict(features=16, out_channels=(8, 16, 32, 32))
+    image = np.zeros((1, 28, 56, 3), np.float32)
+    rs = np.random.RandomState(4)
+
+    def draw(model):
+        shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), image))["params"]
+        return unflatten_dict({
+            path: (rs.randn(*leaf.shape) / np.sqrt(np.prod(leaf.shape[:-1]))
+                   if path[-1] == "kernel" else 1.0 + 0.1 * rs.randn(*leaf.shape)
+                   if path[-1] in ("scale", "gamma") else 0.1 * rs.randn(*leaf.shape)
+                   ).astype(np.float32) for path, leaf in flatten_dict(dict(shapes)).items()})
+    dino = draw(jdino.DinoVisionTransformer(jdino.DinoV2Config(**dino_cfg)))
+    da = draw(jda.DepthAnything(jdino.DinoV2Config(**vit_cfg), jda.DPTConfig(**dpt_cfg)))
+    jax_runner = jtowers.TowerRunner(
+        dino_variables={"params": dino}, da_variables={"params": da},
+        dino_cfg=jdino.DinoV2Config(**dino_cfg), da_vit_cfg=jdino.DinoV2Config(**vit_cfg),
+        da_dpt_cfg=jda.DPTConfig(**dpt_cfg))
+    flat = lambda tree: {"/".join(k): np.asarray(v)  # noqa: E731
+                         for k, v in flatten_dict(dict(tree)).items()}
+    port_dino = pdino.DinoVisionTransformer(pdino.DinoV2Config(**dino_cfg))
+    port_dino.load_state_dict(dinov2_state_dict_from_flax(flat(dino)), strict=True)
+    port_da = pda.DepthAnything(pdino.DinoV2Config(**vit_cfg), pda.DPTConfig(**dpt_cfg))
+    port_da.load_state_dict(depth_anything_state_dict_from_flax(flat(da)), strict=True)
+    calls = []
+
+    def port_runner(dino_ckpt, da_ckpt, device=None):
+        calls.append((dino_ckpt, da_ckpt))
+        return ptowers.TowerRunner(port_dino, port_da, device=device)
+    monkeypatch.setattr(jtowers, "load_tower_runner", lambda *args, **kwargs: jax_runner)
+    monkeypatch.setattr(ptowers, "load_tower_runner", port_runner)
+    return calls
+
+
+@pytest.mark.parametrize("case", ["demo", "disk", "parity-without-cv2", "dino-disk"])
 def test_main_2d3d_matches_jax(tmp_path, monkeypatch, rng, case):
     """``main`` on a 2D-3D YAML against ``diffreg_tpu.main`` (test mode, two
     batches of two pairs): the tester's summary and ``eval_from_cache``'s. The
@@ -191,9 +245,17 @@ def test_main_2d3d_matches_jax(tmp_path, monkeypatch, rng, case):
 
     monkeypatch.chdir(tmp_path)
     extra, argv = {}, ["--demo", "--num-pairs", "4"]
-    if case == "disk":
+    if case in ("disk", "dino-disk"):
         argv = []
         extra["data_root"] = _write_split(tmp_path / "rgbdv2", rng)
+    if case == "dino-disk":
+        for name in ("dino.pth", "da.pth"):
+            (tmp_path / name).touch()
+        extra.update(towers={"dinov2": str(tmp_path / "dino.pth"),
+                             "depth_anything": str(tmp_path / "da.pth")},
+                     model={"use_dino": True, "use_mono_depth": True, "coarse_stride": 14,
+                            "dino_dim": 64})
+        tower_calls = _tiny_towers(monkeypatch)
     elif case == "parity-without-cv2":
         extra.update(parity_eval=True, model={"fine_threshold": 0.5, "fine_topk": 3})
         monkeypatch.setattr(jhe, "has_opencv", lambda: False)
@@ -227,7 +289,9 @@ def test_main_2d3d_matches_jax(tmp_path, monkeypatch, rng, case):
         assert (cfg.pnp_backend, cfg.fine_topk, cfg.fine_threshold) == ("device", 2, 0.75)
     _same({k: v for k, v in got.items() if k != "eval"}, run["summary"], "test")
     _same(got["eval"], run["eval"], "eval")
-    if case == "disk":
+    if case == "dino-disk":
+        assert tower_calls == [(str(tmp_path / "dino.pth"), str(tmp_path / "da.pth"))]
+    if case in ("disk", "dino-disk"):
         assert sorted(got["eval"]["scenes"]) == ["scene_0", "scene_1"]
         assert len(os.listdir(tmp_path / "snapshot" / "port" / "cache" / "scene_0")) == 2
 
@@ -258,15 +322,30 @@ def test_dataset_readers_match_jax(tmp_path, rng, kind, augment):
         assert len(g["points"]) == 500
 
 
-def test_main_2d3d_rejects_what_is_not_ported(tmp_path, monkeypatch):
-    """The towers; the host PnP where cv2 imports (it does here); a metric run
-    on real data with random weights."""
+def test_main_2d3d_rejects_what_is_not_ported(tmp_path, monkeypatch, rng):
+    """The tower variant on real data without its checkpoints exits as the
+    JAX package's main does (the same SystemExit); the demo pairs carry no
+    tower outputs, so ``use_dino`` with --demo fails in both (JAX at its
+    model's init). The host PnP where cv2 imports (it does here) and a metric
+    run on real data with random weights are refused."""
+    import diffreg_tpu.main as jax_main
+
     monkeypatch.chdir(tmp_path)
-    cfg = _tiny_yaml(tmp_path / "b.yaml")
-    raw = yaml.safe_load(open(cfg))
-    raw["model_2d3d"]["use_dino"] = True
-    yaml.safe_dump(raw, open(cfg, "w"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    towers = {"dinov2": str(tmp_path / "missing.pth"), "depth_anything": str(tmp_path)}
+    cfg = _tiny_yaml(tmp_path / "b.yaml", model={"use_dino": True, "use_mono_depth": True},
+                     towers=towers, data_root=_write_split(tmp_path / "rgbdv2", rng))
+    exits = []
+    for run in (jax_main.main, lambda argv: main([*argv, "--device", "cpu"])):
+        with pytest.raises(SystemExit) as info:
+            run(["--config", cfg])
+        exits.append(str(info.value))
+    assert exits[0] == exits[1]
+    assert exits[0].startswith("use_dino/use_mono_depth need converted tower checkpoints: "
+                               "towers={") and "missing.pth" in exits[0]
+    cfg = _tiny_yaml(tmp_path / "d.yaml", model={"use_dino": True})
+    with pytest.raises(IndexError):
+        jax_main.main(["--config", cfg, "--demo"])
+    with pytest.raises(ValueError, match="dino_feats"):
         main(["--config", cfg, "--demo", "--device", "cpu"])
     for change in ({"eval": {"pnp_backend": "opencv"}}, {"parity_eval": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

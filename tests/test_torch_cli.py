@@ -23,6 +23,7 @@ import glob
 import math
 import os
 import pickle
+import shutil
 
 import jax
 import numpy as np
@@ -367,8 +368,12 @@ def test_main_train_4dmatch_and_resume(tmp_path, monkeypatch):
 
 def test_main_rejects_what_the_port_lacks(tmp_path, monkeypatch):
     """The host pose estimator where open3d imports (patched in: it does not
-    here), and the 2D-3D towers, in test and in train mode."""
+    here). The 2D-3D tower variant on an on-disk split whose tower
+    checkpoints are missing, in test and in train mode: the port's main exits
+    with the JAX package's SystemExit."""
+    import diffreg_tpu.main as jax_main
     from diffreg_tpu_torch.eval import host_estimators
+    from test_torch_2d3d_cli import _write_split
 
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(host_estimators, "has_module", lambda name: True)
@@ -376,11 +381,21 @@ def test_main_rejects_what_the_port_lacks(tmp_path, monkeypatch):
         with pytest.raises(NotImplementedError, match="host_estimators"):
             main(["--config", _tiny_yaml(tmp_path / "b.yaml", dataset="3dmatch", **change),
                   "--demo", "--device", "cpu"])
+    root = _write_split(tmp_path / "rgbdv2", np.random.RandomState(0))
+    shutil.copy(os.path.join(root, "metadata", "test.pkl"),
+                os.path.join(root, "metadata", "train.pkl"))
+    cfg = _tiny_yaml(tmp_path / "a.yaml", dataset="rgbdv2", data_root=root,
+                     model_2d3d={"use_dino": True, "use_mono_depth": True},
+                     towers={"dinov2": str(tmp_path / "dinov2.pth")})
     for mode in ("test", "train"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--config", _tiny_yaml(tmp_path / "a.yaml", dataset="rgbdv2",
-                                         model_2d3d={"use_dino": True}),
-                  "--demo", "--mode", mode, "--device", "cpu"])
+        exits = []
+        for run in (jax_main.main, lambda argv: main([*argv, "--device", "cpu"])):
+            with pytest.raises(SystemExit) as info:
+                run(["--config", cfg, "--mode", mode])
+            exits.append(str(info.value))
+        assert exits[0] == exits[1] == (
+            "use_dino/use_mono_depth need converted tower checkpoints: towers={'dinov2': "
+            f"'{tmp_path / 'dinov2.pth'}'}} (run tools/convert_towers.py)"), mode
 
 
 def test_main_falls_back_without_open3d(tmp_path, monkeypatch):
