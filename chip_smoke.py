@@ -1,5 +1,6 @@
 """Drive the PyTorch port's 3DMatch registration (f32 and the bf16 fast path)
-and training, its 4DMatch registration, its 2D-3D registration and training
+and training (f32 and bf16), its 4DMatch registration and bf16 training, its
+2D-3D registration and training
 (with and without the DINOv2 / DepthAnything towers) and its CLI on one CUDA
 card.
 
@@ -59,6 +60,22 @@ In order, it
      pair 0 against the port's CPU run in bf16 (confidences, poses, the
      union mask up to near-ties; the card's bf16-vs-f32 gap printed); and
      ``diffreg_tpu_torch.main`` on configs/test/3dmatch_fast.yaml with --demo;
+     before the DDIM, at the same shapes, the gradients through each bf16
+     instance's autograd Function (forward: the kernel; backward: the plain
+     bf16 recompute) against plain bf16 autograd, with the backward's time;
+ 8c. bf16 training (compute_dtype bfloat16, precision default, mode train):
+     the Trainer at phase 7's full width (gate 200, the reference SGD) for a
+     warm-up and five timed steps with resume, 11 bf16 KPConv and 15 bf16
+     attention launches and no f32 kernel launch asserted per step, its
+     phases, steps/s and peak memory beside phase 7's f32 numbers; one bf16
+     train step of pair 0 on the card and on the CPU (the loss, every
+     gradient, the SGD update; the card's f32 step from the same weights and
+     draws printed beside); the Trainer at preset_4dmatch's widths on the
+     4DMatch phase's pairs (704 x 768 tokens, 20 launches of the D = 132 bf16
+     instance a step); ``diffreg_tpu_torch.main --mode train --demo`` on
+     copies of configs/train/3dmatch.yaml and 4dmatch.yaml with the two keys
+     (one epoch, a checkpoint each), then configs/test/3dmatch_fast.yaml on
+     the 3DMatch checkpoint (restored, IR, FMR, RR);
   9. runs the 4DMatch path at full width through FourDMatchTester
      (preset_4dmatch: 528-dim, 4 heads of 132, gate 40, stochastic DDIM with
      20 steps) on 4 deformable pairs of 4096 points at scene scale 1/3, at the
@@ -267,6 +284,24 @@ ATTENTION_BF16_REL_TOL = 1e-2  # of max |plain output|
 # bf16_pair_check)
 CONF_BF16_REL_TOL = 2e-3
 MASK_BF16_AGREEMENT = 0.9995
+# one bf16 train step of pair 0, card (kernels) against CPU (plain bf16
+# versions): the bf16 instances differ from the plain versions where a
+# rounding flips (above), and random weights' near-uniform confidences turn
+# such differences into others downstream, through 13 normalised blocks and
+# the positioning layer's soft-Procrustes pose; the CPU's bf16 step is not
+# one number either (its f32 sums, and so its bf16 flips, follow the thread
+# count and the host's CPU). tools/spread_port_train_bf16.py on the H100,
+# ten draws: card vs CPU loss 1.26e-3 to 1.33e-3, worst tensor 0.38 to 0.66,
+# median 7.5e-2 to 7.9e-2, global 0.142 to 0.176 (the CPU at 2 threads
+# against 8: 7.3e-4 / 0.56 / 4.9e-2 / 0.153); the card's f32
+# step from the same weights and draws is 4.8e-3 to 5.1e-3 / 0.69 to 1.07 /
+# 0.187 to 0.211 / 0.37 to 0.47 from its bf16 step. The loss, median and
+# global limits lie below every f32 gap and about twice above the spread;
+# the worst tensor, whose f32 gap overlaps the spread, is held to its largest
+# entry. The SGD update is held by its relative norm.
+TRAIN_BF16_LIMITS = {"loss": 4e-3, "worst": 1.0, "median": 0.15, "global": 0.3,
+                     "update": 0.3}
+TRAIN_STEPS_4D = 4         # 4DMatch bf16 Trainer: one warm-up and three timed steps
 # With random weights the 4DMatch sigmoid confidences sit just above 0.5, so
 # the protocol's threshold 0.55 extracts no match; the 4DMatch phase and the
 # CLI's on-disk run extract at 0.5 (the mutual-argmax matches), so that IR
@@ -597,7 +632,7 @@ def grad_case(name, function, inputs, wanted, plain, gen, calls, counter):
     assert counter.launches == before + 1, f"{name}: {counter.launches - before} launches"
     if out.grad_fn is None:
         raise AssertionError(f"{name}: the kernel's output has no grad_fn")
-    proj = torch.randn(out.shape, generator=gen).to(out.device)
+    proj = torch.randn(out.shape, generator=gen).to(out.device, out.dtype)
     got = torch.autograd.grad(out, [args[i] for i in wanted], proj, retain_graph=True)
     assert counter.launches == before + 1, f"{name}: the backward launched the kernel"
     ref_args = leaves()
@@ -605,7 +640,7 @@ def grad_case(name, function, inputs, wanted, plain, gen, calls, counter):
     torch.cuda.synchronize()
     worst = 0.0
     for g, r in zip(got, ref):
-        err = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        err = float((g.float() - r.float()).abs().max()) / max(float(r.float().abs().max()), 1e-30)
         if not math.isfinite(err) or err > GRAD_REL_TOL:
             raise AssertionError(f"{name}: gradient differs from plain autograd by {err} "
                                  "of its largest entry")
@@ -627,41 +662,54 @@ def check_gradients(kernels, kp_shapes, batch, cfg, gen):
                        "backward_max_rel_err": worst})
 
 
-def kpconv_gradients(kp_shapes, gen):
-    """KPConvFunction against plain autograd at each distinct layer; returns
-    (worst relative error, backward ms of all the layers' calls)."""
-    from diffreg_tpu_torch.ops.kpconv import KPConvFunction, kpconv, kpconv_cuda
+def kpconv_gradients(kp_shapes, gen, bf16=False):
+    """KPConvFunction (``bf16``: KPConvBF16Function) against plain autograd at
+    each distinct layer, for the features and the weights; returns (worst
+    relative error, backward ms of all the layers' calls)."""
+    from diffreg_tpu_torch.ops.kpconv import (KPConvBF16Function, KPConvFunction, kpconv,
+                                              kpconv_bf16_plain, kpconv_cuda, kpconv_cuda_bf16)
 
+    function, plain, counter = ((KPConvBF16Function, kpconv_bf16_plain, kpconv_cuda_bf16)
+                                if bf16 else (KPConvFunction, kpconv, kpconv_cuda))
     worst, total = 0.0, 0.0
     for (nq, ns, k, cin, cout), ((*inputs, ext), calls) in kp_shapes.items():
         err, ms = grad_case(
-            f"kpconv {nq}/{ns}/K{k}/{cin}->{cout}",
-            lambda *a: KPConvFunction.apply(*a, ext), tuple(inputs), (3, 5),
-            lambda *a: kpconv(*a, ext), gen, calls, kpconv_cuda)
+            f"kpconv{' bf16' if bf16 else ''} {nq}/{ns}/K{k}/{cin}->{cout}",
+            lambda *a: function.apply(*a, ext), tuple(inputs), (3, 5),
+            lambda *a: plain(*a, ext), gen, calls, counter)
         worst, total = max(worst, err), total + calls * ms
     return worst, total
 
 
-def attention_gradients(batch, cfg, gen):
-    """MaskedAttentionFunction against plain autograd at the denoiser's shapes
-    of ``cfg``; returns (worst relative error, backward ms per DDIM step)."""
+def attention_gradients(batch, cfg, gen, bf16=False):
+    """MaskedAttentionFunction (``bf16``: MaskedAttentionBF16Function on bf16
+    q, k, v) against plain autograd at the denoiser's shapes of ``cfg``;
+    returns (worst relative error, backward ms per DDIM step)."""
     import torch
 
-    from diffreg_tpu_torch.ops.attention import (MaskedAttentionFunction, masked_attention_cuda,
+    from diffreg_tpu_torch.ops.attention import (MaskedAttentionBF16Function,
+                                                 MaskedAttentionFunction,
+                                                 masked_attention_bf16_plain,
+                                                 masked_attention_cuda,
+                                                 masked_attention_cuda_bf16,
                                                  masked_attention_plain)
 
+    function, plain, counter, dtype = (
+        (MaskedAttentionBF16Function, masked_attention_bf16_plain, masked_attention_cuda_bf16,
+         torch.bfloat16) if bf16 else
+        (MaskedAttentionFunction, masked_attention_plain, masked_attention_cuda, torch.float32))
     h = cfg.coarse_transformer.n_head
     d = cfg.coarse_transformer.feature_dim // h
     scale = d ** -0.5
     worst, total = 0.0, 0.0
     for name, length, kv_mask, calls in attention_cases(batch, cfg):
         bb, keys = kv_mask.shape
-        qkv = [torch.randn(bb, h, n, d, generator=gen).cuda() for n in (length, keys, keys)]
+        qkv = [torch.randn(bb, h, n, d, generator=gen).to("cuda", dtype)
+               for n in (length, keys, keys)]
         err, ms = grad_case(
-            f"attention {name} [{bb},{h},{length}x{keys},{d}]",
-            lambda *a: MaskedAttentionFunction.apply(*a, scale), (*qkv, kv_mask.contiguous()),
-            (0, 1, 2), lambda *a: masked_attention_plain(*a, scale), gen, calls,
-            masked_attention_cuda)
+            f"attention{' bf16' if bf16 else ''} {name} [{bb},{h},{length}x{keys},{d}]",
+            lambda *a: function.apply(*a, scale), (*qkv, kv_mask.contiguous()),
+            (0, 1, 2), lambda *a: plain(*a, scale), gen, calls, counter)
         worst, total = max(worst, err), total + calls * ms
     return worst, total
 
@@ -779,8 +827,12 @@ def trained_grads_finite(model, grads, tag):
         f"all finite but the positioning matcher's")
 
 
-def run_training(cfg_train, batch, launches):
-    """Phase 7: the Trainer for one epoch at full width, then resume."""
+def run_training(cfg_train, batch, launches, bf16=False, loss_cfg=None, tag="3DMatch",
+                 steps=TRAIN_STEPS, attention_key=None):
+    """Phase 7 (and 8c in bf16): the Trainer for one epoch of ``steps`` steps
+    at full width, then resume. Each step launches 11 KPConv and the
+    transformers' attention calls through the kernels of its dtype (bf16: the
+    bf16 instances and no f32 kernel), counted into ``launches``."""
     import tempfile
 
     import torch
@@ -789,29 +841,40 @@ def run_training(cfg_train, batch, launches):
     from diffreg_tpu_torch.engine.train import OptimConfig, create_train_state, make_train_step
     from diffreg_tpu_torch.engine.trainer import Trainer, TrainerConfig
     from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
-    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
-    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_cuda_bf16
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda, kpconv_cuda_bf16
     from diffreg_tpu_torch.utils.logging import Timers
 
-    optim = OptimConfig(steps_per_epoch=TRAIN_STEPS)      # the reference SGD, ExpLR per epoch
-    step = make_train_step(LossConfig())
+    loss_cfg = loss_cfg or LossConfig()
+    optim = OptimConfig(steps_per_epoch=steps)            # the reference SGD, ExpLR per epoch
+    step = make_train_step(loss_cfg)
+    counted = (kpconv_cuda_bf16, masked_attention_cuda_bf16) if bf16 else \
+        (kpconv_cuda, masked_attention_cuda)
+    others = (kpconv_cuda, masked_attention_cuda) if bf16 else ()
+    keys = ("kpconv_bf16" if bf16 else "kpconv",
+            attention_key or ("masked_attention_bf16" if bf16 else "masked_attention"))
+    want_at = attention_calls(batch.src_mask.shape[1], batch.tgt_mask.shape[1],
+                              tuple(cfg_train.coarse_transformer.layer_types)
+                              + tuple(cfg_train.denoising_layer_types))
     rows = []
 
     def counted_step(state, b, inputs, timers=None):
         phases = Timers()
-        kpconv_cuda.launches = 0
-        masked_attention_cuda.launches = 0
+        for fn in counted + others:
+            fn.launches = 0
         state, info = step(state, b, inputs, phases)
-        n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+        n_kp, n_at = (fn.launches for fn in counted)
+        n_other = sum(fn.launches for fn in others)
         loss = float(info["loss"])
-        if n_kp != 11 or n_at != 15:
-            raise AssertionError(f"train step: {n_kp} KPConv launches (want 11), {n_at} "
-                                 f"attention launches (want 15)")
+        if n_kp != 11 or n_at != want_at or n_other:
+            raise AssertionError(f"train step {tag}: {n_kp} KPConv launches (want 11), {n_at} "
+                                 f"attention launches (want {want_at}), {n_other} launches of "
+                                 "the other dtype's kernels (want 0)")
         if not math.isfinite(loss) or not bool(info["grads_finite"]):
-            raise AssertionError(f"train step: loss {loss}, grads finite "
+            raise AssertionError(f"train step {tag}: loss {loss}, grads finite "
                                  f"{bool(info['grads_finite'])}")
-        launches["kpconv"] += n_kp
-        launches["masked_attention"] += n_at
+        launches[keys[0]] += n_kp
+        launches[keys[1]] += n_at
         rows.append({"loss": loss, "grad_norm": float(info["grad_norm"]), **phases.summary()})
         return state, info
 
@@ -819,10 +882,8 @@ def run_training(cfg_train, batch, launches):
     state = create_train_state(model, optim)
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = Trainer(counted_step, state, lambda epoch: ((batch, None)
-                                                              for _ in range(TRAIN_STEPS)),
-                          TrainerConfig(max_epoch=1, log_every=TRAIN_STEPS, save_dir=tmp),
-                          seed=0)
+        trainer = Trainer(counted_step, state, lambda epoch: ((batch, None) for _ in range(steps)),
+                          TrainerConfig(max_epoch=1, log_every=steps, save_dir=tmp), seed=0)
         t0 = time.perf_counter()
         state = trainer.train()
         epoch_s = time.perf_counter() - t0
@@ -834,32 +895,38 @@ def run_training(cfg_train, batch, launches):
         resumed.resume()
     same = all(torch.equal(p, q) for p, q in zip(state.model.parameters(),
                                                  resumed.state.model.parameters()))
-    if not (same and resumed.start_epoch == 1 and resumed.state.step == TRAIN_STEPS
-            and resumed.state.optimizer.count == TRAIN_STEPS):
-        raise AssertionError(f"resume: params equal {same}, epoch {resumed.start_epoch}, step "
-                             f"{resumed.state.step}, updates {resumed.state.optimizer.count}")
+    if not (same and resumed.start_epoch == 1 and resumed.state.step == steps
+            and resumed.state.optimizer.count == steps):
+        raise AssertionError(f"resume {tag}: params equal {same}, epoch {resumed.start_epoch}, "
+                             f"step {resumed.state.step}, updates {resumed.state.optimizer.count}")
+    if bf16 and not all(t.dtype == torch.float32 for t in (
+            *state.optimizer.params, *state.optimizer.buffers["momentum"].values())):
+        raise AssertionError(f"train {tag}: a parameter or momentum buffer is not float32")
     timed = rows[1:]
     med = lambda key: sorted(r[key] for r in timed)[len(timed) // 2]
     step_s = med("forward") + med("backward") + med("optimizer")
-    log(f"train (gate 200, {BATCH_PAIRS} pairs, SGD lr {optim.lr}): {TRAIN_STEPS} steps in "
-        f"{epoch_s:.3f} s (epoch with checkpoint); per timed step median forward "
-        f"{med('forward'):.4f} s, backward {med('backward'):.4f} s, optimizer "
-        f"{med('optimizer'):.4f} s = {step_s:.4f} s: {1 / step_s:.3f} steps/s, "
-        f"{BATCH_PAIRS / step_s:.3f} pairs/s; peak memory {peak:.2f} GiB; resume ok")
-    log("train losses " + ", ".join(f"{r['loss']:.5f}" for r in rows) + "; grad norms "
+    gate = cfg_train.procrustes.max_condition_num
+    log(f"train {tag}{' bf16' if bf16 else ''} (gate {gate:g}, {BATCH_PAIRS} pairs, SGD lr "
+        f"{optim.lr}): {steps} steps in {epoch_s:.3f} s (epoch with checkpoint); per timed "
+        f"step median forward {med('forward'):.4f} s, backward {med('backward'):.4f} s, "
+        f"optimizer {med('optimizer'):.4f} s = {step_s:.4f} s: {1 / step_s:.3f} steps/s, "
+        f"{BATCH_PAIRS / step_s:.3f} pairs/s; peak memory {peak:.2f} GiB; launches a step "
+        f"kpconv 11 attention {want_at}{', f32 0' if bf16 else ''}; resume ok")
+    log(f"train {tag} losses " + ", ".join(f"{r['loss']:.5f}" for r in rows) + "; grad norms "
         + ", ".join(f"{r['grad_norm']:.4f}" for r in rows))
-    log("train step seconds (forward, backward, optimizer) " + "; ".join(
+    log(f"train {tag} step seconds (forward, backward, optimizer) " + "; ".join(
         f"{r['forward']:.4f} {r['backward']:.4f} {r['optimizer']:.4f}" for r in rows))
 
     inputs = model.draw_train_inputs(batch, trainer.generator)
     out = model.train_forward(batch, **inputs)
     params = [p for _, p in model.named_trained_parameters()]
-    grads = torch.autograd.grad(diffreg_loss(out, batch, LossConfig())[0], params,
+    grads = torch.autograd.grad(diffreg_loss(out, batch, loss_cfg)[0], params,
                                 allow_unused=True)
-    trained_grads_finite(model, grads, f"train backward ({BATCH_PAIRS} pairs)")
+    trained_grads_finite(model, grads, f"train {tag} backward ({BATCH_PAIRS} pairs)")
     return {"steps_per_s": 1 / step_s, "pairs_per_s": BATCH_PAIRS / step_s,
             "forward_s": med("forward"), "backward_s": med("backward"),
-            "optimizer_s": med("optimizer"), "peak_gib": peak,
+            "optimizer_s": med("optimizer"), "peak_gib": peak, "epoch_s": epoch_s,
+            "launches_per_step": {"kpconv": 11, "masked_attention": want_at},
             "losses": [r["loss"] for r in rows]}
 
 
@@ -889,16 +956,56 @@ def cut_gap(conf, src_mask, tgt_mask):
     return min(gaps)
 
 
-def train_step_card_vs_cpu(cfg_train, one):
-    """Phase 8: one train step of one pair on the card and on the CPU."""
+def step_gaps(a, b, names):
+    """How far train step ``a`` lies from ``b`` (dicts of the loss and the
+    gradients in ``names`` order, and where they hold them the parameters
+    before and after the SGD step): the loss's relative difference; per
+    gradient tensor max |a - b| / max |b|, sorted worst first; the median of
+    those; the whole gradient's relative norm; the parameters' largest
+    difference and the SGD update's relative norm."""
+    loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    errs, diff_sq, ref_sq = [], 0.0, 0.0
+    for n, g_a, g_b in zip(names, a["grads"], b["grads"]):
+        if (g_a is None) != (g_b is None):
+            raise AssertionError(f"train step: gradient of {n} is None on one side only")
+        if g_b is not None:
+            diff = (g_a - g_b).double()
+            errs.append((float(diff.abs().max()) / max(float(g_b.abs().max()), 1e-30), n))
+            diff_sq += float((diff * diff).sum())
+            ref_sq += float((g_b.double() ** 2).sum())
+    errs.sort(reverse=True)
+    gap = {"loss": loss_err, "errs": errs, "worst": errs[0][0],
+           "median": errs[len(errs) // 2][0], "global": math.sqrt(diff_sq / ref_sq)}
+    if "params" in a:
+        moved = lambda r: [p - q for p, q in zip(r["params"], r["before"])]  # noqa: E731
+        update_sq = sum(float(((u - v).double() ** 2).sum())
+                        for u, v in zip(moved(a), moved(b)))
+        update_ref = sum(float((v.double() ** 2).sum()) for v in moved(b))
+        gap.update(params=max(float((p - q).abs().max())
+                              for p, q in zip(a["params"], b["params"])),
+                   update=math.sqrt(update_sq / update_ref))
+    return gap
+
+
+def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag=""):
+    """Phase 8 (and 8c in bf16): one train step of one pair on the card and on
+    the CPU from the same weights and draws, held to ``limits`` (loss,
+    worst, median, global, and params or update; default the f32 ones).
+    ``f32_cfg``: the card's f32 step from the same weights and draws too,
+    whose gap to the card's step is printed beside the limits."""
     import torch
 
     from diffreg_tpu_torch.engine.losses import LossConfig, diffreg_loss
     from diffreg_tpu_torch.engine.train import OptimConfig, apply_gradients, create_train_state
     from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
 
+    limits = limits or {"loss": LOSS_REL_TOL, "worst": GRAD_WORST_TOL,
+                        "median": GRAD_MEDIAN_TOL, "global": GRAD_GLOBAL_TOL,
+                        "params": PARAM_ABS_TOL}
     models = {"CPU": DiffusionMatchingModel(cfg_train, device="cpu", seed=0),
               "card": DiffusionMatchingModel(cfg_train, device="cuda", seed=0)}
+    if f32_cfg is not None:
+        models["card f32"] = DiffusionMatchingModel(f32_cfg, device="cuda", seed=0)
     # draws whose noisy-matrix warp cuts its top-k in a wide gap
     for seed in range(50):
         inputs = models["CPU"].draw_train_inputs(one, torch.Generator().manual_seed(seed))
@@ -910,6 +1017,7 @@ def train_step_card_vs_cpu(cfg_train, one):
         dev = "cpu" if name == "CPU" else "cuda"
         batch = one.to(dev)
         state = create_train_state(model, OptimConfig())
+        before = [p.detach().cpu().clone() for p in state.optimizer.params]
         t0 = time.perf_counter()
         out = model.train_forward(batch, **{k: v.to(dev) for k, v in inputs.items()})
         loss, _ = diffreg_loss(out, batch, LossConfig())
@@ -918,48 +1026,47 @@ def train_step_card_vs_cpu(cfg_train, one):
         res[name] = {"loss": float(loss.detach()), "finite": bool(finite), "out": out,
                      "grads": [None if g is None else g.cpu() for g in grads],
                      "params": [p.detach().cpu() for p in state.optimizer.params],
-                     "seconds": time.perf_counter() - t0}
+                     "before": before, "seconds": time.perf_counter() - t0}
     cpu, card = res["CPU"], res["card"]
     layer = cpu["out"]["position_layers"][0]
     pos_gap = cut_gap(layer["conf_matrix"], one.src_mask, one.tgt_mask)
     cond = float(layer["condition"][0].detach())
-    loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    card_cond = float(card["out"]["position_layers"][0]["condition"][0].detach())
     names = [n for n, _ in models["CPU"].named_trained_parameters()]
-    errs, diff_sq, ref_sq = [], 0.0, 0.0
-    for n, g_card, g_cpu in zip(names, card["grads"], cpu["grads"]):
-        if (g_card is None) != (g_cpu is None):
-            raise AssertionError(f"train step: gradient of {n} is None on one side only")
-        if g_cpu is not None:
-            diff = (g_card - g_cpu).double()
-            errs.append((float(diff.abs().max()) / max(float(g_cpu.abs().max()), 1e-30), n))
-            diff_sq += float((diff * diff).sum())
-            ref_sq += float((g_cpu.double() ** 2).sum())
-    errs.sort(reverse=True)
-    worst, median = errs[0][0], errs[len(errs) // 2][0]
-    global_err = math.sqrt(diff_sq / ref_sq)
-    param_err = max(float((a - b).abs().max()) for a, b in zip(card["params"], cpu["params"]))
-    log(f"train step card vs CPU (1 pair, CPU {cpu['seconds']:.1f} s): draw seed {seed}, "
+    gap = step_gaps(card, cpu, names)
+    held = "params" if "params" in limits else "update"
+    log(f"train step{tag} card vs CPU (1 pair, CPU {cpu['seconds']:.1f} s): draw seed {seed}, "
         f"noisy-warp cut gap {warp_gap:.3e}, positioning cut gap {pos_gap:.3e} and condition "
-        f"{cond:.3f} (gate 200); loss {card['loss']:.6f} vs {cpu['loss']:.6f} (rel err "
-        f"{loss_err:.3e}, limit {LOSS_REL_TOL:.0e}); gradients: worst tensor {worst:.3e} "
-        f"(limit {GRAD_WORST_TOL:.0e}), median {median:.3e} (limit {GRAD_MEDIAN_TOL:.0e}), "
-        f"global {global_err:.3e} (limit {GRAD_GLOBAL_TOL:.0e}); params after SGD "
-        f"{param_err:.3e} (limit {PARAM_ABS_TOL:.0e})")
-    log("  worst gradient tensors: " + ", ".join(f"{n} {e:.3e}" for e, n in errs[:5]))
+        f"{cond:.3f} on the CPU, {card_cond:.3f} on the card (gate 200); loss "
+        f"{card['loss']:.6f} vs {cpu['loss']:.6f} (rel err {gap['loss']:.3e}, limit "
+        f"{limits['loss']:.1e}); gradients: worst tensor {gap['worst']:.3e} (limit "
+        f"{limits['worst']:.1e}), median {gap['median']:.3e} (limit {limits['median']:.1e}), "
+        f"global {gap['global']:.3e} (limit {limits['global']:.1e}); params after SGD "
+        f"{gap['params']:.3e}, update's relative norm {gap['update']:.3e} (limit on {held} "
+        f"{limits[held]:.1e})")
+    log("  worst gradient tensors: " + ", ".join(f"{n} {e:.3e}" for e, n in gap["errs"][:5]))
+    if f32_cfg is not None:
+        f32 = step_gaps(card, res["card f32"], names)
+        log(f"  card{tag} vs card f32, same weights and draws: loss {f32['loss']:.3e}, "
+            f"gradients worst {f32['worst']:.3e}, median {f32['median']:.3e}, global "
+            f"{f32['global']:.3e}; update {f32['update']:.3e}")
     trained_grads_finite(models["card"], [None if g is None else g.cuda() for g in card["grads"]],
-                         "train step on the card (1 pair)")
-    if not (warp_gap > CUT_GAP_MIN and pos_gap > CUT_GAP_MIN and abs(cond - 200.0) > 1.0):
-        raise AssertionError("train step: a top-k cut or the gate falls on a near-tie")
+                         f"train step{tag} on the card (1 pair)")
+    if not warp_gap > CUT_GAP_MIN:
+        raise AssertionError(f"train step{tag}: the noisy warp's top-k cut falls on a near-tie")
+    if held == "params" and not (pos_gap > CUT_GAP_MIN and abs(cond - 200.0) > 1.0):
+        raise AssertionError(f"train step{tag}: a top-k cut or the gate falls on a near-tie")
     if not (card["finite"] and cpu["finite"]):
-        raise AssertionError("train step: non-finite gradients")
-    if not loss_err <= LOSS_REL_TOL:
-        raise AssertionError(f"train step: loss differs from the CPU's by {loss_err}")
-    if not (worst <= GRAD_WORST_TOL and median <= GRAD_MEDIAN_TOL
-            and global_err <= GRAD_GLOBAL_TOL):
-        raise AssertionError(f"train step: gradients differ from the CPU's (worst {worst}, "
-                             f"median {median}, global {global_err})")
-    if not param_err <= PARAM_ABS_TOL:
-        raise AssertionError(f"train step: parameters differ by {param_err} after the update")
+        raise AssertionError(f"train step{tag}: non-finite gradients")
+    if not gap["loss"] <= limits["loss"]:
+        raise AssertionError(f"train step{tag}: loss differs from the CPU's by {gap['loss']}")
+    if not (gap["worst"] <= limits["worst"] and gap["median"] <= limits["median"]
+            and gap["global"] <= limits["global"]):
+        raise AssertionError(f"train step{tag}: gradients differ from the CPU's (worst "
+                             f"{gap['worst']}, median {gap['median']}, global {gap['global']})")
+    if not gap[held] <= limits[held]:
+        raise AssertionError(f"train step{tag}: {held} differ by {gap[held]} after the update")
+    return {k: v for k, v in gap.items() if k != "errs"}
 
 
 def deformable_data():
@@ -1372,14 +1479,27 @@ def run_bf16(repo, batch, batch_cpu, spec, x_init, u, f32_ref, batch4_cpu, gen, 
     cfg = with_fast_path(preset_3dmatch(sample_steps=STEPS))
     models = {gate: DiffusionMatchingModel(with_condition_gate(cfg, gate), device="cuda", seed=0)
               for gate in GATES}
-    kp, _ = check_kpconv(kpconv_layer_calls(models[0.0], lambda: models[0.0].encode(batch),
-                                            KPConv), 11, "one encode (11 calls)", " (bf16)",
-                         bf16=True)
+    kp, kp_shapes = check_kpconv(kpconv_layer_calls(models[0.0],
+                                                    lambda: models[0.0].encode(batch), KPConv),
+                                 11, "one encode (11 calls)", " (bf16)", bf16=True)
     at = check_attention(batch, cfg, gen, " (bf16)", bf16=True)
     cfg4 = with_fast_path(preset_4dmatch(sample_steps=STEPS))
-    at4 = check_attention(batch4_cpu.to("cuda"), cfg4, gen, " (bf16, 4DMatch)", bf16=True)
+    batch4 = batch4_cpu.to("cuda")
+    at4 = check_attention(batch4, cfg4, gen, " (bf16, 4DMatch)", bf16=True)
     at["d132"] = {k: at4[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms", "per")}
+    # the gradients through the bf16 instances' Functions (backward: the plain
+    # bf16 recompute) against plain bf16 autograd, at the same shapes
+    worst, ms = kpconv_gradients(kp_shapes, gen, bf16=True)
+    kp.update({"backward_ms": ms, "backward_route": "plain recompute",
+               "backward_max_rel_err": worst})
+    del kp_shapes
+    worst, ms = attention_gradients(batch, cfg, gen, bf16=True)
+    at.update({"backward_ms": ms, "backward_route": "plain recompute",
+               "backward_max_rel_err": worst})
+    worst, ms = attention_gradients(batch4, cfg4, gen, bf16=True)
+    at["d132"].update({"backward_ms": ms, "backward_max_rel_err": worst})
+    del batch4
     at["shapes"] += at4["shapes"]
     at["max_abs_err"] = max(at["max_abs_err"], at4["max_abs_err"])
     at["edge_cases"], kp["edge_cases"] = bf16_edge_cases(gen)
@@ -1468,6 +1588,114 @@ def run_bf16(repo, batch, batch_cpu, spec, x_init, u, f32_ref, batch4_cpu, gen, 
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in summary.items()))
     at["ddim_profile"] = profiles
     return [kp, at], pairs_per_s
+
+
+def run_bf16_training(repo, batch, one, batch4_cpu, f32_train, launches):
+    """Phase 8c, bf16 training (compute_dtype bfloat16 and precision default
+    with mode train, as tools/bench_train.py trains the JAX package): the
+    3DMatch Trainer at full width (gate 200, SGD) for a warm-up and five timed
+    steps with resume, beside phase 7's f32 numbers; one step of pair 0 card
+    against CPU (and against the card's f32 step); the 4DMatch Trainer at
+    preset_4dmatch's widths (instance 144); ``main --mode train`` on copies of
+    configs/train/3dmatch.yaml and 4dmatch.yaml with the two keys, then
+    ``--mode test`` with configs/test/3dmatch_fast.yaml on the 3DMatch
+    checkpoint. Returns the numbers for the kernels' JSON line."""
+    import tempfile
+
+    import yaml
+
+    from diffreg_tpu_torch.data.synthetic import synthetic_batch
+    from diffreg_tpu_torch.engine.losses import LossConfig
+    from diffreg_tpu_torch.main import main as cli
+    from diffreg_tpu_torch.models.presets import preset_3dmatch, preset_4dmatch, with_fast_path
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_cuda_bf16
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda, kpconv_cuda_bf16
+    from diffreg_tpu_torch.utils.config import load_yaml
+
+    cfg_train = preset_3dmatch(train=True)
+    bf16 = run_training(with_fast_path(cfg_train), batch, launches, bf16=True)
+    log(f"train 3DMatch, bf16 against f32 (same call): {bf16['steps_per_s']:.3f} against "
+        f"{f32_train['steps_per_s']:.3f} steps/s; forward {bf16['forward_s']:.4f} / "
+        f"{f32_train['forward_s']:.4f} s, backward {bf16['backward_s']:.4f} / "
+        f"{f32_train['backward_s']:.4f} s, optimizer {bf16['optimizer_s']:.4f} / "
+        f"{f32_train['optimizer_s']:.4f} s; peak {bf16['peak_gib']:.2f} / "
+        f"{f32_train['peak_gib']:.2f} GiB")
+    pair0 = train_step_card_vs_cpu(with_fast_path(cfg_train), one, TRAIN_BF16_LIMITS,
+                                   f32_cfg=cfg_train, tag=" bf16")
+    cfg4 = with_fast_path(preset_4dmatch(sample_steps=STEPS))
+    train4 = run_training(cfg4, batch4_cpu.to("cuda"), launches, bf16=True,
+                          loss_cfg=LossConfig(motion_weight=0.1, dataset="4dmatch"),
+                          tag="4DMatch", steps=TRAIN_STEPS_4D,
+                          attention_key="masked_attention_bf16_d144")
+
+    configs = os.path.join(repo, "configs")
+    keys = {"compute_dtype": "bfloat16", "precision": "default"}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name in ("3dmatch", "4dmatch"):
+            raw = load_yaml(os.path.join(configs, "train", f"{name}.yaml"))
+            raw.update(keys, max_epoch=1, exp_dir=f"train-{name}-bf16")
+            paths[name] = os.path.join(tmp, f"train_{name}_bf16.yaml")
+            with open(paths[name], "w") as f:
+                yaml.safe_dump(raw, f)
+        ckpt = os.path.join(tmp, "snapshot", "train-3dmatch-bf16", "checkpoints")
+        raw = load_yaml(os.path.join(configs, "test", "3dmatch_fast.yaml"))
+        raw.update(pretrain=ckpt, exp_dir="test-3dmatch-fast-trained")
+        paths["test"] = os.path.join(tmp, "test_3dmatch_fast.yaml")
+        with open(paths["test"], "w") as f:
+            yaml.safe_dump(raw, f)
+        fast = with_fast_path(preset_3dmatch())
+        layers = tuple(fast.coarse_transformer.layer_types) + tuple(fast.denoising_layer_types)
+        specs = {name: synthetic_batch(batch_size=1, n_points=768, seed=0,
+                                       deformable=name == "4dmatch")[1]
+                 for name in ("3dmatch", "4dmatch")}
+        # (name, config, arguments, pairs per batch, summary keys, attention
+        # launches per batch, launches key)
+        runs = [(f"{name} train bf16 (demo)", paths[name], ["--demo", "--mode", "train"], 2,
+                 ("loss",), attention_calls(specs[name].n_src, specs[name].n_tgt, layers),
+                 "masked_attention_bf16_d144" if name == "4dmatch" else "masked_attention_bf16")
+                for name in ("3dmatch", "4dmatch")]
+        runs.append(("3DMatch test on the bf16-trained checkpoint (3dmatch_fast.yaml, demo)",
+                     paths["test"], ["--demo"], BATCH_PAIRS, ("IR", "FMR", "RR"),
+                     STEPS * attention_calls(specs["3dmatch"].n_src, specs["3dmatch"].n_tgt,
+                                             fast.denoising_layer_types),
+                     "masked_attention_bf16"))
+        os.chdir(tmp)
+        try:
+            for name, config, extra, batch_size, summary_keys, attn, key in runs:
+                for fn in (kpconv_cuda, masked_attention_cuda, kpconv_cuda_bf16,
+                           masked_attention_cuda_bf16):
+                    fn.launches = 0
+                argv = ["--config", config, "--num-pairs", str(BATCH_PAIRS), "--batch-size",
+                        str(batch_size), *extra]
+                summary, seconds = wall(lambda: cli(argv))
+                batches = BATCH_PAIRS // batch_size
+                n_kp, n_at = kpconv_cuda_bf16.launches, masked_attention_cuda_bf16.launches
+                f32 = kpconv_cuda.launches + masked_attention_cuda.launches
+                if n_kp != 11 * batches or n_at != attn * batches or f32:
+                    raise AssertionError(f"main {name}: {n_kp} bf16 KPConv, {n_at} bf16 "
+                                         f"attention, {f32} f32 launches")
+                if not all(math.isfinite(summary[k]) for k in summary_keys):
+                    raise AssertionError(f"main {name}: summary {summary}")
+                launches["kpconv_bf16"] += n_kp
+                launches[key] += n_at
+                log(f"main {name}, {BATCH_PAIRS} pairs: {seconds:.2f} s, launches bf16 kpconv "
+                    f"{n_kp} attention {n_at}, f32 0; " + ", ".join(
+                        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in summary.items()))
+            for name in ("3dmatch", "4dmatch"):
+                if not os.path.isfile(os.path.join(tmp, "snapshot", f"train-{name}-bf16",
+                                                   "checkpoints", "1.pt")):
+                    raise AssertionError(f"main {name} train bf16: no checkpoint")
+            with open(os.path.join(tmp, "snapshot", "test-3dmatch-fast-trained", "log.txt")) as f:
+                if f"restored weights from {ckpt}" not in f.read():
+                    raise AssertionError("main 3dmatch_fast.yaml: the bf16-trained checkpoint "
+                                         "was not restored")
+        finally:
+            os.chdir(cwd)
+    return {"train_3dmatch": {"bf16": bf16, "f32": f32_train}, "train_4dmatch": train4,
+            "pair0": pair0}
 
 
 # ---------------------------------------------------------------- 2D-3D
@@ -2624,7 +2852,7 @@ def main() -> int:
     launches = {"kpconv": 0, "masked_attention": 0, "masked_attention_d132": 0,
                 "masked_attention_d64": 0, "masked_attention_d64_dino": 0, "kpconv_train_2d3d": 0,
                 "masked_attention_train_2d3d": 0, "kpconv_bf16": 0,
-                "masked_attention_bf16": 0}
+                "masked_attention_bf16": 0, "masked_attention_bf16_d144": 0}
     f32_ref = {}
     per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
     for gate, model in models.items():
@@ -2684,7 +2912,7 @@ def main() -> int:
 
     # ---- 7. training at full width through the Trainer, then resume ----
     cfg_train = preset_3dmatch(train=True)
-    run_training(cfg_train, batch, launches)
+    f32_train = run_training(cfg_train, batch, launches)
 
     # ---- 8. one train step, card against CPU ----
     train_step_card_vs_cpu(cfg_train, one)
@@ -2698,6 +2926,12 @@ def main() -> int:
         kernels[3].setdefault("pairs_per_s", {})[str(gate)] = {
             "bf16": bf16_pairs[gate], "f32": f32_ref[gate]["pairs_per_s"]}
     del f32_ref
+
+    # ---- 8c. bf16 training: the 3DMatch Trainer beside phase 7's f32 step,
+    # pair 0 card vs CPU, the 4DMatch Trainer (instance 144), main --mode train
+    # on bf16 copies of the train YAMLs, then 3dmatch_fast.yaml on the checkpoint ----
+    kernels[3]["training"] = run_bf16_training(repo, batch, one, batch4_cpu, f32_train,
+                                               launches)
 
     # ---- 9-10. the 4DMatch path through FourDMatchTester; pair 0 on the CPU ----
     run_4dmatch(batch4_cpu, meta4, spec4, launches)
@@ -2719,7 +2953,9 @@ def main() -> int:
     kernels[1]["launches_d64_dino"] = launches["masked_attention_d64_dino"]
     kernels[1]["launches_train_2d3d"] = launches["masked_attention_train_2d3d"]
     kernels[2]["launches"] = launches["kpconv_bf16"]
-    kernels[3]["launches"] = launches["masked_attention_bf16"]
+    kernels[3]["launches"] = (launches["masked_attention_bf16"]
+                              + launches["masked_attention_bf16_d144"])
+    kernels[3]["launches_d144"] = launches["masked_attention_bf16_d144"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -27,8 +27,11 @@ weights.
 ``compute_dtype`` "bfloat16" in the KPFCN and transformer configs (the JAX
 package's fast path, ``models.presets.with_fast_path``) runs the KPConvs
 and the attention layers in bf16 with f32 accumulation; the parameters stay
-f32 and are cast at use, so the same weights drive both dtypes. It is an
-inference path: ``train_forward`` refuses it.
+f32 and are cast at use, so the same weights drive both dtypes. It trains
+too (the JAX package's tools/bench_train.py setting): the gradients reach the
+f32 parameters through those casts, and everything after the transformers
+(matchers, soft Procrustes, the noisy-matrix warp, the losses) is f32, as in
+JAX, whose layers return their input's dtype.
 """
 from __future__ import annotations
 
@@ -203,9 +206,6 @@ class DiffusionMatchingModel(nn.Module):
         translation_pred, conf_matrix_gt_hat, match_mask_gt_hat, matrix_gt,
         position_layers and timesteps."""
         cfg = self.cfg
-        if "bfloat16" in (cfg.kpfcn.compute_dtype, cfg.coarse_transformer.compute_dtype):
-            raise NotImplementedError("compute_dtype bfloat16 runs inference only: its "
-                                      "backward is not ported (ROADMAP §1: bf16 training)")
         src_feats, tgt_feats, s_pcd, t_pcd = self.encode(batch)
         src_mask, tgt_mask = batch.src_mask, batch.tgt_mask
         conf_pred, match_mask_pred, aux = self._coarse_pass(

@@ -6,7 +6,8 @@ features are divided by sqrt(C) before the similarity product. The 2D-3D
 matcher passes no position code (its fused features carry position) and
 static-padding masks besides the validity masks (see ops/sinkhorn.py).
 The similarity product runs at the config's ``precision``, the one site of
-the JAX matcher that reads ``get_precision()`` (utils/precision.py).
+the JAX matcher that reads ``get_precision()``, in the forward and in both
+GEMMs of its backward (``utils/precision.py:policy_bmm``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from ..ops.masked import mask_matrix
 from ..ops.position_encoding import embed_rotary
 from ..ops.select import thresholded_mutual_argmax_mask
 from ..ops.sinkhorn import log_sinkhorn
-from ..utils.precision import matmul_precision
+from ..utils.precision import policy_bmm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +48,7 @@ class Matching(nn.Module):
             src = embed_rotary(src, src_pe[..., 0], src_pe[..., 1])
             tgt = embed_rotary(tgt, tgt_pe[..., 0], tgt_pe[..., 1])
         scale = src.shape[-1] ** 0.5
-        with matmul_precision(self.cfg.precision):
-            sim = torch.einsum("bsc,btc->bst", src / scale, tgt / scale)
+        sim = policy_bmm(src / scale, (tgt / scale).transpose(1, 2), self.cfg.precision)
         conf = self.sinkhorn(sim, src_mask, tgt_mask, src_pad, tgt_pad)
         match_mask = thresholded_mutual_argmax_mask(conf, self.cfg.confidence_threshold)
         return conf, match_mask

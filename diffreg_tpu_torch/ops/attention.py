@@ -15,7 +15,9 @@ differentiates it: the dq/dk/dv of the JAX package's ``custom_vjp``
 backward, not kept from the forward.
 
 bf16 q, k and v are the JAX package's bf16 compute path: the kernel's bf16
-instance on CUDA (forward only: bf16 training is not ported),
+instance on CUDA inside ``MaskedAttentionBF16Function`` (its backward
+recomputes ``masked_attention_bf16_plain`` and differentiates it, as
+``jax.grad`` differentiates the JAX layer's XLA attention),
 ``masked_attention_bf16_plain`` on the CPU; both return bf16.
 """
 from __future__ import annotations
@@ -113,6 +115,23 @@ class MaskedAttentionFunction(torch.autograd.Function):
                                  ctx.saved_tensors, ctx.needs_input_grad[:4], grad_out), None)
 
 
+class MaskedAttentionBF16Function(torch.autograd.Function):
+    """``masked_attention_cuda_bf16`` forward; plain-recompute backward of
+    ``masked_attention_bf16_plain`` for the bf16 q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.scale = scale
+        return masked_attention_cuda_bf16(q, k, v, kv_mask, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*recompute_grads("masked_attention_bf16_backward_recompute",
+                                 lambda *a: masked_attention_bf16_plain(*a, ctx.scale),
+                                 ctx.saved_tensors, ctx.needs_input_grad[:4], grad_out), None)
+
+
 def _library():
     lib = kernel_library("attention")
     if lib.masked_attention_forward.argtypes is None:
@@ -127,15 +146,12 @@ def _library():
 def masked_attention(q, k, v, kv_mask, scale):
     """Masked attention on the tensors' device: the Hopper kernel (under
     autograd) for CUDA tensors, the plain version for CPU tensors; bf16
-    tensors take the bf16 path (forward only on CUDA)."""
+    tensors take the bf16 path (its kernel instance on CUDA)."""
     if q.dtype == torch.bfloat16:
-        if not q.is_cuda:
-            return masked_attention_bf16_plain(q, k, v, kv_mask, scale)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError("attention's bf16 instance has no backward: bf16 "
-                                      "training is not ported (ROADMAP §1: bf16 training)")
-        return masked_attention_cuda_bf16(q.contiguous(), k.contiguous(), v.contiguous(),
-                                          kv_mask.contiguous(), scale)
+        if q.is_cuda:
+            return MaskedAttentionBF16Function.apply(q.contiguous(), k.contiguous(),
+                                                     v.contiguous(), kv_mask.contiguous(), scale)
+        return masked_attention_bf16_plain(q, k, v, kv_mask, scale)
     if q.is_cuda:
         return MaskedAttentionFunction.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                              kv_mask.contiguous(), scale)

@@ -16,14 +16,17 @@ a time in the backward and freed after it, never kept from the forward.
 
 ``compute_dtype="bfloat16"`` is the JAX package's bf16 path
 (``diffreg_tpu/ops/kpconv.py:kpconv`` with ``compute_dtype``): the support
-table is gathered in bf16 as [hi(pos), lo(pos), feats] (the CUDA route
-reads the same values with the features moved to a 16-byte boundary,
+table is gathered as bf16 values [hi(pos), lo(pos), feats] (the CUDA route
+reads them as bf16 with the features moved to a 16-byte boundary,
 ``kpconv_bf16_table_aligned``), positions are
 rebuilt in f32 as hi + lo, the influence is computed in f32 and rounded to
 bf16, the influence-weighted features are summed in f32 and rounded to bf16,
 and the contraction with the bf16 weights accumulates in f32. On CUDA tensors
-it launches the kernel's bf16 instance (``kpconv_cuda_bf16``), forward only:
-bf16 training is not ported.
+it launches the kernel's bf16 instance (``kpconv_cuda_bf16``) inside
+``KPConvBF16Function``, whose backward recomputes ``kpconv_bf16_plain`` and
+differentiates it, as ``jax.grad`` differentiates the JAX package's bf16
+einsums: the gradient reaches ``x`` through the table's feature columns
+and the f32 weights through their cast at use.
 """
 from __future__ import annotations
 
@@ -83,40 +86,60 @@ def kpconv_aggregate(q_pts, s_pts, neighb_inds, x, kernel_points, kp_extent):
     return weighted, neighbor_num
 
 
-def kpconv_bf16_table(s_pts, x):
-    """The bf16 support table [B, Ns + 1, 6 + Cin] of the JAX package's bf16
-    path: hi and lo of the positions (pos = hi + lo to ~5e-5 of a metre; plain
-    bf16 would be off by a centimetre at metre scale), then the features, with
-    the shadow row appended (position 1e6, zero features)."""
+def _bf16_support_rows(s_pts, x):
+    """The rows of the JAX package's bf16 support table, as f32 values:
+    hi [B, Ns + 1, 3] and lo of the positions (pos = hi + lo to ~5e-5 of a
+    metre; plain bf16 would be off by a centimetre at metre scale) and the
+    features [B, Ns + 1, Cin] at their bf16 values (the gradient passed
+    straight through to ``x``), the shadow row appended (position 1e6, zero
+    features)."""
     b, _, cin = x.shape
     pts = torch.cat([s_pts, s_pts.new_full((b, 1, 3), _SHADOW)], dim=1)
-    hi = pts.to(torch.bfloat16)
-    lo = (pts - hi.float()).to(torch.bfloat16)
-    feats = torch.cat([x, x.new_zeros((b, 1, cin))], dim=1).to(torch.bfloat16)
-    return torch.cat([hi, lo, feats], dim=-1)
+    hi = _round_bf16(pts)
+    lo = _round_bf16(pts - hi)
+    feats = _Bf16Values.apply(x)
+    return hi, lo, torch.cat([feats, feats.new_zeros((b, 1, cin))], dim=1)
+
+
+class _Bf16Values(torch.autograd.Function):
+    """x at its bf16 values, the gradient passed unchanged."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _round_bf16(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
 
 
 def kpconv_bf16_table_aligned(s_pts, x):
-    """The CUDA route's bf16 support table [B, Ns + 1, 8 + Cin]: the rows of
-    ``kpconv_bf16_table`` with two zero columns after the positions, so that
-    the features start at a 16-byte boundary (the kernel stages them with
-    16-byte copies): [hi(pos), lo(pos), 0, 0, features]."""
-    b, _, cin = x.shape
-    pts = torch.cat([s_pts, s_pts.new_full((b, 1, 3), _SHADOW)], dim=1)
-    hi = pts.to(torch.bfloat16)
-    lo = (pts - hi.float()).to(torch.bfloat16)
-    feats = torch.cat([x, x.new_zeros((b, 1, cin))], dim=1).to(torch.bfloat16)
-    return torch.cat([hi, lo, hi.new_zeros((b, hi.shape[1], 2)), feats], dim=-1)
+    """The CUDA route's bf16 support table [B, Ns + 1, 8 + Cin]: the JAX
+    package's [hi(pos), lo(pos), features] rows with two zero columns after
+    the positions, so that the features start at a 16-byte boundary (the
+    kernel stages them with 16-byte copies): [hi, lo, 0, 0, features]."""
+    hi, lo, feats = _bf16_support_rows(s_pts, x)
+    return torch.cat([hi, lo, hi.new_zeros((*hi.shape[:2], 2)), feats],
+                     dim=-1).to(torch.bfloat16)
 
 
 def kpconv_bf16_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
     """Plain KPConv of the bf16 path, in f32 with bf16 roundings where the
     JAX package rounds (every product of two bf16 values is exact in f32, so
     f32 sums of them are what an f32-accumulating bf16 product computes).
-    Same arguments as ``kpconv`` (f32 x and weights); returns f32."""
-    gathered = _gather_rows(kpconv_bf16_table(s_pts, x), neighb_inds).float()
+    Same arguments as ``kpconv`` (f32 x and weights); returns f32.
+
+    Its gradient rounds where JAX's bf16 cotangents are rounded (the weights'
+    gradient, and each gathered neighbour's feature cotangent), then adds the
+    neighbours' cotangents per support row in f32. JAX adds them in bf16
+    (XLA's CPU scatter-add rounds each addition, in index order); f32 sums
+    make the CUDA recompute, which adds with atomics, agree with this plain
+    version to f32 summation order."""
+    gathered = _gather_rows(torch.cat(_bf16_support_rows(s_pts, x), dim=-1), neighb_inds)
     neighbors = (gathered[..., :3] + gathered[..., 3:6]) - q_pts[:, :, None, :]
     feats = gathered[..., 6:]
+    if feats.requires_grad:
+        feats.register_hook(_round_bf16)       # JAX's bf16 cotangent of the gathered rows
     n2 = torch.sum(neighbors * neighbors, dim=-1, keepdim=True)
     k2 = torch.sum(kernel_points * kernel_points, dim=-1)
     cross = torch.einsum("bnkc,pc->bnkp", neighbors, kernel_points)
@@ -214,6 +237,27 @@ class KPConvFunction(torch.autograd.Function):
                                  ctx.needs_input_grad[:6], grad_out), None)
 
 
+class KPConvBF16Function(torch.autograd.Function):
+    """``kpconv_cuda_bf16`` forward on the table built from ``s_pts`` and
+    ``x`` (so that ``x`` has a gradient; the shadow row is made inside and
+    gets none); plain-recompute backward of ``kpconv_bf16_plain`` for the
+    inputs that need a gradient (features and f32 weights in training)."""
+
+    @staticmethod
+    def forward(ctx, q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+        ctx.save_for_backward(q_pts, s_pts, neighb_inds, x, kernel_points, weights)
+        ctx.kp_extent = kp_extent
+        return kpconv_cuda_bf16(q_pts, kpconv_bf16_table_aligned(s_pts, x), neighb_inds,
+                                kernel_points, weights.to(torch.bfloat16).contiguous(),
+                                kp_extent)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*recompute_grads("kpconv_bf16_backward_recompute",
+                                 lambda *a: kpconv_bf16_plain(*a, ctx.kp_extent),
+                                 ctx.saved_tensors, ctx.needs_input_grad[:6], grad_out), None)
+
+
 def _library():
     lib = kernel_library("kpconv")
     if lib.kpconv_forward.argtypes is None:
@@ -229,18 +273,16 @@ def kpconv_batched(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_exte
                    compute_dtype=None):
     """KPConv on the tensors' device: the Hopper kernel (under autograd) for
     CUDA tensors, the plain version for CPU tensors. ``compute_dtype``
-    "bfloat16" takes the bf16 path (its kernel instance on CUDA, forward
-    only); None or "float32" the f32 one."""
+    "bfloat16" takes the bf16 path (its kernel instance on CUDA); None or
+    "float32" the f32 one."""
     if compute_dtype == "bfloat16":
-        if not x.is_cuda:
-            return kpconv_bf16_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-                                     kp_extent)
-        if torch.is_grad_enabled() and (x.requires_grad or weights.requires_grad):
-            raise NotImplementedError("KPConv's bf16 instance has no backward: bf16 training "
-                                      "is not ported (ROADMAP §1: bf16 training)")
-        return kpconv_cuda_bf16(q_pts.contiguous(), kpconv_bf16_table_aligned(s_pts, x),
-                                neighb_inds.contiguous(), kernel_points.contiguous(),
-                                weights.to(torch.bfloat16).contiguous(), kp_extent)
+        if x.is_cuda:
+            return KPConvBF16Function.apply(q_pts.contiguous(), s_pts.contiguous(),
+                                            neighb_inds.contiguous(), x.contiguous(),
+                                            kernel_points.contiguous(), weights.contiguous(),
+                                            kp_extent)
+        return kpconv_bf16_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
+                                 kp_extent)
     if compute_dtype not in (None, "float32"):
         raise ValueError(f"compute_dtype {compute_dtype!r}: bfloat16, float32 or None")
     if x.is_cuda:

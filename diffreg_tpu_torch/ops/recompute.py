@@ -2,7 +2,10 @@
 
 The JAX package's kernels have no backward kernel: their ``custom_vjp``
 recomputes the plain formulation at the saved inputs and differentiates it.
-The port's Functions do the same with ``recompute_grads``.
+The port's Functions do the same with ``recompute_grads``, each under a
+profiler range of its own: ``kpconv_backward_recompute``,
+``masked_attention_backward_recompute`` and their bf16 instances'
+``kpconv_bf16_backward_recompute``, ``masked_attention_bf16_backward_recompute``.
 """
 from __future__ import annotations
 

@@ -48,10 +48,6 @@ def check_ported(raw: Dict[str, Any]) -> None:
     if raw.get("precision") not in (None, "highest", "default"):
         raise NotImplementedError(f"precision={raw['precision']!r}: the port has 'highest' "
                                   "and 'default' (TF32 where JAX reads get_precision())")
-    if raw.get("compute_dtype") == "bfloat16" and raw.get("mode") == "train":
-        raise NotImplementedError(
-            "compute_dtype: bfloat16 with mode: train: the bf16 path runs inference only; "
-            "its backward is not ported (ROADMAP §1: bf16 training)")
     if raw.get("exact_topk") is False:
         raise NotImplementedError("exact_topk: False: the port's top-k is exact only")
     kp = raw.get("kpfcn_config", {})

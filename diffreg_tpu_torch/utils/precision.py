@@ -14,7 +14,11 @@ NVIDIA card JAX's DEFAULT is one-pass TF32. The port's counterpart:
     ``get_precision()``: TF32 inside it under "default", float32 under
     "highest", and the flag restored after. The policy travels in the
     configs to the site (``MatchingConfig.precision``), never through a flag
-    set before construction, so two models with different policies coexist.
+    set before construction, so two models with different policies coexist;
+  * ``policy_bmm(a, b, policy)`` is such a site with its gradient: autograd
+    runs a backward after the forward's ``with`` has restored the flag, so
+    the product's two backward GEMMs get their own switch, as the transpose
+    of JAX's ``einsum(..., precision=get_precision())`` keeps that precision.
 
 Of JAX's ``get_precision()`` sites, the port's plain matmuls are the
 matcher's similarity product (``nn/matching.py``). The others are the f32
@@ -51,3 +55,31 @@ def matmul_precision(policy: str):
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+class _PolicyBmm(torch.autograd.Function):
+    """a @ b with the forward and both backward GEMMs under one policy."""
+
+    @staticmethod
+    def forward(ctx, a, b, policy):
+        ctx.save_for_backward(a, b)
+        ctx.policy = policy
+        with matmul_precision(policy):
+            return torch.bmm(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        da = db = None
+        with matmul_precision(ctx.policy):
+            if ctx.needs_input_grad[0]:
+                da = torch.bmm(grad, b.transpose(1, 2))
+            if ctx.needs_input_grad[1]:
+                db = torch.bmm(a.transpose(1, 2), grad)
+        return da, db, None
+
+
+def policy_bmm(a, b, policy: str):
+    """Batched a [B, M, K] @ b [B, K, N] at ``policy`` ("default": TF32 on
+    CUDA, "highest": float32), its gradients included."""
+    return _PolicyBmm.apply(a, b, policy)

@@ -98,18 +98,25 @@ def test_kpconv_bf16_plain_matches_jax(rng):
 
 
 def test_kpconv_bf16_table_aligned(rng):
-    """The CUDA route's table holds JAX's bf16 table column for column, with
-    two zero columns between the positions and the features (which then
-    start at a 16-byte boundary), the shadow row included."""
-    from diffreg_tpu_torch.ops.kpconv import kpconv_bf16_table, kpconv_bf16_table_aligned
+    """The CUDA route's table holds the JAX package's bf16 table
+    (``diffreg_tpu/ops/kpconv.py:_gather_pos_feats``: hi and lo of the
+    positions, then the features, the shadow row appended), written out in
+    jnp, column for column, with two zero columns between the positions and
+    the features (which then start at a 16-byte boundary)."""
+    from diffreg_tpu_torch.ops.kpconv import kpconv_bf16_table_aligned
 
-    s = T((np.array([3.2, -2.1, 1.7]) + rng.rand(2, 30, 3)).astype(np.float32))
-    x = T(rng.randn(2, 30, 64).astype(np.float32))
-    ref = kpconv_bf16_table(s, x)
-    got = kpconv_bf16_table_aligned(s, x)
+    s = (np.array([3.2, -2.1, 1.7]) + rng.rand(2, 30, 3)).astype(np.float32)
+    x = rng.randn(2, 30, 64).astype(np.float32)
+    pad_s = jnp.concatenate([jnp.asarray(s), jnp.full((2, 1, 3), 1.0e6, jnp.float32)], axis=1)
+    pad_x = jnp.concatenate([jnp.asarray(x), jnp.zeros((2, 1, 64), jnp.float32)], axis=1)
+    hi = pad_s.astype(jnp.bfloat16)
+    lo = (pad_s - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+    ref = np.asarray(jnp.concatenate([hi, lo, pad_x.astype(jnp.bfloat16)], axis=-1)
+                     .astype(jnp.float32))
+    got = kpconv_bf16_table_aligned(T(s), T(x))
     assert got.dtype == torch.bfloat16 and got.shape == (2, 31, 8 + 64)
-    assert torch.equal(got[..., :6], ref[..., :6])
-    assert torch.equal(got[..., 8:], ref[..., 6:])
+    np.testing.assert_array_equal(got[..., :6].float().numpy(), ref[..., :6])
+    np.testing.assert_array_equal(got[..., 8:].float().numpy(), ref[..., 6:])
     assert not got[..., 6:8].float().any()
     assert (got.shape[-1] * got.element_size()) % 16 == 0 and 8 * got.element_size() == 16
 
@@ -356,12 +363,23 @@ def test_encode_bf16_matches_jax_from_the_same_weights(setup):
 
 
 
-def test_bf16_training_is_refused(setup):
-    """bf16 is an inference path: no backward is ported for its kernels."""
+def test_bf16_training_runs(setup):
+    """bf16 trains (tests/test_torch_train_bf16.py holds it against
+    jax.grad): train_forward on the CPU's plain bf16 versions gives finite
+    losses and a finite gradient for every trained parameter it reaches."""
+    from diffreg_tpu_torch.engine.losses import LossConfig, diffreg_loss
+
     pbatch, sd, _, _, _ = setup
-    model = _port_model(sd, 0.0)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        model.train_forward(pbatch, **model.draw_train_inputs(pbatch, torch.Generator()))
+    model = _port_model(sd, 200.0)
+    out = model.train_forward(pbatch, **model.draw_train_inputs(
+        pbatch, torch.Generator().manual_seed(0)))
+    loss, info = diffreg_loss(out, pbatch, LossConfig())
+    assert all(bool(torch.isfinite(v)) for v in info.values())
+    params = [p for _, p in model.named_trained_parameters()]
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    reached = [g for g in grads if g is not None]
+    assert len(reached) == len(params) - 2      # not the positioning matcher's two
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in reached)
 
 
 @pytest.mark.parametrize("gate", [0.0, 40.0])

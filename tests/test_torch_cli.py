@@ -106,7 +106,7 @@ def test_build_configs_match_jax(name):
 
 
 @pytest.mark.parametrize("change", [
-    {"mode": "train", "compute_dtype": "bfloat16"}, {"exact_topk": False},
+    {"exact_topk": False},
     {"kpfcn_config": {"modulated": True}},
     {"architecture": ["simple", "resnetb_deformable"]},
     {"coarse_matching": {"match_type": "dual_softmax"}},
@@ -346,6 +346,41 @@ def test_main_fast_path_on_disk(tmp_path, monkeypatch, rng):
                                            **args), "--device", "cpu"])
     assert summary["pairs"] == 4
     _finite(summary, ["IR", "FMR", "RR"])
+
+
+def test_main_train_bf16_4dmatch(tmp_path, monkeypatch):
+    """bf16 training through the CLI (a copy of the 4DMatch YAML with
+    compute_dtype bfloat16 and precision default): two steps with finite
+    losses, then the checkpoint restored into the bf16 test path."""
+    from diffreg_tpu_torch.engine.checkpoint import CheckpointManager
+    from diffreg_tpu_torch.engine.train import OptimConfig, create_train_state
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+
+    monkeypatch.chdir(tmp_path)
+    keys = dict(dataset="4dmatch", compute_dtype="bfloat16", precision="default",
+                train_loss={"motion_weight": 0.1})
+    cfg = _tiny_yaml(tmp_path / "t.yaml", exp_dir="bf16", max_epoch=1, lr=0.001, **keys)
+    pipeline = pc.build_pipeline_config({**pc.load_yaml(cfg), "mode": "train"})
+    assert pipeline.kpfcn.compute_dtype == pipeline.coarse_transformer.compute_dtype \
+        == "bfloat16" and pipeline.coarse_matching.precision == "default"
+    metrics = main(["--config", cfg, "--demo", "--mode", "train", "--num-pairs", "4",
+                    "--device", "cpu"])
+    assert metrics["steps"] == 2
+    _finite(metrics, ["loss", "l1_motion", "loss_matrix_gt_hat", "grad_norm"])
+    ckpt = tmp_path / "snapshot" / "bf16" / "checkpoints"
+    assert os.path.isfile(ckpt / "1.pt")
+    trained = DiffusionMatchingModel(pipeline, device="cpu", seed=3)
+    assert CheckpointManager(str(ckpt)).restore(create_train_state(trained, OptimConfig())) \
+        is not None
+    fresh = DiffusionMatchingModel(pipeline, device="cpu", seed=0)   # main's seed
+    assert not all(torch.equal(a, b) for a, b in zip(trained.parameters(), fresh.parameters()))
+    test = _tiny_yaml(tmp_path / "test.yaml", exp_dir="bf16test", pretrain=str(ckpt), **keys)
+    summary = main(["--config", test, "--demo", "--num-pairs", "4", "--device", "cpu",
+                    "--thr", "0.1"])
+    assert summary["pairs"] == 4
+    _finite(summary, ["IR"])
+    log = (tmp_path / "snapshot" / "bf16test" / "log.txt").read_text()
+    assert f"restored weights from {ckpt}" in log
 
 
 def test_main_train_4dmatch_and_resume(tmp_path, monkeypatch):

@@ -11,11 +11,15 @@ device time by group and by kernel. Groups: the hand-written forward kernels,
 the plain backward recomputes of KPConv and attention (their profiler
 ranges), cuBLAS GEMMs and the rest of forward and backward, and the
 optimizer. The last line is one JSON object with those numbers.
+``--bf16`` profiles the bf16 step instead (compute_dtype bfloat16 and
+precision default, as the JAX package's tools/bench_train.py trains): the
+bf16 kernel instances forward, their plain bf16 recomputes backward.
 
-    python3 tools/profile_port_train.py
+    python3 tools/profile_port_train.py [--bf16]
 """
 from __future__ import annotations
 
+import argparse
 import bisect
 import json
 import os
@@ -31,8 +35,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 PAIRS, N_POINTS = 4, 4096
 PHASES = ("train/forward", "train/backward", "train/optimizer")
-RECOMPUTES = ("kpconv_backward_recompute", "masked_attention_backward_recompute")
-HAND_WRITTEN = re.compile(r"\b(kpconv_kernel|kpconv_tc_kernel|masked_attention_kernel)\b")
+RECOMPUTES = ("kpconv_backward_recompute", "masked_attention_backward_recompute",
+              "kpconv_bf16_backward_recompute", "masked_attention_bf16_backward_recompute")
+HAND_WRITTEN = re.compile(r"\b(kpconv_kernel|kpconv_tc_kernel|kpconv_tc_bf16_kernel|"
+                          r"masked_attention_kernel|masked_attention_bf16_kernel)\b")
 CUBLAS = re.compile(r"gemm|cublas|cutlass", re.IGNORECASE)
 
 
@@ -92,6 +98,10 @@ def summarize(trace_path: str, wall_s: float, top: int = 8) -> dict:
 
 
 def main() -> int:
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("--bf16", action="store_true",
+                      help="profile the bf16 step (compute_dtype bfloat16, precision default)")
+    args = args.parse_args()
     import numpy as np
     import torch
 
@@ -106,7 +116,7 @@ def main() -> int:
     from diffreg_tpu_torch.engine.losses import LossConfig, diffreg_loss
     from diffreg_tpu_torch.engine.train import OptimConfig, apply_gradients, create_train_state
     from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
-    from diffreg_tpu_torch.models.presets import preset_3dmatch
+    from diffreg_tpu_torch.models.presets import preset_3dmatch, with_fast_path
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -119,7 +129,9 @@ def main() -> int:
     batch, _, _ = synthetic_batch(batch_size=PAIRS, n_points=N_POINTS, seed=0, spec=spec,
                                   cfg=pcfg)
     batch = batch.to("cuda")
-    model = DiffusionMatchingModel(preset_3dmatch(train=True), device="cuda", seed=0)
+    cfg = preset_3dmatch(train=True)
+    model = DiffusionMatchingModel(with_fast_path(cfg) if args.bf16 else cfg, device="cuda",
+                                   seed=0)
     state = create_train_state(model, OptimConfig())
     gen = torch.Generator("cuda").manual_seed(0)
 
@@ -141,7 +153,9 @@ def main() -> int:
 
     for _ in range(2):
         step()
+    torch.cuda.reset_peak_memory_stats()
     plain_walls = [timed() for _ in range(3)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_s = timed()
     with tempfile.TemporaryDirectory() as tmp:
@@ -149,8 +163,11 @@ def main() -> int:
         prof.export_chrome_trace(path)
         summary = summarize(path, wall_s)
     summary["unprofiled_wall_s"] = plain_walls
-    print(f"train step (gate 200, {PAIRS} pairs): wall {wall_s:.4f} s profiled "
-          f"(unprofiled {', '.join(f'{w:.4f}' for w in plain_walls)} s), device busy "
+    summary["peak_gib"] = peak_gib
+    dtype = "bf16" if args.bf16 else "f32"
+    print(f"train step {dtype} (gate 200, {PAIRS} pairs): wall {wall_s:.4f} s profiled "
+          f"(unprofiled {', '.join(f'{w:.4f}' for w in plain_walls)} s, peak memory "
+          f"{peak_gib:.2f} GiB), device busy "
           f"{summary['device_busy_s']:.4f} s, idle share {summary['idle_share']:.3f}, "
           f"{summary['kernel_launches']} kernel launches", flush=True)
     for group, entry in summary["groups"].items():
@@ -158,7 +175,8 @@ def main() -> int:
         for name, ms in entry["top_kernels_ms"]:
             print(f"      {ms:9.3f} ms  {name}", flush=True)
     print(card)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "pairs": PAIRS, **summary}))
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "dtype": dtype, "pairs": PAIRS,
+                      **summary}))
     return 0
 
 
