@@ -1,8 +1,8 @@
 """Drive the PyTorch port's 3DMatch registration (f32 and the bf16 fast path)
 and training (f32 and bf16), its 4DMatch registration and bf16 training, its
 2D-3D registration and training
-(with and without the DINOv2 / DepthAnything towers) and its CLI on one CUDA
-card.
+(with and without the DINOv2 / DepthAnything towers), its CLI and the
+synthetic training story's trained weights on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -76,6 +76,10 @@ In order, it
      copies of configs/train/3dmatch.yaml and 4dmatch.yaml with the two keys
      (one epoch, a checkpoint each), then configs/test/3dmatch_fast.yaml on
      the 3DMatch checkpoint (restored, IR, FMR, RR);
+ 8d. takes one train step of 4DMatch pair 0 (the 4DMatch phase's pairs, gate
+     40, the 4DMatch loss) on the card and on the CPU, in f32 (phase 8's
+     limits) and in bf16 (TRAIN_BF16_LIMITS_4D, the card's f32 step printed
+     beside);
   9. runs the 4DMatch path at full width through FourDMatchTester
      (preset_4dmatch: 528-dim, 4 heads of 132, gate 40, stochastic DDIM with
      20 steps) on 4 deformable pairs of 4096 points at scene scale 1/3, at the
@@ -152,8 +156,19 @@ In order, it
      DDIM step, peak memory), pair 0 on the CPU against the card (the 2D-3D
      limits of phase 14) and PnP; and ``diffreg_tpu_torch.main`` on a copy of
      the YAML whose ``towers`` are the seeded towers' state_dicts, on the
-     split with a checkpoint of random weights;
- 18. prints the kernels' JSON line, and as its last line
+     split with a checkpoint of random weights; then trains the dino model on
+     phase 16's train subset with the card's tower outputs: the Trainer for
+     a warm-up and five timed steps (steps/s, peak memory) and one step of
+     pair 0 card against CPU at phase 16's limits;
+ 18. the synthetic training story (tools/train_synthetic_port.py): both bf16
+     kernels at its shapes (8 pairs of 512 tokens, 4 heads of 24, KPConv at
+     K 16 over its 11 layers) against their plain bf16 versions, forward and
+     gradient; then the committed trained weights
+     (snapshot/train-synthetic-torch/params.npz): the DDIM + RANSAC eval of
+     the 32 test pairs (launches counted, success at least 0.30, beside
+     metrics.json's) and test pair 0 card against CPU in bf16 (confidences,
+     the real rows free of a near-tie, the mask on those rows);
+ 19. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
@@ -230,6 +245,11 @@ LOSS_TERMS_2D3D = ("circle", "gt_hat", "fine", "fine_recall", "focal")
 # rounding, held apart from the others
 KEY_BIAS = "k_token_layer.bias"
 KEY_BIAS_TOL = 1e-6
+# the dino model's mono-depth scale at its initial value (depth_coffa 1,
+# depth_coffb 0): its gradient is rounding too (measured -6.5e-9 on the H100,
+# -3.2e-8 on the CPU: 1.5e-8 of the largest entry), so it is held with the
+# key biases
+DEPTH_SCALE = "depth_coffa"
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, the tensor cores' TF32
 # rate (the kernels' matrix products) and the f32 rate outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -301,7 +321,41 @@ MASK_BF16_AGREEMENT = 0.9995
 # entry. The SGD update is held by its relative norm.
 TRAIN_BF16_LIMITS = {"loss": 4e-3, "worst": 1.0, "median": 0.15, "global": 0.3,
                      "update": 0.3}
+# one bf16 train step of 4DMatch pair 0 (704 x 768 tokens, gate 40, its loss
+# with the motion term), card against CPU, set as TRAIN_BF16_LIMITS are.
+# tools/spread_port_train_bf16.py --4dmatch on the H100, ten draws: card vs CPU
+# loss 1.5e-5 to 1.24e-4, worst tensor 0.20 to 0.59, median 2.0e-2 to 2.8e-2,
+# global 0.091 to 0.163 (the CPU at 2 threads against 8: 1.7e-5 / 0.31 /
+# 1.9e-2 / 0.078); the card's f32 step is 1.0e-4 to 1.9e-4 / 0.31 to 0.50 /
+# 3.8e-2 to 5.1e-2 / 0.199 to 0.278 from its bf16 step. The median and global
+# limits lie between the two (the SGD update's with the global one); the loss
+# and the worst tensor, whose f32 gaps overlap the spread, are held at twice
+# the spread's largest and at the tensor's largest entry.
+TRAIN_BF16_LIMITS_4D = {"loss": 2.5e-4, "worst": 1.0, "median": 3.5e-2, "global": 0.19,
+                        "update": 0.19}
 TRAIN_STEPS_4D = 4         # 4DMatch bf16 Trainer: one warm-up and three timed steps
+LOSS_4D = {"motion_weight": 0.1, "dataset": "4dmatch"}    # configs/train/4dmatch.yaml
+# the synthetic training story (tools/train_synthetic_port.py): its batch, the
+# committed weights, and the least held-out success they must reach on the
+# card (tests/test_synthetic_training_story.py's threshold)
+STORY_BATCH = 8
+STORY_PARAMS = os.path.join("snapshot", "train-synthetic-torch", "params.npz")
+STORY_SUCCESS_MIN = 0.30
+# test pair 0 of the story's DDIM (10 steps, gate 200) on the trained weights,
+# at batch 1, card against CPU, in bf16 and in f32; both relative to the
+# largest CPU confidence. Measured on an NVIDIA H100 80GB HBM3 at 700 W over
+# 13 draws (the 8 pairs of test batch 0 from the eval's start, pair 0 from 5
+# other starts): in f32 card vs CPU 1.02e-4 to 1.81e-4, against the bf16
+# path's distance from f32 of 2.98e-3 to 2.85e-2 (card) and 3.31e-3 to 2.62e-2
+# (CPU); STORY_CONF_F32_REL_TOL lies between, so the f32 check tells the two
+# precisions apart. In bf16 the trained model's warps are live at every step
+# and soft Procrustes carries a flipped rounding from one step into the next:
+# card vs CPU is 1.79e-3 to 2.85e-2 (pair 0 at the eval's start 4.64e-3; over
+# its 6 starts at most 5.32e-3), overlapping the gap to f32 for every draw, so
+# no bf16 limit tells bf16 from f32. STORY_CONF_BF16_REL_TOL is about twice
+# pair 0's largest; the tie-free share and the mask cap do the bf16 checking.
+STORY_CONF_BF16_REL_TOL = 1e-2
+STORY_CONF_F32_REL_TOL = 1e-3
 # With random weights the 4DMatch sigmoid confidences sit just above 0.5, so
 # the protocol's threshold 0.55 extracts no match; the 4DMatch phase and the
 # CLI's on-disk run extract at 0.5 (the mutual-argmax matches), so that IR
@@ -931,17 +985,22 @@ def run_training(cfg_train, batch, launches, bf16=False, loss_cfg=None, tag="3DM
 
 
 def noisy_warp_cut_gap(model, batch, inputs):
-    """Cut gap of soft Procrustes' top-k in the gated warp of the noisy GT matrix."""
+    """Cut gap of soft Procrustes' top-k in the gated warp of the noisy GT
+    matrix (``train_forward``'s noising of either variant)."""
     import torch
 
     from diffreg_tpu_torch.diffusion.schedule import q_sample, signed_fractional_noise
     from diffreg_tpu_torch.models.diffusion_matching import masked_min
 
     with torch.no_grad():
-        x = q_sample(model.schedule, batch.matrix_gt(), inputs["t"],
-                     signed_fractional_noise(inputs["g"]))
-        x = torch.nan_to_num(x, nan=0.0)
-        x = x - masked_min(x, batch.src_mask, batch.tgt_mask)
+        if model.cfg.variant == "4dmatch":
+            x = torch.sigmoid(q_sample(model.schedule, batch.matrix_gt(), inputs["t"],
+                                       inputs["g"]))
+        else:
+            x = q_sample(model.schedule, batch.matrix_gt(), inputs["t"],
+                         signed_fractional_noise(inputs["g"]))
+            x = torch.nan_to_num(x, nan=0.0)
+            x = x - masked_min(x, batch.src_mask, batch.tgt_mask)
         conf = model.denoising_coarse_matching.sinkhorn(x, batch.src_mask, batch.tgt_mask)
         return cut_gap(conf, batch.src_mask, batch.tgt_mask)
 
@@ -987,12 +1046,14 @@ def step_gaps(a, b, names):
     return gap
 
 
-def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag=""):
-    """Phase 8 (and 8c in bf16): one train step of one pair on the card and on
-    the CPU from the same weights and draws, held to ``limits`` (loss,
-    worst, median, global, and params or update; default the f32 ones).
-    ``f32_cfg``: the card's f32 step from the same weights and draws too,
-    whose gap to the card's step is printed beside the limits."""
+def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag="", loss_cfg=None):
+    """Phase 8 (and 8c in bf16, 8d for 4DMatch): one train step of one pair on
+    the card and on the CPU from the same weights and draws, held to
+    ``limits`` (loss, worst, median, global, and params or update; default
+    the f32 ones), with ``loss_cfg`` (default the 3DMatch loss). ``f32_cfg``:
+    the card's f32 step from the same weights and draws too, whose gap to the
+    card's step is printed beside the limits. The positioning layer's
+    condition must lie clear of the config's gate."""
     import torch
 
     from diffreg_tpu_torch.engine.losses import LossConfig, diffreg_loss
@@ -1002,6 +1063,8 @@ def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag=""):
     limits = limits or {"loss": LOSS_REL_TOL, "worst": GRAD_WORST_TOL,
                         "median": GRAD_MEDIAN_TOL, "global": GRAD_GLOBAL_TOL,
                         "params": PARAM_ABS_TOL}
+    loss_cfg = loss_cfg or LossConfig()
+    gate = cfg_train.coarse_transformer.procrustes.max_condition_num
     models = {"CPU": DiffusionMatchingModel(cfg_train, device="cpu", seed=0),
               "card": DiffusionMatchingModel(cfg_train, device="cuda", seed=0)}
     if f32_cfg is not None:
@@ -1020,7 +1083,7 @@ def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag=""):
         before = [p.detach().cpu().clone() for p in state.optimizer.params]
         t0 = time.perf_counter()
         out = model.train_forward(batch, **{k: v.to(dev) for k, v in inputs.items()})
-        loss, _ = diffreg_loss(out, batch, LossConfig())
+        loss, _ = diffreg_loss(out, batch, loss_cfg)
         grads = torch.autograd.grad(loss, state.optimizer.params, allow_unused=True)
         finite, _ = apply_gradients(state.optimizer, grads)
         res[name] = {"loss": float(loss.detach()), "finite": bool(finite), "out": out,
@@ -1037,7 +1100,7 @@ def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag=""):
     held = "params" if "params" in limits else "update"
     log(f"train step{tag} card vs CPU (1 pair, CPU {cpu['seconds']:.1f} s): draw seed {seed}, "
         f"noisy-warp cut gap {warp_gap:.3e}, positioning cut gap {pos_gap:.3e} and condition "
-        f"{cond:.3f} on the CPU, {card_cond:.3f} on the card (gate 200); loss "
+        f"{cond:.3f} on the CPU, {card_cond:.3f} on the card (gate {gate:g}); loss "
         f"{card['loss']:.6f} vs {cpu['loss']:.6f} (rel err {gap['loss']:.3e}, limit "
         f"{limits['loss']:.1e}); gradients: worst tensor {gap['worst']:.3e} (limit "
         f"{limits['worst']:.1e}), median {gap['median']:.3e} (limit {limits['median']:.1e}), "
@@ -1054,7 +1117,7 @@ def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag=""):
                          f"train step{tag} on the card (1 pair)")
     if not warp_gap > CUT_GAP_MIN:
         raise AssertionError(f"train step{tag}: the noisy warp's top-k cut falls on a near-tie")
-    if held == "params" and not (pos_gap > CUT_GAP_MIN and abs(cond - 200.0) > 1.0):
+    if held == "params" and not (pos_gap > CUT_GAP_MIN and abs(cond - gate) > 1.0):
         raise AssertionError(f"train step{tag}: a top-k cut or the gate falls on a near-tie")
     if not (card["finite"] and cpu["finite"]):
         raise AssertionError(f"train step{tag}: non-finite gradients")
@@ -1624,7 +1687,7 @@ def run_bf16_training(repo, batch, one, batch4_cpu, f32_train, launches):
                                    f32_cfg=cfg_train, tag=" bf16")
     cfg4 = with_fast_path(preset_4dmatch(sample_steps=STEPS))
     train4 = run_training(cfg4, batch4_cpu.to("cuda"), launches, bf16=True,
-                          loss_cfg=LossConfig(motion_weight=0.1, dataset="4dmatch"),
+                          loss_cfg=LossConfig(**LOSS_4D),
                           tag="4DMatch", steps=TRAIN_STEPS_4D,
                           attention_key="masked_attention_bf16_d144")
 
@@ -2263,10 +2326,12 @@ def counted_train_step_2d3d(step, rows, launches):
     return counted
 
 
-def train_2d3d_trainer(cfg, batch_cpu, circle_cfg, fine_cfg, launches):
+def train_2d3d_trainer(cfg, batch_cpu, circle_cfg, fine_cfg, launches,
+                       tag="2D-3D train (configs/train/rgbdv2.yaml widths"):
     """The Trainer at configs/train/rgbdv2.yaml widths (batch 1, Adam at lr
-    1e-4): one epoch of a warm-up and TIMED_STEPS_2D3D timed steps over the
-    train split's pairs, then ``resume`` from its checkpoint."""
+    1e-4; ``cfg`` another 2D-3D model, ``tag`` names it): one epoch of a
+    warm-up and TIMED_STEPS_2D3D timed steps over the train split's pairs,
+    then ``resume`` from its checkpoint."""
     import tempfile
 
     import torch
@@ -2305,7 +2370,7 @@ def train_2d3d_trainer(cfg, batch_cpu, circle_cfg, fine_cfg, launches):
     timed = rows[1:]
     med = lambda key: sorted(r[key] for r in timed)[len(timed) // 2]  # noqa: E731
     step_s = med("forward") + med("backward") + med("optimizer")
-    log(f"2D-3D train (configs/train/rgbdv2.yaml widths, 1 pair a step, Adam lr {optim.lr}): "
+    log(f"{tag}, 1 pair a step, Adam lr {optim.lr}): "
         f"{steps} steps in {epoch_s:.3f} s (epoch with checkpoint); per timed step median "
         f"forward {med('forward'):.4f} s, backward {med('backward'):.4f} s, optimizer "
         f"{med('optimizer'):.4f} s = {step_s:.4f} s: {1 / step_s:.3f} steps/s (backward "
@@ -2347,10 +2412,14 @@ def noisy_warp_2d3d(model, batch, inputs):
     return conf, nodes, valid, res.condition
 
 
-def train_step_2d3d_card_vs_cpu(cfg, one, circle_cfg, fine_cfg):
+def train_step_2d3d_card_vs_cpu(cfg, one, circle_cfg, fine_cfg, tag="2D-3D",
+                                rounding=(KEY_BIAS,)):
     """One 2D-3D train step of one pair on the card and on the CPU, from the
     same weights and draws: the loss, every gradient, the noisy matrix's
-    top-k cut gap against the two devices' difference there."""
+    top-k cut gap against the two devices' difference there. The gradients
+    of the parameters named by ``rounding`` (suffixes) are rounding on both
+    devices: held to KEY_BIAS_TOL of the largest entry instead. Returns the
+    gaps and the card's seconds."""
     import torch
 
     from diffreg_tpu_torch.engine.losses import LossConfig
@@ -2394,8 +2463,8 @@ def train_step_2d3d_card_vs_cpu(cfg, one, circle_cfg, fine_cfg):
         if g_cpu is None:
             continue
         finite &= bool(torch.isfinite(g_card).all()) and bool(torch.isfinite(g_cpu).all())
-        if n.endswith(KEY_BIAS):
-            # softmax ignores a key bias: its gradient is rounding on both devices
+        if n.endswith(rounding):
+            # no gradient but rounding on both devices (KEY_BIAS, DEPTH_SCALE)
             key_bias = max(key_bias, float(g_card.abs().max()), float(g_cpu.abs().max()))
             continue
         diff = (g_card - g_cpu).double()
@@ -2405,7 +2474,7 @@ def train_step_2d3d_card_vs_cpu(cfg, one, circle_cfg, fine_cfg):
     errs.sort(reverse=True)
     worst, median = errs[0][0], errs[len(errs) // 2][0]
     global_err = math.sqrt(diff_sq / ref_sq)
-    log(f"2D-3D train step card vs CPU (1 pair, CPU {cpu['seconds']:.1f} s, card "
+    log(f"{tag} train step card vs CPU (1 pair, CPU {cpu['seconds']:.1f} s, card "
         f"{card['seconds']:.2f} s): draw seed {seed}, noisy-warp cut gap {gap:.3e} against the "
         f"devices' difference there {warp_err:.3e}, condition {float(cond[0]):.3f} (gate "
         f"{cfg.procrustes_max_condition}); loss {card['loss']:.6f} vs {cpu['loss']:.6f} (rel err "
@@ -2413,23 +2482,28 @@ def train_step_2d3d_card_vs_cpu(cfg, one, circle_cfg, fine_cfg):
             f"{k} {card['info'][k]:.6f}/{cpu['info'][k]:.6f}" for k in LOSS_TERMS_2D3D)
         + f"; gradients of {len(errs)} tensors: worst {worst:.3e} (limit {GRAD_WORST_TOL:.0e}), "
         f"median {median:.3e} (limit {GRAD_MEDIAN_TOL:.0e}), global {global_err:.3e} (limit "
-        f"{GRAD_GLOBAL_TOL:.0e}); attention key biases (no gradient but rounding) "
-        f"{key_bias / largest:.3e} of the largest gradient entry (limit {KEY_BIAS_TOL:.0e})")
+        f"{GRAD_GLOBAL_TOL:.0e}); {', '.join(rounding)} (no gradient but rounding) "
+        f"{key_bias / largest:.3e} of the largest gradient entry (limit {KEY_BIAS_TOL:.0e})"
+        + "".join(f"; {n} {float(g_card.sum()):.3e} / {float(g_cpu.sum()):.3e}"
+                  for n, g_card, g_cpu in zip(names, card["grads"], cpu["grads"])
+                  if n == DEPTH_SCALE))
     log("  worst gradient tensors: " + ", ".join(f"{n} {e:.3e}" for e, n in errs[:5]))
     if not key_bias <= KEY_BIAS_TOL * largest:
-        raise AssertionError(f"2D-3D train step: an attention key bias has a gradient of {key_bias}")
+        raise AssertionError(f"{tag} train step: a gradient of {rounding} is {key_bias}")
     if not (gap > CUT_GAP_MIN and gap > 10 * warp_err
             and abs(float(cond[0]) - cfg.procrustes_max_condition) > 1.0):
-        raise AssertionError(f"2D-3D train step: the warp's top-k cut (gap {gap}, devices "
+        raise AssertionError(f"{tag} train step: the warp's top-k cut (gap {gap}, devices "
                              f"{warp_err}) or its gate falls on a near-tie")
     if not finite:
-        raise AssertionError("2D-3D train step: non-finite gradients")
+        raise AssertionError(f"{tag} train step: non-finite gradients")
     if not loss_err <= LOSS_REL_TOL:
-        raise AssertionError(f"2D-3D train step: loss differs from the CPU's by {loss_err}")
+        raise AssertionError(f"{tag} train step: loss differs from the CPU's by {loss_err}")
     if not (worst <= GRAD_WORST_TOL and median <= GRAD_MEDIAN_TOL
             and global_err <= GRAD_GLOBAL_TOL):
-        raise AssertionError(f"2D-3D train step: gradients differ from the CPU's (worst {worst}, "
+        raise AssertionError(f"{tag} train step: gradients differ from the CPU's (worst {worst}, "
                              f"median {median}, global {global_err})")
+    return {"loss": loss_err, "worst": worst, "median": median, "global": global_err,
+            "card_s": card["seconds"], "cpu_s": cpu["seconds"]}
 
 
 def run_cli_train_2d3d(repo, split_root, launches):
@@ -2667,6 +2741,7 @@ def run_dino_phase(repo, split_root, kernels, launches, gen):
         f"{time.perf_counter() - t0:.2f} s; image {tuple(batch_cpu.image.shape)}, {n_tokens} "
         f"image tokens, dino_feats {tuple(batch_cpu.dino_feats.shape)}, mono_depth "
         f"{tuple(batch_cpu.mono_depth.shape)}")
+    train_cpu = data_2d3d(split_root, "train", augment=True, stride=s, towers=card)[0]
     del card
 
     batch = batch_cpu.to("cuda")
@@ -2689,6 +2764,20 @@ def run_dino_phase(repo, split_root, kernels, launches, gen):
                       tag="2D-3D dino", config="configs/test/rgbdv2_dino.yaml")
     kernels[1]["d64_dino"]["path"] = {**result, "towers": tower_numbers}
     run_cli_dino(repo, split_root, cpu_towers, launches)
+
+    # the dino model's train step (the train subset with the card's tower
+    # outputs, configs/train/rgbdv2.yaml's optimizer): a Trainer epoch, then
+    # pair 0 card against CPU at the 2D-3D train limits
+    from diffreg_tpu_torch.main import loss_2d3d_configs
+
+    circle_cfg, fine_cfg = loss_2d3d_configs(load_yaml(os.path.join(
+        repo, "configs", "test", "rgbdv2_dino.yaml")))
+    train = train_2d3d_trainer(cfg, train_cpu, circle_cfg, fine_cfg, launches,
+                               tag="2D-3D dino train (configs/test/rgbdv2_dino.yaml")
+    train["pair0"] = train_step_2d3d_card_vs_cpu(cfg, train_cpu.select(slice(0, 1)), circle_cfg,
+                                                 fine_cfg, tag="2D-3D dino",
+                                                 rounding=(KEY_BIAS, DEPTH_SCALE))
+    kernels[1]["d64_dino"]["train"] = train
 
 
 def run_2d3d_phases(repo, kernels, launches, gen):
@@ -2750,6 +2839,159 @@ def run_2d3d_phases(repo, kernels, launches, gen):
         run_dino_phase(repo, split_root, kernels, launches, gen)
 
 
+# ---------------------------------------------------------------- the synthetic training story
+
+
+def story_tool(repo):
+    """tools/train_synthetic_port.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_synthetic_port", os.path.join(repo, "tools", "train_synthetic_port.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_story_kernels(tool, gen):
+    """Phase 18a: both bf16 instances at the story model's shapes
+    (tools/train_synthetic_port.py: 8 pairs of 512 tokens a side, 4 heads of
+    24, KPConv at K 16 over its 11 layers) on pool batch 0 with the model's
+    seeded weights: each against its plain bf16 version, forward and gradient
+    through its autograd Function. Returns the two entries for the JSON
+    line's ``story`` keys."""
+    from diffreg_tpu_torch.data.synthetic import synthetic_batch
+    from diffreg_tpu_torch.nn.kpfcn import KPConv
+
+    batch = synthetic_batch(batch_size=STORY_BATCH, n_points=tool.N_POINTS, seed=0)[0].to("cuda")
+    model = tool.build_model("cuda")
+    kp, kp_shapes = check_kpconv(kpconv_layer_calls(model, lambda: model.encode(batch), KPConv),
+                                 11, "one story encode (11 calls)", " (bf16, story)", bf16=True)
+    worst, ms = kpconv_gradients(kp_shapes, gen, bf16=True)
+    kp.update(backward_ms=ms, backward_max_rel_err=worst)
+    at = check_attention(batch, model.cfg, gen, " (bf16, story)", bf16=True)
+    worst, ms = attention_gradients(batch, model.cfg, gen, bf16=True)
+    at.update(backward_ms=ms, backward_max_rel_err=worst)
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per",
+            "shapes", "backward_ms", "backward_max_rel_err")
+    return {k: kp[k] for k in keep}, {k: at[k] for k in keep}
+
+
+def run_story_trained(repo, tool, launches):
+    """Phase 18b: the committed trained weights (STORY_PARAMS) in the story
+    model on the card. The DDIM + RANSAC eval of the 32 test pairs, its bf16
+    launches counted, success and IR printed beside metrics.json's (success
+    at least STORY_SUCCESS_MIN); then pair 0 of the test split at batch 1,
+    card against CPU in bf16 and in f32 (story_pair0_check)."""
+    import numpy as np
+    import torch
+
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_cuda_bf16
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda, kpconv_cuda_bf16
+
+    path = os.path.join(repo, STORY_PARAMS)
+    with open(os.path.join(os.path.dirname(path), "metrics.json")) as f:
+        recorded = json.load(f)
+    model = tool.load_params(tool.build_model("cuda"), path)
+    heldout = tool.split_batches(tool.TEST_SEED, tool.TEST_BATCHES, STORY_BATCH, tool.N_POINTS,
+                                 "cuda")
+    split_success = tool.make_split_success(model)
+    split_success(heldout[:1])                                            # warm-up
+    kernels = (kpconv_cuda_bf16, masked_attention_cuda_bf16, kpconv_cuda, masked_attention_cuda)
+    for fn in kernels:
+        fn.launches = 0
+    (success, rres, ir), seconds = wall(lambda: split_success(heldout))
+    n_kp, n_at, n_f32 = kpconv_cuda_bf16.launches, masked_attention_cuda_bf16.launches, \
+        kpconv_cuda.launches + masked_attention_cuda.launches
+    steps = model.cfg.sample_steps
+    per_step = attention_calls(tool.N_POINTS, tool.N_POINTS, model.cfg.denoising_layer_types)
+    if n_kp != 11 * len(heldout) or n_at != per_step * steps * len(heldout) or n_f32:
+        raise AssertionError(f"story eval: {n_kp} bf16 KPConv, {n_at} bf16 attention, "
+                             f"{n_f32} f32 launches")
+    launches["kpconv_bf16_story"] += n_kp
+    launches["masked_attention_bf16_story"] += n_at
+    pairs = len(heldout) * STORY_BATCH
+    log(f"story, trained weights ({STORY_PARAMS}, selected step {recorded['selected_step']}): "
+        f"{pairs} test pairs through DDIM ({steps} steps) + RANSAC in {seconds:.3f} s "
+        f"({pairs / seconds:.3f} pairs/s): success@5deg {success:.4f} (metrics.json "
+        f"{recorded['heldout_success_after']:.4f}, limit {STORY_SUCCESS_MIN}), IR {ir:.4f} "
+        f"(metrics.json {recorded['heldout_ir_after']:.4f}); median RRE {np.median(rres):.3f} "
+        f"deg; launches bf16 kpconv {n_kp} attention {n_at}, f32 0")
+    if not success >= STORY_SUCCESS_MIN:
+        raise AssertionError(f"story: test success {success} with the trained weights")
+
+    # ---- pair 0 of the test split at batch 1, card against CPU ----
+    one = tool.split_batches(tool.TEST_SEED, 1, STORY_BATCH, tool.N_POINTS, "cpu")[0]
+    x_init = tool.eval_draws(one)[0][:1]
+    one = one.select(slice(0, 1))
+    f32_cfg = dataclasses.replace(
+        model.cfg, kpfcn=dataclasses.replace(model.cfg.kpfcn, compute_dtype=None),
+        coarse_transformer=dataclasses.replace(model.cfg.coarse_transformer, compute_dtype=None))
+    f32_model = tool.load_params(DiffusionMatchingModel(f32_cfg, device="cuda"), path)
+    pair0 = {}
+    for name, card_model, cpu_model, rel_tol in (
+            ("bf16", model, tool.build_model("cpu"), STORY_CONF_BF16_REL_TOL),
+            ("f32", f32_model, DiffusionMatchingModel(f32_cfg, device="cpu"),
+             STORY_CONF_F32_REL_TOL)):
+        tool.load_params(cpu_model, path)
+        with torch.no_grad():
+            got = card_model.ddim_sample(one.to("cuda"), x_init.cuda())
+            t0 = time.perf_counter()
+            ref = cpu_model.ddim_sample(one, x_init)
+            cpu_s = time.perf_counter() - t0
+        pair0[name] = story_pair0_check(name, got, ref, one, rel_tol, cpu_s)
+        pair0[name + "_conf"] = got["conf_matrix_pred"].cpu()
+    valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
+    gap = float((pair0.pop("bf16_conf") - pair0.pop("f32_conf")).abs()[valid].max())
+    log(f"story pair 0 on the card, bf16 vs f32: {gap / pair0['f32']['top']:.3e} of the "
+        f"largest confidence (f32 limit {STORY_CONF_F32_REL_TOL}, bf16 limit "
+        f"{STORY_CONF_BF16_REL_TOL})")
+    return {"test_pairs": pairs, "success": success, "ir": ir, "seconds": seconds,
+            "recorded_success": recorded["heldout_success_after"],
+            "recorded_ir": recorded["heldout_ir_after"], "pair0": pair0,
+            "pair0_bf16_vs_f32_rel": gap / pair0["f32"]["top"]}
+
+
+def story_pair0_check(name, got, ref, one, rel_tol, cpu_s):
+    """Story test pair 0, card (``got``) against CPU (``ref``) at batch 1: the
+    confidences within ``rel_tol`` of the largest, at least TIE_FREE_ROWS_MIN
+    of the real source rows free of a near-tie (best two CPU confidences
+    within twice that limit), and on those rows at most MASK_DIFFER_SHARE of
+    the CPU's union-mask entries (plus 2) differing."""
+    import torch
+
+    valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
+    conf = ref["conf_matrix_pred"]
+    top = float(conf[valid].max())
+    limit = rel_tol * top
+    conf_err = float((got["conf_matrix_pred"].cpu() - conf).abs()[valid].max())
+    top2 = torch.where(valid, conf, torch.full_like(conf, -1.0)).topk(2, dim=2).values
+    tie_free = ((top2[..., 0] - top2[..., 1]) > 2 * limit)[0] & one.src_mask[0]    # [S]
+    real = int(one.src_mask[0].sum())
+    share = float(tie_free.sum()) / max(real, 1)
+    mask, ref_mask = got["corr_mask"].cpu()[0], ref["corr_mask"][0]
+    differ = int(((mask != ref_mask) & valid[0])[tie_free].sum())
+    cap = MASK_DIFFER_SHARE * int(ref_mask[tie_free].sum()) + 2
+    log(f"story pair 0 card vs CPU ({name}, trained weights, batch 1, CPU {cpu_s:.1f} s): conf "
+        f"{conf_err:.3e} = {conf_err / top:.3e} of the largest (limit {rel_tol}, max conf "
+        f"{top:.3e}); real source rows free of a near-tie {share:.4f} of {real} (limit "
+        f"{TIE_FREE_ROWS_MIN}); on them {differ} union-mask entries differ of the CPU's "
+        f"{int(ref_mask[tie_free].sum())} (cap {cap:.0f}); all rows: "
+        f"{int(((mask != ref_mask) & valid[0]).sum())} differ")
+    if not conf_err <= limit:
+        raise AssertionError(f"story pair 0 ({name}): confidences differ from the CPU's by "
+                             f"{conf_err / top:.3e} of the largest")
+    if not share >= TIE_FREE_ROWS_MIN:
+        raise AssertionError(f"story pair 0 ({name}): only {share} of the real rows are free "
+                             "of a near-tie with the trained weights")
+    if not differ <= cap:
+        raise AssertionError(f"story pair 0 ({name}): {differ} mask entries differ on the "
+                             "tie-free rows")
+    return {"top": top, "conf_rel_err": conf_err / top, "tie_free_share": share,
+            "mask_differ_tie_free": differ}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2768,8 +3010,9 @@ def main() -> int:
         from diffreg_tpu_torch.data.synthetic import make_pair, synthetic_batch
         from diffreg_tpu_torch.eval.register import correspond_and_ransac, register
         from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+        from diffreg_tpu_torch.engine.losses import LossConfig
         from diffreg_tpu_torch.models.presets import (preset_3dmatch, preset_4dmatch,
-                                                      with_condition_gate)
+                                                      with_condition_gate, with_fast_path)
         from diffreg_tpu_torch.nn.kpfcn import KPConv
         from diffreg_tpu_torch.ops.attention import masked_attention_cuda
         from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
@@ -2852,7 +3095,8 @@ def main() -> int:
     launches = {"kpconv": 0, "masked_attention": 0, "masked_attention_d132": 0,
                 "masked_attention_d64": 0, "masked_attention_d64_dino": 0, "kpconv_train_2d3d": 0,
                 "masked_attention_train_2d3d": 0, "kpconv_bf16": 0,
-                "masked_attention_bf16": 0, "masked_attention_bf16_d144": 0}
+                "masked_attention_bf16": 0, "masked_attention_bf16_d144": 0,
+                "kpconv_bf16_story": 0, "masked_attention_bf16_story": 0}
     f32_ref = {}
     per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
     for gate, model in models.items():
@@ -2933,6 +3177,15 @@ def main() -> int:
     kernels[3]["training"] = run_bf16_training(repo, batch, one, batch4_cpu, f32_train,
                                                launches)
 
+    # ---- 8d. one 4DMatch train step of pair 0, card against CPU, f32 and bf16 ----
+    cfg4_train = preset_4dmatch(sample_steps=STEPS)
+    one4 = batch4_cpu.select(slice(0, 1))
+    loss4 = LossConfig(**LOSS_4D)
+    kernels[3]["training"]["pair0_4dmatch"] = {
+        "f32": train_step_card_vs_cpu(cfg4_train, one4, tag=" 4DMatch", loss_cfg=loss4),
+        "bf16": train_step_card_vs_cpu(with_fast_path(cfg4_train), one4, TRAIN_BF16_LIMITS_4D,
+                                       f32_cfg=cfg4_train, tag=" 4DMatch bf16", loss_cfg=loss4)}
+
     # ---- 9-10. the 4DMatch path through FourDMatchTester; pair 0 on the CPU ----
     run_4dmatch(batch4_cpu, meta4, spec4, launches)
 
@@ -2943,6 +3196,12 @@ def main() -> int:
     # training, the published model with its towers ----
     run_2d3d_phases(repo, kernels, launches, gen)
 
+    # ---- 18. the synthetic training story: both bf16 kernels at its shapes,
+    # then the committed trained weights: the test split and pair 0 card vs CPU ----
+    tool = story_tool(repo)
+    kernels[2]["story"], kernels[3]["story"] = run_story_kernels(tool, gen)
+    kernels[3]["story"]["trained"] = run_story_trained(repo, tool, launches)
+
     kernels[0]["launches"] = launches["kpconv"] + launches["kpconv_train_2d3d"]
     kernels[0]["launches_train_2d3d"] = launches["kpconv_train_2d3d"]
     d64 = launches["masked_attention_d64"] + launches["masked_attention_train_2d3d"]
@@ -2952,10 +3211,13 @@ def main() -> int:
     kernels[1]["launches_d64"] = d64
     kernels[1]["launches_d64_dino"] = launches["masked_attention_d64_dino"]
     kernels[1]["launches_train_2d3d"] = launches["masked_attention_train_2d3d"]
-    kernels[2]["launches"] = launches["kpconv_bf16"]
+    kernels[2]["launches"] = launches["kpconv_bf16"] + launches["kpconv_bf16_story"]
+    kernels[2]["launches_story"] = launches["kpconv_bf16_story"]
     kernels[3]["launches"] = (launches["masked_attention_bf16"]
-                              + launches["masked_attention_bf16_d144"])
+                              + launches["masked_attention_bf16_d144"]
+                              + launches["masked_attention_bf16_story"])
     kernels[3]["launches_d144"] = launches["masked_attention_bf16_d144"]
+    kernels[3]["launches_story"] = launches["masked_attention_bf16_story"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

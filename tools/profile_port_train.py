@@ -14,19 +14,26 @@ optimizer. The last line is one JSON object with those numbers.
 ``--bf16`` profiles the bf16 step instead (compute_dtype bfloat16 and
 precision default, as the JAX package's tools/bench_train.py trains): the
 bf16 kernel instances forward, their plain bf16 recomputes backward.
+``--story`` profiles the synthetic training story's step instead
+(tools/train_synthetic_port.py: its bf16 model, Adam with its schedule, pool
+batch 0 of 8 pairs at 512 tokens a side), and times ten steps with a thread
+building synthetic batches beside them, as the story's producer does,
+against ten without.
 
-    python3 tools/profile_port_train.py [--bf16]
+    python3 tools/profile_port_train.py [--bf16 | --story]
 """
 from __future__ import annotations
 
 import argparse
 import bisect
+import importlib.util
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import defaultdict
 
@@ -101,6 +108,8 @@ def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--bf16", action="store_true",
                       help="profile the bf16 step (compute_dtype bfloat16, precision default)")
+    args.add_argument("--story", action="store_true",
+                      help="profile the synthetic training story's step")
     args = args.parse_args()
     import numpy as np
     import torch
@@ -122,17 +131,29 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    pcfg = PyramidConfig(first_subsampling_dl=0.03, coarse_match_radius=0.1)
-    cal_rng = np.random.RandomState(0)
-    spec = calibrate_spec([make_pair(cal_rng, N_POINTS)[:2] for _ in range(2)], pcfg,
-                          k_cap=40, neighbor_percentile=90.0)
-    batch, _, _ = synthetic_batch(batch_size=PAIRS, n_points=N_POINTS, seed=0, spec=spec,
-                                  cfg=pcfg)
-    batch = batch.to("cuda")
-    cfg = preset_3dmatch(train=True)
-    model = DiffusionMatchingModel(with_fast_path(cfg) if args.bf16 else cfg, device="cuda",
-                                   seed=0)
-    state = create_train_state(model, OptimConfig())
+    pairs = PAIRS
+    if args.story:
+        spec = importlib.util.spec_from_file_location(
+            "train_synthetic_port", os.path.join(os.path.dirname(__file__),
+                                                 "train_synthetic_port.py"))
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        pairs = 8
+        batch = synthetic_batch(batch_size=pairs, n_points=tool.N_POINTS, seed=0)[0].to("cuda")
+        model = tool.build_model("cuda")
+        state = create_train_state(model, tool.optim_config(12000))
+    else:
+        pcfg = PyramidConfig(first_subsampling_dl=0.03, coarse_match_radius=0.1)
+        cal_rng = np.random.RandomState(0)
+        spec = calibrate_spec([make_pair(cal_rng, N_POINTS)[:2] for _ in range(2)], pcfg,
+                              k_cap=40, neighbor_percentile=90.0)
+        batch, _, _ = synthetic_batch(batch_size=PAIRS, n_points=N_POINTS, seed=0, spec=spec,
+                                      cfg=pcfg)
+        batch = batch.to("cuda")
+        cfg = preset_3dmatch(train=True)
+        model = DiffusionMatchingModel(with_fast_path(cfg) if args.bf16 else cfg,
+                                       device="cuda", seed=0)
+        state = create_train_state(model, OptimConfig())
     gen = torch.Generator("cuda").manual_seed(0)
 
     def step():
@@ -164,8 +185,26 @@ def main() -> int:
         summary = summarize(path, wall_s)
     summary["unprofiled_wall_s"] = plain_walls
     summary["peak_gib"] = peak_gib
-    dtype = "bf16" if args.bf16 else "f32"
-    print(f"train step {dtype} (gate 200, {PAIRS} pairs): wall {wall_s:.4f} s profiled "
+    if args.story:
+        # ten steps alone, then ten beside a thread building the story's batches
+        stop = threading.Event()
+
+        def produce():
+            seed = 1_000_000
+            while not stop.is_set():
+                synthetic_batch(batch_size=pairs, n_points=tool.N_POINTS, seed=seed)
+                seed += 1
+        alone = sum(timed() for _ in range(10)) / 10
+        producer = threading.Thread(target=produce, daemon=True)
+        producer.start()
+        beside = sum(timed() for _ in range(10)) / 10
+        stop.set()
+        producer.join()
+        summary["step_s_alone"], summary["step_s_beside_producer"] = alone, beside
+        print(f"story step: {alone:.4f} s alone, {beside:.4f} s beside a thread building "
+              f"batches ({1 / alone:.3f} / {1 / beside:.3f} steps/s)", flush=True)
+    dtype = "story bf16" if args.story else "bf16" if args.bf16 else "f32"
+    print(f"train step {dtype} (gate 200, {pairs} pairs): wall {wall_s:.4f} s profiled "
           f"(unprofiled {', '.join(f'{w:.4f}' for w in plain_walls)} s, peak memory "
           f"{peak_gib:.2f} GiB), device busy "
           f"{summary['device_busy_s']:.4f} s, idle share {summary['idle_share']:.3f}, "
@@ -175,7 +214,7 @@ def main() -> int:
         for name, ms in entry["top_kernels_ms"]:
             print(f"      {ms:9.3f} ms  {name}", flush=True)
     print(card)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "dtype": dtype, "pairs": PAIRS,
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "dtype": dtype, "pairs": pairs,
                       **summary}))
     return 0
 

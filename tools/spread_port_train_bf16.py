@@ -28,8 +28,14 @@ KEYS = ("loss", "worst", "median", "global")
 
 
 def main() -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--4dmatch", dest="deformable", action="store_true")
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("spread_port_train_bf16: CUDA is not available", file=sys.stderr)
@@ -40,20 +46,26 @@ def main() -> int:
     from diffreg_tpu_torch.data.synthetic import make_pair, synthetic_batch
     from diffreg_tpu_torch.engine.losses import LossConfig, diffreg_loss
     from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
-    from diffreg_tpu_torch.models.presets import preset_3dmatch, with_fast_path
+    from diffreg_tpu_torch.models.presets import preset_3dmatch, preset_4dmatch, with_fast_path
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    pcfg = PyramidConfig(first_subsampling_dl=0.03, coarse_match_radius=0.1)
-    cal_rng = np.random.RandomState(0)
-    spec = calibrate_spec([make_pair(cal_rng, smoke.N_POINTS)[:2] for _ in range(2)], pcfg,
-                          k_cap=40, neighbor_percentile=90.0)
-    batch, _, _ = synthetic_batch(batch_size=smoke.BATCH_PAIRS, n_points=smoke.N_POINTS,
-                                  seed=0, spec=spec, cfg=pcfg)
+    if args.deformable:
+        batch = smoke.deformable_data()[0]
+        cfg = preset_4dmatch(sample_steps=smoke.STEPS)
+        loss_cfg = LossConfig(**smoke.LOSS_4D)
+    else:
+        pcfg = PyramidConfig(first_subsampling_dl=0.03, coarse_match_radius=0.1)
+        cal_rng = np.random.RandomState(0)
+        spec = calibrate_spec([make_pair(cal_rng, smoke.N_POINTS)[:2] for _ in range(2)], pcfg,
+                              k_cap=40, neighbor_percentile=90.0)
+        batch, _, _ = synthetic_batch(batch_size=smoke.BATCH_PAIRS, n_points=smoke.N_POINTS,
+                                      seed=0, spec=spec, cfg=pcfg)
+        cfg = preset_3dmatch(train=True)
+        loss_cfg = LossConfig()
     one = batch.select(slice(0, 1))
-    cfg = preset_3dmatch(train=True)
     models = {"CPU": DiffusionMatchingModel(with_fast_path(cfg), device="cpu", seed=0),
               "card": DiffusionMatchingModel(with_fast_path(cfg), device="cuda", seed=0),
               "card f32": DiffusionMatchingModel(cfg, device="cuda", seed=0)}
@@ -66,7 +78,7 @@ def main() -> int:
         b = one.to(dev)
         params = [p for _, p in model.named_trained_parameters()]
         out = model.train_forward(b, **{k: v.to(dev) for k, v in inputs.items()})
-        loss, _ = diffreg_loss(out, b, LossConfig())
+        loss, _ = diffreg_loss(out, b, loss_cfg)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         return {"loss": float(loss.detach()),
                 "grads": [None if g is None else g.cpu() for g in grads]}
@@ -95,7 +107,8 @@ def main() -> int:
             f"{k} {threads[n][k]:.3e}" for k in KEYS), flush=True)
     torch.set_num_threads(default_threads)
     print(card)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "cpu_threads": default_threads,
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "variant": cfg.variant,
+                      "cpu_threads": default_threads,
                       "draws": draws, "cpu_threads_against_default": threads}))
     return 0
 
