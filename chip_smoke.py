@@ -1,8 +1,8 @@
 """Drive the PyTorch port's 3DMatch registration (f32 and the bf16 fast path)
 and training (f32 and bf16), its 4DMatch registration and bf16 training, its
 2D-3D registration and training
-(with and without the DINOv2 / DepthAnything towers), its CLI and the
-synthetic training story's trained weights on one CUDA card.
+(with and without the DINOv2 / DepthAnything towers), its CLI and the 3D and
+2D-3D synthetic training stories' trained weights on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -168,7 +168,17 @@ In order, it
      the 32 test pairs (launches counted, success at least 0.30, beside
      metrics.json's) and test pair 0 card against CPU in bf16 (confidences,
      the real rows free of a near-tie, the mask on those rows);
- 19. prints the kernels' JSON line, and as its last line
+ 19. the 2D-3D synthetic training story (tools/train_synthetic_2d3d_port.py):
+     both f32 kernels at its shapes (4 pairs, 1024 points a level at K 16,
+     88 image tokens, 4 heads of 32 in instance 64) against their plain
+     versions, forward and gradient, with SDPA's time; then the committed
+     trained weights (snapshot/train-synthetic-2d3d-torch/params.npz): the
+     reference protocol's eval of the 16 test pairs (launches counted; RR, IR
+     and FMR within one pair's worth of metrics.json's) and test pair 0 card
+     against CPU at 10 DDIM steps with the same start (its top-k cut gaps
+     printed) and PnP draws: the DDIM output's confidences, the real node
+     rows free of a near-tie, the mask on those rows, the fine matches;
+ 20. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
@@ -215,9 +225,10 @@ FINE_THR_2D3D = 0.0
 # entries). Each entry where the two masks differ must lie in a row or
 # column whose best two CPU confidences are within twice the confidence
 # limit. With random weights the DDIM's final confidences are flat even so
-# (no real node row free of a near-tie), so the DDIM mask check excuses every
-# differing entry: the DDIM output is held by its confidence limit only, and
-# its tie-free share is printed (ROADMAP §3: open until trained weights). The
+# (no real node row free of a near-tie), so this DDIM mask check excuses every
+# differing entry: here the DDIM output is held by its confidence limit only,
+# and its tie-free share is printed. Phase 19 holds the DDIM output's tie-free
+# share and mask cap on the 2D-3D story's trained weights. Here the
 # tie-free share and the cap hold the coarse matcher, not the DDIM output:
 # on the same pair and weights (backbone mode) at least TIE_FREE_ROWS_MIN of
 # the real node rows must be free of a near-tie, and at most
@@ -356,6 +367,25 @@ STORY_SUCCESS_MIN = 0.30
 # pair 0's largest; the tie-free share and the mask cap do the bf16 checking.
 STORY_CONF_BF16_REL_TOL = 1e-2
 STORY_CONF_F32_REL_TOL = 1e-3
+# the 2D-3D synthetic training story (tools/train_synthetic_2d3d_port.py): its
+# batch and committed weights. Its eval on the card must repeat metrics.json's
+# RR, IR and FMR of the 16 test pairs to within one pair's worth
+# (STORY2D3D_METRIC_TOL): a pair that flips moves each by at most 1/16.
+STORY2D3D_BATCH = 4
+STORY2D3D_PARAMS = os.path.join("snapshot", "train-synthetic-2d3d-torch", "params.npz")
+STORY2D3D_METRIC_TOL = 1.0 / 16
+# test pair 0 of its DDIM (10 steps, f32) on the trained weights at batch 1,
+# card against CPU, relative to the largest CPU confidence; the start is the
+# first CPU-generator seed (of STORY2D3D_START_TRIES) whose top-k cut gaps
+# stay at least CUT_GAP_MIN, the PnP draws come from STORY2D3D_PNP_SEED.
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W over 11 draws (the 4 pairs of
+# test batch 0 from one start, pair 0 from 7 more; tools/
+# spread_port_story2d3d_pair0.py): card vs CPU 3.4e-6 to 1.8e-5, the card's
+# batch 4 against batch 1 3.7e-6 to 8.5e-6; at twice this limit every real
+# node row of those draws is free of a near-tie (with random weights none is)
+STORY2D3D_CONF_REL_TOL = 5e-5
+STORY2D3D_START_TRIES = 20
+STORY2D3D_PNP_SEED = 7
 # With random weights the 4DMatch sigmoid confidences sit just above 0.5, so
 # the protocol's threshold 0.55 extracts no match; the 4DMatch phase and the
 # CLI's on-disk run extract at 0.5 (the mutual-argmax matches), so that IR
@@ -1911,10 +1941,11 @@ def attention_cases_2d3d(batch, n_tokens):
             ("image_to_node", n_tokens, nodes, 3), ("node_to_image", n, img, 3)]
 
 
-def check_attention_2d3d(batch, n_tokens, cfg, gen):
-    """Kernel vs plain attention at the fusion's shapes (head width 64), and a
-    node count that is not a multiple of 32 (pair 0's real nodes); SDPA as the
-    yardstick. Returns the JSON entry (totals per fusion pass) and the cases."""
+def check_attention_2d3d(batch, n_tokens, cfg, gen, tag=" (2D-3D)"):
+    """Kernel vs plain attention at the fusion's shapes (head width
+    ``cfg.hidden_dim / cfg.num_heads``), and a node count that is not a
+    multiple of 32 (pair 0's real nodes); SDPA as the yardstick. Returns the
+    JSON entry (totals per fusion pass) and the cases."""
     import torch
     import torch.nn.functional as F
 
@@ -1942,7 +1973,7 @@ def check_attention_2d3d(batch, n_tokens, cfg, gen):
             assert masked_attention_cuda.launches == before + 1
             err = float((got - ref).abs().max())
             if not math.isfinite(err) or err > ATTENTION_ABS_TOL:
-                raise AssertionError(f"attention {name} (2D-3D): max abs err {err}")
+                raise AssertionError(f"attention {name}{tag}: max abs err {err}")
             worst = max(worst, err)
             lib_mask = kv_mask[:, None, None, :]
             lib = F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask, scale=scale)
@@ -1954,11 +1985,11 @@ def check_attention_2d3d(batch, n_tokens, cfg, gen):
                 q, k, v, attn_mask=lib_mask, scale=scale), 20)
             nbytes, mma_flops, flops = attention_work(q, k, kv_mask)
             bms, by = bound_ms(nbytes, mma_flops, flops)
-            per_shape.append({"case": name + " (2D-3D)", "b": bb, "h": h, "l": length, "s": keys,
+            per_shape.append({"case": name + tag, "b": bb, "h": h, "l": length, "s": keys,
                               "d": d, "calls": calls, "ms": ms, "plain_ms": plain,
                               "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
                               "max_abs_err": err, "library_max_abs_err": lib_err})
-            log(f"attention {name} (2D-3D) [{bb},{h},{length}x{keys},{d}] x{calls}: err "
+            log(f"attention {name}{tag} [{bb},{h},{length}x{keys},{d}] x{calls}: err "
                 f"{err:.3e} (limit {ATTENTION_ABS_TOL:.1e}) kernel {ms:.4f} ms plain "
                 f"{plain:.4f} ms sdpa {lib_ms:.4f} ms (err {lib_err:.3e}) bound {bms:.4f} ms "
                 f"({by})")
@@ -1972,7 +2003,7 @@ def check_attention_2d3d(batch, n_tokens, cfg, gen):
     return entry, per_shape, cases
 
 
-def attention_gradients_2d3d(cases, cfg, gen):
+def attention_gradients_2d3d(cases, cfg, gen, tag=" (2D-3D)"):
     """MaskedAttentionFunction against plain autograd at each of the fusion's
     four shapes; returns (worst relative error, backward ms per call by case,
     backward ms per fusion pass)."""
@@ -1988,7 +2019,7 @@ def attention_gradients_2d3d(cases, cfg, gen):
     for name, length, kv_mask, calls in cases:
         bb, keys = kv_mask.shape
         qkv = [torch.randn(bb, h, n, d, generator=gen).cuda() for n in (length, keys, keys)]
-        err, ms = grad_case(f"attention {name} (2D-3D) [{bb},{h},{length}x{keys},{d}]",
+        err, ms = grad_case(f"attention {name}{tag} [{bb},{h},{length}x{keys},{d}]",
                             lambda *a: MaskedAttentionFunction.apply(*a, scale),
                             (*qkv, kv_mask.contiguous()), (0, 1, 2),
                             lambda *a: masked_attention_plain(*a, scale), gen, calls,
@@ -2083,11 +2114,9 @@ def pair0_2d3d(cfg, tcfg, batch_cpu, x_init, u, launches, key, tag):
     card's attention launches count under ``launches[key]``."""
     import torch
 
-    from diffreg_tpu_torch.models.pipeline_2d3d import (DiffReg2D3D, fine_matching,
-                                                        patch_pixel_table)
+    from diffreg_tpu_torch.models.pipeline_2d3d import DiffReg2D3D
     from diffreg_tpu_torch.ops.attention import masked_attention_cuda
     from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
-    from diffreg_tpu_torch.ops.vision import create_meshgrid
 
     cfg_short = dataclasses.replace(cfg, sample_steps=STEPS_2D3D_CPU)
     one = batch_cpu.select(slice(0, 1))
@@ -2116,26 +2145,12 @@ def pair0_2d3d(cfg, tcfg, batch_cpu, x_init, u, launches, key, tag):
     coarse = mask_agreement(res["cuda_backbone"], res["cpu_backbone"])
 
     # the CPU's fine matching of its own features on the card's coarse correspondences
-    h, w = one.image.shape[1:3]
-    table = torch.from_numpy(patch_pixel_table(h, w, cfg.coarse_stride))
-    pix = create_meshgrid(h, w, flatten=True).flip(-1).contiguous()
-    part = ref["partition"]
-    fm_ref = fine_matching(
-        ref["img_feats_f"][0], one.img_points[0], pix, ref["pcd_feats_f"][0], one.points[0][0],
-        got_corrs.src_idx[0].cpu(), got_corrs.tgt_idx[0].cpu(), got_corrs.valid[0].cpu(),
-        part.node_knn_indices[0], part.node_knn_masks[0], table, tcfg.max_fine_corr,
-        topk=tcfg.fine_topk, threshold=tcfg.fine_threshold)
-
-    def fine_set(fm):
-        v = fm["corr_valid"].cpu()
-        return set(zip(fm["img_corr_indices"].cpu()[v].tolist(),
-                       fm["pcd_corr_indices"].cpu()[v].tolist()))
-    fg, fr = fine_set(got_pairs[0]["fm"]), fine_set(fm_ref)
-    fine_agree = len(fg & fr) / max(len(fg | fr), 1)
+    n_got, n_ref, fine_agree = fine_agreement(got_corrs, got_pairs, ref, one, tcfg,
+                                              cfg.coarse_stride)
     log(f"{tag} card vs CPU, pair 0 ({STEPS_2D3D_CPU} steps, matchers sharpened x{SHARPEN_2D3D}, "
         f"CPU {res['cpu_s']:.1f} s, card {res['cuda_s']:.2f} s): DDIM {ddim['text']}; coarse "
         f"matcher (backbone mode) {coarse['text']}; fine correspondences on the card's coarse "
-        f"ones {len(fg)} vs {len(fr)}, shared {fine_agree:.4f} of the union (limit "
+        f"ones {n_got} vs {n_ref}, shared {fine_agree:.4f} of the union (limit "
         f"{FINE_2D3D_AGREEMENT}); the CPU's own run {int(ref_pairs[0]['n_corr'])}; IR "
         f"{float(got_pairs[0]['IR']):.4f} vs {float(ref_pairs[0]['IR']):.4f}")
     for name, agree in (("DDIM", ddim), ("coarse matcher", coarse)):
@@ -2146,10 +2161,11 @@ def pair0_2d3d(cfg, tcfg, batch_cpu, x_init, u, launches, key, tag):
             raise AssertionError(f"{tag} {name}: {agree['unexplained']} corr_mask entries differ "
                                  "outside near-ties")
     # the cap and the tie-free share hold the coarse matcher's mask, not the
-    # DDIM's: with random weights the DDIM's rows are all near-ties
+    # DDIM's: with random weights the DDIM's rows are all near-ties (phase 19
+    # holds the DDIM output on the 2D-3D story's trained weights)
     if not (coarse["differ"] <= coarse["cap"] and coarse["tie_free"] >= TIE_FREE_ROWS_MIN):
         raise AssertionError(f"{tag} coarse matcher: {coarse['text']}")
-    if not (len(fr) > 0 and fine_agree >= FINE_2D3D_AGREEMENT):
+    if not (n_ref > 0 and fine_agree >= FINE_2D3D_AGREEMENT):
         raise AssertionError(f"{tag}: fine correspondences share {fine_agree} of the union")
 
 
@@ -2842,12 +2858,11 @@ def run_2d3d_phases(repo, kernels, launches, gen):
 # ---------------------------------------------------------------- the synthetic training story
 
 
-def story_tool(repo):
-    """tools/train_synthetic_port.py as a module."""
+def story_tool(repo, name="train_synthetic_port"):
+    """tools/<name>.py (a synthetic training story's tool) as a module."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "train_synthetic_port", os.path.join(repo, "tools", "train_synthetic_port.py"))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(repo, "tools", name + ".py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -2940,7 +2955,9 @@ def run_story_trained(repo, tool, launches):
             t0 = time.perf_counter()
             ref = cpu_model.ddim_sample(one, x_init)
             cpu_s = time.perf_counter() - t0
-        pair0[name] = story_pair0_check(name, got, ref, one, rel_tol, cpu_s)
+        pair0[name] = story_pair0_check(
+            name, got, ref, one.src_mask[:, :, None] & one.tgt_mask[:, None, :], one.src_mask,
+            rel_tol, cpu_s)
         pair0[name + "_conf"] = got["conf_matrix_pred"].cpu()
     valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
     gap = float((pair0.pop("bf16_conf") - pair0.pop("f32_conf")).abs()[valid].max())
@@ -2953,29 +2970,29 @@ def run_story_trained(repo, tool, launches):
             "pair0_bf16_vs_f32_rel": gap / pair0["f32"]["top"]}
 
 
-def story_pair0_check(name, got, ref, one, rel_tol, cpu_s):
-    """Story test pair 0, card (``got``) against CPU (``ref``) at batch 1: the
-    confidences within ``rel_tol`` of the largest, at least TIE_FREE_ROWS_MIN
-    of the real source rows free of a near-tie (best two CPU confidences
-    within twice that limit), and on those rows at most MASK_DIFFER_SHARE of
-    the CPU's union-mask entries (plus 2) differing."""
+def story_pair0_check(name, got, ref, valid, rows, rel_tol, cpu_s):
+    """A story's test pair 0, card (``got``) against CPU (``ref``) at batch 1:
+    the confidences on the ``valid`` entries within ``rel_tol`` of the
+    largest, at least TIE_FREE_ROWS_MIN of the real rows (``rows`` [1, N])
+    free of a near-tie (best two CPU confidences within twice that limit), and
+    on those rows at most MASK_DIFFER_SHARE of the CPU's union-mask entries
+    (plus 2) differing."""
     import torch
 
-    valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
     conf = ref["conf_matrix_pred"]
     top = float(conf[valid].max())
     limit = rel_tol * top
     conf_err = float((got["conf_matrix_pred"].cpu() - conf).abs()[valid].max())
     top2 = torch.where(valid, conf, torch.full_like(conf, -1.0)).topk(2, dim=2).values
-    tie_free = ((top2[..., 0] - top2[..., 1]) > 2 * limit)[0] & one.src_mask[0]    # [S]
-    real = int(one.src_mask[0].sum())
+    tie_free = ((top2[..., 0] - top2[..., 1]) > 2 * limit)[0] & rows[0]          # [N]
+    real = int(rows[0].sum())
     share = float(tie_free.sum()) / max(real, 1)
     mask, ref_mask = got["corr_mask"].cpu()[0], ref["corr_mask"][0]
     differ = int(((mask != ref_mask) & valid[0])[tie_free].sum())
     cap = MASK_DIFFER_SHARE * int(ref_mask[tie_free].sum()) + 2
     log(f"story pair 0 card vs CPU ({name}, trained weights, batch 1, CPU {cpu_s:.1f} s): conf "
         f"{conf_err:.3e} = {conf_err / top:.3e} of the largest (limit {rel_tol}, max conf "
-        f"{top:.3e}); real source rows free of a near-tie {share:.4f} of {real} (limit "
+        f"{top:.3e}); real rows free of a near-tie {share:.4f} of {real} (limit "
         f"{TIE_FREE_ROWS_MIN}); on them {differ} union-mask entries differ of the CPU's "
         f"{int(ref_mask[tie_free].sum())} (cap {cap:.0f}); all rows: "
         f"{int(((mask != ref_mask) & valid[0]).sum())} differ")
@@ -2989,7 +3006,194 @@ def story_pair0_check(name, got, ref, one, rel_tol, cpu_s):
         raise AssertionError(f"story pair 0 ({name}): {differ} mask entries differ on the "
                              "tie-free rows")
     return {"top": top, "conf_rel_err": conf_err / top, "tie_free_share": share,
-            "mask_differ_tie_free": differ}
+            "mask_differ_tie_free": differ, "mask_cap": cap, "real_rows": real}
+
+
+# ------------------------------------------------------- the 2D-3D synthetic training story
+
+
+def ddim_cut_gaps_2d3d(model, batch, x_init):
+    """The 2D-3D DDIM of ``batch`` from ``x_init`` on the model's device, and
+    per DDIM step the gap at soft Procrustes' top-k cut in the node warp (the
+    Sinkhorn confidences of the noisy matrix; ``cut_gap``). Returns (out,
+    gaps)."""
+    import torch
+
+    warp = model._warp_nodes
+    gaps = []
+
+    def recording(x, nodes, centers, node_masks, center_masks, node_pad):
+        conf = model.denoising_coarse_matching.sinkhorn(
+            x, node_masks, center_masks, node_pad, torch.ones_like(center_masks))
+        gaps.append(cut_gap(conf, node_masks, center_masks))
+        return warp(x, nodes, centers, node_masks, center_masks, node_pad)
+
+    model._warp_nodes = recording
+    try:
+        with torch.no_grad():
+            out = model(batch, mode="ddim", x_init=x_init)
+    finally:
+        del model._warp_nodes
+    return out, gaps
+
+
+def story2d3d_start(model, one, n_tries=STORY2D3D_START_TRIES):
+    """Test pair 0's DDIM start [1, N, M]: the first of the CPU generator's
+    seeds 1, 2, ... whose DDIM on the card keeps every step's top-k cut gap
+    at least CUT_GAP_MIN. Returns (seed, x_init, the card's gaps)."""
+    import torch
+
+    n = one.points[-1].shape[1]
+    s = model.cfg.coarse_stride
+    m = (one.image.shape[1] // s) * (one.image.shape[2] // s)
+    for seed in range(1, n_tries + 1):
+        x = torch.randn((1, n, m), generator=torch.Generator().manual_seed(seed))
+        _, gaps = ddim_cut_gaps_2d3d(model, one.to("cuda"), x.cuda())
+        if min(gaps) >= CUT_GAP_MIN:
+            return seed, x, gaps
+    raise AssertionError(f"story 2D-3D pair 0: no start of seeds 1-{n_tries} keeps its top-k "
+                         f"cut gaps at least {CUT_GAP_MIN}")
+
+
+def fine_agreement(got_corrs, got_pairs, ref, one, tcfg, stride):
+    """The card's fine matches of pair 0 against the CPU's fine matching of
+    its own features on the card's coarse correspondences: (card count, CPU
+    count, shared share of the union)."""
+    import torch
+
+    from diffreg_tpu_torch.models.pipeline_2d3d import fine_matching, patch_pixel_table
+    from diffreg_tpu_torch.ops.vision import create_meshgrid
+
+    h, w = one.image.shape[1:3]
+    table = torch.from_numpy(patch_pixel_table(h, w, stride))
+    pix = create_meshgrid(h, w, flatten=True).flip(-1).contiguous()
+    part = ref["partition"]
+    fm_ref = fine_matching(
+        ref["img_feats_f"][0], one.img_points[0], pix, ref["pcd_feats_f"][0], one.points[0][0],
+        got_corrs.src_idx[0].cpu(), got_corrs.tgt_idx[0].cpu(), got_corrs.valid[0].cpu(),
+        part.node_knn_indices[0], part.node_knn_masks[0], table, tcfg.max_fine_corr,
+        topk=tcfg.fine_topk, threshold=tcfg.fine_threshold)
+
+    def fine_set(fm):
+        v = fm["corr_valid"].cpu()
+        return set(zip(fm["img_corr_indices"].cpu()[v].tolist(),
+                       fm["pcd_corr_indices"].cpu()[v].tolist()))
+    fg, fr = fine_set(got_pairs[0]["fm"]), fine_set(fm_ref)
+    return len(fg), len(fr), len(fg & fr) / max(len(fg | fr), 1)
+
+
+def run_story2d3d_kernels(model, batch_cpu, gen):
+    """Phase 19a: both f32 kernels at the 2D-3D story model's shapes
+    (tools/train_synthetic_2d3d_port.py: 4 pairs, 1024 points a level at K
+    16, 88 image tokens, 4 heads of 32) on pool batch 0 with the trained
+    weights: KPConv at every distinct point-backbone layer and attention in
+    the fusion's four shapes (instance 64), each against its plain version,
+    forward and gradient through its autograd Function, with SDPA's time.
+    Returns the two entries for the JSON line's ``story_2d3d`` keys."""
+    from diffreg_tpu_torch.nn.point_backbone import KPConvBias
+
+    batch = batch_cpu.to("cuda")
+    kp, kp_shapes = check_kpconv(
+        kpconv_layer_calls(model, lambda: model.pcd_backbone(batch), KPConvBias), 8,
+        "one story point-backbone pass (8 calls)", tag=" (2D-3D story)")
+    worst, ms = kpconv_gradients(kp_shapes, gen)
+    kp.update(backward_ms=ms, backward_max_rel_err=worst)
+    s = model.cfg.coarse_stride
+    n_tokens = (batch.image.shape[1] // s) * (batch.image.shape[2] // s)
+    at, at_shapes, cases = check_attention_2d3d(batch_cpu, n_tokens, model.cfg, gen,
+                                                tag=" (2D-3D story)")
+    worst, per_call, per_pass = attention_gradients_2d3d(cases, model.cfg, gen,
+                                                         tag=" (2D-3D story)")
+    at.update(shapes=at_shapes, backward_ms=per_pass, backward_ms_per_call=per_call,
+              backward_max_rel_err=worst)
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per",
+            "shapes", "backward_ms", "backward_max_rel_err")
+    return {k: kp[k] for k in keep}, {k: at[k] for k in keep}
+
+
+def run_story2d3d(repo, kernels, launches, gen):
+    """Phase 19: the 2D-3D synthetic training story's committed trained
+    weights (STORY2D3D_PARAMS) on the card. 19a: the kernels at its shapes
+    (run_story2d3d_kernels). 19b: the reference protocol's eval of the 16
+    test pairs (DDIM, fine matching, PnP), launches counted, RR, IR and FMR
+    within STORY2D3D_METRIC_TOL of metrics.json's. 19c: test pair 0 at batch
+    1, card against CPU through the tester with the same weights and draws
+    (a start whose top-k cut gaps stay at least CUT_GAP_MIN at every DDIM
+    step, the PnP draws passed in): the DDIM output's confidences within
+    STORY2D3D_CONF_REL_TOL of the largest, the tie-free share and the mask
+    cap on the real node rows (story_pair0_check), and the fine matches."""
+    import torch
+
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+
+    tool = story_tool(repo, "train_synthetic_2d3d_port")
+    path = os.path.join(repo, STORY2D3D_PARAMS)
+    with open(os.path.join(os.path.dirname(path), "metrics.json")) as f:
+        recorded = json.load(f)
+    model = tool.load_params(tool.build_model("cuda"), path)
+
+    # ---- 19a. the kernels at the story's shapes ----
+    kernels[0]["story_2d3d"], kernels[1]["story_2d3d"] = run_story2d3d_kernels(
+        model, tool.make_batch(STORY2D3D_BATCH, 0), gen)
+
+    # ---- 19b. the trained weights' eval of the test split ----
+    heldout = tool.split_batches(tool.TEST_SEED, tool.TEST_BATCHES, STORY2D3D_BATCH, "cuda")
+    split_eval = tool.make_split_eval(model)
+    split_eval(heldout[:1])                                                # warm-up
+    kpconv_cuda.launches = 0
+    masked_attention_cuda.launches = 0
+    (rr, ir, fmr), seconds = wall(lambda: split_eval(heldout))
+    n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+    steps = model.cfg.sample_steps
+    if n_kp != 8 * len(heldout) or n_at != 12 * (1 + steps) * len(heldout):
+        raise AssertionError(f"2D-3D story eval: {n_kp} KPConv, {n_at} attention launches")
+    launches["kpconv_story_2d3d"] += n_kp
+    launches["masked_attention_story_2d3d"] += n_at
+    pairs = len(heldout) * STORY2D3D_BATCH
+    scores = {"RR": rr, "IR": ir, "FMR": fmr}
+    want = {k: recorded[f"heldout_{k.lower()}_after"] for k in scores}
+    log(f"2D-3D story, trained weights ({STORY2D3D_PARAMS}, selected step "
+        f"{recorded['selected_step']}): {pairs} test pairs through DDIM ({steps} steps), fine "
+        f"matching and PnP in {seconds:.3f} s ({pairs / seconds:.3f} pairs/s): "
+        + ", ".join(f"{k} {scores[k]:.4f} (metrics.json {want[k]:.4f})" for k in scores)
+        + f", limit {STORY2D3D_METRIC_TOL:.4f}; launches kpconv {n_kp} attention {n_at}")
+    if not all(abs(scores[k] - want[k]) <= STORY2D3D_METRIC_TOL for k in scores):
+        raise AssertionError(f"2D-3D story eval {scores} against metrics.json's {want}")
+
+    # ---- 19c. test pair 0, card against CPU, the DDIM output ----
+    one = heldout[0].select(slice(0, 1)).to("cpu")
+    seed, x_init, card_gaps = story2d3d_start(model, one)
+    u = torch.rand((1, tool.TEST_CONFIG.pnp_hypotheses, 6),
+                   generator=torch.Generator().manual_seed(STORY2D3D_PNP_SEED))
+    cpu_model = tool.load_params(tool.build_model("cpu"), path)
+    res = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        t = fixed_draws_tester(m, tool.TEST_CONFIG, dev, x_init, u)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            res[dev] = t.forward(one.to(dev), None)
+        res[dev + "_s"] = time.perf_counter() - t0
+    _, cpu_gaps = ddim_cut_gaps_2d3d(cpu_model, one, x_init)
+    (got, got_corrs, got_pairs), (ref, _, ref_pairs) = res["cuda"], res["cpu"]
+    valid = ref["node_masks"][:, :, None] & ref["img_valid_c"][:, None, :]
+    log(f"2D-3D story pair 0: start seed {seed}; top-k cut gaps per DDIM step, card "
+        f"{min(card_gaps):.3e} to {max(card_gaps):.3e}, CPU {min(cpu_gaps):.3e} to "
+        f"{max(cpu_gaps):.3e} (limit {CUT_GAP_MIN:.0e}); card {res['cuda_s']:.2f} s")
+    check = story_pair0_check("2D-3D f32, DDIM output", got, ref, valid, ref["node_masks"],
+                              STORY2D3D_CONF_REL_TOL, res["cpu_s"])
+    n_got, n_ref, shared = fine_agreement(got_corrs, got_pairs, ref, one, tool.TEST_CONFIG,
+                                          model.cfg.coarse_stride)
+    log(f"2D-3D story pair 0 fine matches on the card's coarse ones: {n_got} vs {n_ref}, shared "
+        f"{shared:.4f} of the union (limit {FINE_2D3D_AGREEMENT}); IR "
+        f"{float(got_pairs[0]['IR']):.4f} vs {float(ref_pairs[0]['IR']):.4f}, matches "
+        f"{int(got_pairs[0]['n_corr'])} vs {int(ref_pairs[0]['n_corr'])}")
+    if n_ref and shared < FINE_2D3D_AGREEMENT:
+        raise AssertionError(f"2D-3D story pair 0: fine matches share {shared} of the union")
+    return {"test_pairs": pairs, "seconds": seconds, **{k.lower(): v for k, v in scores.items()},
+            "recorded": want, "pair0": {**check, "start_seed": seed,
+                                        "cut_gap_min": min(card_gaps + cpu_gaps),
+                                        "fine_shared": shared}}
 
 
 def main() -> int:
@@ -3096,7 +3300,8 @@ def main() -> int:
                 "masked_attention_d64": 0, "masked_attention_d64_dino": 0, "kpconv_train_2d3d": 0,
                 "masked_attention_train_2d3d": 0, "kpconv_bf16": 0,
                 "masked_attention_bf16": 0, "masked_attention_bf16_d144": 0,
-                "kpconv_bf16_story": 0, "masked_attention_bf16_story": 0}
+                "kpconv_bf16_story": 0, "masked_attention_bf16_story": 0,
+                "kpconv_story_2d3d": 0, "masked_attention_story_2d3d": 0}
     f32_ref = {}
     per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
     for gate, model in models.items():
@@ -3202,11 +3407,21 @@ def main() -> int:
     kernels[2]["story"], kernels[3]["story"] = run_story_kernels(tool, gen)
     kernels[3]["story"]["trained"] = run_story_trained(repo, tool, launches)
 
-    kernels[0]["launches"] = launches["kpconv"] + launches["kpconv_train_2d3d"]
+    # ---- 19. the 2D-3D synthetic training story: both f32 kernels at its
+    # shapes, then the committed trained weights: the test split and pair 0's
+    # DDIM output card vs CPU ----
+    trained = run_story2d3d(repo, kernels, launches, gen)
+    kernels[1]["story_2d3d"]["trained"] = trained
+
+    kernels[0]["launches"] = (launches["kpconv"] + launches["kpconv_train_2d3d"]
+                              + launches["kpconv_story_2d3d"])
     kernels[0]["launches_train_2d3d"] = launches["kpconv_train_2d3d"]
+    kernels[0]["launches_story_2d3d"] = launches["kpconv_story_2d3d"]
     d64 = launches["masked_attention_d64"] + launches["masked_attention_train_2d3d"]
     kernels[1]["launches"] = (launches["masked_attention"] + launches["masked_attention_d132"]
-                              + d64 + launches["masked_attention_d64_dino"])
+                              + d64 + launches["masked_attention_d64_dino"]
+                              + launches["masked_attention_story_2d3d"])
+    kernels[1]["launches_story_2d3d"] = launches["masked_attention_story_2d3d"]
     kernels[1]["launches_d132"] = launches["masked_attention_d132"]
     kernels[1]["launches_d64"] = d64
     kernels[1]["launches_d64_dino"] = launches["masked_attention_d64_dino"]

@@ -16,10 +16,15 @@ the optimizer) and by kernel group (attention, KPConv, GEMMs, convolutions,
 sort and top-k, eigh, elementwise and reductions, copies). The last line is
 one JSON object with those numbers.
 
-    python3 tools/profile_port_train2d3d.py
+``--story`` profiles the 2D-3D synthetic training story's step instead
+(tools/train_synthetic_2d3d_port.py: its model, 4 pairs a step of its pool
+batches 0-1, Adam at 5e-4, the circle, focal and fine losses).
+
+    python3 tools/profile_port_train2d3d.py [--story]
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -33,6 +38,10 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 
 
 def main() -> int:
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("--story", action="store_true",
+                      help="profile the 2D-3D synthetic training story's step")
+    args = args.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -55,15 +64,30 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    raw = load_yaml(os.path.join(REPO, "configs", "train", "rgbdv2.yaml"))
-    cfg = pipeline_2d3d_config(raw)
-    circle_cfg, fine_cfg = loss_2d3d_configs(raw)
-    with tempfile.TemporaryDirectory() as root:
-        write_2d3d_split(root, subset="train", seed=8)
-        batch, _, _, pixels = data_2d3d(root, "train", augment=True)
-    pairs = [batch.select(slice(i, i + 1)).to("cuda") for i in range(batch.batch_size)]
-    model = DiffReg2D3D(cfg, device="cuda", seed=0)
-    state = create_train_state_2d3d(model, OptimConfig(optimizer="adam", lr=1e-4))
+    if args.story:
+        import train_synthetic_2d3d_port as tool
+        from diffreg_tpu_torch.engine.losses2d3d import CircleLossConfig, FineLossConfig
+
+        circle_cfg, fine_cfg = CircleLossConfig(), FineLossConfig()
+        pairs = [tool.make_batch(4, seed).to("cuda") for seed in range(2)]
+        model = tool.build_model("cuda")
+        state = create_train_state_2d3d(model, tool.optim_config(1000))
+        label = "2d3d story"
+    else:
+        raw = load_yaml(os.path.join(REPO, "configs", "train", "rgbdv2.yaml"))
+        cfg = pipeline_2d3d_config(raw)
+        circle_cfg, fine_cfg = loss_2d3d_configs(raw)
+        with tempfile.TemporaryDirectory() as root:
+            write_2d3d_split(root, subset="train", seed=8)
+            batch, _, _, _ = data_2d3d(root, "train", augment=True)
+        pairs = [batch.select(slice(i, i + 1)).to("cuda") for i in range(batch.batch_size)]
+        model = DiffReg2D3D(cfg, device="cuda", seed=0)
+        state = create_train_state_2d3d(model, OptimConfig(optimizer="adam", lr=1e-4))
+        label = "2d3d"
+    shape = pairs[0]
+    n_pairs = shape.batch_size
+    tokens = (shape.image.shape[1] // model.cfg.coarse_stride) \
+        * (shape.image.shape[2] // model.cfg.coarse_stride)
     gen = torch.Generator("cuda").manual_seed(0)
     count = [0]
 
@@ -98,8 +122,8 @@ def main() -> int:
         summary = summarize(path, wall_s)
         summary["kernel_groups_ms"] = group_summary(path)
     summary.update(unprofiled_wall_s=plain_walls, peak_gib=peak)
-    print(f"2d3d train step (1 pair, {pixels // 64} image tokens, "
-          f"{batch.points[-1].shape[1]} node slots): wall {wall_s:.4f} s profiled (unprofiled "
+    print(f"{label} train step ({n_pairs} pairs, {tokens} image tokens, "
+          f"{shape.points[-1].shape[1]} node slots): wall {wall_s:.4f} s profiled (unprofiled "
           f"{', '.join(f'{w:.4f}' for w in plain_walls)} s), device busy "
           f"{summary['device_busy_s']:.4f} s, idle share {summary['idle_share']:.3f}, "
           f"{summary['kernel_launches']} kernel launches, peak memory {peak:.2f} GiB", flush=True)
@@ -111,9 +135,9 @@ def main() -> int:
     for group, ms in summary["kernel_groups_ms"].items():
         print(f"  {ms:9.3f} ms  {group}", flush=True)
     print(card)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "pairs": 1,
-                      "image_tokens": pixels // 64, "node_slots": batch.points[-1].shape[1],
-                      "train_2d3d": summary}))
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "pairs": n_pairs,
+                      "image_tokens": tokens, "node_slots": shape.points[-1].shape[1],
+                      "story" if args.story else "train_2d3d": summary}))
     return 0
 
 
