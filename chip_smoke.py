@@ -1,8 +1,8 @@
 """Drive the PyTorch port's 3DMatch registration (f32 and the bf16 fast path)
 and training (f32 and bf16), its 4DMatch registration and bf16 training, its
 2D-3D registration and training
-(with and without the DINOv2 / DepthAnything towers), its CLI and the 3D and
-2D-3D synthetic training stories' trained weights on one CUDA card.
+(with and without the DINOv2 / DepthAnything towers), its CLI and the 3D,
+2D-3D and 4DMatch synthetic training stories' trained weights on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -178,7 +178,20 @@ In order, it
      against CPU at 10 DDIM steps with the same start (its top-k cut gaps
      printed) and PnP draws: the DDIM output's confidences, the real node
      rows free of a near-tie, the mask on those rows, the fine matches;
- 20. prints the kernels' JSON line, and as its last line
+ 20. the 4DMatch synthetic training story (tools/train_synthetic_4d_port.py):
+     both bf16 kernels at its shapes (8 deformable pairs of 512 tokens a
+     side, 4 heads of 24, KPConv at K 16 over its 11 layers) against their
+     plain bf16 versions, forward and gradient; then the committed trained
+     weights (snapshot/train-synthetic-4d-torch/params.npz): the 4DMatch
+     tester protocol's eval of the 32 test pairs (the stochastic DDIM at gate
+     40 from the tool's fixed draws, the thr-mutual mask at the protocol's
+     0.55; launches counted, IR and NFMR within 1e-2 of metrics.json's) and
+     test pair 0 at batch 1 card against CPU in bf16 and in f32 at 0.55, from
+     the first draw whose step conditions clear the gate and whose top-k cut
+     gaps clear CUT_GAP_MIN: the sigmoid confidences, the pose, at least one
+     match, the real rows free of a near-tie and of the threshold, the
+     thr-mutual mask on those rows, IR and NFMR;
+ 21. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
@@ -389,8 +402,35 @@ STORY2D3D_PNP_SEED = 7
 # With random weights the 4DMatch sigmoid confidences sit just above 0.5, so
 # the protocol's threshold 0.55 extracts no match; the 4DMatch phase and the
 # CLI's on-disk run extract at 0.5 (the mutual-argmax matches), so that IR
-# and NFMR do their full work
+# and NFMR do their full work. Phase 20 holds the 4DMatch DDIM at 0.55, on the
+# 4D story's trained weights
 MATCH_THR_4D = 0.5
+# the 4DMatch synthetic training story (tools/train_synthetic_4d_port.py): its
+# batch and committed weights. Its eval on the card must repeat metrics.json's
+# IR and NFMR of the 32 test pairs within METRIC_4D_ABS_TOL
+STORY4D_BATCH = 8
+STORY4D_PARAMS = os.path.join("snapshot", "train-synthetic-4d-torch", "params.npz")
+# test pair 0 of its stochastic DDIM (10 steps, gate 40) on the trained weights
+# at batch 1, card against CPU, in bf16 and in f32 (TF32 off): the sigmoid
+# confidences relative to the largest, the pose absolute; the draw is the
+# first CPU-generator seed (of STORY4D_DRAW_TRIES) whose step conditions stay
+# at least STORY4D_GATE_CLEAR from the gate and whose top-k cut gaps stay at
+# least CUT_GAP_MIN on the card. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+# over 11 draws (tools/spread_port_story4d_pair0.py: the 8 pairs of test batch
+# 0 from the eval's draws, pair 0 from seeds 1-3): in f32 card vs CPU 8.7e-7
+# to 1.8e-6 (pose 4.8e-7), against the bf16 path's distance from f32 of 1.8e-3
+# to 3.5e-3 (card) and 1.7e-3 to 3.2e-2 (CPU); the f32 limits lie between, so
+# the f32 check tells the two precisions apart. In bf16 card vs CPU is 1.8e-3
+# to 2.7e-3 on 10 draws and 2.9e-2 on one (pair 6, whose card run at batch 1
+# lies as far from its own batch-8 run), pose up to 2.4e-2: it overlaps the
+# distance to f32, so no bf16 limit tells bf16 from f32. At the spread's top
+# (2.9e-2) only 0.36-0.39 of pair 0's real rows would stay clear of a near-tie
+# at twice the limit, so the bf16 confidences are held at about twice pair 0's
+# largest reading (2.15e-3 on all four of its draws) and the tie-free share and
+# the mask cap do the bf16 checking; the bf16 pose at twice the spread's top
+STORY4D_LIMITS = {"bf16": {"conf": 5e-3, "pose": 5e-2}, "f32": {"conf": 1e-5, "pose": 1e-5}}
+STORY4D_DRAW_TRIES = 20
+STORY4D_GATE_CLEAR = 1.0
 # 4DMatch pair 0, card against CPU: sigmoid confidences, valid entries. The
 # sigmoid's slope near 0.5 is 1/4 and no Sinkhorn follows it (measured 6.0e-8
 # on the H100)
@@ -2868,23 +2908,25 @@ def story_tool(repo, name="train_synthetic_port"):
     return module
 
 
-def run_story_kernels(tool, gen):
-    """Phase 18a: both bf16 instances at the story model's shapes
+def run_story_kernels(tool, gen, batch=None, tag="story"):
+    """Phase 18a (and 20a): both bf16 instances at a story model's shapes
     (tools/train_synthetic_port.py: 8 pairs of 512 tokens a side, 4 heads of
-    24, KPConv at K 16 over its 11 layers) on pool batch 0 with the model's
-    seeded weights: each against its plain bf16 version, forward and gradient
-    through its autograd Function. Returns the two entries for the JSON
-    line's ``story`` keys."""
+    24, KPConv at K 16 over its 11 layers) on pool batch 0 (``batch``, else the
+    3D story's) with the model's seeded weights: each against its plain bf16
+    version, forward and gradient through its autograd Function. Returns the
+    two entries for the JSON line's ``story`` keys."""
     from diffreg_tpu_torch.data.synthetic import synthetic_batch
     from diffreg_tpu_torch.nn.kpfcn import KPConv
 
-    batch = synthetic_batch(batch_size=STORY_BATCH, n_points=tool.N_POINTS, seed=0)[0].to("cuda")
+    if batch is None:
+        batch = synthetic_batch(batch_size=STORY_BATCH, n_points=tool.N_POINTS, seed=0)[0]
+    batch = batch.to("cuda")
     model = tool.build_model("cuda")
     kp, kp_shapes = check_kpconv(kpconv_layer_calls(model, lambda: model.encode(batch), KPConv),
-                                 11, "one story encode (11 calls)", " (bf16, story)", bf16=True)
+                                 11, f"one {tag} encode (11 calls)", f" (bf16, {tag})", bf16=True)
     worst, ms = kpconv_gradients(kp_shapes, gen, bf16=True)
     kp.update(backward_ms=ms, backward_max_rel_err=worst)
-    at = check_attention(batch, model.cfg, gen, " (bf16, story)", bf16=True)
+    at = check_attention(batch, model.cfg, gen, f" (bf16, {tag})", bf16=True)
     worst, ms = attention_gradients(batch, model.cfg, gen, bf16=True)
     at.update(backward_ms=ms, backward_max_rel_err=worst)
     keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per",
@@ -3196,6 +3238,203 @@ def run_story2d3d(repo, kernels, launches, gen):
                                         "fine_shared": shared}}
 
 
+# ------------------------------------------------------- the 4DMatch synthetic training story
+
+
+def ddim_cut_gaps_4d(model, batch, x_init, noise):
+    """The 4DMatch DDIM of ``batch`` from ``x_init`` and per-step ``noise`` on
+    the model's device, and per DDIM step the gap at soft Procrustes' top-k
+    cut in the gated warp (the Sinkhorn confidences of the noisy matrix;
+    ``cut_gap``). Returns (out, gaps)."""
+    import torch
+
+    warp = model._warp_from_noisy_matrix
+    gaps = []
+
+    def recording(x, s_pcd, t_pcd, src_mask, tgt_mask):
+        conf = model.denoising_coarse_matching.sinkhorn(x, src_mask, tgt_mask)
+        gaps.append(cut_gap(conf, src_mask, tgt_mask))
+        return warp(x, s_pcd, t_pcd, src_mask, tgt_mask)
+
+    model._warp_from_noisy_matrix = recording
+    try:
+        with torch.no_grad():
+            out = model.ddim_sample(batch, x_init, ddim_noise=noise)
+    finally:
+        del model._warp_from_noisy_matrix
+    return out, gaps
+
+
+def story4d_draw(model, one, n_tries=STORY4D_DRAW_TRIES):
+    """Test pair 0's DDIM draws: the first of the CPU generator's seeds 1, 2,
+    ... whose start [1, S, T] and per-step noise [steps, 1, S, T] keep, in the
+    card's DDIM, every step's Procrustes condition at least STORY4D_GATE_CLEAR
+    from the gate and every top-k cut gap at least CUT_GAP_MIN. Returns (seed,
+    x_init, noise, the card's gaps, the card's smallest distance to the
+    gate)."""
+    import torch
+
+    shape = (1, one.src_mask.shape[1], one.tgt_mask.shape[1])
+    gate = model.cfg.procrustes.max_condition_num
+    for seed in range(1, n_tries + 1):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn(shape, generator=g)
+        noise = torch.randn((model.cfg.sample_steps,) + shape, generator=g)
+        out, gaps = ddim_cut_gaps_4d(model, one.to("cuda"), x.cuda(), noise.cuda())
+        clear = float((out["step_condition"] - gate).abs().min())
+        if min(gaps) >= CUT_GAP_MIN and clear >= STORY4D_GATE_CLEAR:
+            return seed, x, noise, gaps, clear
+    raise AssertionError(f"story 4D pair 0: no draw of seeds 1-{n_tries} keeps its cut gaps at "
+                         f"least {CUT_GAP_MIN} and its conditions {STORY4D_GATE_CLEAR} from the "
+                         "gate")
+
+
+def story4d_pair0_check(name, tool, got, ref, one, metric, limits, cpu_s):
+    """Test pair 0 of the 4DMatch story, card (``got``) against CPU (``ref``)
+    at batch 1: the sigmoid confidences on valid entries within
+    ``limits["conf"]`` of the largest, the pose within ``limits["pose"]``; at
+    the protocol's threshold 0.55 at least one match, at least
+    TIE_FREE_ROWS_MIN of the real source rows free of a near-tie (best two
+    CPU confidences within twice the limit) and of a best confidence within
+    twice the limit of 0.55, on those rows at most MASK_DIFFER_SHARE of the
+    CPU's thr-mutual entries (plus 2) differing; IR and NFMR within
+    METRIC_4D_ABS_TOL."""
+    import torch
+
+    valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
+    got = {k: v.cpu() for k, v in got.items()}
+    conf = ref["conf_matrix_pred"]
+    top = float(conf[valid].max())
+    near = 2 * limits["conf"] * top
+    conf_err = float((got["conf_matrix_pred"] - conf).abs()[valid].max())
+    pose_err = max(float((got[k] - ref[k]).abs().max())
+                   for k in ("rotation_pred", "translation_pred"))
+    top2 = torch.where(valid, conf, torch.full_like(conf, -1.0)).topk(2, dim=2).values[0]
+    tie_free = ((top2[:, 0] - top2[:, 1]) > near) & ((top2[:, 0] - tool.MATCH_THR).abs() > near)
+    tie_free &= one.src_mask[0]
+    real = int(one.src_mask[0].sum())
+    share = float(tie_free.sum()) / max(real, 1)
+    mask, ref_mask = tool.match_mask(got, one)[0], tool.match_mask(ref, one)[0]
+    differ_all = mask != ref_mask
+    differ = int(differ_all[tie_free].sum())
+    cap = MASK_DIFFER_SHARE * int(ref_mask[tie_free].sum()) + 2
+    (ir, nf, n), (ref_ir, ref_nf, ref_n) = (
+        (float(v[0]) for v in tool.pair_metrics(o, one, metric)) for o in (got, ref))
+    log(f"story 4D pair 0 card vs CPU ({name}, trained weights, batch 1, CPU {cpu_s:.1f} s): "
+        f"sigmoid conf {conf_err:.3e} = {conf_err / top:.3e} of the largest (limit "
+        f"{limits['conf']}, max conf {top:.4f}), pose {pose_err:.3e} (limit {limits['pose']}); "
+        f"at threshold {tool.MATCH_THR}: matches {int(n)} vs {int(ref_n)}, real rows free of a "
+        f"near-tie and of the threshold {share:.4f} of {real} (limit {TIE_FREE_ROWS_MIN}), on "
+        f"them {differ} thr-mutual entries differ of the CPU's {int(ref_mask[tie_free].sum())} "
+        f"(cap {cap:.0f}), all rows {int(differ_all.sum())}; IR {ir:.5f} vs {ref_ir:.5f}, NFMR "
+        f"{nf:.5f} vs {ref_nf:.5f} (limit {METRIC_4D_ABS_TOL})")
+    if not conf_err <= limits["conf"] * top:
+        raise AssertionError(f"story 4D pair 0 ({name}): confidences differ from the CPU's by "
+                             f"{conf_err / top:.3e} of the largest")
+    if not pose_err <= limits["pose"]:
+        raise AssertionError(f"story 4D pair 0 ({name}): pose differs by {pose_err}")
+    if not (n >= 1 and ref_n >= 1):
+        raise AssertionError(f"story 4D pair 0 ({name}): no match at {tool.MATCH_THR}")
+    if not share >= TIE_FREE_ROWS_MIN:
+        raise AssertionError(f"story 4D pair 0 ({name}): only {share} of the real rows are free "
+                             "of a near-tie and of the threshold")
+    if not differ <= cap:
+        raise AssertionError(f"story 4D pair 0 ({name}): {differ} mask entries differ on the "
+                             "tie-free rows")
+    if not (abs(ir - ref_ir) <= METRIC_4D_ABS_TOL and abs(nf - ref_nf) <= METRIC_4D_ABS_TOL):
+        raise AssertionError(f"story 4D pair 0 ({name}): IR or NFMR differ from the CPU's")
+    return {"top": top, "conf_rel_err": conf_err / top, "pose_err": pose_err,
+            "tie_free_share": share, "real_rows": real, "mask_differ_tie_free": differ,
+            "mask_cap": cap, "matches": int(n), "cpu_matches": int(ref_n), "ir": ir,
+            "nfmr": nf, "cpu_ir": ref_ir, "cpu_nfmr": ref_nf}
+
+
+def run_story4d(repo, kernels, launches, gen):
+    """Phase 20: the 4DMatch synthetic training story's committed trained
+    weights (STORY4D_PARAMS) on the card. 20a: both bf16 instances at its
+    shapes (run_story_kernels on its pool batch 0). 20b: the tester protocol's
+    eval of the 32 test pairs (the stochastic DDIM from the tool's fixed
+    draws, the thr-mutual mask at 0.55, IR and NFMR), launches counted, IR
+    and NFMR within METRIC_4D_ABS_TOL of metrics.json's. 20c: test pair 0 at
+    batch 1, card against CPU, in bf16 and in f32 (the same weights, TF32 off)
+    from the first draw whose step conditions and cut gaps clear
+    (story4d_draw), at the protocol's threshold 0.55 (story4d_pair0_check).
+    Returns the entries for the JSON line's ``story_4d`` keys."""
+    import torch
+
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_cuda_bf16
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda, kpconv_cuda_bf16
+
+    tool = story_tool(repo, "train_synthetic_4d_port")
+    path = os.path.join(repo, STORY4D_PARAMS)
+    with open(os.path.join(os.path.dirname(path), "metrics.json")) as f:
+        recorded = json.load(f)
+
+    # ---- 20a. the bf16 kernels at the story's shapes ----
+    kp, at = run_story_kernels(tool, gen, tool.deformable_batch(STORY4D_BATCH, 0)[0],
+                               tag="4D story")
+
+    # ---- 20b. the trained weights' eval of the test split ----
+    model = tool.load_params(tool.build_model("cuda"), path)
+    heldout = tool.split_batches(tool.TEST_SEED, tool.TEST_BATCHES, STORY4D_BATCH, "cuda")
+    split_metrics = tool.make_split_metrics(model)
+    split_metrics(heldout[:1])                                            # warm-up
+    counted = (kpconv_cuda_bf16, masked_attention_cuda_bf16, kpconv_cuda, masked_attention_cuda)
+    for fn in counted:
+        fn.launches = 0
+    (ir, nf), seconds = wall(lambda: split_metrics(heldout))
+    n_kp, n_at, n_f32 = kpconv_cuda_bf16.launches, masked_attention_cuda_bf16.launches, \
+        kpconv_cuda.launches + masked_attention_cuda.launches
+    steps = model.cfg.sample_steps
+    per_step = attention_calls(tool.N_POINTS, tool.N_POINTS, model.cfg.denoising_layer_types)
+    if n_kp != 11 * len(heldout) or n_at != per_step * steps * len(heldout) or n_f32:
+        raise AssertionError(f"story 4D eval: {n_kp} bf16 KPConv, {n_at} bf16 attention, "
+                             f"{n_f32} f32 launches")
+    launches["kpconv_bf16_story4d"] += n_kp
+    launches["masked_attention_bf16_story4d"] += n_at
+    pairs = len(heldout) * STORY4D_BATCH
+    want = {"IR": recorded["heldout_ir_after"], "NFMR": recorded["heldout_nfmr_after"]}
+    log(f"story 4D, trained weights ({STORY4D_PARAMS}, selected step "
+        f"{recorded['selected_step']}): {pairs} test pairs through the stochastic DDIM "
+        f"({steps} steps, gate 40) at threshold {tool.MATCH_THR} in {seconds:.3f} s "
+        f"({pairs / seconds:.3f} pairs/s): IR {ir:.5f} (metrics.json {want['IR']:.5f}), NFMR "
+        f"{nf:.5f} (metrics.json {want['NFMR']:.5f}), limit {METRIC_4D_ABS_TOL}; launches bf16 "
+        f"kpconv {n_kp} attention {n_at}, f32 0")
+    if not (abs(ir - want["IR"]) <= METRIC_4D_ABS_TOL
+            and abs(nf - want["NFMR"]) <= METRIC_4D_ABS_TOL):
+        raise AssertionError(f"story 4D eval IR {ir} NFMR {nf} against metrics.json's {want}")
+
+    # ---- 20c. test pair 0, card against CPU, bf16 and f32, at threshold 0.55 ----
+    one, metric = tool.deformable_batch(1, tool.TEST_SEED)
+    seed, x_init, noise, card_gaps, clear = story4d_draw(model, one)
+    log(f"story 4D pair 0: draw seed {seed}; top-k cut gaps per DDIM step on the card "
+        f"{min(card_gaps):.3e} to {max(card_gaps):.3e} (limit {CUT_GAP_MIN:.0e}), step "
+        f"conditions at least {clear:.3f} from the gate (limit {STORY4D_GATE_CLEAR})")
+    pair0, confs = {"draw_seed": seed, "cut_gap_min": min(card_gaps), "gate_clear": clear}, {}
+    for name, dtype, precision in (("bf16", "bfloat16", None), ("f32", None, "highest")):
+        card = tool.load_params(tool.build_model("cuda", dtype, precision), path)
+        cpu = tool.load_params(tool.build_model("cpu", dtype, precision), path)
+        with torch.no_grad():
+            got = card.ddim_sample(one.to("cuda"), x_init.cuda(), ddim_noise=noise.cuda())
+            t0 = time.perf_counter()
+            ref = cpu.ddim_sample(one, x_init, ddim_noise=noise)
+            cpu_s = time.perf_counter() - t0
+        pair0[name] = story4d_pair0_check(name, tool, got, ref, one, metric,
+                                          STORY4D_LIMITS[name], cpu_s)
+        pair0[name]["cpu_gate_clear"] = float(
+            (ref["step_condition"] - model.cfg.procrustes.max_condition_num).abs().min())
+        confs[name] = got["conf_matrix_pred"].cpu()
+    valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
+    pair0["bf16_vs_f32_rel"] = float((confs["bf16"] - confs["f32"]).abs()[valid].max()) / \
+        pair0["f32"]["top"]
+    log(f"story 4D pair 0 on the card, bf16 vs f32: {pair0['bf16_vs_f32_rel']:.3e} of the "
+        f"largest confidence (limits: bf16 {STORY4D_LIMITS['bf16']['conf']}, f32 "
+        f"{STORY4D_LIMITS['f32']['conf']})")
+    at["trained"] = {"test_pairs": pairs, "ir": ir, "nfmr": nf, "seconds": seconds,
+                     "recorded": want, "pair0": pair0}
+    return kp, at
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3301,7 +3540,8 @@ def main() -> int:
                 "masked_attention_train_2d3d": 0, "kpconv_bf16": 0,
                 "masked_attention_bf16": 0, "masked_attention_bf16_d144": 0,
                 "kpconv_bf16_story": 0, "masked_attention_bf16_story": 0,
-                "kpconv_story_2d3d": 0, "masked_attention_story_2d3d": 0}
+                "kpconv_story_2d3d": 0, "masked_attention_story_2d3d": 0,
+                "kpconv_bf16_story4d": 0, "masked_attention_bf16_story4d": 0}
     f32_ref = {}
     per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
     for gate, model in models.items():
@@ -3413,6 +3653,11 @@ def main() -> int:
     trained = run_story2d3d(repo, kernels, launches, gen)
     kernels[1]["story_2d3d"]["trained"] = trained
 
+    # ---- 20. the 4DMatch synthetic training story: both bf16 kernels at its
+    # shapes, then the committed trained weights: the test split and pair 0
+    # card vs CPU at the protocol's threshold 0.55 ----
+    kernels[2]["story_4d"], kernels[3]["story_4d"] = run_story4d(repo, kernels, launches, gen)
+
     kernels[0]["launches"] = (launches["kpconv"] + launches["kpconv_train_2d3d"]
                               + launches["kpconv_story_2d3d"])
     kernels[0]["launches_train_2d3d"] = launches["kpconv_train_2d3d"]
@@ -3426,13 +3671,17 @@ def main() -> int:
     kernels[1]["launches_d64"] = d64
     kernels[1]["launches_d64_dino"] = launches["masked_attention_d64_dino"]
     kernels[1]["launches_train_2d3d"] = launches["masked_attention_train_2d3d"]
-    kernels[2]["launches"] = launches["kpconv_bf16"] + launches["kpconv_bf16_story"]
+    kernels[2]["launches"] = (launches["kpconv_bf16"] + launches["kpconv_bf16_story"]
+                              + launches["kpconv_bf16_story4d"])
     kernels[2]["launches_story"] = launches["kpconv_bf16_story"]
+    kernels[2]["launches_story_4d"] = launches["kpconv_bf16_story4d"]
     kernels[3]["launches"] = (launches["masked_attention_bf16"]
                               + launches["masked_attention_bf16_d144"]
-                              + launches["masked_attention_bf16_story"])
+                              + launches["masked_attention_bf16_story"]
+                              + launches["masked_attention_bf16_story4d"])
     kernels[3]["launches_d144"] = launches["masked_attention_bf16_d144"]
     kernels[3]["launches_story"] = launches["masked_attention_bf16_story"]
+    kernels[3]["launches_story_4d"] = launches["masked_attention_bf16_story4d"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

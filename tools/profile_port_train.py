@@ -19,8 +19,12 @@ bf16 kernel instances forward, their plain bf16 recomputes backward.
 batch 0 of 8 pairs at 512 tokens a side), and times ten steps with a thread
 building synthetic batches beside them, as the story's producer does,
 against ten without.
+``--story4d`` does the same for the 4DMatch story's step
+(tools/train_synthetic_4d_port.py: its bf16 model at gate 40, the 4DMatch
+loss with the motion term, pool batch 0 of 8 deformable pairs at 512 tokens a
+side), its thread building deformable batches.
 
-    python3 tools/profile_port_train.py [--bf16 | --story]
+    python3 tools/profile_port_train.py [--bf16 | --story | --story4d]
 """
 from __future__ import annotations
 
@@ -110,6 +114,8 @@ def main() -> int:
                       help="profile the bf16 step (compute_dtype bfloat16, precision default)")
     args.add_argument("--story", action="store_true",
                       help="profile the synthetic training story's step")
+    args.add_argument("--story4d", action="store_true",
+                      help="profile the 4DMatch synthetic training story's step")
     args = args.parse_args()
     import numpy as np
     import torch
@@ -131,15 +137,23 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    pairs = PAIRS
-    if args.story:
+    pairs, loss_cfg = PAIRS, LossConfig()
+    story = args.story or args.story4d
+    if story:
+        name = "train_synthetic_4d_port" if args.story4d else "train_synthetic_port"
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         spec = importlib.util.spec_from_file_location(
-            "train_synthetic_port", os.path.join(os.path.dirname(__file__),
-                                                 "train_synthetic_port.py"))
+            name, os.path.join(os.path.dirname(os.path.abspath(__file__)), name + ".py"))
         tool = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(tool)
         pairs = 8
-        batch = synthetic_batch(batch_size=pairs, n_points=tool.N_POINTS, seed=0)[0].to("cuda")
+        if args.story4d:
+            make = lambda seed: tool.deformable_batch(pairs, seed)[0]  # noqa: E731
+            loss_cfg = tool.LOSS
+        else:
+            make = lambda seed: synthetic_batch(  # noqa: E731
+                batch_size=pairs, n_points=tool.N_POINTS, seed=seed)[0]
+        batch = make(0).to("cuda")
         model = tool.build_model("cuda")
         state = create_train_state(model, tool.optim_config(12000))
     else:
@@ -159,7 +173,7 @@ def main() -> int:
     def step():
         with record_function(PHASES[0]):
             out = model.train_forward(batch, **model.draw_train_inputs(batch, gen))
-            loss = diffreg_loss(out, batch, LossConfig())[0]
+            loss = diffreg_loss(out, batch, loss_cfg)[0]
         with record_function(PHASES[1]):
             grads = torch.autograd.grad(loss, state.optimizer.params, allow_unused=True)
         with record_function(PHASES[2]):
@@ -185,14 +199,14 @@ def main() -> int:
         summary = summarize(path, wall_s)
     summary["unprofiled_wall_s"] = plain_walls
     summary["peak_gib"] = peak_gib
-    if args.story:
+    if story:
         # ten steps alone, then ten beside a thread building the story's batches
         stop = threading.Event()
 
         def produce():
             seed = 1_000_000
             while not stop.is_set():
-                synthetic_batch(batch_size=pairs, n_points=tool.N_POINTS, seed=seed)
+                make(seed)
                 seed += 1
         alone = sum(timed() for _ in range(10)) / 10
         producer = threading.Thread(target=produce, daemon=True)
@@ -203,8 +217,10 @@ def main() -> int:
         summary["step_s_alone"], summary["step_s_beside_producer"] = alone, beside
         print(f"story step: {alone:.4f} s alone, {beside:.4f} s beside a thread building "
               f"batches ({1 / alone:.3f} / {1 / beside:.3f} steps/s)", flush=True)
-    dtype = "story bf16" if args.story else "bf16" if args.bf16 else "f32"
-    print(f"train step {dtype} (gate 200, {pairs} pairs): wall {wall_s:.4f} s profiled "
+    dtype = ("story4d bf16" if args.story4d else "story bf16" if args.story
+             else "bf16" if args.bf16 else "f32")
+    gate = model.cfg.procrustes.max_condition_num
+    print(f"train step {dtype} (gate {gate:g}, {pairs} pairs): wall {wall_s:.4f} s profiled "
           f"(unprofiled {', '.join(f'{w:.4f}' for w in plain_walls)} s, peak memory "
           f"{peak_gib:.2f} GiB), device busy "
           f"{summary['device_busy_s']:.4f} s, idle share {summary['idle_share']:.3f}, "
