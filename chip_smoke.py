@@ -1,8 +1,9 @@
 """Drive the PyTorch port's 3DMatch registration (f32 and the bf16 fast path)
 and training (f32 and bf16), its 4DMatch registration and bf16 training, its
 2D-3D registration and training
-(with and without the DINOv2 / DepthAnything towers), its CLI and the 3D,
-2D-3D and 4DMatch synthetic training stories' trained weights on one CUDA card.
+(with and without the DINOv2 / DepthAnything towers), its CLI, the 3D,
+2D-3D and 4DMatch synthetic training stories' trained weights and its
+data-parallel train step on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -191,7 +192,16 @@ In order, it
      gaps clear CUT_GAP_MIN: the sigmoid confidences, the pose, at least one
      match, the real rows free of a near-tie and of the threshold, the
      thr-mutual mask on those rows, IR and NFMR;
- 21. prints the kernels' JSON line, and as its last line
+ 21. data parallel (``diffreg_tpu_torch.parallel``) on the card, at phase 7's
+     full width (gate 200, the reference SGD): in a one-process NCCL group
+     the data-parallel step on the 4 pairs must equal the plain step bit for
+     bit (the loss, every gradient, the parameters after the update; both
+     under deterministic algorithms, and the plain step twice, so that it
+     repeats itself); then two processes share the card over gloo, a pair
+     each, and their step must match the plain step on both pairs at phase
+     8's f32 limits, with the same parameters in both processes; launches
+     counted in every process;
+ 22. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
@@ -439,6 +449,14 @@ METRIC_4D_ABS_TOL = 1e-2   # IR and NFMR: a flipped match moves IR by 1/n_corr
 # the positioning layer's matcher feeds only the detached position code: its
 # gradient is exactly zero in the JAX package and None here
 NO_GRADIENT = "coarse_transformer.layers.2.0."
+# phase 21, data parallel on the card: (a) in a one-process NCCL group the
+# data-parallel step must repeat the plain step bit for bit, both under
+# deterministic algorithms (index_add_'s atomic adds in the backward otherwise
+# change the bits from one run to the next); (b) two processes sharing the
+# card over gloo (NCCL takes one process a device), a pair each, against the
+# plain step on both pairs, at phase 8's f32 train limits
+DP_PAIRS = 2
+DP_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -1200,6 +1218,194 @@ def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag="", lo
     if not gap[held] <= limits[held]:
         raise AssertionError(f"train step{tag}: {held} differ by {gap[held]} after the update")
     return {k: v for k, v in gap.items() if k != "errs"}
+
+
+def capture_step(step, state, batch, inputs):
+    """One call of the train step ``step``: the loss, the gradients the update
+    is handed (a parameter the loss does not reach as zeros; in a
+    data-parallel step, after the all-reduce) and the parameters before and
+    after, on the CPU."""
+    import torch
+
+    from diffreg_tpu_torch.engine import train
+
+    seen = []
+    original = train.apply_gradients
+
+    def recording(optimizer, grads):
+        seen.append([(torch.zeros_like(p) if g is None else g).detach().cpu().clone()
+                     for g, p in zip(grads, optimizer.params)])
+        return original(optimizer, grads)
+
+    before = [p.detach().cpu().clone() for p in state.optimizer.params]
+    train.apply_gradients = recording
+    try:
+        state, info = step(state, batch, inputs)
+    finally:
+        train.apply_gradients = original
+    return {"loss": float(info["loss"]), "grads": seen[0], "before": before,
+            "params": [p.detach().cpu().clone() for p in state.optimizer.params]}
+
+
+def data_parallel_one_process(cfg_train, batch, launches):
+    """Phase 21a: in a one-process NCCL group the data-parallel step on the
+    4 pairs, and twice the plain step, from the same weights and draws under
+    deterministic algorithms: bit for bit the same loss, gradients and
+    parameters after the SGD update; 11 KPConv and the transformers'
+    attention launches in the data-parallel step."""
+    import torch
+
+    from diffreg_tpu_torch.engine.losses import LossConfig
+    from diffreg_tpu_torch.engine.train import OptimConfig, create_train_state, make_train_step
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+    from diffreg_tpu_torch.parallel.distributed import (cleanup_distributed, free_port,
+                                                        setup_distributed)
+    from diffreg_tpu_torch.parallel.mesh import make_parallel_train_step
+
+    want_at = attention_calls(batch.src_mask.shape[1], batch.tgt_mask.shape[1],
+                              tuple(cfg_train.coarse_transformer.layer_types)
+                              + tuple(cfg_train.denoising_layer_types))
+    model = DiffusionMatchingModel(cfg_train, device="cuda", seed=0)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    inputs = model.draw_train_inputs(batch, torch.Generator("cuda").manual_seed(0))
+    setup_distributed(init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1,
+                      local_rank=0)
+    runs, seconds = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, step in (("plain", make_train_step(LossConfig())),
+                           ("plain again", make_train_step(LossConfig())),
+                           ("data-parallel", make_parallel_train_step(LossConfig()))):
+            model.load_state_dict(weights)
+            state = create_train_state(model, OptimConfig())
+            kpconv_cuda.launches = 0
+            masked_attention_cuda.launches = 0
+            runs[name], seconds[name] = wall(lambda: capture_step(step, state, batch, inputs))
+            n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+            if (n_kp, n_at) != (11, want_at):
+                raise AssertionError(f"data parallel, one process ({name}): {n_kp} KPConv and "
+                                     f"{n_at} attention launches (want 11 and {want_at})")
+            if name == "data-parallel":
+                launches["kpconv_dp"] += n_kp
+                launches["masked_attention_dp"] += n_at
+    finally:
+        torch.use_deterministic_algorithms(False)
+        cleanup_distributed()
+
+    def differing(a, b):
+        """Tensors (gradients, then parameters) of runs a and b that differ in a bit."""
+        return [f"{kind} {i}" for kind in ("grads", "params")
+                for i, (x, y) in enumerate(zip(a[kind], b[kind])) if not torch.equal(x, y)]
+
+    plain = runs["plain"]
+    repeat, parallel = differing(plain, runs["plain again"]), differing(plain,
+                                                                        runs["data-parallel"])
+    log(f"data parallel, one process (NCCL, {batch.batch_size} pairs, gate "
+        f"{cfg_train.procrustes.max_condition_num:g}, deterministic algorithms): loss plain "
+        f"{plain['loss']!r}, again {runs['plain again']['loss']!r}, data-parallel "
+        f"{runs['data-parallel']['loss']!r}; tensors differing from the plain step: plain "
+        f"again {len(repeat)}, data-parallel {len(parallel)} of {2 * len(plain['grads'])}; "
+        f"seconds " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; launches kpconv 11 attention {want_at}")
+    if repeat or plain["loss"] != runs["plain again"]["loss"]:
+        raise AssertionError(f"data parallel, one process: the plain step does not repeat "
+                             f"itself bit for bit ({repeat[:5]})")
+    if parallel or plain["loss"] != runs["data-parallel"]["loss"]:
+        raise AssertionError(f"data parallel, one process: the data-parallel step differs "
+                             f"from the plain step ({parallel[:5]})")
+    return {"seconds": seconds, "launches": {"kpconv": 11, "masked_attention": want_at}}
+
+
+def _data_parallel_rank(rank, world, case, ref_path):
+    """A process of phase 21b (spawned: this file is its main module): the
+    data-parallel step on its pair of the batch; its launches, and its
+    gradients and parameters against the plain step's (``step_gaps``)."""
+    import torch
+
+    from diffreg_tpu_torch.engine.losses import LossConfig
+    from diffreg_tpu_torch.engine.train import OptimConfig, create_train_state
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+    from diffreg_tpu_torch.parallel.mesh import make_parallel_train_step, shard_rows
+
+    model = DiffusionMatchingModel(case["cfg"], device="cuda", seed=0)
+    state = create_train_state(model, OptimConfig())
+    rows = shard_rows(case["batch"].batch_size, rank, world)
+    batch = case["batch"].select(rows).to("cuda")
+    inputs = {k: v[rows].cuda() for k, v in case["inputs"].items()}
+    kpconv_cuda.launches = 0
+    masked_attention_cuda.launches = 0
+    got, seconds = wall(lambda: capture_step(make_parallel_train_step(LossConfig()), state,
+                                             batch, inputs))
+    counts = (kpconv_cuda.launches, masked_attention_cuda.launches)
+    gap = step_gaps(got, torch.load(ref_path, weights_only=False),
+                    [n for n, _ in model.named_trained_parameters()])
+    return {"launches": counts, "loss": got["loss"], "seconds": seconds,
+            "gap": {k: v for k, v in gap.items() if k != "errs"}, "worst": gap["errs"][:3],
+            "fingerprint": [float(p.double().sum()) for p in got["params"]]}
+
+
+def data_parallel_two_processes(cfg_train, batch_cpu, launches):
+    """Phase 21b: two processes on the card (gloo), a pair each, against the
+    plain step on both pairs from the same weights and draws: the loss, every
+    gradient and the parameters after the update at phase 8's f32 limits; the
+    same parameters in both processes; each process's launches."""
+    import tempfile
+
+    import torch
+
+    from diffreg_tpu_torch.engine.losses import LossConfig
+    from diffreg_tpu_torch.engine.train import OptimConfig, create_train_state, make_train_step
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.parallel.distributed import run_ranks
+
+    pairs = batch_cpu.select(slice(0, DP_PAIRS))
+    want_at = attention_calls(pairs.src_mask.shape[1], pairs.tgt_mask.shape[1],
+                              tuple(cfg_train.coarse_transformer.layer_types)
+                              + tuple(cfg_train.denoising_layer_types))
+    model = DiffusionMatchingModel(cfg_train, device="cuda", seed=0)
+    inputs = model.draw_train_inputs(pairs, torch.Generator().manual_seed(0))
+    ref = capture_step(make_train_step(LossConfig()), create_train_state(model, OptimConfig()),
+                       pairs.to("cuda"), {k: v.cuda() for k, v in inputs.items()})
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "plain.pt")
+        torch.save(ref, ref_path)
+        t0 = time.perf_counter()
+        ranks = run_ranks(_data_parallel_rank, DP_PAIRS,
+                          ({"cfg": cfg_train, "batch": pairs, "inputs": inputs}, ref_path),
+                          cards=[0] * DP_PAIRS, backend="gloo", timeout_s=DP_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+    limits = {"loss": LOSS_REL_TOL, "worst": GRAD_WORST_TOL, "median": GRAD_MEDIAN_TOL,
+              "global": GRAD_GLOBAL_TOL, "params": PARAM_ABS_TOL}
+    for rank, res in enumerate(ranks):
+        gap = res["gap"]
+        log(f"data parallel, two processes on the card (gloo), process {rank}: loss "
+            f"{res['loss']:.6f} vs plain {ref['loss']:.6f} (rel err {gap['loss']:.3e}); "
+            f"gradients worst {gap['worst']:.3e} median {gap['median']:.3e} global "
+            f"{gap['global']:.3e}; params after SGD {gap['params']:.3e}; step "
+            f"{res['seconds']:.3f} s; launches kpconv {res['launches'][0]} attention "
+            f"{res['launches'][1]}; worst tensors "
+            + ", ".join(f"{n} {e:.2e}" for e, n in res["worst"]))
+        if res["launches"] != (11, want_at):
+            raise AssertionError(f"data parallel, process {rank}: launches {res['launches']} "
+                                 f"(want 11 and {want_at})")
+        for key, limit in limits.items():
+            if not gap[key] <= limit:
+                raise AssertionError(f"data parallel, process {rank}: {key} {gap[key]} against "
+                                     f"the plain step (limit {limit})")
+        launches["kpconv_dp"] += res["launches"][0]
+        launches["masked_attention_dp"] += res["launches"][1]
+    if ranks[0]["fingerprint"] != ranks[1]["fingerprint"]:
+        raise AssertionError("data parallel: the two processes' parameters differ after the step")
+    log(f"data parallel, two processes: {spawn_s:.1f} s with the spawn; the same parameters "
+        "in both after the update")
+    return {"spawn_s": spawn_s, "gaps": [r["gap"] for r in ranks],
+            "step_s": [r["seconds"] for r in ranks]}
 
 
 def deformable_data():
@@ -3541,7 +3747,8 @@ def main() -> int:
                 "masked_attention_bf16": 0, "masked_attention_bf16_d144": 0,
                 "kpconv_bf16_story": 0, "masked_attention_bf16_story": 0,
                 "kpconv_story_2d3d": 0, "masked_attention_story_2d3d": 0,
-                "kpconv_bf16_story4d": 0, "masked_attention_bf16_story4d": 0}
+                "kpconv_bf16_story4d": 0, "masked_attention_bf16_story4d": 0,
+                "kpconv_dp": 0, "masked_attention_dp": 0}
     f32_ref = {}
     per_step = attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
     for gate, model in models.items():
@@ -3658,14 +3865,23 @@ def main() -> int:
     # card vs CPU at the protocol's threshold 0.55 ----
     kernels[2]["story_4d"], kernels[3]["story_4d"] = run_story4d(repo, kernels, launches, gen)
 
+    # ---- 21. data parallel on the card: a one-process NCCL group bit for bit
+    # against the plain step, two processes sharing the card against it ----
+    kernels[0]["data_parallel"] = {
+        "one_process": data_parallel_one_process(cfg_train, batch, launches),
+        "two_processes": data_parallel_two_processes(cfg_train, batch_cpu, launches)}
+
     kernels[0]["launches"] = (launches["kpconv"] + launches["kpconv_train_2d3d"]
-                              + launches["kpconv_story_2d3d"])
+                              + launches["kpconv_story_2d3d"] + launches["kpconv_dp"])
+    kernels[0]["launches_data_parallel"] = launches["kpconv_dp"]
+    kernels[1]["launches_data_parallel"] = launches["masked_attention_dp"]
     kernels[0]["launches_train_2d3d"] = launches["kpconv_train_2d3d"]
     kernels[0]["launches_story_2d3d"] = launches["kpconv_story_2d3d"]
     d64 = launches["masked_attention_d64"] + launches["masked_attention_train_2d3d"]
     kernels[1]["launches"] = (launches["masked_attention"] + launches["masked_attention_d132"]
                               + d64 + launches["masked_attention_d64_dino"]
-                              + launches["masked_attention_story_2d3d"])
+                              + launches["masked_attention_story_2d3d"]
+                              + launches["masked_attention_dp"])
     kernels[1]["launches_story_2d3d"] = launches["masked_attention_story_2d3d"]
     kernels[1]["launches_d132"] = launches["masked_attention_d132"]
     kernels[1]["launches_d64"] = d64

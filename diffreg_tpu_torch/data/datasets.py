@@ -3,9 +3,8 @@
 Counterpart of the JAX package's data/datasets.py (the reference
 datasets/_3dmatch.py:15-135 and _4dmatch.py:58-146): readers that return raw
 pair dicts, and ``iterate_batches``, which builds each pair's pyramid in a
-thread pool and groups the pairs into ``PairBatch``es per shape bucket. One
-process: sharding the epoch over processes waits for data parallel
-(ROADMAP §1).
+thread pool and groups the pairs into ``PairBatch``es per shape bucket,
+from this process's shard of the epoch in a data-parallel run.
 """
 from __future__ import annotations
 
@@ -148,7 +147,8 @@ class FourDMatchPairDataset:
 
 def iterate_batches(dataset, spec, pyr_cfg, batch_size: int, *, shuffle=False, seed=0,
                     drop_last=False, num_workers: int = 1, prefetch: int = 2,
-                    stats: Optional[dict] = None) -> Iterator:
+                    stats: Optional[dict] = None, process_index: int = 0,
+                    process_count: int = 1) -> Iterator:
     """Yield (PairBatch of CPU tensors, raw pair dicts) per batch.
 
     ``spec`` is one ShapeSpec or a list of buckets (small to large): each pair
@@ -156,7 +156,10 @@ def iterate_batches(dataset, spec, pyr_cfg, batch_size: int, *, shuffle=False, s
     fills (then the rest at the end, unless ``drop_last``). ``num_workers`` > 1
     builds pyramids in a thread pool, ``prefetch`` batches ahead. ``stats``
     receives ``pairs_dropped`` (pairs too large for every bucket) and
-    ``pairs_used``."""
+    ``pairs_used``. ``process_index`` / ``process_count`` shard the
+    (identically shuffled) epoch order over the processes, DistributedSampler
+    style (``parallel.distributed.shard_order_for_process``): each process
+    builds its own shard (reference Diff-Reg-3dmatch/main.py:127)."""
     from .loader import parallel_map_iter, prefetch_iter
     from .pyramid import batch_from_samples, build_pair_pyramid
 
@@ -167,6 +170,10 @@ def iterate_batches(dataset, spec, pyr_cfg, batch_size: int, *, shuffle=False, s
     order = np.arange(len(dataset))
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
+    if process_count > 1:
+        from ..parallel.distributed import shard_order_for_process
+
+        order = shard_order_for_process(order, process_index, process_count)
 
     def build_one(i):
         raw = dataset[int(i)]

@@ -5,7 +5,8 @@ loss on ground-truth pixel <-> point pairs.
 Counterpart of the JAX package's engine/losses2d3d.py (the reference's
 OverallLoss and vision3d's circle loss). Every reduction counts valid
 (unpadded) entries only; padded index lists point past the end and are
-dropped.
+dropped. The batch-wide reductions (the pair means, the focal terms'
+normalisers) are those of ``reduce``, as in ``engine.losses``.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from ..ops.masked import scatter_pairs as scatter_overlaps  # the JAX package's name
 from ..ops.vision import l2_normalize, pairwise_distance, render
-from .losses import LossConfig, focal_correspondence_loss
+from .losses import LOCAL_BATCH, BatchReduction, LossConfig, focal_correspondence_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,10 +124,12 @@ def _rows(table, idx):
     return torch.index_select(table, 0, idx.long())
 
 
-def fine_loss_from_batch(outputs, batch, cfg: FineLossConfig):
+def fine_loss_from_batch(outputs, batch, cfg: FineLossConfig,
+                         reduce: BatchReduction = LOCAL_BATCH):
     """The fine circle loss of each pair on its ground-truth pairs (image
     features at the pixels, point features at the point indices, the points in
-    the camera frame and rendered to pixels) -> (mean loss, mean recall)."""
+    the camera frame and rendered to pixels) -> (mean loss, mean recall) over
+    the batch."""
     img_f, pcd_f = outputs["img_feats_f"], outputs["pcd_feats_f"]    # [B, H, W, C], [B, N0, C]
     b, h, w, c = img_f.shape
     cols = {k: [] for k in ("img_feats", "img_points", "pcd_feats", "pcd_points", "pcd_pixels")}
@@ -145,11 +148,11 @@ def fine_loss_from_batch(outputs, batch, cfg: FineLossConfig):
     losses, recalls = fine_matching_loss(
         s["img_feats"], s["img_points"], batch.fine_pixels.to(img_f.dtype), s["pcd_feats"],
         s["pcd_points"], s["pcd_pixels"], batch.fine_valid, cfg)
-    return losses.mean(), recalls.mean()
+    return reduce.mean(losses), reduce.mean(recalls)
 
 
 def loss_2d3d(outputs, circle_cfg: CircleLossConfig, focal_cfg: LossConfig, batch=None,
-              fine_cfg: FineLossConfig | None = None):
+              fine_cfg: FineLossConfig | None = None, reduce: BatchReduction = LOCAL_BATCH):
     """Total 2D-3D training loss -> (loss, info of 0-d tensors).
 
     ``circle + gt_hat + fine``, as the reference's OverallLoss at its default
@@ -169,15 +172,16 @@ def loss_2d3d(outputs, circle_cfg: CircleLossConfig, focal_cfg: LossConfig, batc
         min_ov = matrix_gt
     pos, neg, scales = overlap_masks(min_ov, circle_cfg)
     dists = normalized_feat_dists(outputs["pcd_feats_c"], outputs["img_feats_c"])
-    l_circle = circle_loss(dists, pos & valid, neg & valid, circle_cfg, scales,
-                           row_valid=node_masks, col_valid=img_valid).mean()
-    l_focal = focal_correspondence_loss(outputs["conf_matrix_pred"], matrix_gt, valid, focal_cfg)
+    l_circle = reduce.mean(circle_loss(dists, pos & valid, neg & valid, circle_cfg, scales,
+                                       row_valid=node_masks, col_valid=img_valid))
+    l_focal = focal_correspondence_loss(outputs["conf_matrix_pred"], matrix_gt, valid, focal_cfg,
+                                        reduce)
     l_gt_hat = focal_correspondence_loss(outputs["conf_matrix_gt_hat"], matrix_gt, valid,
-                                         focal_cfg)
+                                         focal_cfg, reduce)
     info = {"circle": l_circle, "focal": l_focal, "gt_hat": l_gt_hat}
     total = l_circle + l_gt_hat
     if fine_cfg is not None and batch is not None and batch.fine_valid is not None:
-        l_fine, recall = fine_loss_from_batch(outputs, batch, fine_cfg)
+        l_fine, recall = fine_loss_from_batch(outputs, batch, fine_cfg, reduce)
         total = total + l_fine
         info.update({"fine": l_fine, "fine_recall": recall})
     info["loss"] = total

@@ -17,7 +17,11 @@ on the device:
 
 Each draw is one method (``draw_start``, ``draw_noise``, ``draw_ransac``), in
 the order the JAX testers split their keys. The host pose estimators
-(``eval/host_estimators.py``) are not ported.
+(``eval/host_estimators.py``) are not ported. In a process group the DDIM
+goes through ``parallel.mesh.make_parallel_eval_step`` (the JAX testers'
+mesh): a batch the world divides is split over the processes, each drawing
+the whole batch's start and noise and running its rows, and every process
+gets the whole batch's output.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 from ..eval.metrics import inlier_ratio, masked_inlier_ratio, nfmr, registration_recall_success
 from ..eval.ransac import ransac_pose
 from ..ops.select import extract_correspondences, thresholded_mutual_argmax_mask
+from ..parallel.mesh import make_parallel_eval_step
 from ..utils.logging import Logger
 from .trainer import BatchTester
 
@@ -94,6 +99,7 @@ class _Tester(BatchTester):
         super().__init__(logger=logger, device=device)
         self.model = model
         self.cfg = cfg
+        self.ddim = make_parallel_eval_step(model)
 
     def draw_start(self, batch, generator: torch.Generator):
         """The DDIM start [B, S, T], N(0, 1)."""
@@ -113,7 +119,7 @@ class ThreeDMatchTester(_Tester):
     def forward(self, batch, generator: torch.Generator):
         """One ``ddim_sample`` per batch; the ``num_repeats`` averaging re-runs
         only the pose estimation. Returns each pair's IR and recall."""
-        out = self.model.ddim_sample(batch, self.draw_start(batch, generator))
+        out = self.ddim(batch, x_init=self.draw_start(batch, generator))
         oks = []
         for _ in range(self.cfg.num_repeats):       # IR does not depend on the draws
             ir, ok, _, _, _ = pair_metrics_3dmatch(out, batch, self.cfg,
@@ -177,8 +183,8 @@ class FourDMatchTester(_Tester):
     def forward(self, batch, generator: torch.Generator):
         """``ddim_sample`` from ``draw_start`` with ``draw_noise``, then each
         pair's IR and number of matches, and the thr-mutual match mask."""
-        out = self.model.ddim_sample(batch, self.draw_start(batch, generator),
-                                     ddim_noise=self.draw_noise(batch, generator))
+        out = self.ddim(batch, x_init=self.draw_start(batch, generator),
+                        ddim_noise=self.draw_noise(batch, generator))
         ir, n_corr = pair_metrics_4dmatch(out, batch, self.cfg)
         out.update(IR=ir.tolist(), matches=n_corr.tolist(),
                    match_mask=match_mask_4dmatch(out, batch, self.cfg))

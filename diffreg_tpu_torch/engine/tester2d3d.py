@@ -15,7 +15,8 @@ Each draw is one method (``draw_start``, ``draw_pnp``; ``eval_from_cache``
 takes ``draw_pnp``), in the order the JAX tester splits its keys. The host
 estimator (``pnp_backend: opencv``) is not ported: without cv2 the device
 PnP runs instead, with a warning; with cv2 the config is refused
-(``eval/host_estimators.py``).
+(``eval/host_estimators.py``). In a process group the model's forward goes
+through ``parallel.mesh.make_parallel_eval_step``, as in ``engine.tester``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..geometry.se3 import rotation_error_deg, translation_error
 from ..models.pipeline_2d3d import fine_matching, patch_pixel_table
 from ..ops.select import extract_correspondences
 from ..ops.vision import create_meshgrid
+from ..parallel.mesh import make_parallel_eval_step
 from ..utils.device import resolve_device
 from ..utils.logging import Logger, SummaryBoard
 
@@ -148,7 +150,7 @@ class TwoDThreeDTester:
             m = (batch.image.shape[1] // model.cfg.coarse_stride) \
                 * (batch.image.shape[2] // model.cfg.coarse_stride)
             x_init = self.draw_start(batch, n, m, generator)
-        out = model(batch, mode=self.mode, x_init=x_init)
+        out = make_parallel_eval_step(model, self.mode)(batch, x_init=x_init)
         corrs = extract_correspondences(out["corr_mask"], out["conf_matrix_pred"],
                                         cfg.max_fine_corr // 4)
         u = self.draw_pnp(batch, generator)

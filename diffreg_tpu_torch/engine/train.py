@@ -231,15 +231,18 @@ def _lap(timers, name: Optional[str], device, next_name: Optional[str] = None):
         timers.tic(next_name)
 
 
-def make_loss_train_step(loss_fn):
+def make_loss_train_step(loss_fn, reduce_gradients=None):
     """``train_step(state, batch, inputs, timers=None) -> (state, info)`` for
     ``loss_fn(outputs, batch) -> (loss, info)`` over ``model.train_forward``.
 
     ``inputs`` is ``model.draw_train_inputs``'s dict. info holds the loss
     terms, ``grads_finite`` and ``grad_norm`` (of the raw gradients) as 0-d
-    tensors; ``apply_gradients`` makes the update. With ``timers``
-    (``utils.logging.Timers``) the forward, backward and optimizer phases are
-    timed, each ended by a device synchronize."""
+    tensors; ``apply_gradients`` makes the update. ``reduce_gradients(grads,
+    params) -> grads`` runs between the backward and the update (the
+    data-parallel step's all-reduce, ``parallel.mesh``). With ``timers``
+    (``utils.logging.Timers``) the forward, backward, all_reduce (with
+    ``reduce_gradients``) and optimizer phases are timed, each ended by a
+    device synchronize."""
 
     def train_step(state: TrainState, batch, inputs, timers=None):
         params = state.optimizer.params
@@ -249,7 +252,12 @@ def make_loss_train_step(loss_fn):
         loss, info = loss_fn(outputs, batch)
         _lap(timers, "forward", device, "backward")
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        _lap(timers, "backward", device, "optimizer")
+        if reduce_gradients is not None:
+            _lap(timers, "backward", device, "all_reduce")
+            grads = reduce_gradients(grads, params)
+            _lap(timers, "all_reduce", device, "optimizer")
+        else:
+            _lap(timers, "backward", device, "optimizer")
         grads_finite, grad_norm = apply_gradients(state.optimizer, grads)
         _lap(timers, "optimizer", device)
         state.step += 1

@@ -9,6 +9,13 @@ becomes a ``torch.Generator`` on the trainer's device, from which each step's
 ``model.draw_train_inputs`` are drawn. Batches are moved to that device.
 ``BatchTester`` is the batched test loop (vision3d's) that ``engine.tester``'s
 testers are built on.
+
+In a process group (``parallel``) the Trainer runs the data-parallel step
+(``parallel.mesh``) in every process: process 0's parameters are broadcast at
+the start and after ``resume``, each process draws from a generator seeded
+from (seed, rank), every process takes the same number of steps an epoch
+(``parallel.distributed.lockstep``), and process 0 alone writes the
+checkpoints and the logger's files, the others waiting at a barrier.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
+from ..parallel.distributed import barrier, is_master, lockstep, process_index
+from ..parallel.mesh import broadcast_state
 from ..utils.device import resolve_device
 from ..utils.logging import Logger, SummaryBoard, Timers
 from .checkpoint import CheckpointManager
@@ -31,6 +40,12 @@ class TrainerConfig:
     keep_checkpoints: int = 5
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The train draws' seed of process ``rank``: ``seed`` itself on process 0
+    (one process draws as before), another stream on every other."""
+    return seed + (rank << 32)
+
+
 def _scalars(info: dict) -> dict:
     """The 0-d entries of a step's info as Python floats (one device readback)."""
     return {k: float(v) for k, v in info.items() if getattr(v, "ndim", 1) == 0}
@@ -40,7 +55,7 @@ class Trainer:
     """Runs ``train_step(state, batch, inputs, timers)`` over
     ``make_train_iter(epoch)``'s (batch, meta) pairs on ``device`` (default
     "cuda"; raises when CUDA is missing). ``seed`` seeds the generator of the
-    training draws."""
+    training draws (``rank_seed`` in a process group)."""
 
     def __init__(self, train_step: Callable, state: TrainState,
                  make_train_iter: Callable[[int], Iterable], cfg: TrainerConfig, *,
@@ -54,16 +69,20 @@ class Trainer:
         self.make_val_iter = make_val_iter
         self.val_step = val_step
         self.cfg = cfg
-        self.logger = logger or Logger(cfg.save_dir)
+        self.logger = logger or (Logger(cfg.save_dir) if is_master()
+                                 else Logger(None, echo=False))
         self.ckpt = CheckpointManager(f"{cfg.save_dir}/checkpoints", cfg.keep_checkpoints)
-        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.generator = torch.Generator(self.device).manual_seed(
+            rank_seed(seed, process_index()))
         self.timers = Timers()
         self.start_epoch = 0
         self.metrics = {}           # the last epoch's summary
+        broadcast_state(state)
 
     def resume(self):
         if self.ckpt.restore(self.state) is not None:
             self.start_epoch = int(self.ckpt.latest_step())
+            broadcast_state(self.state)
             self.logger.info(f"resumed from epoch {self.start_epoch}")
 
     def _step(self, batch):
@@ -78,7 +97,9 @@ class Trainer:
             val = self.validate(epoch)
             metrics.update({f"val_{k}": v for k, v in val.items()})
             self.logger.metrics(step_count, val, prefix="val/")
-        self.ckpt.save(epoch + 1, self.state, metrics)
+        if is_master():
+            self.ckpt.save(epoch + 1, self.state, metrics)
+        barrier()       # no process reads a checkpoint before it is written
         self.metrics = metrics
         return metrics
 
@@ -86,7 +107,7 @@ class Trainer:
         step_count = 0
         for epoch in range(self.start_epoch, self.cfg.max_epoch):
             board = SummaryBoard()
-            for batch, _meta in self.make_train_iter(epoch):
+            for batch, _meta in lockstep(self.make_train_iter(epoch)):
                 board.update(self._step(batch))
                 step_count += 1
                 if step_count % self.cfg.log_every == 0:

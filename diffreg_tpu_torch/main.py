@@ -10,6 +10,8 @@
     python -m diffreg_tpu_torch.main --config configs/test/7scenes.yaml
     python -m diffreg_tpu_torch.main --config configs/train/rgbdv2.yaml --mode train
     python -m diffreg_tpu_torch.main --config ... --device cpu     # the plain CPU path
+    torchrun --nproc_per_node 4 -m diffreg_tpu_torch.main --config configs/train/3dmatch.yaml
+
 
 Counterpart of the JAX package's main.py (the reference entry point,
 Diff-Reg-3dmatch/main.py): YAML with ``!join`` tags -> typed configs -> model,
@@ -22,9 +24,19 @@ loaders and engine. 3DMatch and 4DMatch, test (``ThreeDMatchTester``,
 estimators are not ported (ROADMAP §1): where the estimator's library is
 missing, the device estimator runs, as in the JAX package. ``--demo``, or a
 missing ``data_root``, runs on synthetic pairs, which carry no tower
-outputs. A metric run on real data refuses random weights. One process on
-one device: there is no mesh (data parallel is in ROADMAP §1). Runs write
+outputs. A metric run on real data refuses random weights. Runs write
 under ``snapshot/<exp_dir>`` in the working directory.
+
+Under torchrun (or any launcher that sets RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR and MASTER_PORT) the run is data parallel, one process a card
+(``parallel``): training takes ``batch_size`` pairs a process from its shard
+of the epoch, the learning rate times the world (unless ``scale_lr_by_world:
+false``), the data-parallel step (the gradient all-reduced over the
+processes) and the same number of steps in every process; a test splits each
+batch the world divides over the processes, and otherwise runs on process 0
+alone. Process 0 alone logs and writes the snapshot. Where the JAX package's
+main trains each process alone when the batch does not split over its devices,
+this one trains one model over the world, or raises.
 """
 from __future__ import annotations
 
@@ -90,11 +102,50 @@ def _restore_weights(model, pretrain, optim_cfg, logger) -> bool:
     return True
 
 
+def _device(args, dist):
+    """The device of this process: ``--device``; in a data-parallel run on
+    CUDA, the card ``setup_distributed`` took (``LOCAL_RANK``)."""
+    import torch
+
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if dist["process_count"] > 1 and device.type == "cuda":
+        device = torch.device("cuda", dist["local_rank"])
+    return device
+
+
+def _logger(save_dir, dist):
+    """Process 0's logger writes ``save_dir``; the others' keep quiet."""
+    from .utils.logging import Logger
+
+    if dist["process_index"] == 0:
+        logger = Logger(save_dir)
+        if dist["process_count"] > 1:
+            logger.info(f"data parallel: {dist['process_count']} processes, this is process 0")
+        return logger
+    return Logger(None, echo=False)
+
+
 def main(argv=None):
     """Run the CLI; returns the test summary, or the last epoch's metrics of a
-    training run (with ``steps``)."""
+    training run (with ``steps``); None in a process that sat a test out."""
     args = build_argparser().parse_args(argv)
 
+    import torch
+
+    from .parallel.distributed import cleanup_distributed, setup_distributed
+
+    dist = setup_distributed(device_type=torch.device(args.device).type)
+    try:
+        return _run(args, dist)
+    finally:
+        if dist["initialized"]:
+            cleanup_distributed()
+
+
+def _run(args, dist):
+    import numpy as np
     import torch
 
     from .data.synthetic import synthetic_batch
@@ -104,25 +155,28 @@ def main(argv=None):
     from .engine.trainer import Trainer, TrainerConfig
     from .eval.host_estimators import resolve_backend
     from .models.diffusion_matching import DiffusionMatchingModel
+    from .parallel.distributed import shard_order_for_process
+    from .parallel.mesh import make_parallel_train_step
     from .utils.config import (build_loss_config, build_optim_config, build_pipeline_config,
                                load_yaml)
-    from .utils.device import resolve_device
-    from .utils.logging import Logger
 
     raw = load_yaml(args.config)
     mode = args.mode or raw.get("mode", "test")
     batch_size = args.batch_size or int(raw.get("batch_size", 1))
     dataset_name = str(raw.get("dataset", "3dmatch"))
     if dataset_name in ("rgbdv2", "7scenes"):
-        return run_2d3d(args, raw, mode, batch_size, dataset_name)
+        return run_2d3d(args, raw, mode, batch_size, dataset_name, dist)
     ev = raw.get("eval", {})
-    device = resolve_device(args.device)
+    device = _device(args, dist)
+    rank, world = dist["process_index"], dist["process_count"]
+    # training shards each epoch over the processes; a test reads it whole
+    shards = world if mode == "train" else 1
     pipeline_cfg = build_pipeline_config({**raw, "mode": mode})
     loss_cfg = build_loss_config(raw)
     seed = int(raw.get("seed", 0))
 
     save_dir = os.path.join("snapshot", raw.get("exp_dir", "run"))
-    logger = Logger(save_dir)
+    logger = _logger(save_dir, dist)
     logger.info(f"device {device}"
                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     logger.info(f"task={dataset_name} mode={mode} steps={pipeline_cfg.sample_steps}")
@@ -138,14 +192,17 @@ def main(argv=None):
     if demo:
         logger.info("demo mode: synthetic pairs")
 
+        batch_ids = shard_order_for_process(np.arange(max(1, args.num_pairs // batch_size)),
+                                            rank if shards > 1 else 0, shards)
+
         def make_iter(epoch=0):
-            for i in range(max(1, args.num_pairs // batch_size)):
+            for i in batch_ids:
                 batch, _, _ = synthetic_batch(batch_size=batch_size, n_points=768,
-                                              seed=1000 * epoch + i,
+                                              seed=1000 * epoch + int(i),
                                               deformable=dataset_name == "4dmatch")
                 yield batch, [{}] * batch_size
 
-        n_pairs = args.num_pairs
+        steps_per_epoch = len(batch_ids)
     else:
         from .data.datasets import iterate_batches
 
@@ -155,25 +212,32 @@ def main(argv=None):
         logger.info(f"calibrated spec: {spec}")
         num_workers = int(raw.get("num_workers", 8))
 
-        def make_iter(epoch=0, dataset=ds, shuffle=mode == "train"):
+        def make_iter(epoch=0, dataset=ds, shuffle=mode == "train", shards=shards):
             return iterate_batches(dataset, spec, pyr_cfg, batch_size, shuffle=shuffle,
-                                   seed=epoch, num_workers=num_workers, stats=loader_stats)
+                                   seed=epoch, num_workers=num_workers, stats=loader_stats,
+                                   process_index=rank if shards > 1 else 0,
+                                   process_count=shards)
 
-        n_pairs = len(ds)
-    # ExpLR decays per epoch: the schedule needs the epoch's length
-    optim_cfg = build_optim_config(raw, steps_per_epoch=max(1, n_pairs // batch_size))
+        steps_per_epoch = -(-len(ds) // shards) // batch_size
+    # ExpLR decays per epoch: the schedule needs the epoch's length, in this
+    # process's steps
+    optim_cfg = build_optim_config(raw, steps_per_epoch=max(1, steps_per_epoch),
+                                   world_size=world)
 
     if mode == "train":
         from .utils.snapshot import backup_sources
 
-        backup_sources(save_dir, args.config)
+        if rank == 0:
+            backup_sources(save_dir, args.config)
         make_val_iter = val_step = None
         val_split = None if demo else raw.get("split", {}).get("val")
         if val_split and os.path.exists(val_split):
+            # every process validates the whole split, as the JAX main does
             val_ds = _dataset(dataset_name, val_split, data_root, raw, False)
-            make_val_iter = lambda epoch: make_iter(0, dataset=val_ds, shuffle=False)
+            make_val_iter = lambda epoch: make_iter(0, dataset=val_ds, shuffle=False, shards=1)
             val_step = make_eval_step(loss_cfg)
-        trainer = Trainer(make_train_step(loss_cfg), create_train_state(model, optim_cfg),
+        step = make_parallel_train_step(loss_cfg) if world > 1 else make_train_step(loss_cfg)
+        trainer = Trainer(step, create_train_state(model, optim_cfg),
                           make_iter, TrainerConfig(max_epoch=int(raw.get("max_epoch", 10)),
                                                    save_dir=save_dir),
                           make_val_iter=make_val_iter, val_step=val_step, logger=logger,
@@ -183,6 +247,12 @@ def main(argv=None):
         state = trainer.train()
         result = {**trainer.metrics, "steps": state.step}
     else:
+        if batch_size % world:
+            logger.info(f"test: batch_size {batch_size} does not split over {world} "
+                        "processes: process 0 runs it alone")
+            if rank != 0:
+                logger.close()
+                return None
         pretrain = raw.get("pretrain", "")
         if pretrain and os.path.exists(pretrain):
             _restore_weights(model, pretrain, optim_cfg, logger)
@@ -257,29 +327,31 @@ def loss_2d3d_configs(raw):
     return circle, fine
 
 
-def run_2d3d(args, raw, mode, batch_size, dataset_name):
+def run_2d3d(args, raw, mode, batch_size, dataset_name, dist):
     """2D-3D (RGB-D Scenes V2 / 7Scenes): the model, demo or on-disk pairs
     (calibrated from the data; with ``use_dino`` / ``use_mono_depth`` each
     pair's tower outputs from ``models.towers.load_tower_runner``), then test
     (the weights, ``TwoDThreeDTester`` and, on real data or with
     ``eval.write_cache``, ``eval_from_cache``) or train (Adam at the YAML's
-    ``lr``, the ``Trainer``)."""
+    ``lr``, the ``Trainer``). In a data-parallel run each process trains on
+    its shard of the pairs (the JAX main reads them all in every process)."""
     import numpy as np
     import torch
 
     from .engine.tester2d3d import Test2D3DConfig, TwoDThreeDTester, eval_from_cache
     from .eval.host_estimators import resolve_backend
     from .models.pipeline_2d3d import DiffReg2D3D
-    from .utils.device import resolve_device
-    from .utils.logging import Logger
+    from .parallel.distributed import shard_order_for_process
 
     cfg = pipeline_2d3d_config(raw)
     m, ev = raw.get("model_2d3d", {}), raw.get("eval", {})
-    device = resolve_device(args.device)
+    device = _device(args, dist)
+    rank, world = dist["process_index"], dist["process_count"]
     seed = int(raw.get("seed", 0))
     train = mode == "train"
+    shards = world if train else 1
     save_dir = os.path.join("snapshot", raw.get("exp_dir", "run-2d3d"))
-    logger = Logger(save_dir)
+    logger = _logger(save_dir, dist)
     logger.info(f"device {device}"
                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     logger.info(f"2D-3D task={dataset_name} mode={mode} steps={cfg.sample_steps}")
@@ -291,6 +363,12 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
     if not demo and (cfg.use_dino or cfg.use_mono_depth):
         towers = _tower_runner(cfg, raw.get("towers", {}), device)
     if not train:
+        if batch_size % world:
+            logger.info(f"test: batch_size {batch_size} does not split over {world} "
+                        "processes: process 0 runs it alone")
+            if rank != 0:
+                logger.close()
+                return None
         pretrain = raw.get("pretrain", "")
         if pretrain and os.path.exists(pretrain):
             from .engine.train import OptimConfig
@@ -305,11 +383,14 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
 
         logger.info("demo mode: synthetic image <-> cloud pairs")
 
+        batch_ids = shard_order_for_process(np.arange(max(1, args.num_pairs // batch_size)),
+                                            rank if shards > 1 else 0, shards)
+
         def make_iter():
-            for i in range(max(1, args.num_pairs // batch_size)):
+            for i in batch_ids:
                 # training reads the overlap and fine GT of the full loss
                 yield synthetic_2d3d_batch(batch_size=batch_size, img_hw=(64, 96),
-                                           n_points=512, seed=i, with_full_gt=train), \
+                                           n_points=512, seed=int(i), with_full_gt=train), \
                     [{}] * batch_size
     else:
         from .data.calibrate import calibrate_spec_2d3d
@@ -325,10 +406,12 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
             init_radius=float(m.get("init_radius", 0.0625)))
         logger.info(f"calibrated 2d3d spec from {n_calib} pairs: {spec}")
 
+        order = shard_order_for_process(np.arange(len(ds)), rank if shards > 1 else 0, shards)
+
         def make_iter():
             buf, metas = [], []
-            for i in range(len(ds)):
-                raw_s = ds[i]
+            for i in order:
+                raw_s = ds[int(i)]
                 # crop to a window the coarse stride divides
                 st = cfg.coarse_stride
                 h = raw_s["depth"].shape[0] // st * st
@@ -357,7 +440,7 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
             next(make_iter())
 
     if train:
-        return _train_2d3d(args, raw, model, make_iter, save_dir, logger, device, seed)
+        return _train_2d3d(args, raw, model, make_iter, save_dir, logger, device, seed, world)
 
     # the JAX tester runs fine matching at its defaults, whatever the YAML says
     fine = {"fine_topk": 2, "fine_threshold": 0.75}
@@ -377,6 +460,8 @@ def run_2d3d(args, raw, mode, batch_size, dataset_name):
     # runs when asked
     cache_dir = ev.get("cache_dir") or (
         None if demo and not ev.get("write_cache", False) else os.path.join(save_dir, "cache"))
+    if rank != 0:
+        cache_dir = None        # process 0 writes and scores the cache
     result = tester.test(make_iter, torch.Generator(device).manual_seed(seed),
                          cache_dir=cache_dir)
     if cache_dir is not None:
@@ -402,22 +487,31 @@ def _tower_runner(cfg, tw, device):
     return towers.load_tower_runner(dino_ckpt, da_ckpt, device=device)
 
 
-def _train_2d3d(args, raw, model, make_iter, save_dir, logger, device, seed):
+def _train_2d3d(args, raw, model, make_iter, save_dir, logger, device, seed, world=1):
     """2D-3D training as the JAX package's main runs it: the losses of
     ``loss_2d3d_configs`` (the plain focal loss's defaults), Adam at the YAML's
-    ``lr`` with the optimizer's other defaults (the JAX main reads neither
-    ``weight_decay`` nor the epoch length), the same batches every epoch, the
-    ``Trainer`` (``--resume``). Returns the last epoch's metrics and ``steps``."""
+    ``lr`` (times the world unless ``scale_lr_by_world: false``) with the
+    optimizer's other defaults (the JAX main reads neither ``weight_decay``
+    nor the epoch length), the same batches every epoch, the ``Trainer``
+    (``--resume``), the data-parallel step over a world. Returns the last
+    epoch's metrics and ``steps``."""
     from .engine.losses import LossConfig
     from .engine.train import OptimConfig
     from .engine.train2d3d import create_train_state_2d3d, make_train_step_2d3d
     from .engine.trainer import Trainer, TrainerConfig
+    from .parallel.distributed import is_master
+    from .parallel.mesh import make_parallel_train_step_2d3d
     from .utils.snapshot import backup_sources
 
-    backup_sources(save_dir, args.config)
+    if is_master():
+        backup_sources(save_dir, args.config)
     circle_cfg, fine_cfg = loss_2d3d_configs(raw)
-    optim_cfg = OptimConfig(optimizer="adam", lr=float(raw.get("lr", 1e-4)))
-    trainer = Trainer(make_train_step_2d3d(circle_cfg, LossConfig(), fine_cfg),
+    lr = float(raw.get("lr", 1e-4))
+    if world > 1 and bool(raw.get("scale_lr_by_world", True)):
+        lr *= world
+    optim_cfg = OptimConfig(optimizer="adam", lr=lr)
+    make_step = make_parallel_train_step_2d3d if world > 1 else make_train_step_2d3d
+    trainer = Trainer(make_step(circle_cfg, LossConfig(), fine_cfg),
                       create_train_state_2d3d(model, optim_cfg), lambda epoch: make_iter(),
                       TrainerConfig(max_epoch=int(raw.get("max_epoch", 10)), save_dir=save_dir),
                       logger=logger, device=device, seed=seed)

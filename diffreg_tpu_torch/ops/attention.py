@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from ..utils.cuda import check, current_stream, kernel_library
+from ..utils.cuda import kernel_library, launch
 from .masked import NEG_INF
 from .recompute import recompute_grads
 
@@ -70,10 +70,8 @@ def masked_attention_cuda(q, k, v, kv_mask, scale):
     b, h, l, s, d = _check_inputs("masked_attention_cuda", q, k, v, kv_mask, torch.float32)
     lib = _library()
     out = torch.empty_like(q)
-    err = lib.masked_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
-        b, h, l, s, d, float(scale), current_stream(q.device))
-    check(lib, err, "masked_attention_forward")
+    launch(lib, "masked_attention_forward", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           kv_mask.data_ptr(), out.data_ptr(), b, h, l, s, d, float(scale))
     masked_attention_cuda.launches += 1
     return out
 
@@ -88,10 +86,8 @@ def masked_attention_cuda_bf16(q, k, v, kv_mask, scale):
                                   torch.bfloat16)
     lib = _library()
     out = torch.empty_like(q)
-    err = lib.masked_attention_forward_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
-        b, h, l, s, d, float(scale), current_stream(q.device))
-    check(lib, err, "masked_attention_forward_bf16")
+    launch(lib, "masked_attention_forward_bf16", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           kv_mask.data_ptr(), out.data_ptr(), b, h, l, s, d, float(scale))
     masked_attention_cuda_bf16.launches += 1
     return out
 

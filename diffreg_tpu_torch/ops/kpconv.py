@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from ..utils.cuda import check, current_stream, kernel_library
+from ..utils.cuda import kernel_library, launch
 from .recompute import recompute_grads
 
 _SHADOW = 1.0e6
@@ -175,11 +175,9 @@ def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent)
                          f"{kernel_points.shape} {weights.shape}")
     lib = _library()
     out = torch.empty((b, nq, cout), device=x.device, dtype=torch.float32)
-    err = lib.kpconv_forward(
-        q_pts.data_ptr(), s_pts.data_ptr(), neighb_inds.data_ptr(), x.data_ptr(),
-        kernel_points.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        b, nq, ns, k, cin, cout, p, float(kp_extent), current_stream(x.device))
-    check(lib, err, "kpconv_forward")
+    launch(lib, "kpconv_forward", x.device, q_pts.data_ptr(), s_pts.data_ptr(),
+           neighb_inds.data_ptr(), x.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
+           out.data_ptr(), b, nq, ns, k, cin, cout, p, float(kp_extent))
     kpconv_cuda.launches += 1
     return out
 
@@ -208,11 +206,9 @@ def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_exten
                          f"{kernel_points.shape} {weights.shape}")
     lib = _library()
     out = torch.empty((b, nq, cout), device=table.device, dtype=torch.float32)
-    err = lib.kpconv_forward_bf16(
-        q_pts.data_ptr(), table.data_ptr(), neighb_inds.data_ptr(), kernel_points.data_ptr(),
-        weights.data_ptr(), out.data_ptr(), b, nq, ns, k, cin, cout, p, float(kp_extent),
-        current_stream(table.device))
-    check(lib, err, "kpconv_forward_bf16")
+    launch(lib, "kpconv_forward_bf16", table.device, q_pts.data_ptr(), table.data_ptr(),
+           neighb_inds.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
+           out.data_ptr(), b, nq, ns, k, cin, cout, p, float(kp_extent))
     kpconv_cuda_bf16.launches += 1
     return out
 

@@ -142,14 +142,20 @@ def build_loss_config(raw: Dict[str, Any]):
     )
 
 
-def build_optim_config(raw: Dict[str, Any], steps_per_epoch: int = 1000):
-    """The optimizer of the YAML (one process: no world-size learning-rate
-    scaling until data parallel is ported, ROADMAP §1)."""
+def build_optim_config(raw: Dict[str, Any], steps_per_epoch: int = 1000, world_size: int = 1):
+    """The optimizer of the YAML. ``steps_per_epoch`` counts one process's
+    steps; over ``world_size`` processes the learning rate is the YAML's times
+    the world, unless ``scale_lr_by_world: false`` (the reference multiplies
+    every param group's lr by the world size, vision3d/engine/
+    base_trainer.py:205-210)."""
     from ..engine.train import OptimConfig
 
+    lr = float(raw.get("lr", 0.015))
+    if world_size > 1 and bool(raw.get("scale_lr_by_world", True)):
+        lr *= world_size
     return OptimConfig(
         optimizer=str(raw.get("optimizer", "SGD")).lower(),
-        lr=float(raw.get("lr", 0.015)),
+        lr=lr,
         momentum=float(raw.get("momentum", 0.93)),
         weight_decay=float(raw.get("weight_decay", 1e-6)),
         scheduler_gamma=float(raw.get("scheduler_gamma", 0.95)),

@@ -92,7 +92,14 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: {lib.error_string(err).decode()} (CUDA error {err})")
 
 
-def current_stream(device) -> int:
+def launch(lib: ctypes.CDLL, entry: str, device, *args) -> None:
+    """Call the C entry point ``entry`` of ``lib`` with ``args`` and the current
+    stream of ``device``, with ``device`` the current CUDA device for the call:
+    an entry's ``cudaFuncSetAttribute``, its SM count and its launch act on the
+    current device, which is another card's when the tensors' is not current.
+    Raises if the entry returned a CUDA error."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, err, entry)

@@ -81,10 +81,13 @@ class Timers:
 
 
 class Logger:
-    """Text + JSONL + optional TensorBoard logger."""
+    """Text + JSONL + optional TensorBoard logger. ``echo`` False keeps the
+    text off standard output (a data-parallel run's other processes)."""
 
-    def __init__(self, log_dir: Optional[str] = None, use_tensorboard: bool = True):
+    def __init__(self, log_dir: Optional[str] = None, use_tensorboard: bool = True,
+                 echo: bool = True):
         self.log_dir = log_dir
+        self.echo = echo
         self._tb = None
         self._jsonl = None
         if log_dir:
@@ -101,7 +104,8 @@ class Logger:
     def info(self, msg: str):
         stamp = time.strftime("%Y-%m-%d %H:%M:%S")
         line = f"[{stamp}] {msg}"
-        print(line, flush=True)
+        if self.echo:
+            print(line, flush=True)
         if self.log_dir:
             with open(os.path.join(self.log_dir, "log.txt"), "a") as f:
                 f.write(line + "\n")
