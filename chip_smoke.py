@@ -2,8 +2,8 @@
 and training (f32 and bf16), its 4DMatch registration and bf16 training, its
 2D-3D registration and training
 (with and without the DINOv2 / DepthAnything towers), its CLI, the 3D,
-2D-3D and 4DMatch synthetic training stories' trained weights and its
-data-parallel train step on one CUDA card.
+2D-3D and 4DMatch synthetic training stories' trained weights, its
+data-parallel train step and two model variants on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -201,13 +201,38 @@ In order, it
      each, and their step must match the plain step on both pairs at phase
      8's f32 limits, with the same parameters in both processes; launches
      counted in every process;
- 22. prints the kernels' JSON line, and as its last line
+ 22. the model variants (``VARIANTS``): (a) each KPConv mode instance the
+     variants add (constant and gaussian influence with sum aggregation;
+     linear, constant and gaussian with "closest"), f32 and bf16, against
+     its plain version at a 3DMatch encode's 11 layers (timed, with its
+     bound; under "closest" a row beyond the limit is excused only at a
+     near-tie between two kernel points) and at the tilings' edges, with
+     the gradients through its autograd Function; (b) variant A (the
+     coarsest level's three blocks deformable and modulated, gaussian
+     influence, the "verticals" dispositions, batch norm off, sinusoidal PE,
+     dual-softmax matching) and (c) variant B (constant influence, "closest"
+     aggregation, entangled) of preset_3dmatch at full width on the 4 pairs:
+     the DDIM path at gate 0 and 40 with every KPConv launch in the
+     variant's mode, pair 0 card against CPU (the DDIM at gate 0 by its
+     confidences, ``VARIANT_CONF_REL_TOL`` from tools/spread_port_variants.py;
+     the DDIM at gate 40 by its confidences and pose, the card keeping the
+     CPU's top-k choices in soft Procrustes, each of its own that differs
+     lying at the cut; backbone_forward by its confidences, mask and pose),
+     the discrete choices that flip card against CPU (closest's kernel
+     point as the kernel picks it, the deformable in-range cut; each must be
+     a near-tie), the fitting regularizer card against CPU, one train step
+     at gate 200 card against CPU at phase 8's limits (variant A's with the
+     CPU's top-k choices kept), and one bf16 DDIM; (d)
+     ``diffreg_tpu_torch.main`` on configs/test/3dmatch.yaml with variant A's
+     keys, --demo;
+ 23. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -457,6 +482,87 @@ NO_GRADIENT = "coarse_transformer.layers.2.0."
 # plain step on both pairs, at phase 8's f32 train limits
 DP_PAIRS = 2
 DP_TIMEOUT_S = 300
+# phase 22, the model variants: the KPConv mode instances the variants add (each
+# against its plain version at the limits above), and two variants of
+# preset_3dmatch at full width. A: the coarsest level's three encoder blocks
+# deformable (as KPConv's deformable configurations place them), modulated,
+# gaussian influence, the "verticals" dispositions, batch norm off,
+# sinusoidal PE, dual-softmax matching; B: constant influence, "closest"
+# aggregation, entangled transformers and matchers
+VARIANT_MODES = (("constant", "sum"), ("gaussian", "sum"), ("linear", "closest"),
+                 ("constant", "closest"), ("gaussian", "closest"))
+VARIANTS = {
+    "A": {"kpfcn": {"modulated": True, "kp_influence": "gaussian",
+                    "fixed_kernel_points": "verticals", "use_batch_norm": False},
+          "transformer": {"pe_type": "sinusoidal"}, "matching": {"match_type": "dual_softmax"},
+          "modes": ("gaussian", "sum"), "deformable": (8, 9, 10)},
+    "B": {"kpfcn": {"kp_influence": "constant", "aggregation_mode": "closest"},
+          "transformer": {"entangled": True}, "matching": {"entangled": True},
+          "modes": ("constant", "closest"), "deformable": ()},
+}
+# "closest" keeps each neighbour's nearest kernel point: where the two nearest
+# lie within CLOSEST_TIE_REL of each other (squared distances), sums in
+# another order may pick the other one. Kernel against plain, a query row
+# beyond the limit is excused only where one of its neighbours has such a
+# near-tie, at most TIE_EXCUSED_SHARE of the rows; card against CPU, every
+# flipped choice must be such a near-tie
+CLOSEST_TIE_REL = 1e-5
+TIE_EXCUSED_SHARE = 1e-3
+# the deformable conv's in-range cut (a neighbour counts when its nearest
+# deformed kernel point lies within the extent): card against CPU, a flipped
+# neighbour must lie within RANGE_CUT_REL of extent^2 of the cut, at most
+# RANGE_FLIP_SHARE of the real neighbours
+RANGE_CUT_REL = 1e-4
+RANGE_FLIP_SHARE = 1e-3
+# pair 0 at gate 40 (the warp inside the DDIM loop on): with random weights
+# the gated warps cut soft Procrustes' top-k on near-ties at every start
+# (tools/spread_port_variants.py --witness), and where the card keeps its own
+# choice the DDIM goes elsewhere (up to 8.6e-2 of the largest confidence).
+# So the card keeps the CPU's choices (``topk_choices``), from the first of
+# VARIANT_START_TRIES starts whose conditions lie at least VARIANT_GATE_CLEAR
+# from the gate on the card, and is held as the DDIM at gate 0 is, with its
+# pose at POSE_ABS_TOL
+VARIANT_START_TRIES = 20
+VARIANT_GATE_CLEAR = 1.0
+# pair 0 of the variants, card against CPU. With random weights the DDIM's
+# final confidences are near-uniform (every entry about 1/(N+M); variant A's
+# after its dual softmax too):
+# whole rows tie for the top-1 union mask and soft Procrustes' top-k cut falls
+# on exactly equal confidences, so the DDIM (gate 0: the identity warp, no
+# pose inside the loop) is held by its confidences relative to the largest
+# (VARIANT_CONF_REL_TOL, from tools/spread_port_variants.py) and its mask and
+# pose are printed. backbone_forward's confidences come straight from the
+# coarse matcher, whose rows have distinct best entries: they are held
+# relative to their largest (VARIANT_BACKBONE_REL_TOL, phase 6's limit), the
+# mask where no row or column of the CPU confidences has its best two within
+# twice that limit (the rest at most 1% + 2 of the mask, with at least
+# TIE_FREE_ROWS_MIN of the real rows free of a near-tie), and the pose at
+# POSE_ABS_TOL with the same entries kept by soft Procrustes' top-k on both
+# devices (variant A's coarse confidences peak at 5e-5, so phase 8's absolute
+# CUT_GAP_MIN does not scale to them; the cut's gap is printed); the
+# regularizer of pair 0's encode relative. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (tools/spread_port_variants.py): the DDIM at gate 0 2.0e-6 (A, every start)
+# and 1.8e-6 to 2.5e-6 (B, 8 starts) of the largest confidence;
+# backbone_forward 2.3e-5 (A) and 7.5e-6 (B), cut gaps 8.8e-9 and 3.5e-7,
+# poses 9.7e-7 and 4.9e-6; the regularizer equal
+VARIANT_CONF_REL_TOL = {"A": 1e-5, "B": 1e-5}
+# one train step of pair 0 at gate 200, card against CPU, at phase 8's limits.
+# Variant A's positioning layer (its dual softmax at temperature 0.1 leaves
+# the confidences flat, about 1.7e-5 each) cuts soft Procrustes' top-k where
+# two CPU entries are exactly equal, whatever the draw (the layer precedes the
+# noise): the card keeps another of them, its pose moves (condition 6.971
+# against 6.999) and with it the loss (5.5e-5 over 4 draws). Keeping the CPU's
+# choice on the card removes that (tools/spread_port_variants.py --witness, on
+# an NVIDIA H100 80GB HBM3 at 700 W), so variant A's step runs so (``align_topk``)
+VARIANT_ALIGN_TOPK = {"A": True, "B": False}
+# the card's own top-k entries that differ from the CPU's must lie within
+# TOPK_CUT_REL of the CPU's cut value, at most TOPK_DIFFER_SHARE of the entries
+# kept over the calls (measured, the same script: variant A's train step 2 of
+# 1533; pair 0 at gate 40, 21 calls of 511, A 424 (0.040), B 28)
+TOPK_CUT_REL = 1e-4
+TOPK_DIFFER_SHARE = 0.1
+VARIANT_BACKBONE_REL_TOL = {"A": 1e-4, "B": 1e-4}
+VARIANT_REG_REL_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -502,16 +608,22 @@ def bound_ms(nbytes: float, mma_flops: float, f32_flops: float,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kpconv_work(q, s, inds, x, w, bf16=False, aggregation_on_tensor_cores=None):
+def kpconv_work(q, s, inds, x, w, bf16=False, aggregation_on_tensor_cores=None,
+                modes=("linear", "sum")):
     """(bytes, matrix-product flops, other flops) of one KPConv call on these
     inputs; ``bf16``: the bf16 instance's, whose support table (hi, lo,
     features) and weights are bf16, and whose aggregation (influence x
     features, 2 P Cin flops a real neighbour) is a matrix product on the
     tensor cores (``aggregation_on_tensor_cores`` False counts it as other
-    flops, the f32 rate, as the first bf16 version's bound did)."""
+    flops, the f32 rate, as the first bf16 version's bound did). ``modes``
+    (influence, aggregation) set what a neighbour needs: "constant" with "sum"
+    reads no distance, "closest" needs every kernel point's distance, their
+    argmin and one influence, and weighs on one kernel point (2 Cin flops of
+    aggregation a real neighbour)."""
     b, nq, k = inds.shape
     ns, cin = x.shape[1], x.shape[2]
     p, _, cout = w.shape
+    influence, closest = modes[0], modes[1] == "closest"
     real = inds < ns                                   # non-sentinel neighbors
     n_nb = int(real.sum())
     n_q = int(real.any(dim=-1).sum())
@@ -520,14 +632,20 @@ def kpconv_work(q, s, inds, x, w, bf16=False, aggregation_on_tensor_cores=None):
         nbytes += 2 * (b * (ns + 1) * (6 + cin) + w.numel())
     else:
         nbytes += 4 * (s.numel() + x.numel() + w.numel())
-    # per neighbor: offset and norm (8), per kernel point distance + influence
-    # (13), feature-sum test (Cin), influence x features (2 P Cin);
-    # per query: the division, and the [P Cin] x Cout contraction (the product)
-    flops = n_nb * (8 + 13 * p + cin + 2 * p * cin) + n_q * cout
+    # per neighbor: offset and norm (8) and per kernel point a distance (8),
+    # where a distance is read; per kernel point whose influence is read, the
+    # influence (5); "closest"'s argmin (P); feature-sum test (Cin); influence
+    # x features (2 P Cin, or 2 Cin under "closest"); per query: the division,
+    # and the [P Cin] x Cout contraction (the product)
+    distance = 8 + 8 * p if (influence != "constant" or closest) else 0
+    influences = 0 if influence == "constant" else 5 * (1 if closest else p)
+    agg_points = 1 if closest else p
+    flops = n_nb * (distance + influences + (p if closest else 0) + cin
+                    + 2 * agg_points * cin) + n_q * cout
     if aggregation_on_tensor_cores is None:
         aggregation_on_tensor_cores = bf16
     if aggregation_on_tensor_cores:
-        aggregation = n_nb * 2 * p * cin
+        aggregation = n_nb * 2 * agg_points * cin
         return nbytes, n_q * 2 * p * cin * cout + aggregation, flops - aggregation
     return nbytes, n_q * 2 * p * cin * cout, flops
 
@@ -544,8 +662,8 @@ def attention_work(q, k, kv_mask):
 def kpconv_layer_calls(model, run, module_type):
     """(q, s, inds, x, kernel_points, weights, extent) of every KPConv call that
     ``run()`` makes through ``module_type`` modules of ``model``: nn/kpfcn.py's
-    KPConv (called (q, s, inds, x)) or nn/point_backbone.py's KPConvBias
-    (called (q, s, x, inds); its extent is ``sigma``)."""
+    KPConv (called (q, s, inds, x[, q_mask])) or nn/point_backbone.py's
+    KPConvBias (called (q, s, x, inds); its extent is ``sigma``)."""
     import torch
 
     from diffreg_tpu_torch.nn.kpfcn import KPConv
@@ -560,7 +678,7 @@ def kpconv_layer_calls(model, run, module_type):
     calls = []
     for mod, args in seen:
         if module_type is KPConv:
-            q, s, inds, x = args
+            q, s, inds, x = args[:4]
             extent = mod.extent
         else:
             q, s, x, inds = args
@@ -570,10 +688,52 @@ def kpconv_layer_calls(model, run, module_type):
     return calls
 
 
-def check_kpconv(calls, n_calls, per, tag="", bf16=False):
+def closest_near_ties(q, s, inds, kp, bf16=False):
+    """Query rows [B, Nq] with a real neighbour whose two nearest kernel points
+    lie within CLOSEST_TIE_REL of each other (squared distances computed as
+    the plain version computes them; ``bf16``: from the bf16 path's hi + lo
+    positions), and the count of such neighbours: where "closest" may pick
+    another kernel point under another order of summation."""
+    import torch
+
+    from diffreg_tpu_torch.ops.kpconv import _bf16_gather, _gather
+
+    x = torch.zeros(s.shape[0], s.shape[1], 1, device=s.device)
+    neighbors, _ = (_bf16_gather if bf16 else _gather)(q, s, inds, x)
+    sq_d = (neighbors * neighbors).sum(-1, keepdim=True) + (kp * kp).sum(-1) \
+        - 2.0 * torch.einsum("bnkc,pc->bnkp", neighbors, kp)
+    two = sq_d.clamp_min(0.0).topk(2, dim=-1, largest=False).values
+    tie = ((two[..., 1] - two[..., 0]) <= CLOSEST_TIE_REL * two[..., 1]) & (inds < s.shape[1])
+    return tie.any(dim=-1), int(tie.sum())
+
+
+def held_against_plain(got, ref, allowed, name, aggregation, closest_inputs):
+    """max |got - ref| (raises above ``allowed``); under "closest" a query row
+    beyond it is excused when one of its neighbours has a near-tie between
+    two kernel points (``closest_near_ties`` of ``closest_inputs`` (q, s,
+    inds, kp, bf16)), at most TIE_EXCUSED_SHARE of the rows. Returns (max
+    error over the rows held, rows excused)."""
+    diff = (got - ref).abs()
+    err = float(diff.max())
+    excused = 0
+    if aggregation == "closest" and err > allowed:
+        beyond = (diff > allowed).any(dim=-1)
+        ties, _ = closest_near_ties(*closest_inputs)
+        excused = int(beyond.sum())
+        if bool((beyond & ~ties).any()) or excused > TIE_EXCUSED_SHARE * beyond.numel():
+            raise AssertionError(f"{name}: {excused} rows beyond the limit, "
+                                 f"{int((beyond & ~ties).sum())} of them without a near-tie")
+        err = float(diff[~beyond].max())
+    if not math.isfinite(err) or err > allowed:
+        raise AssertionError(f"{name}: max abs err {err} (limit {allowed})")
+    return err, excused
+
+
+def check_kpconv(calls, n_calls, per, tag="", bf16=False, modes=("linear", "sum")):
     """Kernel vs plain KPConv at every distinct layer of ``calls`` (the inputs
     the backbone really feeds each layer); ``bf16``: the bf16 instance against
-    the plain bf16 version. Returns the kernel's JSON entry and the distinct
+    the plain bf16 version; ``modes``: (influence, aggregation), each pair an
+    instance of the kernel. Returns the kernel's JSON entry and the distinct
     layers {(nq, ns, k, cin, cout): (inputs, calls)}."""
     import torch
 
@@ -583,8 +743,8 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False):
 
     if bf16:
         # the kernel's own inputs (the bf16 table and weights), built once a shape
-        def kernel(q, s, inds, x, kp, w, extent):
-            return kpconv_cuda_bf16(q, tables[id(x)], inds, kp, weights[id(w)], extent)
+        def kernel(q, s, inds, x, kp, w, extent, *m):
+            return kpconv_cuda_bf16(q, tables[id(x)], inds, kp, weights[id(w)], extent, *m)
         counted, plain, limit = kpconv_cuda_bf16, kpconv_bf16_plain, KPCONV_BF16_REL_TOL
         tables = {id(a[3]): kpconv_bf16_table_aligned(a[1], a[3]) for a in calls}
         weights = {id(a[5]): a[5].to(torch.bfloat16).contiguous() for a in calls}
@@ -600,25 +760,25 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False):
         shapes.setdefault(key, [args, 0])[1] += 1
     totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "mma_flops": 0.0, "flops": 0.0}
     first_bound = {"bytes": 0.0, "mma_flops": 0.0, "flops": 0.0}  # bf16: aggregation at the f32 rate
-    worst, per_shape = 0.0, []
+    worst, per_shape, excused_rows = 0.0, [], 0
     with torch.inference_mode():
         for (nq, ns, k, cin, cout), (args, count) in shapes.items():
-            q, s, inds, x, _, w, _ = args
+            q, s, inds, x, kpts, w, _ = args
             before = counted.launches
-            got = kernel(*args)
-            ref = plain(*args)
+            got = kernel(*args, *modes)
+            ref = plain(*args, *modes)
             torch.cuda.synchronize()
             assert counted.launches == before + 1
-            err = float((got - ref).abs().max())
             scale = float(ref.abs().max())
             allowed = limit * (scale if bf16 else max(scale, 1.0))
-            if not math.isfinite(err) or err > allowed:
-                raise AssertionError(f"kpconv{tag} {nq}/{ns}/{k}/{cin}->{cout}: max abs err "
-                                     f"{err} (max |plain| {scale})")
+            err, excused = held_against_plain(got, ref, allowed,
+                                              f"kpconv{tag} {nq}/{ns}/{k}/{cin}->{cout}",
+                                              modes[1], (q, s, inds, kpts, bf16))
             worst = max(worst, err)
-            ms = time_cuda(lambda: kernel(*args), 20)
-            plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
-            work = kpconv_work(q, s, inds, x, w, bf16)
+            excused_rows += excused
+            ms = time_cuda(lambda: kernel(*args, *modes), 20)
+            plain_ms = time_cuda(lambda: plain(*args, *modes), 3, warmup=1)
+            work = kpconv_work(q, s, inds, x, w, bf16, modes=modes)
             bms, by = bound_ms(*work, BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
             tensor_cores = (cin >= (32 if bf16 else 64) and cin % 32 == 0 and k <= 40
                             and cout in (64, 128, 256, 512))
@@ -626,9 +786,10 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False):
             per_shape.append({"nq": nq, "ns": ns, "k": k, "cin": cin, "cout": cout,
                               "calls": count, "path": path, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bms, "bound_by": by, "max_abs_err": err,
-                              "max_abs_plain": scale})
+                              "max_abs_plain": scale, "excused_rows": excused})
             log(f"kpconv{tag} {nq}/{ns}/K{k}/{cin}->{cout} x{count} ({path}): err {err:.3e} "
-                f"= {err / max(scale, 1e-30):.3e} of max |plain| (limit {allowed:.3e}) kernel "
+                f"= {err / max(scale, 1e-30):.3e} of max |plain| (limit {allowed:.3e}"
+                f"{f'; {excused} near-tie rows excused' if excused else ''}) kernel "
                 f"{ms:.4f} ms plain "
                 f"{plain_ms:.4f} ms bound {bms:.4f} ms ({by})")
             totals["ms"] += count * ms
@@ -636,18 +797,23 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False):
             for key, val in zip(("bytes", "mma_flops", "flops"), work):
                 totals[key] += count * val
             if bf16:
-                old = kpconv_work(q, s, inds, x, w, True, aggregation_on_tensor_cores=False)
+                old = kpconv_work(q, s, inds, x, w, True, aggregation_on_tensor_cores=False,
+                                  modes=modes)
                 per_shape[-1]["bound_ms_aggregation_f32"] = bound_ms(*old, BF16_FLOPS_PER_S)[0]
                 for key, val in zip(("bytes", "mma_flops", "flops"), old):
                     first_bound[key] += count * val
     bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"],
                        BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
-    entry = {"name": "kpconv_bf16" if bf16 else "kpconv", "route": "cuda",
-             "source": "diffreg_tpu_torch/csrc/kpconv.cu",
+    name = "kpconv_bf16" if bf16 else "kpconv"
+    if modes != ("linear", "sum"):
+        name += "_" + "_".join(modes)
+    entry = {"name": name, "route": "cuda",
+             "source": f"diffreg_tpu_torch/csrc/{'kpconv_bf16' if bf16 else 'kpconv'}.cu",
              "replaces": "diffreg_tpu/ops/pallas/kpconv_kernel.py:38",
              "launches": None, "max_abs_err": worst, "ms": totals["ms"],
              "plain_ms": totals["plain_ms"], "bound_ms": bms, "bound_by": by,
-             "library_ms": None, "per": per, "shapes": per_shape}
+             "library_ms": None, "per": per, "shapes": per_shape,
+             "excused_rows": excused_rows}
     if bf16:
         entry["bound_ms_aggregation_f32"], _ = bound_ms(
             first_bound["bytes"], first_bound["mma_flops"], first_bound["flops"], BF16_FLOPS_PER_S)
@@ -804,10 +970,10 @@ def check_gradients(kernels, kp_shapes, batch, cfg, gen):
                        "backward_max_rel_err": worst})
 
 
-def kpconv_gradients(kp_shapes, gen, bf16=False):
+def kpconv_gradients(kp_shapes, gen, bf16=False, modes=("linear", "sum")):
     """KPConvFunction (``bf16``: KPConvBF16Function) against plain autograd at
-    each distinct layer, for the features and the weights; returns (worst
-    relative error, backward ms of all the layers' calls)."""
+    each distinct layer, for the features and the weights, in ``modes``;
+    returns (worst relative error, backward ms of all the layers' calls)."""
     from diffreg_tpu_torch.ops.kpconv import (KPConvBF16Function, KPConvFunction, kpconv,
                                               kpconv_bf16_plain, kpconv_cuda, kpconv_cuda_bf16)
 
@@ -816,9 +982,9 @@ def kpconv_gradients(kp_shapes, gen, bf16=False):
     worst, total = 0.0, 0.0
     for (nq, ns, k, cin, cout), ((*inputs, ext), calls) in kp_shapes.items():
         err, ms = grad_case(
-            f"kpconv{' bf16' if bf16 else ''} {nq}/{ns}/K{k}/{cin}->{cout}",
-            lambda *a: function.apply(*a, ext), tuple(inputs), (3, 5),
-            lambda *a: plain(*a, ext), gen, calls, counter)
+            f"kpconv{' bf16' if bf16 else ''} {'/'.join(modes)} {nq}/{ns}/K{k}/{cin}->{cout}",
+            lambda *a: function.apply(*a, ext, *modes), tuple(inputs), (3, 5),
+            lambda *a: plain(*a, ext, *modes), gen, calls, counter)
         worst, total = max(worst, err), total + calls * ms
     return worst, total
 
@@ -957,11 +1123,17 @@ def run_backbone(model, batch, cpu_model, one, launches):
 
 
 def trained_grads_finite(model, grads, tag):
-    """Every trained parameter but the positioning matcher has a finite gradient."""
+    """Every trained parameter but the positioning matcher has a finite gradient
+    (and but a dual-softmax model's denoising dustbin score, which only the
+    detached warp and the DDIM's last projection read)."""
     import torch
 
+    skip = (NO_GRADIENT,)
+    matching = getattr(model.cfg, "coarse_matching", None)
+    if matching is not None and matching.match_type != "sinkhorn":
+        skip += ("denoising_coarse_matching.bin_score",)
     missing = [n for (n, _), g in zip(model.named_trained_parameters(), grads)
-               if not n.startswith(NO_GRADIENT) and (g is None or not bool(torch.isfinite(g).all()))]
+               if not n.startswith(skip) and (g is None or not bool(torch.isfinite(g).all()))]
     if missing:
         raise AssertionError(f"{tag}: no finite gradient for {missing}")
     nonzero = sum(int(g is not None and bool((g != 0).any())) for g in grads)
@@ -1094,12 +1266,14 @@ def noisy_warp_cut_gap(model, batch, inputs):
 
 
 def cut_gap(conf, src_mask, tgt_mask):
-    """Smallest gap, over the pairs, at soft Procrustes' top-k cut."""
+    """Smallest gap, over the pairs, at soft Procrustes' top-k cut; infinite
+    where the confidences at the cut are 0 (a dual softmax's underflowed
+    entries), which weigh nothing whichever are kept."""
     gaps = []
     for i in range(conf.shape[0]):
         top = conf[i].detach().flatten().sort(descending=True).values
         cut = int(max(src_mask[i].sum(), tgt_mask[i].sum()))
-        gaps.append(float(top[cut - 1] - top[cut]))
+        gaps.append(float(top[cut - 1] - top[cut]) if float(top[cut - 1]) > 0 else math.inf)
     return min(gaps)
 
 
@@ -1134,14 +1308,21 @@ def step_gaps(a, b, names):
     return gap
 
 
-def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag="", loss_cfg=None):
-    """Phase 8 (and 8c in bf16, 8d for 4DMatch): one train step of one pair on
-    the card and on the CPU from the same weights and draws, held to
+def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag="", loss_cfg=None,
+                           first_seed=0, align_topk=False):
+    """Phase 8 (and 8c in bf16, 8d for 4DMatch, 22 for the variants): one
+    train step of one pair on the card and on the CPU from the same weights
+    and draws (the first draw from ``first_seed`` on whose noisy-matrix warp
+    cuts its top-k in a wide gap), held to
     ``limits`` (loss, worst, median, global, and params or update; default
     the f32 ones), with ``loss_cfg`` (default the 3DMatch loss). ``f32_cfg``:
     the card's f32 step from the same weights and draws too, whose gap to the
     card's step is printed beside the limits. The positioning layer's
-    condition must lie clear of the config's gate."""
+    condition must lie clear of the config's gate. ``align_topk``: the card
+    keeps the CPU's top-k choices in every soft Procrustes call
+    (``topk_choices``), for a positioning layer whose cut falls on a near-tie
+    whatever the draw; the entries its own choice would differ in must lie
+    at that cut (``check_replayed``)."""
     import torch
 
     from diffreg_tpu_torch.engine.losses import LossConfig, diffreg_loss
@@ -1158,19 +1339,30 @@ def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag="", lo
     if f32_cfg is not None:
         models["card f32"] = DiffusionMatchingModel(f32_cfg, device="cuda", seed=0)
     # draws whose noisy-matrix warp cuts its top-k in a wide gap
-    for seed in range(50):
+    for seed in range(first_seed, first_seed + 50):
         inputs = models["CPU"].draw_train_inputs(one, torch.Generator().manual_seed(seed))
         warp_gap = noisy_warp_cut_gap(models["CPU"], one, inputs)
         if warp_gap > CUT_GAP_MIN:
             break
-    res = {}
+    res, choices = {}, []
+    cut = int(max(one.src_mask.sum(), one.tgt_mask.sum()))
+    seen = {"calls": 0, "differ": 0, "far": 0}
     for name, model in models.items():
         dev = "cpu" if name == "CPU" else "cuda"
         batch = one.to(dev)
         state = create_train_state(model, OptimConfig())
         before = [p.detach().cpu().clone() for p in state.optimizer.params]
         t0 = time.perf_counter()
-        out = model.train_forward(batch, **{k: v.to(dev) for k, v in inputs.items()})
+        if not align_topk or name == "card f32":
+            aligned = contextlib.nullcontext(seen)
+        elif name == "CPU":
+            aligned = topk_choices(record=choices)
+        else:
+            aligned = topk_choices(replay=choices, cut=cut)
+        with aligned as seen_here:
+            out = model.train_forward(batch, **{k: v.to(dev) for k, v in inputs.items()})
+        if name == "card":
+            seen = seen_here
         loss, _ = diffreg_loss(out, batch, loss_cfg)
         grads = torch.autograd.grad(loss, state.optimizer.params, allow_unused=True)
         finite, _ = apply_gradients(state.optimizer, grads)
@@ -1179,10 +1371,14 @@ def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag="", lo
                      "params": [p.detach().cpu() for p in state.optimizer.params],
                      "before": before, "seconds": time.perf_counter() - t0}
     cpu, card = res["CPU"], res["card"]
-    layer = cpu["out"]["position_layers"][0]
-    pos_gap = cut_gap(layer["conf_matrix"], one.src_mask, one.tgt_mask)
-    cond = float(layer["condition"][0].detach())
-    card_cond = float(card["out"]["position_layers"][0]["condition"][0].detach())
+    positioning = bool(cpu["out"]["position_layers"])   # none in an entangled transformer
+    if positioning:
+        layer = cpu["out"]["position_layers"][0]
+        pos_gap = cut_gap(layer["conf_matrix"], one.src_mask, one.tgt_mask)
+        cond = float(layer["condition"][0].detach())
+        card_cond = float(card["out"]["position_layers"][0]["condition"][0].detach())
+    else:
+        pos_gap, cond, card_cond = math.inf, math.nan, math.nan
     names = [n for n, _ in models["CPU"].named_trained_parameters()]
     gap = step_gaps(card, cpu, names)
     held = "params" if "params" in limits else "update"
@@ -1196,6 +1392,12 @@ def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag="", lo
         f"{gap['params']:.3e}, update's relative norm {gap['update']:.3e} (limit on {held} "
         f"{limits[held]:.1e})")
     log("  worst gradient tensors: " + ", ".join(f"{n} {e:.3e}" for e, n in gap["errs"][:5]))
+    if align_topk:
+        log(f"  the card kept the CPU's top-k choices in {seen['calls']} soft Procrustes calls: "
+            f"{seen['differ']} entries of its own differ (a share {topk_share(seen, cut):.4f} "
+            f"of the kept, cap {TOPK_DIFFER_SHARE}), {seen['far']} farther than "
+            f"{TOPK_CUT_REL:.0e} of the cut's value from it")
+        check_replayed(seen, cut, f"train step{tag}")
     if f32_cfg is not None:
         f32 = step_gaps(card, res["card f32"], names)
         log(f"  card{tag} vs card f32, same weights and draws: loss {f32['loss']:.3e}, "
@@ -1205,7 +1407,8 @@ def train_step_card_vs_cpu(cfg_train, one, limits=None, f32_cfg=None, tag="", lo
                          f"train step{tag} on the card (1 pair)")
     if not warp_gap > CUT_GAP_MIN:
         raise AssertionError(f"train step{tag}: the noisy warp's top-k cut falls on a near-tie")
-    if held == "params" and not (pos_gap > CUT_GAP_MIN and abs(cond - gate) > 1.0):
+    if held == "params" and positioning and not ((align_topk or pos_gap > CUT_GAP_MIN)
+                                                 and abs(cond - gate) > 1.0):
         raise AssertionError(f"train step{tag}: a top-k cut or the gate falls on a near-tie")
     if not (card["finite"] and cpu["finite"]):
         raise AssertionError(f"train step{tag}: non-finite gradients")
@@ -1708,10 +1911,8 @@ def bf16_edge_cases(gen):
 
     from diffreg_tpu_torch.ops.attention import (masked_attention_bf16_plain,
                                                  masked_attention_cuda_bf16)
-    from diffreg_tpu_torch.ops.kpconv import (kpconv_bf16_plain, kpconv_bf16_table_aligned,
-                                              kpconv_cuda_bf16)
 
-    att, kp = [], []
+    att = []
     with torch.inference_mode():
         for d in (108, 132):
             for name, b, length, keys, one_valid in (
@@ -1735,6 +1936,23 @@ def bf16_edge_cases(gen):
                     raise AssertionError(f"attention bf16 edge {name}, D {d}: err {err}")
                 att.append({"case": name, "d": d, "l": length, "s": keys, "max_abs_err": err,
                             "max_abs_plain": top})
+    return att, kpconv_edge_cases(gen, bf16=True)
+
+
+def kpconv_edge_cases(gen, bf16=False, modes=("linear", "sum")):
+    """The KPConv kernel (``bf16``: its bf16 instance) in ``modes`` against its
+    plain version where its tilings and splits have edges (bf16_edge_cases's
+    KPConv shapes), at the main-path check's limits. Returns the cases."""
+    import torch
+
+    from diffreg_tpu_torch.ops.kpconv import (kpconv, kpconv_bf16_plain,
+                                              kpconv_bf16_table_aligned, kpconv_cuda,
+                                              kpconv_cuda_bf16)
+
+    kp = []
+    mode = "" if modes == ("linear", "sum") else " " + "/".join(modes)
+    tag = f"kpconv{' bf16' if bf16 else ''}{mode}"
+    with torch.inference_mode():
         for name, b, nq, ns, k, cin, cout in (
                 ("K 1, split off", 4, 8704, 8704, 1, 64, 64),
                 ("K 40, split on", 4, 1536, 1536, 40, 128, 128),
@@ -1752,17 +1970,24 @@ def bf16_edge_cases(gen):
             w = torch.randn(15, cin, cout, generator=gen) * 0.05
             q_pts, s_pts, inds, x, kpts, w = (t.cuda().contiguous()
                                                for t in (q_pts, s_pts, inds, x, kpts, w))
-            got = kpconv_cuda_bf16(q_pts, kpconv_bf16_table_aligned(s_pts, x), inds, kpts,
-                                   w.to(torch.bfloat16).contiguous(), 0.6)
-            ref = kpconv_bf16_plain(q_pts, s_pts, inds, x, kpts, w, 0.6)
-            err, top = float((got - ref).abs().max()), float(ref.abs().max())
-            log(f"kpconv bf16 edge {name} (B {b}, Nq {nq}, K {k}, {cin}->{cout}): err {err:.3e} "
-                f"= {err / top:.3e} of max |plain| (limit {KPCONV_BF16_REL_TOL:.0e})")
-            if not math.isfinite(err) or err > KPCONV_BF16_REL_TOL * top:
-                raise AssertionError(f"kpconv bf16 edge {name}: err {err}")
+            if bf16:
+                got = kpconv_cuda_bf16(q_pts, kpconv_bf16_table_aligned(s_pts, x), inds, kpts,
+                                       w.to(torch.bfloat16).contiguous(), 0.6, *modes)
+                ref = kpconv_bf16_plain(q_pts, s_pts, inds, x, kpts, w, 0.6, *modes)
+            else:
+                got = kpconv_cuda(q_pts, s_pts, inds, x, kpts, w, 0.6, *modes)
+                ref = kpconv(q_pts, s_pts, inds, x, kpts, w, 0.6, *modes)
+            top = float(ref.abs().max())
+            limit = KPCONV_BF16_REL_TOL if bf16 else KPCONV_REL_TOL
+            allowed = limit * (top if bf16 else max(top, 1.0))
+            err, excused = held_against_plain(got, ref, allowed, f"{tag} edge {name}", modes[1],
+                                              (q_pts, s_pts, inds, kpts, bf16))
+            log(f"{tag} edge {name} (B {b}, Nq {nq}, K {k}, {cin}->{cout}): err {err:.3e} "
+                f"= {err / top:.3e} of max |plain| (limit {limit:.0e}"
+                f"{f'; {excused} near-tie rows excused' if excused else ''})")
             kp.append({"case": name, "b": b, "nq": nq, "k": k, "cin": cin, "cout": cout,
-                       "max_abs_err": err, "max_abs_plain": top})
-    return att, kp
+                       "max_abs_err": err, "max_abs_plain": top, "excused_rows": excused})
+    return kp
 
 
 def profile_call(repo, fn):
@@ -3641,6 +3866,579 @@ def run_story4d(repo, kernels, launches, gen):
     return kp, at
 
 
+# ---------------------------------------------------------------- 22. model variants
+
+
+def variant_cfg(cfg, name):
+    """``cfg`` (a preset) as phase 22's variant ``name`` (``VARIANTS``)."""
+    v = VARIANTS[name]
+    arch = tuple(b.replace("resnetb", "resnetb_deformable") if i in v["deformable"] else b
+                 for i, b in enumerate(cfg.kpfcn.architecture))
+    matching = dataclasses.replace(cfg.coarse_matching, **v["matching"])
+    transformer = dataclasses.replace(cfg.coarse_transformer, feature_matching=matching,
+                                      **v["transformer"])
+    kpfcn = dataclasses.replace(cfg.kpfcn, architecture=arch, **v["kpfcn"])
+    return dataclasses.replace(cfg, kpfcn=kpfcn, coarse_transformer=transformer,
+                               coarse_matching=matching)
+
+
+def reset_kpconv_counts():
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda, kpconv_cuda_bf16
+
+    for wrapper in (kpconv_cuda, kpconv_cuda_bf16):
+        wrapper.launches = 0
+        wrapper.mode_launches = {}
+
+
+def run_mode_kernels(calls, gen):
+    """Phase 22a: each new KPConv mode instance, f32 and bf16, against its plain
+    version at a 3DMatch encode's 11 layers (timed, with its bound) and at the
+    tilings' edges, and its autograd Function's gradients against plain
+    autograd. Returns the two JSON entries (f32, bf16) with one record a mode."""
+    entries = []
+    for bf16 in (False, True):
+        modes = {}
+        for mode in VARIANT_MODES:
+            key = "/".join(mode)
+            tag = f"{' bf16' if bf16 else ''} {key}"
+            entry, shapes = check_kpconv(calls, 11, "one encode (11 calls)", tag=tag, bf16=bf16,
+                                         modes=mode)
+            grad_err, back_ms = kpconv_gradients(shapes, gen, bf16=bf16, modes=mode)
+            edges = kpconv_edge_cases(gen, bf16, mode)
+            modes[key] = {k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "excused_rows", "shapes")}
+            modes[key].update(backward_ms=back_ms, backward_max_rel_err=grad_err,
+                              edges_max_rel_err=max(c["max_abs_err"] / c["max_abs_plain"]
+                                                    for c in edges),
+                              edges_excused_rows=sum(c["excused_rows"] for c in edges),
+                              launches=0)
+            log(f"kpconv{tag}: {entry['ms']:.4f} ms an encode (plain {entry['plain_ms']:.4f}, "
+                f"bound {entry['bound_ms']:.4f} {entry['bound_by']}), backward "
+                f"{back_ms:.2f} ms")
+        top = max(modes.values(), key=lambda m: m["bound_ms"])
+        entries.append({
+            "name": "kpconv_bf16_modes" if bf16 else "kpconv_modes", "route": "cuda",
+            "source": f"diffreg_tpu_torch/csrc/{'kpconv_bf16' if bf16 else 'kpconv'}.cu",
+            "replaces": "diffreg_tpu/ops/pallas/kpconv_kernel.py:38", "launches": 0,
+            "max_abs_err": max(m["max_abs_err"] for m in modes.values()),
+            "ms": sum(m["ms"] for m in modes.values()),
+            "plain_ms": sum(m["plain_ms"] for m in modes.values()),
+            "bound_ms": sum(m["bound_ms"] for m in modes.values()),
+            "bound_by": top["bound_by"], "library_ms": None,
+            "per": "one 3DMatch encode (11 calls) in each of the five modes",
+            "backward_ms": sum(m["backward_ms"] for m in modes.values()), "modes": modes})
+    return entries
+
+
+def kernel_closest_choice(q, s, inds, kp, cin, cout):
+    """The Hopper kernel's "closest" choice of kernel point [B, Nq, K] (-1 at a
+    sentinel) for every neighbour of one KPConv call, read from the kernel:
+    each neighbour becomes a query of its own (K = 1) over features of ones
+    of the call's Cin, with weights that send kernel point p to output p (1 /
+    Cin from each channel, so that a neighbour's output row is exactly one-hot),
+    under constant influence (the choice does not depend on the influence), so
+    on the kernel path of the call's Cin and Cout (at least P)."""
+    import torch
+
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+
+    b, nq, k = inds.shape
+    p = kp.shape[0]
+    cout = max(cout, p)
+    q1 = q[:, :, None, :].expand(b, nq, k, 3).reshape(b, nq * k, 3).contiguous()
+    x = torch.ones(b, s.shape[1], cin, device=s.device)
+    w = torch.zeros(p, cin, cout, device=s.device)
+    w[torch.arange(p), :, torch.arange(p)] = 1.0 / cin
+    out = kpconv_cuda(q1, s, inds.reshape(b, nq * k, 1).contiguous(), x, kp, w, 1.0,
+                      "constant", "closest").reshape(b, nq, k, cout).cpu()
+    valid = (inds < s.shape[1]).cpu()
+    one_hot = ((out == 0) | (out == 1)).all(dim=-1) & (out[..., :p].sum(dim=-1) == 1)
+    if not bool(one_hot[valid].all()):
+        raise AssertionError("closest: the kernel's choice is not one kernel point")
+    return torch.where(valid, out[..., :p].argmax(dim=-1), -1)
+
+
+def closest_flips(model, one):
+    """Pair 0's encode under "closest": each layer's choice of kernel point
+    for every real neighbour, the Hopper kernel's (``kernel_closest_choice``
+    on the card, from the positions the layer got there) against the plain
+    version's on the CPU from the same positions. Returns (flips, near-ties,
+    real neighbours); a flip that is no near-tie raises."""
+    import torch
+
+    from diffreg_tpu_torch.nn.kpfcn import KPConv
+    from diffreg_tpu_torch.ops.kpconv import _gather
+
+    calls = kpconv_layer_calls(model, lambda: model.encode(one.to("cuda")), KPConv)
+    flips = ties = real = 0
+    for q, s, inds, x, kp, w, _ in calls:
+        got = kernel_closest_choice(q, s, inds, kp, x.shape[2], w.shape[2])
+        qc, sc, ic, kc = (t.cpu() for t in (q, s, inds, kp))
+        n, _ = _gather(qc, sc, ic, torch.zeros(sc.shape[0], sc.shape[1], 1))
+        sq_d = ((n * n).sum(-1, keepdim=True) + (kc * kc).sum(-1)
+                - 2.0 * torch.einsum("bnkc,pc->bnkp", n, kc)).clamp_min(0.0)
+        valid = ic < sc.shape[1]
+        flipped = (got != sq_d.argmin(dim=-1)) & valid
+        tie_rows, n_ties = closest_near_ties(qc, sc, ic, kc)
+        if bool((flipped.any(dim=-1) & ~tie_rows).any()):
+            raise AssertionError("closest: the kernel on the card and the plain version on "
+                                 "the CPU pick another kernel point where no near-tie is")
+        flips, ties, real = flips + int(flipped.sum()), ties + n_ties, real + int(valid.sum())
+    return flips, ties, real
+
+
+def range_flips(card_model, cpu_model, one):
+    """Card against CPU on pair 0's encode in the deformable convs: the in-range
+    cut of every real neighbour (its nearest deformed kernel point within the
+    extent), each device from its own deformed kernel points. Returns (flips,
+    real neighbours); a flip farther than RANGE_CUT_REL of extent^2 from the
+    cut, or more than RANGE_FLIP_SHARE of them, raises."""
+    import torch
+
+    from diffreg_tpu_torch.nn.kpfcn import KPConv
+    from diffreg_tpu_torch.ops.kpconv import _gather
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: seen.append((mod, args[:3])))
+             for m in card_model.modules() if isinstance(m, KPConv) and m.offset_conv is not None]
+    cpu_convs = [m for m in cpu_model.modules() if isinstance(m, KPConv)
+                 and m.offset_conv is not None]
+    with torch.no_grad():
+        card_model.encode(one.to("cuda"))
+        cpu_model.encode(one)
+    for h in hooks:
+        h.remove()
+    flips = real = 0
+    for (mod, (q, s, inds)), cpu_mod in zip(seen, cpu_convs):
+        sides = []
+        for dev, kp in (("cuda", mod.deform_aux["deformed_kp"]),
+                        ("cpu", cpu_mod.deform_aux["deformed_kp"])):
+            qd, sd, idd = (t.to(dev) for t in (q, s, inds))
+            n, _ = _gather(qd, sd, idd, torch.zeros(sd.shape[0], sd.shape[1], 1, device=dev))
+            sq_d = ((n * n).sum(-1, keepdim=True) + (kp * kp).sum(-1)[:, :, None, :]
+                    - 2.0 * torch.einsum("bnkc,bnpc->bnkp", n, kp)).clamp_min(0.0)
+            sides.append(sq_d.amin(dim=-1).cpu())
+        cut = mod.extent ** 2
+        valid = (inds < s.shape[1]).cpu()
+        flipped = ((sides[0] < cut) != (sides[1] < cut)) & valid
+        near = (sides[1] - cut).abs() <= RANGE_CUT_REL * cut
+        if bool((flipped & ~near).any()):
+            raise AssertionError("deformable in-range cut: a neighbour flips away from the cut")
+        flips, real = flips + int(flipped.sum()), real + int(valid.sum())
+    if flips > RANGE_FLIP_SHARE * real:
+        raise AssertionError(f"deformable in-range cut: {flips} of {real} neighbours flip")
+    return flips, real
+
+
+def pair0_masks(got, ref, one, limit):
+    """Pair 0's top-1 union masks, card (``got``) against CPU (``ref``): the
+    entries that differ, those outside a near-tie (a row's or column's best two
+    CPU confidences within twice ``limit``), the cap (1% of the CPU mask plus
+    2) and the share of real source rows free of a near-tie."""
+    import torch
+
+    valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
+    differ = (got["corr_mask"][:1].cpu() != ref["corr_mask"]) & valid
+    c = torch.where(valid, ref["conf_matrix_pred"], torch.full_like(ref["conf_matrix_pred"],
+                                                                    -1.0))
+    top_r, top_c = c.topk(2, dim=2).values, c.topk(2, dim=1).values
+    row_tie = (top_r[..., 0] - top_r[..., 1]) <= 2 * limit
+    col_tie = (top_c[:, 0] - top_c[:, 1]) <= 2 * limit
+    return {"differ": int(differ.sum()),
+            "unexplained": int((differ & ~(row_tie[:, :, None] | col_tie[:, None, :])).sum()),
+            "cap": MASK_DIFFER_SHARE * max(int(ref["corr_mask"].sum()), 1) + 2,
+            "tie_free": float((~row_tie[0] & one.src_mask[0]).sum())
+            / max(int(one.src_mask[0].sum()), 1)}
+
+
+def variant_pair0(name, got, ref, one, tag, backbone=False, pose=False):
+    """Pair 0 of a variant, card (``got``, its first pair) against CPU
+    (``ref``): the DDIM's confidences (its mask and pose printed), or with
+    ``backbone`` backbone_forward's confidences, mask and pose
+    (VARIANT_CONF_REL_TOL's comment); ``pose``: the pose held at POSE_ABS_TOL
+    too (the card having kept the CPU's top-k choices). Returns the record."""
+    valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
+    conf = ref["conf_matrix_pred"]
+    top = float(conf[valid].max())
+    rel_tol = (VARIANT_BACKBONE_REL_TOL if backbone else VARIANT_CONF_REL_TOL)[name]
+    conf_rel = float((got["conf_matrix_pred"][:1].cpu() - conf).abs()[valid].max()) / top
+    pose_err = max(float((got[k][:1].cpu() - ref[k]).abs().max())
+                   for k in ("rotation_pred", "translation_pred"))
+    gap = cut_gap(conf, one.src_mask, one.tgt_mask)
+    k = int(max(one.src_mask.sum(), one.tgt_mask.sum()))
+    kept = [set(c[0].flatten().topk(k).indices.tolist())
+            for c in (got["conf_matrix_pred"][:1].cpu(), conf)]
+    cut_flips = len(kept[0] ^ kept[1]) // 2
+    masks = pair0_masks(got, ref, one, rel_tol * top)
+    held = f" (limit {POSE_ABS_TOL:.0e})" if backbone or pose else " (printed)"
+    cap = f", cap {masks['cap']:.0f}" if backbone else ""
+    log(f"card vs CPU {tag}: conf {conf_rel:.3e} of the largest ({top:.3e}; limit "
+        f"{rel_tol:.0e}); top-k cut gap {gap:.3e}, {cut_flips} of its {k} entries differ, "
+        f"pose {pose_err:.3e}{held}; {masks['differ']} "
+        f"mask entries differ ({masks['unexplained']} outside a near-tie{cap}), real rows "
+        f"free of a near-tie {masks['tie_free']:.4f}")
+    if not conf_rel <= rel_tol:
+        raise AssertionError(f"{tag}: confidences differ by {conf_rel} of the largest")
+    if pose and not pose_err <= POSE_ABS_TOL:
+        raise AssertionError(f"{tag}: pose differs by {pose_err}")
+    if backbone:
+        if cut_flips:
+            raise AssertionError(f"{tag}: soft Procrustes keeps {cut_flips} other entries")
+        if not pose_err <= POSE_ABS_TOL:
+            raise AssertionError(f"{tag}: pose differs by {pose_err}")
+        if masks["unexplained"] or masks["differ"] > masks["cap"] \
+                or masks["tie_free"] < TIE_FREE_ROWS_MIN:
+            raise AssertionError(f"{tag}: mask {masks}")
+    return {"conf_rel": conf_rel, "pose": pose_err, "cut_gap": gap, "cut_flips": cut_flips,
+            **masks}
+
+
+@contextlib.contextmanager
+def topk_choices(record=None, replay=None, cut=None):
+    """Soft Procrustes' top-k choices, call by call, within the block. With
+    ``record`` (a list) each call's (indices, values) are appended, on the CPU.
+    With ``replay`` (such a list, from the same calls) each call keeps the
+    recorded indices, weighted by its own confidences there, instead of its
+    own top-k: the discrete choice made as the recording device made it.
+    Each of those calls compares the first ``cut`` of its own choice with the
+    recorded one; the yielded dict counts the calls, the entries that differ,
+    and those whose recorded confidence lies farther than TOPK_CUT_REL of the
+    recorded cut's value from it (or outside the recorded top-k)."""
+    from diffreg_tpu_torch.geometry import procrustes
+
+    original = procrustes.top_k
+    seen = {"calls": 0, "differ": 0, "far": 0}
+
+    def recording(x, k):
+        w, idx = original(x, k)
+        record.append((idx.cpu(), w.detach().cpu()))
+        return w, idx
+
+    def replaying(x, k):
+        idx_ref, w_ref = replay[seen["calls"]]
+        seen["calls"] += 1
+        own = original(x, k)[1].cpu()
+        for row in range(idx_ref.shape[0]):
+            kept = idx_ref[row].tolist()
+            differ = set(own[row, :cut].tolist()) ^ set(kept[:cut])
+            where = {j: i for i, j in enumerate(kept)}
+            c = float(w_ref[row, cut - 1])
+            seen["differ"] += len(differ)
+            seen["far"] += sum(1 for j in differ if j not in where or abs(
+                float(w_ref[row, where[j]]) - c) > TOPK_CUT_REL * c)
+        idx = idx_ref.to(x.device)
+        return x.gather(1, idx), idx
+
+    procrustes.top_k = recording if record is not None else replaying
+    try:
+        yield seen
+    finally:
+        procrustes.top_k = original
+    if replay is not None and seen["calls"] != len(replay):
+        raise AssertionError(f"top-k choices: {seen['calls']} calls replayed {len(replay)}")
+
+
+def topk_share(seen, cut):
+    return seen["differ"] / max(seen["calls"] * cut, 1)
+
+
+def check_replayed(seen, cut, tag):
+    """Raise unless every top-k entry that the replaying device would have
+    chosen otherwise lies within TOPK_CUT_REL of the cut, at most
+    TOPK_DIFFER_SHARE of the entries kept over the calls."""
+    if seen["far"] or topk_share(seen, cut) > TOPK_DIFFER_SHARE:
+        raise AssertionError(f"{tag}: top-k choices {seen} of {cut} kept a call")
+
+
+def variant_gate_start(model, one):
+    """Pair 0's DDIM draws for the gated DDIM of ``model`` (on the card): the
+    first of the CPU generator's seeds 1, 2, ... whose start [1, S, T] keeps,
+    in the card's DDIM, every step's Procrustes condition at least
+    VARIANT_GATE_CLEAR from the gate. Returns (seed, x_init, u, least
+    distance from the gate)."""
+    import torch
+
+    from diffreg_tpu_torch.eval.register import register
+
+    gate = model.cfg.procrustes.max_condition_num
+    for seed in range(1, VARIANT_START_TRIES + 1):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn((1, one.src_mask.shape[1], one.tgt_mask.shape[1]), generator=g)
+        u = torch.rand(1, HYPOTHESES, 3, generator=g)
+        out = register(model, one.to("cuda"), x.cuda(), u.cuda())
+        clear = float((out["step_condition"] - gate).abs().min())
+        if clear >= VARIANT_GATE_CLEAR:
+            return seed, x, u, clear
+    raise AssertionError(f"variant pair 0 at gate {gate:g}: no start of seeds 1-"
+                         f"{VARIANT_START_TRIES} keeps its conditions {VARIANT_GATE_CLEAR} from "
+                         "the gate")
+
+
+def deformable_times(model, batch):
+    """Each deformable KPConv of ``model``'s encode of ``batch``, timed on the
+    card: the whole ``kpconv_deformable`` call and its offset conv (the Hopper
+    kernel) alone; the deformed conv (plain PyTorch) is the difference. Returns
+    one record a block."""
+    import torch
+
+    from diffreg_tpu_torch.nn.kpfcn import KPConv
+    from diffreg_tpu_torch.ops.kpconv import kpconv_batched
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: seen.append((mod, args)))
+             for m in model.modules() if isinstance(m, KPConv) and m.offset_conv is not None]
+    with torch.no_grad():
+        model.encode(batch)
+    for h in hooks:
+        h.remove()
+    times = []
+    with torch.no_grad():
+        for mod, args in seen:
+            q, s, inds, x = args[:4]
+            whole = time_cuda(lambda: mod(*args), 10)
+            offset = time_cuda(lambda: kpconv_batched(
+                q, s, inds, x, mod.offset_conv.kernel_points, mod.offset_conv.weights,
+                mod.extent, mod.compute_dtype, *mod.modes), 10)
+            times.append({"nq": q.shape[1], "k": inds.shape[2], "cin": x.shape[2],
+                          "cout": mod.weights.shape[2], "ms": whole, "offset_conv_ms": offset,
+                          "deformed_conv_ms": whole - offset})
+            log(f"deformable KPConv {q.shape[1]}/K{inds.shape[2]}/{x.shape[2]}->"
+                f"{mod.weights.shape[2]}: {whole:.4f} ms, of which the offset conv (kernel) "
+                f"{offset:.4f} ms and the deformed conv (plain PyTorch) {whole - offset:.4f} ms")
+    return times
+
+
+def run_variant(name, batch, one, x_init, u, spec, launches):
+    """Phase 22b-c: variant ``name`` at full width on the 4 pairs: the DDIM path
+    (``register``) at gate 0 and 40 with its launches (every KPConv in the
+    variant's mode), deformable blocks' times, pair 0 card against CPU (the
+    DDIM at gate 0, the DDIM at gate 40 from a start clear of ties
+    (``variant_gate_start``) and backbone_forward), the discrete choices
+    card against CPU (closest's kernel point, the deformable in-range cut),
+    the fitting regularizer card against CPU, one train step at gate 200 card
+    against CPU at phase 8's limits, and one bf16 DDIM on the 4 pairs (the
+    bf16 instance in the same mode). Returns the variant's record."""
+    import torch
+
+    from diffreg_tpu_torch.engine.loss_library import p2p_fitting_regularizer
+    from diffreg_tpu_torch.eval.register import register
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.models.presets import (preset_3dmatch, with_condition_gate,
+                                                  with_fast_path)
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_cuda_bf16
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda, kpconv_cuda_bf16
+
+    v = VARIANTS[name]
+    mode = "/".join(v["modes"])
+    # a deformable block launches its offset conv; its deformed conv is plain
+    n_kp = 11
+    cfg = variant_cfg(preset_3dmatch(sample_steps=STEPS), name)
+    per_run = STEPS * attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
+    record = {"modes": mode, "kpconv_launches_per_run": n_kp, "kpconv_launches": 0,
+              "kpconv_bf16_launches": 0}
+    results, models = {}, {}
+    for gate in GATES:
+        model = models[gate] = DiffusionMatchingModel(with_condition_gate(cfg, gate),
+                                                      device="cuda", seed=0)
+        register(model, batch, x_init, u)                      # warm-up
+        reset_kpconv_counts()
+        masked_attention_cuda.launches = 0
+        out, seconds = wall(lambda: register(model, batch, x_init, u))
+        counts = dict(kpconv_cuda.mode_launches)
+        n_at = masked_attention_cuda.launches
+        if counts != {mode: n_kp} or kpconv_cuda_bf16.launches or n_at != per_run:
+            raise AssertionError(f"variant {name} gate {gate}: KPConv launches {counts} (want "
+                                 f"{{{mode!r}: {n_kp}}}), attention {n_at} (want {per_run})")
+        check_outputs(out, f"variant {name} gate {gate}")
+        record["kpconv_launches"] += n_kp
+        launches["masked_attention"] += n_at
+        results[gate] = out
+        record[f"pairs_per_s_gate_{gate:g}"] = BATCH_PAIRS / seconds
+        log(f"variant {name} gate {gate}: {BATCH_PAIRS} pairs in {seconds:.4f} s = "
+            f"{BATCH_PAIRS / seconds:.3f} pairs/s; launches kpconv {counts} attention {n_at}")
+
+    if v["deformable"]:
+        record["deformable_ms"] = deformable_times(model, batch)
+
+    # pair 0 on the CPU (the DDIM at gate 0, backbone_forward), the discrete
+    # choices and the regularizer
+    model = models[0.0]
+    cpu_model = DiffusionMatchingModel(with_condition_gate(cfg, 0.0), device="cpu", seed=0)
+    t0 = time.perf_counter()
+    ref = register(cpu_model, one, x_init[:1], u[:1], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check_outputs(ref, f"variant {name} CPU")
+    record["pair0"] = variant_pair0(name, results[0.0], ref, one,
+                                    f"variant {name} DDIM gate 0 (CPU {cpu_s:.1f} s)")
+    with torch.no_grad():
+        got = model.backbone_forward(one.to("cuda"))
+        ref = cpu_model.backbone_forward(one)
+    record["pair0_backbone"] = variant_pair0(name, got, ref, one,
+                                             f"variant {name} backbone_forward", backbone=True)
+    # pair 0 at gate 40 from a start whose conditions lie clear of the gate,
+    # the card keeping the CPU's top-k choices in the gated warps and the pose
+    seed, x0, u0, clear = variant_gate_start(models[40.0], one)
+    cpu_gated = DiffusionMatchingModel(with_condition_gate(cfg, 40.0), device="cpu", seed=0)
+    choices, cut = [], int(max(one.src_mask.sum(), one.tgt_mask.sum()))
+    t0 = time.perf_counter()
+    with topk_choices(record=choices):
+        ref = register(cpu_gated, one, x0, u0, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    del cpu_gated
+    with topk_choices(replay=choices, cut=cut) as seen:
+        got = register(models[40.0], one.to("cuda"), x0.cuda(), u0.cuda())
+    check_outputs(ref, f"variant {name} CPU gate 40")
+    tag = f"variant {name} DDIM gate 40"
+    record["pair0_gate_40"] = variant_pair0(
+        name, got, ref, one, f"{tag} (start seed {seed}, conditions {clear:.3f} from the gate, "
+        f"the CPU's top-k choices in {seen['calls']} Procrustes calls: {seen['differ']} entries "
+        f"of the card's own differ, a share {topk_share(seen, cut):.4f} of the kept (cap "
+        f"{TOPK_DIFFER_SHARE}), {seen['far']} farther than {TOPK_CUT_REL:.0e} of the cut; "
+        f"CPU {cpu_s:.1f} s)", pose=True)
+    check_replayed(seen, cut, tag)
+    record["pair0_gate_40"].update(start_seed=seed, gate_distance=clear,
+                                   topk_differ=seen["differ"], topk_calls=seen["calls"])
+    if v["deformable"]:
+        flips, real = range_flips(model, cpu_model, one)
+        reg = [float(p2p_fitting_regularizer(m).cpu()) for m in (model, cpu_model)]
+        reg_rel = abs(reg[0] - reg[1]) / abs(reg[1])
+        log(f"variant {name} pair 0: deformable in-range cut flips card vs CPU {flips} of "
+            f"{real} real neighbours (each within {RANGE_CUT_REL:.0e} of extent^2 of the cut); "
+            f"p2p_fitting_regularizer card {reg[0]:.6e} CPU {reg[1]:.6e} (rel {reg_rel:.3e}, "
+            f"limit {VARIANT_REG_REL_TOL:.0e})")
+        if not reg_rel <= VARIANT_REG_REL_TOL:
+            raise AssertionError(f"variant {name}: the regularizer differs by {reg_rel}")
+        record.update(range_flips=flips, real_neighbours=real, regularizer_rel=reg_rel)
+    if v["modes"][1] == "closest":
+        flips, ties, real = closest_flips(model, one)
+        log(f"variant {name} pair 0: closest's kernel point, the kernel on the card against the "
+            f"plain version on the CPU, flips {flips} of {real} "
+            f"real neighbours ({ties} near-ties within {CLOSEST_TIE_REL:.0e})")
+        record.update(closest_flips=flips, closest_near_ties=ties, real_neighbours=real)
+    del cpu_model, model, models, results
+
+    # one train step at gate 200, card against CPU
+    record["train_step"] = train_step_card_vs_cpu(
+        variant_cfg(preset_3dmatch(train=True), name), one, tag=f" variant {name}",
+        align_topk=VARIANT_ALIGN_TOPK[name])
+
+    # the bf16 instance in the variant's mode: one DDIM at gate 0
+    model = DiffusionMatchingModel(with_fast_path(with_condition_gate(cfg, 0.0)), device="cuda",
+                                   seed=0)
+    register(model, batch, x_init, u)                          # warm-up
+    reset_kpconv_counts()
+    masked_attention_cuda_bf16.launches = 0
+    out, seconds = wall(lambda: register(model, batch, x_init, u))
+    counts = dict(kpconv_cuda_bf16.mode_launches)
+    if counts != {mode: n_kp} or kpconv_cuda.launches:
+        raise AssertionError(f"variant {name} bf16: KPConv launches {counts}")
+    check_outputs(out, f"variant {name} bf16")
+    record["kpconv_bf16_launches"] += n_kp
+    launches["masked_attention_bf16"] += masked_attention_cuda_bf16.launches
+    record["pairs_per_s_bf16_gate_0"] = BATCH_PAIRS / seconds
+    log(f"variant {name} bf16 gate 0: {BATCH_PAIRS / seconds:.3f} pairs/s; launches "
+        f"kpconv_bf16 {counts}")
+    return record
+
+
+def run_cli_variant(repo, launches):
+    """Phase 22d: ``diffreg_tpu_torch.main`` on configs/test/3dmatch.yaml with
+    variant A's keys (a YAML in a temporary directory), test mode, --demo."""
+    import tempfile
+
+    import yaml
+
+    from diffreg_tpu_torch.data.synthetic import synthetic_batch
+    from diffreg_tpu_torch.main import main as cli
+    from diffreg_tpu_torch.models.presets import KPFCN_ARCHITECTURE
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+    from diffreg_tpu_torch.utils.config import load_yaml
+
+    raw = load_yaml(os.path.join(repo, "configs", "test", "3dmatch.yaml"))
+    raw.update(exp_dir="variant-a", modulated=True, architecture=[
+        b.replace("resnetb", "resnetb_deformable") if i in VARIANTS["A"]["deformable"] else b
+        for i, b in enumerate(KPFCN_ARCHITECTURE)])
+    raw["kpfcn_config"].update(KP_influence="gaussian", use_batch_norm=False)
+    raw["coarse_transformer"]["pe_type"] = "sinusoidal"
+    raw["coarse_matching"]["match_type"] = "dual_softmax"
+    _, demo_spec, _ = synthetic_batch(batch_size=1, n_points=768, seed=0)
+    want_at = STEPS * attention_calls(demo_spec.n_src, demo_spec.n_tgt, ("self", "cross") * 3)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "variant_a.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(raw, f)
+        os.chdir(tmp)
+        try:
+            reset_kpconv_counts()
+            masked_attention_cuda.launches = 0
+            summary, seconds = wall(lambda: cli(["--config", path, "--demo", "--num-pairs",
+                                                 str(BATCH_PAIRS), "--batch-size",
+                                                 str(BATCH_PAIRS)]))
+        finally:
+            os.chdir(cwd)
+    counts, n_at = dict(kpconv_cuda.mode_launches), masked_attention_cuda.launches
+    if counts != {"gaussian/sum": 11} or n_at != want_at:
+        raise AssertionError(f"main variant A: KPConv launches {counts}, attention {n_at}")
+    if not all(math.isfinite(summary[k]) for k in ("IR", "FMR", "RR")):
+        raise AssertionError(f"main variant A: summary {summary}")
+    launches["masked_attention"] += n_at
+    log(f"main variant A (3dmatch.yaml with the variant's keys, --demo), {BATCH_PAIRS} pairs: "
+        f"{seconds:.2f} s, launches kpconv {counts} attention {n_at}; " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in summary.items()))
+    return {"seconds": seconds, "kpconv_launches": 11,
+            **{k: summary[k] for k in ("IR", "FMR", "RR")}}
+
+
+def run_variants(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
+    """Phase 22: the KPConv mode instances (a), variants A (b) and B (c) at full
+    width, the CLI on a variant YAML (d). Returns the two JSON entries."""
+    import torch
+
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.models.presets import preset_3dmatch
+    from diffreg_tpu_torch.nn.kpfcn import KPConv
+
+    t0 = time.perf_counter()
+    base = DiffusionMatchingModel(preset_3dmatch(sample_steps=STEPS), device="cuda", seed=0)
+    calls = kpconv_layer_calls(base, lambda: base.encode(batch), KPConv)
+    entries = run_mode_kernels(calls, gen)
+    del calls, base
+    torch.cuda.empty_cache()
+    one = batch_cpu.select(slice(0, 1))
+    variants = {name: run_variant(name, batch, one, x_init, u, spec, launches)
+                for name in VARIANTS}
+    variants["cli"] = run_cli_variant(repo, launches)
+    for entry, key in zip(entries, ("kpconv_launches", "kpconv_bf16_launches")):
+        for name in VARIANTS:
+            entry["modes"]["/".join(VARIANTS[name]["modes"])]["launches"] += variants[name][key]
+        entry["launches"] = sum(m["launches"] for m in entry["modes"].values())
+    entries[0]["modes"]["gaussian/sum"]["launches"] += variants["cli"]["kpconv_launches"]
+    entries[0]["launches"] += variants["cli"]["kpconv_launches"]
+    entries[0]["variants"] = variants
+    log(f"phase 22 (model variants): {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+def path_data():
+    """(spec, CPU batch) of the 3DMatch phases: BATCH_PAIRS synthetic pairs of
+    N_POINTS at the spec calibrated from two such pairs (K capped at 40)."""
+    import numpy as np
+
+    from diffreg_tpu_torch.data.calibrate import calibrate_spec
+    from diffreg_tpu_torch.data.pyramid import PyramidConfig
+    from diffreg_tpu_torch.data.synthetic import make_pair, synthetic_batch
+
+    pcfg = PyramidConfig(first_subsampling_dl=0.03, coarse_match_radius=0.1)
+    cal_rng = np.random.RandomState(0)
+    spec = calibrate_spec([make_pair(cal_rng, N_POINTS)[:2] for _ in range(2)], pcfg,
+                          k_cap=40, neighbor_percentile=90.0)
+    batch_cpu, _, _ = synthetic_batch(batch_size=BATCH_PAIRS, n_points=N_POINTS, seed=0,
+                                      spec=spec, cfg=pcfg)
+    return spec, batch_cpu
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3654,9 +4452,6 @@ def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     try:
-        from diffreg_tpu_torch.data.calibrate import calibrate_spec
-        from diffreg_tpu_torch.data.pyramid import PyramidConfig
-        from diffreg_tpu_torch.data.synthetic import make_pair, synthetic_batch
         from diffreg_tpu_torch.eval.register import correspond_and_ransac, register
         from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
         from diffreg_tpu_torch.engine.losses import LossConfig
@@ -3691,12 +4486,7 @@ def main() -> int:
 
     # ---- data and model ----
     t0 = time.perf_counter()
-    pcfg = PyramidConfig(first_subsampling_dl=0.03, coarse_match_radius=0.1)
-    cal_rng = np.random.RandomState(0)
-    spec = calibrate_spec([make_pair(cal_rng, N_POINTS)[:2] for _ in range(2)], pcfg,
-                          k_cap=40, neighbor_percentile=90.0)
-    batch_cpu, _, _ = synthetic_batch(batch_size=BATCH_PAIRS, n_points=N_POINTS, seed=0,
-                                      spec=spec, cfg=pcfg)
+    spec, batch_cpu = path_data()
     log(f"spec {spec}; host data {time.perf_counter() - t0:.2f} s")
     batch = batch_cpu.to("cuda")
     one = batch_cpu.select(slice(0, 1))
@@ -3870,6 +4660,11 @@ def main() -> int:
     kernels[0]["data_parallel"] = {
         "one_process": data_parallel_one_process(cfg_train, batch, launches),
         "two_processes": data_parallel_two_processes(cfg_train, batch_cpu, launches)}
+
+    # ---- 22. the model variants: the KPConv mode instances against their plain
+    # versions, variants A and B at full width card against CPU, main on a
+    # variant YAML ----
+    kernels += run_variants(repo, batch, batch_cpu, spec, x_init, u, launches, gen)
 
     kernels[0]["launches"] = (launches["kpconv"] + launches["kpconv_train_2d3d"]
                               + launches["kpconv_story_2d3d"] + launches["kpconv_dp"])

@@ -13,6 +13,11 @@ named like the reference torch state_dict (e.g.
     (``coarse_out``: a Conv1d ``weight [out, in, 1]``);
   * a LayerNorm ``scale`` becomes ``weight`` (the port keeps Flax's eps 1e-6);
   * KPConv ``weights [P, Cin, Cout]`` and ``kernel_points`` keep their layout;
+    a deformable KPConv's ``offset_weights`` and ``offset_kernel_points``
+    become its ``offset_conv.weights`` and ``offset_conv.kernel_points``, and
+    ``offset_bias`` keeps its name (the reference's deformable KPConv); a
+    ``NormBlock``'s bias (``use_batch_norm`` False) becomes the reference's
+    ``batch_norm.bias`` (``batch_norm_conv.bias`` for a bottleneck's conv);
   * (2D-3D) a Conv ``kernel [H, W, I, O]`` becomes a Conv2d ``weight
     [O, I, H, W]``; a GroupNorm ``scale`` becomes ``weight``; the port's names
     are the reference's (tools/convert_checkpoint_2d3d.py lists them);
@@ -32,6 +37,9 @@ import numpy as np
 import torch
 
 _UNARY = {"UnaryBlock_0": "unary1", "UnaryBlock_1": "unary2", "UnaryBlock_2": "unary_shortcut"}
+_KPCONV = {"weights": "weights", "kernel_points": "kernel_points",
+           "offset_weights": "offset_conv.weights", "offset_bias": "offset_bias",
+           "offset_kernel_points": "offset_conv.kernel_points"}
 _ATTN = {"q_proj": "q_proj", "k_proj": "k_proj", "v_proj": "v_proj", "merge": "merge",
          "mlp0": "mlp.0", "mlp1": "mlp.2", "norm1": "norm1", "norm2": "norm2"}
 _MATCHERS = {"coarse_matching": "coarse_matching",
@@ -40,16 +48,24 @@ _MATCHERS = {"coarse_matching": "coarse_matching",
 
 def _translate(path: str):
     """(port key, "T" | "conv" | None) for one flax path."""
-    m = re.fullmatch(r"backbone/enc(\d+)_(?:simple|resnetb)/KPConvLayer_0/"
-                     r"(weights|kernel_points)", path)
+    m = re.fullmatch(r"backbone/enc(\d+)_(?:simple|resnetb)/KPConvLayer_0/(\w+)", path)
+    if m and m[2] in _KPCONV:
+        return f"backbone.encoder_blocks.{m[1]}.KPConv.{_KPCONV[m[2]]}", None
+    m = re.fullmatch(r"backbone/enc(\d+)_(simple|resnetb)/NormBlock_0/bias", path)
     if m:
-        return f"backbone.encoder_blocks.{m[1]}.KPConv.{m[2]}", None
-    m = re.fullmatch(r"backbone/enc(\d+)_resnetb/(UnaryBlock_\d)/Dense_0/kernel", path)
+        norm = "batch_norm" if m[2] == "simple" else "batch_norm_conv"
+        return f"backbone.encoder_blocks.{m[1]}.{norm}.bias", None
+    m = re.fullmatch(r"backbone/enc(\d+)_resnetb/(UnaryBlock_\d)/(Dense_0/kernel|"
+                     r"NormBlock_0/bias)", path)
     if m:
-        return f"backbone.encoder_blocks.{m[1]}.{_UNARY[m[2]]}.mlp.weight", "T"
-    m = re.fullmatch(r"backbone/dec(\d+)_unary/UnaryBlock_0/Dense_0/kernel", path)
+        name = f"backbone.encoder_blocks.{m[1]}.{_UNARY[m[2]]}"
+        return (f"{name}.mlp.weight", "T") if m[3] == "Dense_0/kernel" \
+            else (f"{name}.batch_norm.bias", None)
+    m = re.fullmatch(r"backbone/dec(\d+)_unary/UnaryBlock_0/(Dense_0/kernel|NormBlock_0/bias)",
+                     path)
     if m:
-        return f"backbone.decoder_blocks.{m[1]}.mlp.weight", "T"
+        return (f"backbone.decoder_blocks.{m[1]}.mlp.weight", "T") if m[2] == "Dense_0/kernel" \
+            else (f"backbone.decoder_blocks.{m[1]}.batch_norm.bias", None)
     m = re.fullmatch(r"backbone/(coarse_out|coarse_in|fine_out)/(kernel|bias)", path)
     if m:
         return (f"backbone.{m[1]}.weight", "conv") if m[2] == "kernel" \

@@ -287,10 +287,8 @@ def pipeline_2d3d_config(raw):
     from .nn.matching import MatchingConfig
     from .nn.point_backbone import PointBackboneConfig
 
-    if raw.get("precision") not in (None, "highest"):
-        raise NotImplementedError(
-            f"precision={raw['precision']!r} on a 2D-3D config: the port's 2D-3D path computes "
-            "in float32 (the policy reaches the 3D matchers only)")
+    if raw.get("precision") not in (None, "highest", "default"):
+        raise ValueError(f"precision={raw['precision']!r}: 'highest' or 'default'")
     m = raw.get("model_2d3d", {})
     return Pipeline2D3DConfig(
         img_out_dim=int(m.get("img_out_dim", 128)),
@@ -308,7 +306,8 @@ def pipeline_2d3d_config(raw):
         use_dino=bool(m.get("use_dino", False)),
         use_mono_depth=bool(m.get("use_mono_depth", False)),
         dino_dim=int(m.get("dino_dim", 1024)),
-        procrustes_max_condition=float(raw.get("procrustes", {}).get("max_condition_num", 200.0)))
+        procrustes_max_condition=float(raw.get("procrustes", {}).get("max_condition_num", 200.0)),
+        precision=str(raw.get("precision") or "highest"))
 
 
 def loss_2d3d_configs(raw):

@@ -20,6 +20,12 @@ branches share ``encode`` (the backbone and the coarse split):
   * ``backbone_forward``: the coarse transformer and matcher in one pass, the
     top-1 union mask and soft Procrustes.
 
+The model variants of the config (the KPConv modes, deformable blocks and
+batch norm off in ``kpfcn``; ``pe_type`` and ``entangled`` in the
+transformers; ``match_type`` and ``entangled`` in the matchers) run in both
+variants and every branch; a dual-softmax denoising matcher still projects
+the DDIM's noisy matrix with its ``sinkhorn`` (``nn/matching.py``).
+
 Module names follow the reference torch state_dict (pipeline.py), so that
 ``tools/convert_checkpoint.py`` and ``diffreg_tpu_torch.convert`` map the
 weights.
@@ -108,7 +114,7 @@ def init_weights(model: nn.Module, seed: int) -> None:
                 p, cin, _ = mod.weights.shape
                 limit = math.sqrt(3.0 * (2.0 / p) / (p * cin))
                 mod.weights.copy_((torch.rand(mod.weights.shape, generator=gen) * 2 - 1) * limit)
-            elif isinstance(mod, Matching):
+            elif isinstance(mod, Matching) and hasattr(mod, "bin_score"):
                 mod.bin_score.fill_(mod.cfg.skh_init_bin_score)
 
 
@@ -129,7 +135,7 @@ class DiffusionMatchingModel(nn.Module):
         self.coarse_matching = Matching(cfg.coarse_matching)
         self.denoising_transformer = RepositioningTransformer(dataclasses.replace(
             cfg.coarse_transformer, layer_types=cfg.denoising_layer_types))
-        self.denoising_coarse_matching = Matching(cfg.coarse_matching)
+        self.denoising_coarse_matching = Matching(cfg.coarse_matching, projection=True)
         self.schedule = make_schedule(cfg.timesteps)
         init_weights(self, seed)
         self.to(device)
@@ -175,7 +181,8 @@ class DiffusionMatchingModel(nn.Module):
         """Denoising transformer + matcher -> x0 prediction [B, S, T]."""
         sf, tf, spe, tpe, _ = self.denoising_transformer(
             src_feats, tgt_feats, src_warped, t_pcd, src_mask, tgt_mask)
-        return self.denoising_coarse_matching(sf, tf, spe, tpe, src_mask, tgt_mask)
+        return self.denoising_coarse_matching(sf, tf, spe, tpe, src_mask, tgt_mask,
+                                              pe_type=self.cfg.coarse_transformer.pe_type)
 
     def _coarse_pass(self, batch, src_feats, tgt_feats, s_pcd, t_pcd, euler):
         """Coarse transformer + coarse matcher -> (conf, match_mask, aux)."""
@@ -183,7 +190,8 @@ class DiffusionMatchingModel(nn.Module):
         sf, tf, spe, tpe, aux = self.coarse_transformer(
             src_feats, tgt_feats, s_pcd, t_pcd, src_mask, tgt_mask,
             rot_gt=batch.rot_gt, trn_gt=batch.trn_gt, euler=euler)
-        conf, match_mask = self.coarse_matching(sf, tf, spe, tpe, src_mask, tgt_mask)
+        conf, match_mask = self.coarse_matching(sf, tf, spe, tpe, src_mask, tgt_mask,
+                                                pe_type=self.cfg.coarse_transformer.pe_type)
         return conf, match_mask, aux
 
     def draw_train_inputs(self, batch, generator: torch.Generator):

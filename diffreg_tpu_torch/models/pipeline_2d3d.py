@@ -147,6 +147,10 @@ class Pipeline2D3DConfig:
     use_dino: bool = False
     use_mono_depth: bool = False
     dino_dim: int = 1024            # DINOv2 ViT-L patch-token width
+    # "default": TF32 in the matchers' similarity product and the attention's
+    # plain path on CUDA (the JAX package's get_precision() sites); the
+    # attention kernel stays 3xTF32
+    precision: str = "highest"
 
 
 class DiffReg2D3D(nn.Module):
@@ -164,11 +168,12 @@ class DiffReg2D3D(nn.Module):
         fusion = lambda: CrossModalFusionModule(  # noqa: E731
             4 * cfg.img_base_dim, 8 * cfg.pcd_backbone.init_dim, cfg.output_dim,
             cfg.hidden_dim, cfg.num_heads, cfg.fusion_blocks,
-            dino_dim=cfg.dino_dim if cfg.use_dino else None)
+            dino_dim=cfg.dino_dim if cfg.use_dino else None, precision=cfg.precision)
         self.transformer = fusion()
         self.denoising_transformer = fusion()
-        self.coarse_matching = Matching(cfg.matching)
-        self.denoising_coarse_matching = Matching(cfg.matching)
+        matching = dataclasses.replace(cfg.matching, precision=cfg.precision)
+        self.coarse_matching = Matching(matching)
+        self.denoising_coarse_matching = Matching(matching)
         if cfg.use_dino:
             # the reference's dino_2_u: DINO tokens to the UNet's 1/8 width
             self.dino_proj = nn.Linear(cfg.dino_dim, 4 * cfg.img_base_dim)

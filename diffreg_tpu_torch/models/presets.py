@@ -36,8 +36,9 @@ def preset_3dmatch(sample_steps: int = 20, feature_dim: int = 432,
     0 (identity warp); ``train=True`` sets gate 200, as the reference train
     config does, in the pipeline and in the coarse transformer's procrustes
     positioning layer. Masked (real) lengths set the Procrustes budget."""
-    matching = MatchingConfig(feature_dim=feature_dim, confidence_threshold=0.2,
-                              skh_init_bin_score=1.0, skh_iters=3)
+    matching = MatchingConfig(feature_dim=feature_dim, match_type="sinkhorn",
+                              confidence_threshold=0.2, skh_init_bin_score=1.0, skh_iters=3,
+                              entangled=False)
     procrustes = ProcrustesConfig(sample_rate=1.0, max_condition_num=200.0 if train else 0.0,
                                   use_masked_lengths=True)
     transformer = TransformerConfig(
@@ -45,8 +46,10 @@ def preset_3dmatch(sample_steps: int = 20, feature_dim: int = 432,
         n_head=4,
         layer_types=("self", "cross", "positioning", "self", "cross"),
         positioning_type="procrustes",
+        pe_type="rotary",
         vol_origin=(-3.6, -2.4, 1.14),
         voxel_size=0.08,
+        entangled=False,
         procrustes=procrustes,
         feature_matching=matching,
     )

@@ -8,7 +8,8 @@ width), Fourier embeddings of the normalised pixels and of the centred
 points, then interleaved self and cross TransformerLayers.
 One layer serves both sides of a block. Its 12 attention calls per pass
 (image self, node self, image -> node, node -> image, three times) go
-through the masked-attention kernel on CUDA tensors.
+through the masked-attention kernel on CUDA tensors; ``precision`` is the
+policy of their plain path (``ops.attention.masked_attention``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from .layers2d3d import TransformerLayer, fourier_embedding
 class CrossModalFusionModule(nn.Module):
     def __init__(self, img_dim: int, pcd_dim: int, output_dim: int, hidden_dim: int,
                  num_heads: int, blocks: Tuple[str, ...] = ("self", "cross") * 3,
-                 embedding_dim: int = 10, dino_dim: Optional[int] = None):
+                 embedding_dim: int = 10, dino_dim: Optional[int] = None,
+                 precision: str = "highest"):
         super().__init__()
         self.blocks = tuple(blocks)
         self.embedding_dim = embedding_dim
@@ -35,7 +37,7 @@ class CrossModalFusionModule(nn.Module):
         self.pcd_in_proj = nn.Linear(pcd_dim, hidden_dim)
         self.img_emb_proj = nn.Linear(2 * (2 * embedding_dim + 1), hidden_dim)
         self.pcd_emb_proj = nn.Linear(3 * (2 * embedding_dim + 1), hidden_dim)
-        self.transformer = nn.ModuleList(TransformerLayer(hidden_dim, num_heads)
+        self.transformer = nn.ModuleList(TransformerLayer(hidden_dim, num_heads, precision)
                                          for _ in self.blocks)
         self.out_proj = nn.Linear(hidden_dim, output_dim)
 

@@ -87,12 +87,14 @@ class GroupNormPack(nn.Module):
 class MultiHeadAttention(nn.Module):
     """vision3d MultiHeadAttention: softmax(where(k_valid, q.k^T / sqrt(d),
     -1e9)) v per head, through ``ops.attention.masked_attention`` (on CUDA
-    tensors the hand-written kernel). The reference's relative-position and
-    weighting arguments are not ported: the fusion module passes none."""
+    tensors the hand-written kernel, whose plain recompute in the backward
+    runs at ``precision``, as the JAX layer's einsums run at
+    ``get_precision()``). The reference's relative-position and weighting
+    arguments are not ported: the fusion module passes none."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, precision: str = "highest"):
         super().__init__()
-        self.d_model, self.num_heads = d_model, num_heads
+        self.d_model, self.num_heads, self.precision = d_model, num_heads, precision
         self.q_token_layer = nn.Linear(d_model, d_model)
         self.k_token_layer = nn.Linear(d_model, d_model)
         self.v_token_layer = nn.Linear(d_model, d_model)
@@ -113,16 +115,16 @@ class MultiHeadAttention(nn.Module):
         v = heads(self.v_token_layer(v_tokens))
         if k_valid is None:
             k_valid = torch.ones(k.shape[0], k.shape[2], dtype=torch.bool, device=k.device)
-        out = masked_attention(q, k, v, k_valid, d ** -0.5)        # [B, H, L, D]
+        out = masked_attention(q, k, v, k_valid, d ** -0.5, self.precision)   # [B, H, L, D]
         return out.transpose(1, 2).reshape(q_tokens.shape[0], q_tokens.shape[1], self.d_model)
 
 
 class AttentionLayer(nn.Module):
     """Attention, output projection, residual, LayerNorm (eps 1e-5)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, precision: str = "highest"):
         super().__init__()
-        self.attention = MultiHeadAttention(d_model, num_heads)
+        self.attention = MultiHeadAttention(d_model, num_heads, precision)
         self.linear = nn.Linear(d_model, d_model)
         self.norm = nn.LayerNorm(d_model, eps=1e-5)
 
@@ -147,9 +149,9 @@ class AttentionOutput(nn.Module):
 class TransformerLayer(nn.Module):
     """vision3d TransformerLayer: AttentionLayer + AttentionOutput (post-norm)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, precision: str = "highest"):
         super().__init__()
-        self.attention = AttentionLayer(d_model, num_heads)
+        self.attention = AttentionLayer(d_model, num_heads, precision)
         self.output = AttentionOutput(d_model)
 
     def forward(self, q_tokens, k_tokens, v_tokens, k_valid=None):

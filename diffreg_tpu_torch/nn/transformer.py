@@ -1,4 +1,4 @@
-"""Repositioning transformer — self/cross geometry attention with rotary VolPE.
+"""Repositioning transformer — self/cross geometry attention with volumetric PE.
 
 Counterpart of the JAX package's nn/transformer.py (``GeometryAttentionLayer``,
 ``RepositioningTransformer``). Only the math is ported: the JAX package's
@@ -6,6 +6,13 @@ lane-layout switches (align_heads, rotary_half, fused_rotary_qkv,
 logits_layout) give identical outputs. Attention goes through
 ``ops.attention.masked_attention``: the Hopper kernel for CUDA tensors, the
 plain version on the CPU.
+
+``pe_type`` "rotary" rotates q and k by the position code after their
+projections; "sinusoidal" adds the code to x and source before them (v is
+projected from the bare source either way). ``entangled`` adds (or applies)
+the code to the features once, before the first layer; the layers then get
+none, the 'positioning' layers are skipped (and hold no matcher), and the
+initial codes are returned.
 
 ``compute_dtype="bfloat16"`` is the JAX layer's bf16 path: x and source are
 cast to bf16, the projections, the rotary code, the merge and the MLP run in
@@ -32,7 +39,7 @@ from torch import nn
 from ..geometry.procrustes import soft_procrustes
 from ..geometry.se3 import apply_transform
 from ..ops.attention import masked_attention
-from ..ops.position_encoding import embed_rotary, volumetric_pe
+from ..ops.position_encoding import PE_TYPES, embed_pos, volumetric_pe
 from .matching import Matching, MatchingConfig
 
 
@@ -49,8 +56,10 @@ class TransformerConfig:
     n_head: int = 4
     layer_types: Tuple[str, ...] = ("self", "cross", "positioning", "self", "cross")
     positioning_type: str = "procrustes"      # procrustes | randSO3 | oracle
+    pe_type: str = "rotary"                   # rotary | sinusoidal
     vol_origin: Tuple[float, float, float] = (-3.6, -2.4, 1.14)
     voxel_size: float = 0.08
+    entangled: bool = False                   # the code joins the features once, up front
     procrustes: ProcrustesConfig = ProcrustesConfig()
     feature_matching: MatchingConfig = MatchingConfig()
     compute_dtype: Optional[str] = None       # "bfloat16": the bf16 path
@@ -72,11 +81,15 @@ def _linear(layer, x):
 
 
 class GeometryAttentionLayer(nn.Module):
-    """Rotary multi-head attention + gated-concat FFN (transformero.py:13-96)."""
+    """Multi-head attention with the position code (rotary or sinusoidal) +
+    gated-concat FFN (transformero.py:13-96)."""
 
-    def __init__(self, d_model: int, n_head: int, compute_dtype: Optional[str] = None):
+    def __init__(self, d_model: int, n_head: int, compute_dtype: Optional[str] = None,
+                 pe_type: str = "rotary"):
         super().__init__()
-        self.d_model, self.n_head = d_model, n_head
+        if pe_type not in PE_TYPES:
+            raise KeyError(pe_type)
+        self.d_model, self.n_head, self.pe_type = d_model, n_head, pe_type
         self.dtype = torch_dtype(compute_dtype)
         self.q_proj = nn.Linear(d_model, d_model, bias=False)
         self.k_proj = nn.Linear(d_model, d_model, bias=False)
@@ -89,7 +102,8 @@ class GeometryAttentionLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
 
     def forward(self, x, source, x_pe, source_pe, source_mask):
-        """x [B, L, C] attends to source [B, S, C]; pe [.., C, 2]; source_mask [B, S]."""
+        """x [B, L, C] attends to source [B, S, C]; pe: rotary [.., C, 2],
+        sinusoidal [.., C], or None (no code); source_mask [B, S]."""
         b, h = x.shape[0], self.n_head
         dim = self.d_model // h
         in_dtype = x.dtype
@@ -97,9 +111,15 @@ class GeometryAttentionLayer(nn.Module):
             same = x is source
             x = x.to(self.dtype)
             source = x if same else source.to(self.dtype)
-            x_pe, source_pe = x_pe.to(self.dtype), source_pe.to(self.dtype)
-        q = embed_rotary(_linear(self.q_proj, x), x_pe[..., 0], x_pe[..., 1])
-        k = embed_rotary(_linear(self.k_proj, source), source_pe[..., 0], source_pe[..., 1])
+            if x_pe is not None:
+                x_pe, source_pe = x_pe.to(self.dtype), source_pe.to(self.dtype)
+        if self.pe_type == "sinusoidal":
+            q = _linear(self.q_proj, x if x_pe is None else x + x_pe)
+            k = _linear(self.k_proj, source if source_pe is None else source + source_pe)
+        else:
+            q, k = _linear(self.q_proj, x), _linear(self.k_proj, source)
+            if x_pe is not None:
+                q, k = embed_pos("rotary", q, x_pe), embed_pos("rotary", k, source_pe)
         v = _linear(self.v_proj, source)
         heads = lambda t: t.reshape(b, -1, h, dim).transpose(1, 2)   # [B, H, N, D]
         o = masked_attention(heads(q), heads(k), heads(v), source_mask, dim ** -0.5)
@@ -119,20 +139,22 @@ class RepositioningTransformer(nn.Module):
         for lt in cfg.layer_types:
             if lt in ("self", "cross"):
                 layers.append(GeometryAttentionLayer(cfg.feature_dim, cfg.n_head,
-                                                     cfg.compute_dtype))
+                                                     cfg.compute_dtype, cfg.pe_type))
             elif lt == "positioning":
                 if cfg.positioning_type not in ("procrustes", "randSO3", "oracle"):
                     raise KeyError(cfg.positioning_type)
-                # parameters only for the procrustes warp, at layers.<i>.0
+                # parameters only for the procrustes warp, at layers.<i>.0 (an
+                # entangled transformer skips the layer: no parameters, as in JAX)
+                procrustes = cfg.positioning_type == "procrustes" and not cfg.entangled
                 layers.append(nn.ModuleList([Matching(cfg.feature_matching)]
-                                            if cfg.positioning_type == "procrustes" else []))
+                                            if procrustes else []))
             else:
                 raise KeyError(lt)
         self.layers = nn.ModuleList(layers)
 
     def _pe(self, xyz):
         return volumetric_pe(xyz, self.cfg.feature_dim, self.cfg.vol_origin,
-                             self.cfg.voxel_size)
+                             self.cfg.voxel_size, self.cfg.pe_type)
 
     def forward(self, src_feat, tgt_feat, s_pcd, t_pcd, src_mask, tgt_mask, rot_gt=None,
                 trn_gt=None, transform=None, euler=None):
@@ -143,14 +165,19 @@ class RepositioningTransformer(nn.Module):
         conf_matrix, match_mask, rotation, translation, condition, solution_mask."""
         cfg = self.cfg
         src_wrapped = s_pcd if transform is None else apply_transform(s_pcd, *transform)
-        s_pe, t_pe = self._pe(src_wrapped), self._pe(t_pcd)
+        src_pe, tgt_pe = self._pe(src_wrapped), self._pe(t_pcd)
+        s_pe, t_pe = src_pe, tgt_pe
+        if cfg.entangled:
+            src_feat = embed_pos(cfg.pe_type, src_feat, src_pe)
+            tgt_feat = embed_pos(cfg.pe_type, tgt_feat, tgt_pe)
+            s_pe = t_pe = None
         aux = {"position_layers": []}
         for lt, layer in zip(cfg.layer_types, self.layers):
             if lt == "self":
                 if src_feat.shape[1] == tgt_feat.shape[1]:
                     # src and tgt share the weights and are independent: one [2B] call
                     both = torch.cat([src_feat, tgt_feat], dim=0)
-                    pe2 = torch.cat([s_pe, t_pe], dim=0)
+                    pe2 = None if s_pe is None else torch.cat([s_pe, t_pe], dim=0)
                     both = layer(both, both, pe2, pe2, torch.cat([src_mask, tgt_mask], dim=0))
                     src_feat, tgt_feat = both[:src_feat.shape[0]], both[src_feat.shape[0]:]
                 else:
@@ -160,8 +187,11 @@ class RepositioningTransformer(nn.Module):
                 src_feat = layer(src_feat, tgt_feat, s_pe, t_pe, tgt_mask)
                 # tgt attends to the updated src, as in the reference
                 tgt_feat = layer(tgt_feat, src_feat, t_pe, s_pe, src_mask)
+            elif cfg.entangled:
+                continue
             elif cfg.positioning_type == "procrustes":
-                conf, match_mask = layer[0](src_feat, tgt_feat, s_pe, t_pe, src_mask, tgt_mask)
+                conf, match_mask = layer[0](src_feat, tgt_feat, s_pe, t_pe, src_mask, tgt_mask,
+                                            pe_type=cfg.pe_type)
                 proc = cfg.procrustes
                 res = soft_procrustes(conf, s_pcd, t_pcd, src_mask, tgt_mask,
                                       sample_rate=proc.sample_rate,
@@ -177,7 +207,9 @@ class RepositioningTransformer(nn.Module):
                 s_pe, t_pe = self._pe(rand_rot_pcd(euler, s_pcd, src_mask)), self._pe(t_pcd)
             else:  # oracle
                 s_pe, t_pe = self._pe(apply_transform(s_pcd, rot_gt, trn_gt)), self._pe(t_pcd)
-        return src_feat, tgt_feat, s_pe, t_pe, aux
+            if lt == "positioning":
+                src_pe, tgt_pe = s_pe, t_pe
+        return src_feat, tgt_feat, src_pe, tgt_pe, aux
 
 
 def rand_rot_pcd(euler, pcd, mask):

@@ -14,6 +14,11 @@ differentiates it: the dq/dk/dv of the JAX package's ``custom_vjp``
 (``ops/pallas/attention_kernel.py``), with the probabilities rebuilt in the
 backward, not kept from the forward.
 
+``precision`` is the policy of the plain version (``utils/precision.py``):
+"default" runs its products, and the backward recompute's, in TF32 on CUDA,
+as the JAX package's XLA attention runs at ``get_precision()``; the kernel
+computes in 3xTF32 (f32 accuracy) under either policy.
+
 bf16 q, k and v are the JAX package's bf16 compute path: the kernel's bf16
 instance on CUDA inside ``MaskedAttentionBF16Function`` (its backward
 recomputes ``masked_attention_bf16_plain`` and differentiates it, as
@@ -27,6 +32,7 @@ import ctypes
 import torch
 
 from ..utils.cuda import kernel_library, launch
+from ..utils.precision import matmul_precision
 from .masked import NEG_INF
 from .recompute import recompute_grads
 
@@ -96,19 +102,22 @@ masked_attention_cuda_bf16.launches = 0
 
 
 class MaskedAttentionFunction(torch.autograd.Function):
-    """``masked_attention_cuda`` forward; plain-recompute backward for q, k, v."""
+    """``masked_attention_cuda`` forward; plain-recompute backward for q, k, v
+    at the ``precision`` policy."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, scale):
+    def forward(ctx, q, k, v, kv_mask, scale, precision="highest"):
         ctx.save_for_backward(q, k, v, kv_mask)
-        ctx.scale = scale
+        ctx.scale, ctx.precision = scale, precision
         return masked_attention_cuda(q, k, v, kv_mask, scale)
 
     @staticmethod
     def backward(ctx, grad_out):
-        return (*recompute_grads("masked_attention_backward_recompute",
-                                 lambda *a: masked_attention_plain(*a, ctx.scale),
-                                 ctx.saved_tensors, ctx.needs_input_grad[:4], grad_out), None)
+        with matmul_precision(ctx.precision):
+            grads = recompute_grads("masked_attention_backward_recompute",
+                                    lambda *a: masked_attention_plain(*a, ctx.scale),
+                                    ctx.saved_tensors, ctx.needs_input_grad[:4], grad_out)
+        return (*grads, None, None)
 
 
 class MaskedAttentionBF16Function(torch.autograd.Function):
@@ -139,10 +148,11 @@ def _library():
     return lib
 
 
-def masked_attention(q, k, v, kv_mask, scale):
+def masked_attention(q, k, v, kv_mask, scale, precision="highest"):
     """Masked attention on the tensors' device: the Hopper kernel (under
     autograd) for CUDA tensors, the plain version for CPU tensors; bf16
-    tensors take the bf16 path (its kernel instance on CUDA)."""
+    tensors take the bf16 path (its kernel instance on CUDA). ``precision``:
+    the f32 plain version's policy (in the backward on CUDA)."""
     if q.dtype == torch.bfloat16:
         if q.is_cuda:
             return MaskedAttentionBF16Function.apply(q.contiguous(), k.contiguous(),
@@ -150,5 +160,6 @@ def masked_attention(q, k, v, kv_mask, scale):
         return masked_attention_bf16_plain(q, k, v, kv_mask, scale)
     if q.is_cuda:
         return MaskedAttentionFunction.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                             kv_mask.contiguous(), scale)
-    return masked_attention_plain(q, k, v, kv_mask, scale)
+                                             kv_mask.contiguous(), scale, precision)
+    with matmul_precision(precision):
+        return masked_attention_plain(q, k, v, kv_mask, scale)

@@ -1,14 +1,23 @@
 """Kernel-point convolution: the plain PyTorch version and the Hopper kernel.
 
-Counterpart of the JAX package's ops/kpconv.py (``kpconv``, ``max_pool``,
-``closest_pool``, ``kpconv_batched``) and of its Pallas kernel
-ops/pallas/kpconv_kernel.py. Neighborhoods are fixed-K and sentinel-padded
-(index == Ns is the shadow point: position 1e6, zero features). Linear
-influence and sum aggregation, the only modes on the Diff-Reg path.
+Counterpart of the JAX package's ops/kpconv.py (``kpconv``,
+``kpconv_deformable``, ``max_pool``, ``closest_pool``, ``kpconv_batched``) and
+of its Pallas kernel ops/pallas/kpconv_kernel.py. Neighborhoods are fixed-K
+and sentinel-padded (index == Ns is the shadow point: position 1e6, zero
+features). Every function takes the JAX package's modes: ``influence``
+linear, constant or gaussian, and ``aggregation`` sum or closest
+(``influence_weights``). The Pallas kernel has linear and sum only (JAX runs
+the others in XLA); the Hopper kernel has each pair as an instance.
+
+``kpconv_deformable`` computes its offset conv through ``kpconv_batched`` (the
+Hopper kernel on CUDA tensors) and its deformed conv, whose kernel points
+differ per query, in batched plain PyTorch on every device: JAX computes it in
+XLA, and no kernel of either package computes it.
 
 ``kpconv_batched`` is the entry the backbone calls: a CUDA tensor launches
 the hand-written kernel (``csrc/kpconv.cu``) or raises; a CPU tensor runs
-the plain version. On CUDA tensors the kernel runs inside ``KPConvFunction``,
+the plain version (the bf16 instance is ``csrc/kpconv_bf16.cu``, a library of
+its own). On CUDA tensors the kernel runs inside ``KPConvFunction``,
 whose backward recomputes the plain version at the saved inputs and
 differentiates it, as the JAX package's ``custom_vjp`` does
 (``ops/pallas/kpconv_kernel.py``): the gathered rows are rebuilt one layer at
@@ -33,11 +42,45 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..utils.cuda import kernel_library, launch
 from .recompute import recompute_grads
 
 _SHADOW = 1.0e6
+INFLUENCES = ("linear", "constant", "gaussian")
+AGGREGATIONS = ("sum", "closest")
+
+
+def check_modes(influence, aggregation):
+    if influence not in INFLUENCES:
+        raise ValueError(f"KP_influence {influence!r}: one of {INFLUENCES}")
+    if aggregation not in AGGREGATIONS:
+        raise ValueError(f"aggregation_mode {aggregation!r}: one of {AGGREGATIONS}")
+
+
+def gaussian_denominator(kp_extent):
+    """2 sigma^2 + 1e-9 with sigma = 0.3 extent, in double, as the JAX package
+    forms it from its Python float extent."""
+    return 2.0 * (float(kp_extent) * 0.3) ** 2 + 1e-9
+
+
+def influence_weights(sq_d, kp_extent, influence="linear", aggregation="sum"):
+    """Kernel-point influence weights [..., P] of squared distances sq_d
+    (the JAX package's ``_influence_weights``): linear max(1 - d / extent, 0),
+    constant 1, or gaussian exp(-d^2 / (2 sigma^2 + 1e-9)); under "closest"
+    every kernel point but each neighbour's nearest (the first on ties, as
+    ``jnp.argmin``) weighs 0."""
+    check_modes(influence, aggregation)
+    if influence == "linear":
+        w = torch.clamp(1.0 - torch.sqrt(sq_d) / kp_extent, min=0.0)
+    elif influence == "constant":
+        w = torch.ones_like(sq_d)
+    else:
+        w = torch.exp(-sq_d / gaussian_denominator(kp_extent))
+    if aggregation == "closest":
+        w = w * F.one_hot(sq_d.argmin(dim=-1), sq_d.shape[-1]).to(w.dtype)
+    return w
 
 
 def _gather_rows(table, inds):
@@ -50,7 +93,8 @@ def _gather_rows(table, inds):
     return table.reshape(b * n, c).index_select(0, rows.reshape(-1)).reshape(*inds.shape, c)
 
 
-def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
+           influence="linear", aggregation="sum"):
     """Plain KPConv, batched.
 
     q_pts [B, Nq, 3], s_pts [B, Ns, 3], neighb_inds [B, Nq, K] (sentinel Ns),
@@ -58,27 +102,34 @@ def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
     -> [B, Nq, Cout].
     """
     weighted, neighbor_num = kpconv_aggregate(q_pts, s_pts, neighb_inds, x, kernel_points,
-                                              kp_extent)
+                                              kp_extent, influence, aggregation)
     out = torch.einsum("bnpc,pcd->bnd", weighted, weights)
     return out / neighbor_num[..., None].to(out.dtype)
 
 
-def kpconv_aggregate(q_pts, s_pts, neighb_inds, x, kernel_points, kp_extent):
-    """KPConv before its contraction: the influence-weighted features
-    [B, Nq, P, Cin] and the density count [B, Nq] (at least 1)."""
+def _gather(q_pts, s_pts, neighb_inds, x):
+    """The gathered neighbours: offsets from the query [B, Nq, K, 3] and
+    features [B, Nq, K, Cin], through one gather of [position, features] rows
+    (the shadow row appended)."""
     b, _, cin = x.shape
     table = torch.cat([
         torch.cat([s_pts, s_pts.new_full((b, 1, 3), _SHADOW)], dim=1),
         torch.cat([x, x.new_zeros((b, 1, cin))], dim=1)], dim=-1)
     gathered = _gather_rows(table, neighb_inds)                 # [B, Nq, K, 3+Cin]
-    neighbors = gathered[..., :3] - q_pts[:, :, None, :]
-    feats = gathered[..., 3:]
+    return gathered[..., :3] - q_pts[:, :, None, :], gathered[..., 3:]
+
+
+def kpconv_aggregate(q_pts, s_pts, neighb_inds, x, kernel_points, kp_extent,
+                     influence="linear", aggregation="sum"):
+    """KPConv before its contraction: the influence-weighted features
+    [B, Nq, P, Cin] and the density count [B, Nq] (at least 1)."""
+    neighbors, feats = _gather(q_pts, s_pts, neighb_inds, x)
     # ||n - kp||^2 = ||n||^2 + ||kp||^2 - 2 n.kp, as the JAX package computes it
     n2 = torch.sum(neighbors * neighbors, dim=-1, keepdim=True)
     k2 = torch.sum(kernel_points * kernel_points, dim=-1)
     cross = torch.einsum("bnkc,pc->bnkp", neighbors, kernel_points)
     sq_d = torch.clamp(n2 + k2 - 2.0 * cross, min=0.0)
-    infl = torch.clamp(1.0 - torch.sqrt(sq_d) / kp_extent, min=0.0)
+    infl = influence_weights(sq_d, kp_extent, influence, aggregation)
     weighted = torch.einsum("bnkp,bnkc->bnpc", infl, feats)
     # density normalization: a neighbor counts iff its feature-sum is positive
     # (the reference's quirk, blocks.py:354-357)
@@ -123,7 +174,8 @@ def kpconv_bf16_table_aligned(s_pts, x):
                      dim=-1).to(torch.bfloat16)
 
 
-def kpconv_bf16_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+def kpconv_bf16_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
+                      influence="linear", aggregation="sum"):
     """Plain KPConv of the bf16 path, in f32 with bf16 roundings where the
     JAX package rounds (every product of two bf16 values is exact in f32, so
     f32 sums of them are what an f32-accumulating bf16 product computes).
@@ -135,28 +187,53 @@ def kpconv_bf16_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_e
     (XLA's CPU scatter-add rounds each addition, in index order); f32 sums
     make the CUDA recompute, which adds with atomics, agree with this plain
     version to f32 summation order."""
-    gathered = _gather_rows(torch.cat(_bf16_support_rows(s_pts, x), dim=-1), neighb_inds)
-    neighbors = (gathered[..., :3] + gathered[..., 3:6]) - q_pts[:, :, None, :]
-    feats = gathered[..., 6:]
-    if feats.requires_grad:
-        feats.register_hook(_round_bf16)       # JAX's bf16 cotangent of the gathered rows
+    neighbors, feats = _bf16_gather(q_pts, s_pts, neighb_inds, x)
     n2 = torch.sum(neighbors * neighbors, dim=-1, keepdim=True)
     k2 = torch.sum(kernel_points * kernel_points, dim=-1)
     cross = torch.einsum("bnkc,pc->bnkp", neighbors, kernel_points)
     sq_d = torch.clamp(n2 + k2 - 2.0 * cross, min=0.0)
-    infl = torch.clamp(1.0 - torch.sqrt(sq_d) / kp_extent, min=0.0)
+    infl = influence_weights(sq_d, kp_extent, influence, aggregation)
     weighted = torch.einsum("bnkp,bnkc->bnpc", _round_bf16(infl), feats)
     out = torch.einsum("bnpc,pcd->bnd", _round_bf16(weighted), _round_bf16(weights))
     neighbor_num = (feats.sum(dim=-1) > 0.0).sum(dim=-1).clamp_min(1)
     return out / neighbor_num[..., None].to(out.dtype)
 
 
+def _bf16_gather(q_pts, s_pts, neighb_inds, x):
+    """The bf16 path's gathered neighbours: offsets from the query [B, Nq, K, 3]
+    rebuilt in f32 as hi + lo, and features [B, Nq, K, Cin] at their bf16
+    values, whose cotangent is rounded to bf16 as JAX's is."""
+    gathered = _gather_rows(torch.cat(_bf16_support_rows(s_pts, x), dim=-1), neighb_inds)
+    neighbors = (gathered[..., :3] + gathered[..., 3:6]) - q_pts[:, :, None, :]
+    feats = gathered[..., 6:]
+    if feats.requires_grad:
+        feats.register_hook(_round_bf16)       # JAX's bf16 cotangent of the gathered rows
+    return neighbors, feats
+
+
 def _round_bf16(t):
     return t.to(torch.bfloat16).float()
 
 
-def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
-    """Launch the Hopper KPConv kernel; same contract as ``kpconv``."""
+def _mode_codes(kp_extent, influence, aggregation):
+    """The C entry points' mode arguments: extent, influence code, closest flag,
+    gaussian denominator."""
+    check_modes(influence, aggregation)
+    return (float(kp_extent), INFLUENCES.index(influence), int(aggregation == "closest"),
+            gaussian_denominator(kp_extent))
+
+
+def _count(wrapper, influence, aggregation):
+    wrapper.launches += 1
+    key = f"{influence}/{aggregation}"
+    wrapper.mode_launches[key] = wrapper.mode_launches.get(key, 0) + 1
+
+
+def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
+                influence="linear", aggregation="sum"):
+    """Launch the Hopper KPConv kernel; same contract as ``kpconv``. Counts its
+    launches in ``launches`` and, per "influence/aggregation", in
+    ``mode_launches``."""
     tensors = {"q_pts": q_pts, "s_pts": s_pts, "x": x,
                "kernel_points": kernel_points, "weights": weights}
     for name, t in tensors.items():
@@ -173,23 +250,26 @@ def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent)
         raise ValueError("kpconv_cuda: inconsistent shapes "
                          f"{q_pts.shape} {s_pts.shape} {neighb_inds.shape} {x.shape} "
                          f"{kernel_points.shape} {weights.shape}")
-    lib = _library()
+    lib = _library("kpconv")
     out = torch.empty((b, nq, cout), device=x.device, dtype=torch.float32)
     launch(lib, "kpconv_forward", x.device, q_pts.data_ptr(), s_pts.data_ptr(),
            neighb_inds.data_ptr(), x.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
-           out.data_ptr(), b, nq, ns, k, cin, cout, p, float(kp_extent))
-    kpconv_cuda.launches += 1
+           out.data_ptr(), b, nq, ns, k, cin, cout, p,
+           *_mode_codes(kp_extent, influence, aggregation))
+    _count(kpconv_cuda, influence, aggregation)
     return out
 
 
 kpconv_cuda.launches = 0
+kpconv_cuda.mode_launches = {}
 
 
-def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_extent):
+def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_extent,
+                     influence="linear", aggregation="sum"):
     """Launch the kernel's bf16 instance: ``table`` [B, Ns + 1, 8 + Cin] bf16
     (``kpconv_bf16_table_aligned``), ``weights`` [P, Cin, Cout] bf16, f32
     query and kernel points; returns f32 [B, Nq, Cout], as
-    ``kpconv_bf16_plain``."""
+    ``kpconv_bf16_plain``. Counts as ``kpconv_cuda`` does."""
     for name, t, dtype in (("q_pts", q_pts, torch.float32), ("table", table, torch.bfloat16),
                            ("kernel_points", kernel_points, torch.float32),
                            ("weights", weights, torch.bfloat16),
@@ -204,16 +284,18 @@ def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_exten
         raise ValueError("kpconv_cuda_bf16: inconsistent shapes "
                          f"{q_pts.shape} {table.shape} {neighb_inds.shape} "
                          f"{kernel_points.shape} {weights.shape}")
-    lib = _library()
+    lib = _library("kpconv_bf16")
     out = torch.empty((b, nq, cout), device=table.device, dtype=torch.float32)
     launch(lib, "kpconv_forward_bf16", table.device, q_pts.data_ptr(), table.data_ptr(),
            neighb_inds.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
-           out.data_ptr(), b, nq, ns, k, cin, cout, p, float(kp_extent))
-    kpconv_cuda_bf16.launches += 1
+           out.data_ptr(), b, nq, ns, k, cin, cout, p,
+           *_mode_codes(kp_extent, influence, aggregation))
+    _count(kpconv_cuda_bf16, influence, aggregation)
     return out
 
 
 kpconv_cuda_bf16.launches = 0
+kpconv_cuda_bf16.mode_launches = {}
 
 
 class KPConvFunction(torch.autograd.Function):
@@ -221,16 +303,18 @@ class KPConvFunction(torch.autograd.Function):
     need a gradient (features and weights on the training path)."""
 
     @staticmethod
-    def forward(ctx, q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+    def forward(ctx, q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
+                influence="linear", aggregation="sum"):
         ctx.save_for_backward(q_pts, s_pts, neighb_inds, x, kernel_points, weights)
-        ctx.kp_extent = kp_extent
-        return kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent)
+        ctx.modes = (kp_extent, influence, aggregation)
+        return kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
+                           influence, aggregation)
 
     @staticmethod
     def backward(ctx, grad_out):
         return (*recompute_grads("kpconv_backward_recompute",
-                                 lambda *a: kpconv(*a, ctx.kp_extent), ctx.saved_tensors,
-                                 ctx.needs_input_grad[:6], grad_out), None)
+                                 lambda *a: kpconv(*a, *ctx.modes), ctx.saved_tensors,
+                                 ctx.needs_input_grad[:6], grad_out), None, None, None)
 
 
 class KPConvBF16Function(torch.autograd.Function):
@@ -240,52 +324,103 @@ class KPConvBF16Function(torch.autograd.Function):
     inputs that need a gradient (features and f32 weights in training)."""
 
     @staticmethod
-    def forward(ctx, q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent):
+    def forward(ctx, q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
+                influence="linear", aggregation="sum"):
         ctx.save_for_backward(q_pts, s_pts, neighb_inds, x, kernel_points, weights)
-        ctx.kp_extent = kp_extent
+        ctx.modes = (kp_extent, influence, aggregation)
         return kpconv_cuda_bf16(q_pts, kpconv_bf16_table_aligned(s_pts, x), neighb_inds,
                                 kernel_points, weights.to(torch.bfloat16).contiguous(),
-                                kp_extent)
+                                kp_extent, influence, aggregation)
 
     @staticmethod
     def backward(ctx, grad_out):
         return (*recompute_grads("kpconv_bf16_backward_recompute",
-                                 lambda *a: kpconv_bf16_plain(*a, ctx.kp_extent),
-                                 ctx.saved_tensors, ctx.needs_input_grad[:6], grad_out), None)
+                                 lambda *a: kpconv_bf16_plain(*a, *ctx.modes),
+                                 ctx.saved_tensors, ctx.needs_input_grad[:6], grad_out),
+                None, None, None)
 
 
-def _library():
-    lib = kernel_library("kpconv")
-    if lib.kpconv_forward.argtypes is None:
+def _library(name):
+    """The loaded ``lib<name>.so`` (csrc/kpconv.cu: ``kpconv_forward``;
+    csrc/kpconv_bf16.cu: ``kpconv_forward_bf16``), its entry typed."""
+    lib = kernel_library(name)
+    entry = getattr(lib, "kpconv_forward" if name == "kpconv" else "kpconv_forward_bf16")
+    if entry.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.kpconv_forward.argtypes = [vp] * 7 + [ci] * 7 + [ctypes.c_float, vp]
-        lib.kpconv_forward.restype = ci
-        lib.kpconv_forward_bf16.argtypes = [vp] * 6 + [ci] * 7 + [ctypes.c_float, vp]
-        lib.kpconv_forward_bf16.restype = ci
+        modes = [ctypes.c_float, ci, ci, ctypes.c_float]   # extent, influence, closest, den
+        entry.argtypes = [vp] * (7 if name == "kpconv" else 6) + [ci] * 7 + modes + [vp]
+        entry.restype = ci
     return lib
 
 
 def kpconv_batched(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
-                   compute_dtype=None):
+                   compute_dtype=None, influence="linear", aggregation="sum"):
     """KPConv on the tensors' device: the Hopper kernel (under autograd) for
     CUDA tensors, the plain version for CPU tensors. ``compute_dtype``
     "bfloat16" takes the bf16 path (its kernel instance on CUDA); None or
-    "float32" the f32 one."""
-    if compute_dtype == "bfloat16":
-        if x.is_cuda:
-            return KPConvBF16Function.apply(q_pts.contiguous(), s_pts.contiguous(),
-                                            neighb_inds.contiguous(), x.contiguous(),
-                                            kernel_points.contiguous(), weights.contiguous(),
-                                            kp_extent)
-        return kpconv_bf16_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-                                 kp_extent)
-    if compute_dtype not in (None, "float32"):
+    "float32" the f32 one. ``influence`` and ``aggregation``: the modes of
+    ``influence_weights``, each an instance of the kernel on CUDA."""
+    if compute_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(f"compute_dtype {compute_dtype!r}: bfloat16, float32 or None")
+    args = (q_pts, s_pts, neighb_inds, x, kernel_points, weights)
     if x.is_cuda:
-        return KPConvFunction.apply(q_pts.contiguous(), s_pts.contiguous(),
-                                    neighb_inds.contiguous(), x.contiguous(),
-                                    kernel_points.contiguous(), weights.contiguous(), kp_extent)
-    return kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent)
+        function = KPConvBF16Function if compute_dtype == "bfloat16" else KPConvFunction
+        return function.apply(*(t.contiguous() for t in args), kp_extent, influence,
+                              aggregation)
+    plain = kpconv_bf16_plain if compute_dtype == "bfloat16" else kpconv
+    return plain(*args, kp_extent, influence, aggregation)
+
+
+def kpconv_deformable(q_pts, s_pts, neighb_inds, x, kernel_points, weights, offset_weights,
+                      offset_bias, kp_extent, influence="linear", aggregation="sum",
+                      modulated=False, compute_dtype=None, offset_kernel_points=None):
+    """Deformable (``modulated``: and modulated) KPConv, batched: the JAX
+    package's ``kpconv_deformable`` (the reference's ``KPConv(deformable=True)``).
+
+    A rigid KPConv over the same neighbourhood (``kpconv_batched``, with the
+    offset conv's own ``offset_kernel_points``, default ``kernel_points``)
+    predicts per-query kernel offsets [B, Nq, P, 3] in units of the extent and,
+    when ``modulated``, per-point gains 2 sigmoid(.); the deformed conv then
+    zeroes the features of neighbours outside every deformed point's extent
+    (``sq_d < extent^2``, the static form of the reference's re-gather), so
+    that they count neither in the sum nor in the density count. The same
+    arguments as ``kpconv_batched`` plus ``offset_weights`` [P, Cin, (3 or 4) P]
+    and ``offset_bias``. Returns (features [B, Nq, Cout], aux) with aux
+    ``min_d2`` [B, Nq, P] (each deformed point's squared distance to its
+    nearest neighbour), ``deformed_kp`` [B, Nq, P, 3] and ``offset_features``
+    [B, Nq, (3 or 4) P]. ``compute_dtype`` "bfloat16" rounds where JAX's bf16
+    path rounds: the gathered features and the influences to bf16, their f32
+    sums to bf16 before the contraction with the bf16 weights."""
+    b, nq, _ = q_pts.shape
+    p = kernel_points.shape[0]
+    bf16 = compute_dtype == "bfloat16"
+    okp = kernel_points if offset_kernel_points is None else offset_kernel_points
+    offset_features = kpconv_batched(q_pts, s_pts, neighb_inds, x, okp, offset_weights,
+                                     kp_extent, compute_dtype, influence,
+                                     aggregation) + offset_bias
+    unscaled = offset_features[..., :3 * p].reshape(b, nq, p, 3)
+    deformed_kp = kernel_points + unscaled * kp_extent                # [B, Nq, P, 3]
+
+    neighbors, feats = (_bf16_gather if bf16 else _gather)(q_pts, s_pts, neighb_inds, x)
+    n2 = torch.sum(neighbors * neighbors, dim=-1, keepdim=True)     # [B, Nq, K, 1]
+    k2 = torch.sum(deformed_kp * deformed_kp, dim=-1)                # [B, Nq, P]
+    cross = torch.einsum("bnkc,bnpc->bnkp", neighbors, deformed_kp)
+    sq_d = torch.clamp(n2 + k2[:, :, None, :] - 2.0 * cross, min=0.0)
+    min_d2 = sq_d.amin(dim=2)
+    in_range = (sq_d < kp_extent ** 2).any(dim=3)                    # [B, Nq, K]
+    feats = feats * in_range[..., None].to(feats.dtype)
+    infl = influence_weights(sq_d, kp_extent, influence, aggregation)
+    weighted = torch.einsum("bnkp,bnkc->bnpc", _round_bf16(infl) if bf16 else infl, feats)
+    if modulated:
+        weighted = weighted * (2.0 * torch.sigmoid(offset_features[..., 3 * p:]))[..., None]
+    if bf16:
+        out = torch.einsum("bnpc,pcd->bnd", _round_bf16(weighted), _round_bf16(weights))
+    else:
+        out = torch.einsum("bnpc,pcd->bnd", weighted, weights)
+    neighbor_num = (feats.sum(dim=-1) > 0.0).sum(dim=-1).clamp_min(1)
+    out = out / neighbor_num[..., None].to(out.dtype)
+    return out, {"min_d2": min_d2, "deformed_kp": deformed_kp,
+                 "offset_features": offset_features}
 
 
 def max_pool(x, inds):

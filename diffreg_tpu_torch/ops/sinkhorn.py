@@ -12,6 +12,9 @@ without depth), ``src_pad`` / ``tgt_pad`` name the real rows and columns: a
 real but invalid row keeps its marginal mass and a finite dustbin score, so
 all of its mass drains into the dustbin, as in the reference; only rows
 outside the pad mask are removed. They default to the validity masks.
+
+``dual_softmax_conf_matrix`` is the other matcher's confidence: the product
+of the similarity's softmax over rows and over columns.
 """
 from __future__ import annotations
 
@@ -56,3 +59,17 @@ def log_sinkhorn(scores, alpha, iters, src_mask, tgt_mask, src_pad=None, tgt_pad
         v = log_nu - torch.logsumexp(z + u[:, :, None], dim=1)
     z = z + u[:, :, None] + v[:, None, :]
     return z - norm[:, :, None]
+
+
+def dual_softmax_conf_matrix(sim, temperature, src_mask=None, tgt_mask=None):
+    """softmax over sources x softmax over targets of sim [B, N, M] /
+    temperature; with masks, invalid sources get -1e9 in the first and
+    invalid targets in the second (the reference's dual-softmax matcher)."""
+    sim = sim / temperature
+    if src_mask is None:
+        s1 = s2 = sim
+    else:
+        neg = torch.tensor(NEG_INF, dtype=sim.dtype, device=sim.device)
+        s1 = torch.where(src_mask[:, :, None], sim, neg)
+        s2 = torch.where(tgt_mask[:, None, :], sim, neg)
+    return torch.softmax(s1, dim=1) * torch.softmax(s2, dim=2)

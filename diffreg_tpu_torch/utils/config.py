@@ -3,26 +3,29 @@
 Counterpart of the JAX package's utils/config.py: the reference's YAML layout
 (Diff-Reg-3dmatch/configs/test/3dmatch.yaml) with its ``!join`` tag
 (main.py:17-21), mapped onto ``PipelineConfig`` (``variant`` from
-``dataset``), ``LossConfig`` and ``OptimConfig``. A config that asks for what
-the port does not have raises ``NotImplementedError`` naming the ROADMAP item
-that brings it, instead of running another model than the one asked for.
+``dataset``), ``LossConfig`` and ``OptimConfig``, field for field as the JAX
+builder maps it, the model variants included (the KPConv modes, deformable
+and modulated blocks, batch norm off, sinusoidal PE, entangled and
+dual-softmax matching). A value that neither package knows raises
+``ValueError``. ``kpfcn_config.fixed_kernel_points`` is read by neither
+builder: both build the default "center" dispositions whatever it says (the
+port warns), so that a YAML builds the same model in both; set
+``KPFCNConfig.fixed_kernel_points`` to have "verticals".
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict
 
 import yaml
 
-# what the port runs, per YAML key: (section or None, key) -> allowed values
-_PORTED = {
-    ("kpfcn_config", "KP_influence"): ("linear",),
-    ("kpfcn_config", "aggregation_mode"): ("sum",),
-    ("kpfcn_config", "use_batch_norm"): (True,),
-    ("kpfcn_config", "fixed_kernel_points"): ("center",),
-    ("coarse_matching", "match_type"): ("sinkhorn",),
-    ("coarse_matching", "entangled"): (False,),
-    ("coarse_transformer", "pe_type"): ("rotary",),
-    ("coarse_transformer", "entangled"): (False,),
+# the values either package takes, per YAML key: (section, key) -> allowed values
+_KNOWN = {
+    ("kpfcn_config", "KP_influence"): ("linear", "constant", "gaussian"),
+    ("kpfcn_config", "aggregation_mode"): ("sum", "closest"),
+    ("kpfcn_config", "fixed_kernel_points"): ("center", "verticals", "none"),
+    ("coarse_matching", "match_type"): ("sinkhorn", "dual_softmax"),
+    ("coarse_transformer", "pe_type"): ("rotary", "sinusoidal"),
 }
 
 
@@ -40,27 +43,22 @@ def load_yaml(path: str) -> Dict[str, Any]:
         return yaml.load(f, Loader=_Loader)
 
 
-def check_ported(raw: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for a setting the port does not have (and
-    ValueError for a value neither package knows)."""
+def check_known(raw: Dict[str, Any]) -> None:
+    """Raise ValueError for a value that neither package knows. ``exact_topk``
+    is accepted either way: the port's top-k is exact, as JAX's is off the
+    TPU (diffreg_tpu/ops/topk.py)."""
     if raw.get("compute_dtype") not in (None, "float32", "bfloat16"):
         raise ValueError(f"compute_dtype={raw['compute_dtype']!r}: bfloat16, float32 or unset")
     if raw.get("precision") not in (None, "highest", "default"):
-        raise NotImplementedError(f"precision={raw['precision']!r}: the port has 'highest' "
-                                  "and 'default' (TF32 where JAX reads get_precision())")
-    if raw.get("exact_topk") is False:
-        raise NotImplementedError("exact_topk: False: the port's top-k is exact only")
-    kp = raw.get("kpfcn_config", {})
-    architecture = raw.get("architecture", ())
-    if kp.get("modulated", raw.get("modulated", False)) or any("deform" in b for b in architecture):
-        raise NotImplementedError(
-            "deformable KPConv blocks (modulated / 'deform' in architecture) are not ported "
-            "(ROADMAP §1: the library surface, kpconv_deformable)")
-    for (section, key), allowed in _PORTED.items():
+        raise ValueError(f"precision={raw['precision']!r}: 'highest' or 'default'")
+    for (section, key), allowed in _KNOWN.items():
         value = raw.get(section, {}).get(key, allowed[0])
         if value not in allowed:
-            raise NotImplementedError(f"{section}.{key}={value!r} is not ported "
-                                      f"(the port has {allowed[0]!r} only)")
+            raise ValueError(f"{section}.{key}={value!r}: one of {allowed}")
+    fixed = raw.get("kpfcn_config", {}).get("fixed_kernel_points", "center")
+    if fixed != "center":
+        warnings.warn(f"kpfcn_config.fixed_kernel_points={fixed!r} is not read: the model "
+                      "has the 'center' dispositions, as the JAX package's builder gives it")
 
 
 def build_pipeline_config(raw: Dict[str, Any]):
@@ -71,16 +69,19 @@ def build_pipeline_config(raw: Dict[str, Any]):
     from ..nn.matching import MatchingConfig
     from ..nn.transformer import ProcrustesConfig, TransformerConfig
 
-    check_ported(raw)
+    check_known(raw)
     kp = raw.get("kpfcn_config", {})
     cm = raw.get("coarse_matching", {})
     ct = raw.get("coarse_transformer", {})
     pr = ct.get("procrustes", {})
     matching = MatchingConfig(
         feature_dim=int(cm.get("feature_dim", 432)),
+        match_type=cm.get("match_type", "sinkhorn"),
         confidence_threshold=float(cm.get("confidence_threshold", 0.2)),
+        dsmax_temperature=float(cm.get("dsmax_temperature", 0.1)),
         skh_init_bin_score=float(cm.get("skh_init_bin_score", 1.0)),
         skh_iters=int(cm.get("skh_iters", 3)),
+        entangled=bool(cm.get("entangled", False)),
         precision=str(raw.get("precision") or "highest"),
     )
     # masked (real) lengths set the Procrustes budget: bucket padding must not widen it
@@ -96,8 +97,10 @@ def build_pipeline_config(raw: Dict[str, Any]):
         layer_types=tuple(ct.get("layer_types",
                                  ["self", "cross", "positioning", "self", "cross"])),
         positioning_type=ct.get("positioning_type", "procrustes"),
+        pe_type=ct.get("pe_type", "rotary"),
         vol_origin=tuple(ct.get("vol_bnds", [[-3.6, -2.4, 1.14]])[0]),
         voxel_size=float(ct.get("voxel_size", 0.08)),
+        entangled=bool(ct.get("entangled", False)),
         procrustes=procrustes,
         feature_matching=matching,
         compute_dtype=compute_dtype,
@@ -111,10 +114,16 @@ def build_pipeline_config(raw: Dict[str, Any]):
         first_subsampling_dl=float(kp.get("first_subsampling_dl", 0.025)),
         conv_radius=float(kp.get("conv_radius", 2.5)),
         kp_extent=float(kp.get("KP_extent", 2.0)),
+        kp_influence=kp.get("KP_influence", "linear"),
+        aggregation_mode=kp.get("aggregation_mode", "sum"),
+        use_batch_norm=bool(kp.get("use_batch_norm", True)),
         coarse_feature_dim=int(kp.get("coarse_feature_dim", 432)),
         fine_feature_dim=int(kp.get("fine_feature_dim", 264)),
         coarse_level=int(kp.get("coarse_level", -2)),
         compute_dtype=compute_dtype,
+        # block names containing 'deform' make a block deformable; `modulated`
+        # is read from kpfcn_config or the top level, as the JAX builder reads it
+        modulated=bool(kp.get("modulated", raw.get("modulated", False))),
     )
     return PipelineConfig(
         kpfcn=kpfcn,

@@ -24,6 +24,7 @@ import math
 import os
 import pickle
 import shutil
+import warnings
 
 import jax
 import numpy as np
@@ -44,11 +45,14 @@ from diffreg_tpu_torch.data.pyramid import PyramidConfig
 from diffreg_tpu_torch.data.synthetic import synthetic_batch, tiny_spec
 from diffreg_tpu_torch.engine.trainer import BatchTester
 from diffreg_tpu_torch.main import main
+from diffreg_tpu_torch.models.presets import KPFCN_ARCHITECTURE
 from diffreg_tpu_torch.utils import config as pc
 from diffreg_tpu_torch.utils.snapshot import backup_sources
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 THR_4D = 0.5063     # the main-against-JAX 4DMatch run: near the median candidate
+KPFCN_DEFORMABLE = KPFCN_ARCHITECTURE[:8] + ("resnetb_deformable_strided", "resnetb_deformable",
+                                             "resnetb_deformable") + KPFCN_ARCHITECTURE[11:]
 CONFIGS = ["test/3dmatch.yaml", "test/3dlomatch.yaml", "test/3dmatch_fast.yaml",
            "test/4dmatch.yaml", "train/3dmatch.yaml", "train/4dmatch.yaml"]
 
@@ -110,12 +114,55 @@ def test_build_configs_match_jax(name):
     {"kpfcn_config": {"modulated": True}},
     {"architecture": ["simple", "resnetb_deformable"]},
     {"coarse_matching": {"match_type": "dual_softmax"}},
+    {"kpfcn_config": {"KP_influence": "gaussian"}},
+    {"kpfcn_config": {"KP_influence": "constant", "aggregation_mode": "closest"}},
+    {"kpfcn_config": {"use_batch_norm": False, "batch_norm_momentum": 0.1}},
+    {"kpfcn_config": {"fixed_kernel_points": "verticals"}},
+    {"modulated": True, "architecture": list(KPFCN_DEFORMABLE)},
+    {"coarse_transformer": {"pe_type": "sinusoidal"}},
+    {"coarse_transformer": {"entangled": True}},
+    {"coarse_matching": {"entangled": True, "match_type": "dual_softmax",
+                         "dsmax_temperature": 0.05}},
+    {"precision": "default"},
+    {"exact_topk": True},
 ])
 def test_config_rejects_what_the_port_lacks(change):
+    """Every model setting the JAX builder takes builds the same config fields
+    in the port: none of them is refused."""
     raw = pc.load_yaml(os.path.join(REPO, "configs", "test/4dmatch.yaml"))
     raw.update(change)
-    with pytest.raises(NotImplementedError):
+    with warnings.catch_warnings():
+        # fixed_kernel_points is read by neither builder; the port says so
+        warnings.simplefilter("ignore")
+        got = pc.build_pipeline_config(raw)
+    _same_fields(got, jc.build_pipeline_config(raw))
+    assert got.kpfcn.fixed_kernel_points == "center"
+
+
+@pytest.mark.parametrize("section,key,value", [
+    ("kpfcn_config", "KP_influence", "cubic"), ("kpfcn_config", "aggregation_mode", "max"),
+    ("coarse_matching", "match_type", "optimal"), ("coarse_transformer", "pe_type", "learned")])
+def test_config_unknown_value_raises_in_both(section, key, value):
+    """A value neither package knows: the port's builder raises ValueError;
+    JAX's builds the config and its model raises when traced."""
+    from diffreg_tpu.data import synthetic_batch as jax_synthetic_batch
+    from diffreg_tpu.models import DiffusionMatchingModel as JaxModel
+
+    raw = pc.load_yaml(os.path.join(REPO, "configs", "test/3dmatch.yaml"))
+    raw.setdefault(section, {})[key] = value
+    with pytest.raises(ValueError, match=value):
         pc.build_pipeline_config(raw)
+    cfg = jc.build_pipeline_config(raw)
+    tiny = dataclasses.replace(cfg, kpfcn=dataclasses.replace(
+        cfg.kpfcn, first_feats_dim=16, coarse_feature_dim=48, first_subsampling_dl=0.06))
+    tiny = dataclasses.replace(tiny, coarse_matching=dataclasses.replace(
+        tiny.coarse_matching, feature_dim=48), coarse_transformer=dataclasses.replace(
+        tiny.coarse_transformer, feature_dim=48, n_head=2, feature_matching=dataclasses.replace(
+            tiny.coarse_matching, feature_dim=48)))
+    batch, _, _ = jax_synthetic_batch(batch_size=1, n_points=64, seed=0)
+    key = jax.random.PRNGKey(0)
+    with pytest.raises((ValueError, KeyError, NotImplementedError)):
+        jax.eval_shape(lambda: JaxModel(tiny).init({"params": key}, batch, key, mode="train"))
 
 
 def test_load_yaml_join_tag(tmp_path):

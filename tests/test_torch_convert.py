@@ -71,3 +71,54 @@ def test_4dmatch_weights_round_trip():
     shapes = jax.eval_shape(lambda b, r: jax_model.init({"params": r}, b, r, mode="train"),
                             batch, rng)
     _round_trip(port, shapes)
+
+
+def test_variant_weights_load_through_the_bridge():
+    """A flax variable tree of a model variant (``preset_3dmatch`` at full
+    width with the coarsest level's three blocks deformable and modulated,
+    batch norm off, gaussian influence, sinusoidal PE, dual-softmax matching;
+    shapes from ``jax.eval_shape``) loads into the port through
+    ``state_dict_from_flax``: every flax slot has its port tensor of the same
+    shape (the offset convs, their dispositions and biases, the norms'
+    biases), and the port's only other tensors are the fine phase's and the
+    denoising matcher's ``bin_score``, which the port keeps for its DDIM
+    projection where JAX's dual-softmax matcher has none."""
+    import dataclasses
+
+    from diffreg_tpu.models.presets import preset_3dmatch as jax_preset_3dmatch
+    from diffreg_tpu_torch.models.presets import preset_3dmatch
+
+    arch = KPFCN_ARCHITECTURE[:8] + ("resnetb_deformable_strided", "resnetb_deformable",
+                                     "resnetb_deformable") + KPFCN_ARCHITECTURE[11:]
+
+    def variant(cfg):
+        matching = dataclasses.replace(cfg.coarse_matching, match_type="dual_softmax")
+        return dataclasses.replace(
+            cfg, kpfcn=dataclasses.replace(cfg.kpfcn, architecture=arch, modulated=True,
+                                           use_batch_norm=False, kp_influence="gaussian"),
+            coarse_matching=matching, coarse_transformer=dataclasses.replace(
+                cfg.coarse_transformer, pe_type="sinusoidal", feature_matching=matching))
+
+    batch, _, _ = synthetic_batch(batch_size=1, n_points=96, seed=0)
+    rng = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda b, r: JaxModel(variant(jax_preset_3dmatch())).init(
+        {"params": r}, b, r, mode="train"), batch, rng)
+    gen = np.random.RandomState(0)
+    flat = {col: {"/".join(k): gen.randn(*v.shape).astype(np.float32)
+                  for k, v in flatten_dict(dict(shapes[col])).items()}
+            for col in ("params", "buffers")}
+    sd = state_dict_from_flax(flat["params"], flat["buffers"])
+    assert any(k.endswith("KPConv.offset_conv.weights") for k in sd)
+    assert any(k.endswith("KPConv.offset_conv.kernel_points") for k in sd)
+    assert any(k.endswith("batch_norm_conv.bias") for k in sd)
+    port = DiffusionMatchingModel(variant(preset_3dmatch()), device="cpu", seed=1)
+    missing, unexpected = port.load_state_dict(sd, strict=False)
+    assert not unexpected
+    assert set(missing) == {k for k in port.state_dict()
+                            if k.startswith(DEAD)} | {"denoising_coarse_matching.bin_score"}
+    state = port.state_dict()
+    for key, value in sd.items():
+        assert torch.equal(state[key], value), key
+    blocks = port.backbone.encoder_blocks
+    assert blocks[8].KPConv.offset_conv.weights.shape == (15, 256, 60)
+    assert blocks[8].KPConv.offset_bias.shape == (60,)
