@@ -3,7 +3,8 @@ and training (f32 and bf16), its 4DMatch registration and bf16 training, its
 2D-3D registration and training
 (with and without the DINOv2 / DepthAnything towers), its CLI, the 3D,
 2D-3D and 4DMatch synthetic training stories' trained weights, its
-data-parallel train step and two model variants on one CUDA card.
+data-parallel train step, two model variants and the kernels' whole shape
+range (any kernel-point count, any head width) on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -225,7 +226,27 @@ In order, it
      CPU's top-k choices kept), and one bf16 DDIM; (d)
      ``diffreg_tpu_torch.main`` on configs/test/3dmatch.yaml with variant A's
      keys, --demo;
- 23. prints the kernels' JSON line, and as its last line
+ 23. the shape range (``run_shape_range``): (a) both KPConv kernels, f32
+     and bf16, at every kernel-point count of SHAPE_POINTS (any P but 15
+     takes the any-P kernel) against their plain versions at a 3DMatch
+     encode's 11 layers and the 2D-3D level-0 shapes, linear/sum at every P,
+     gaussian/sum and linear/closest at P = 24 (a bf16 row beyond the limit
+     excused only where one rounding flip of a term explains it), timed, with
+     the gradients through both Functions at P = 24; (b) the attention kernel,
+     f32 and bf16, at every head width of SHAPE_HEAD_WIDTHS (the any-D instance
+     where D is not a multiple of 4 or above the tuned instances), D = 256 at
+     the 2D-3D image self shape, and one bf16 call with B * H past the grid's
+     65,535 rows, timed beside the plain version and SDPA, with gradients at D
+     = 54 and 528; (c) configuration C (configs/test/3dmatch.yaml with 24
+     kernel points and 8 heads of 54) on the 4 pairs: the DDIM at gate 0 and 40
+     through the new routes, pair 0 card against CPU (gate 0; gate 40 with the
+     CPU's top-k choices kept), backbone_forward at phase 6's limits, one
+     train step at phase 8's limits, one bf16 DDIM at phase 8b's; (d)
+     configuration W (2 heads of 216): the DDIM at gate 0 in f32 and bf16, pair
+     0 card against CPU; (e) ``diffreg_tpu_torch.main`` --demo on C's YAML and
+     on configs/test/4dmatch.yaml with one head of 528; every part's launches
+     counted by route (KPConv by kernel-point count, attention by instance);
+ 24. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
@@ -563,6 +584,28 @@ TOPK_CUT_REL = 1e-4
 TOPK_DIFFER_SHARE = 0.1
 VARIANT_BACKBONE_REL_TOL = {"A": 1e-4, "B": 1e-4}
 VARIANT_REG_REL_TOL = 1e-5
+# phase 23, the shape range: both kernels at shapes their tuned instances do
+# not take, each against its plain version at phase 1's limits. KPConv at these
+# kernel-point counts (any P but 15 takes the any-P kernel); attention at these
+# head widths (D not a multiple of 4, or above 136 in f32 and 144 in bf16,
+# takes the any-D instance; 128 runs in instance 136 / 144), at
+# SHAPE_ATTENTION (S not a multiple of the 32-key tile, the second pair's last
+# 37 keys masked), D = 256 at the 2D-3D image self call, and one call whose B *
+# H passes the grid's 65,535 rows. Then two configurations of
+# configs/test/3dmatch.yaml at full width, written as YAML copies: C (24
+# kernel points, 8 heads of 54) and W (2 heads of 216), held card against CPU as
+# the variants are (VARIANT_CONF_REL_TOL), and the CLI on C's YAML and on
+# configs/test/4dmatch.yaml with one head of 528
+SHAPE_POINTS = (1, 7, 16, 17, 24, 64)
+SHAPE_HEAD_WIDTHS = (6, 54, 66, 128, 176, 216, 256, 264, 432, 528)
+SHAPE_ATTENTION = (4, 2, 705, 709)          # B, H, L, S
+SHAPE_IMAGE_SELF = (4, 1, 4602, 4602)
+SHAPE_WIDE_BH = (8193, 8, 16, 45)           # B * H = 65,544
+SHAPE_GRAD_WIDTHS = (54, 528)
+SHAPE_CONFIGS = {"C": {"kpfcn_config": {"num_kernel_points": 24},
+                       "coarse_transformer": {"n_head": 8}},
+                 "W": {"coarse_transformer": {"n_head": 2}}}
+VARIANT_CONF_REL_TOL.update(C=1e-5, W=1e-5)
 
 
 def log(msg: str) -> None:
@@ -707,33 +750,78 @@ def closest_near_ties(q, s, inds, kp, bf16=False):
     return tie.any(dim=-1), int(tie.sum())
 
 
-def held_against_plain(got, ref, allowed, name, aggregation, closest_inputs):
+def held_against_plain(got, ref, allowed, name, aggregation, closest_inputs, flips=None):
     """max |got - ref| (raises above ``allowed``); under "closest" a query row
     beyond it is excused when one of its neighbours has a near-tie between
     two kernel points (``closest_near_ties`` of ``closest_inputs`` (q, s,
-    inds, kp, bf16)), at most TIE_EXCUSED_SHARE of the rows. Returns (max
-    error over the rows held, rows excused)."""
+    inds, kp, bf16)); with ``flips`` (``bf16_flip_rows``) one whose
+    difference is at most one bf16 rounding flip of a term; at most
+    TIE_EXCUSED_SHARE of the rows. Returns (max error over the rows held,
+    rows excused)."""
+    import torch
+
     diff = (got - ref).abs()
     err = float(diff.max())
     excused = 0
-    if aggregation == "closest" and err > allowed:
+    if (aggregation == "closest" or flips is not None) and err > allowed:
         beyond = (diff > allowed).any(dim=-1)
-        ties, _ = closest_near_ties(*closest_inputs)
+        explained = torch.zeros_like(beyond)
+        if aggregation == "closest":
+            explained |= closest_near_ties(*closest_inputs)[0]
+        if flips is not None:
+            explained |= flips(beyond, diff, allowed)
         excused = int(beyond.sum())
-        if bool((beyond & ~ties).any()) or excused > TIE_EXCUSED_SHARE * beyond.numel():
+        if bool((beyond & ~explained).any()) or excused > TIE_EXCUSED_SHARE * beyond.numel():
             raise AssertionError(f"{name}: {excused} rows beyond the limit, "
-                                 f"{int((beyond & ~ties).sum())} of them without a near-tie")
+                                 f"{int((beyond & ~explained).sum())} of them without a "
+                                 f"near-tie{' or a rounding flip' if flips else ''}")
         err = float(diff[~beyond].max())
     if not math.isfinite(err) or err > allowed:
         raise AssertionError(f"{name}: max abs err {err} (limit {allowed})")
     return err, excused
 
 
-def check_kpconv(calls, n_calls, per, tag="", bf16=False, modes=("linear", "sum")):
+def bf16_flip_rows(q, s, inds, x, kp, w, extent, modes):
+    """For the bf16 path's KPConv on these inputs: a function of (rows beyond
+    the limit [B, Nq], |got - ref| [B, Nq, Cout], the limit) giving the rows
+    whose every difference lies within the limit plus one bf16 ulp of that
+    row's largest single contraction term, max over (p, c) of ulp(A[q, p, c])
+    |W[p, c, co]| / count[q], A the rounded influence-weighted sums: what a
+    rounding flip of one of them (f32 sums in another order) moves the output
+    by. Where P Cin is small (P = 1, Cin = 1: the output is that one term) a
+    single flip passes KPCONV_BF16_REL_TOL."""
+    import torch
+
+    from diffreg_tpu_torch.ops.kpconv import _bf16_gather, _round_bf16, influence_weights
+
+    def rows(beyond, diff, allowed):
+        out = torch.zeros_like(beyond)
+        wb = _round_bf16(w).abs().reshape(-1, w.shape[2])                  # [P Cin, Cout]
+        for b, n in beyond.nonzero().tolist():
+            sel = slice(n, n + 1)
+            neighbors, feats = _bf16_gather(q[b:b + 1, sel], s[b:b + 1], inds[b:b + 1, sel],
+                                            x[b:b + 1])
+            sq_d = ((neighbors * neighbors).sum(-1, keepdim=True) + (kp * kp).sum(-1)
+                    - 2.0 * torch.einsum("bnkc,pc->bnkp", neighbors, kp)).clamp_min(0.0)
+            infl = _round_bf16(influence_weights(sq_d, extent, *modes))
+            a = _round_bf16(torch.einsum("bnkp,bnkc->bnpc", infl, feats)).reshape(-1)
+            ulp = torch.where(a != 0, torch.exp2(torch.floor(torch.log2(a.abs())) - 7),
+                              torch.zeros_like(a))
+            count = max(int((feats.sum(-1) > 0).sum()), 1)
+            term = (ulp[:, None] * wb).amax(dim=0) / count                # [Cout]
+            out[b, n] = bool((diff[b, n] <= allowed + term).all())
+        return out
+    return rows
+
+
+def check_kpconv(calls, n_calls, per, tag="", bf16=False, modes=("linear", "sum"),
+                 flip_excuse=False):
     """Kernel vs plain KPConv at every distinct layer of ``calls`` (the inputs
     the backbone really feeds each layer); ``bf16``: the bf16 instance against
     the plain bf16 version; ``modes``: (influence, aggregation), each pair an
-    instance of the kernel. Returns the kernel's JSON entry and the distinct
+    instance of the kernel; ``flip_excuse`` (bf16): a row beyond the limit is
+    excused where one bf16 rounding flip of a term explains it
+    (``bf16_flip_rows``). Returns the kernel's JSON entry and the distinct
     layers {(nq, ns, k, cin, cout): (inputs, calls)}."""
     import torch
 
@@ -771,25 +859,27 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False, modes=("linear", "sum"
             assert counted.launches == before + 1
             scale = float(ref.abs().max())
             allowed = limit * (scale if bf16 else max(scale, 1.0))
+            flips = bf16_flip_rows(*args, modes) if bf16 and flip_excuse else None
             err, excused = held_against_plain(got, ref, allowed,
                                               f"kpconv{tag} {nq}/{ns}/{k}/{cin}->{cout}",
-                                              modes[1], (q, s, inds, kpts, bf16))
+                                              modes[1], (q, s, inds, kpts, bf16), flips)
             worst = max(worst, err)
             excused_rows += excused
             ms = time_cuda(lambda: kernel(*args, *modes), 20)
             plain_ms = time_cuda(lambda: plain(*args, *modes), 3, warmup=1)
             work = kpconv_work(q, s, inds, x, w, bf16, modes=modes)
             bms, by = bound_ms(*work, BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
-            tensor_cores = (cin >= (32 if bf16 else 64) and cin % 32 == 0 and k <= 40
-                            and cout in (64, 128, 256, 512))
-            path = "tensor cores" if tensor_cores else "CUDA cores"
+            tensor_cores = (w.shape[0] == 15 and cin >= (32 if bf16 else 64) and cin % 32 == 0
+                            and k <= 40 and cout in (64, 128, 256, 512))
+            path = ("tensor cores" if tensor_cores else "CUDA cores" if w.shape[0] == 15
+                    else "any-P kernel")
             per_shape.append({"nq": nq, "ns": ns, "k": k, "cin": cin, "cout": cout,
                               "calls": count, "path": path, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                               "max_abs_plain": scale, "excused_rows": excused})
             log(f"kpconv{tag} {nq}/{ns}/K{k}/{cin}->{cout} x{count} ({path}): err {err:.3e} "
                 f"= {err / max(scale, 1e-30):.3e} of max |plain| (limit {allowed:.3e}"
-                f"{f'; {excused} near-tie rows excused' if excused else ''}) kernel "
+                f"{f'; {excused} rows excused' if excused else ''}) kernel "
                 f"{ms:.4f} ms plain "
                 f"{plain_ms:.4f} ms bound {bms:.4f} ms ({by})")
             totals["ms"] += count * ms
@@ -3888,6 +3978,7 @@ def reset_kpconv_counts():
     for wrapper in (kpconv_cuda, kpconv_cuda_bf16):
         wrapper.launches = 0
         wrapper.mode_launches = {}
+        wrapper.point_launches = {}
 
 
 def run_mode_kernels(calls, gen):
@@ -4421,6 +4512,482 @@ def run_variants(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
     return entries
 
 
+def shape_calls(calls, n_points, gen):
+    """``calls`` (KPConv inputs (q, s, inds, x, kernel points, weights,
+    extent)) at ``n_points`` kernel points: each layer's disposition rebuilt
+    at that count on the layer's radius, weights drawn as the model draws
+    them; the calls as they are at their own count."""
+    import torch
+
+    from diffreg_tpu_torch.ops.kernel_points import unit_kernel_points
+
+    out = []
+    for q, s, inds, x, kp, w, extent in calls:
+        if kp.shape[0] != n_points:
+            unit = torch.from_numpy(unit_kernel_points(kp.shape[0]))
+            radius = float(kp.cpu().norm(dim=1).max() / unit.norm(dim=1).max())
+            kp = (torch.from_numpy(unit_kernel_points(n_points)) * radius).to(kp.device)
+            limit = math.sqrt(3.0 * (2.0 / n_points) / (n_points * x.shape[2]))
+            w = ((torch.rand(n_points, x.shape[2], w.shape[2], generator=gen) * 2 - 1)
+                 * limit).to(w.device)
+        out.append((q, s, inds, x, kp.contiguous(), w.contiguous(), extent))
+    return out
+
+
+def level0_calls_2d3d(gen):
+    """KPConv inputs at the 2D-3D point backbone's level-0 shapes (4 pairs of
+    39,168 points, K = 64 nearest within the radius, the rest the sentinel;
+    1 -> 64 and 32 -> 32, the layers the CUDA-core kernel takes), at 15
+    kernel points on rgbdv2.yaml's first radius (0.0625, sigma 0.05)."""
+    import torch
+
+    from diffreg_tpu_torch.ops.kernel_points import load_kernel_points
+
+    b, n, k = 4, 39168, 64
+    pts = (torch.rand(b, n, 3, generator=gen) * 1.2).cuda()
+    inds = torch.empty(b, n, k, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        for i in range(b):
+            for c0 in range(0, n, 4096):
+                d, j = torch.cdist(pts[i, c0:c0 + 4096], pts[i]).topk(k, largest=False)
+                inds[i, c0:c0 + 4096] = torch.where(d < 0.1, j, n).int()
+    kp = torch.from_numpy(load_kernel_points(0.0625, 15, 3, "center")).cuda()
+    calls = []
+    for cin, cout in ((1, 64), (32, 32)):
+        x = torch.rand(b, n, cin, generator=gen).cuda() if cin == 1 else \
+            torch.randn(b, n, cin, generator=gen).cuda()
+        w = (torch.randn(15, cin, cout, generator=gen) * 0.05).cuda()
+        calls.append((pts, pts, inds, x, kp, w, 0.05))
+    return calls
+
+
+def shape_range_kpconv(calls, gen):
+    """Phase 23a: both KPConv kernels at every P of SHAPE_POINTS against their
+    plain versions (check_kpconv: the limits of phase 1, timed, with the
+    bound): at a 3DMatch encode's 11 layers (configuration C's, on the
+    activations its encoder feeds them; ``shape_calls`` at the other counts)
+    and at the 2D-3D level-0 shapes; linear/sum at every P, gaussian/sum and
+    linear/closest at P = 24; then the gradients through both autograd
+    Functions at P = 24 (kpconv_gradients). Returns {"f32" | "bf16": {P or
+    "P/mode": record}}."""
+    level0 = level0_calls_2d3d(gen)
+    records = {"f32": {}, "bf16": {}}
+    for n_points in SHAPE_POINTS:
+        encode = shape_calls(calls, n_points, gen)
+        narrow = shape_calls(level0, n_points, gen)
+        cases = [("linear", "sum")] + ([("gaussian", "sum"), ("linear", "closest")]
+                                       if n_points == 24 else [])
+        for bf16 in (False, True):
+            for modes in cases:
+                key = str(n_points) if modes == ("linear", "sum") else \
+                    f"{n_points}/{'/'.join(modes)}"
+                tag = f" (P {n_points}{'' if key.isdigit() else ', ' + '/'.join(modes)}" \
+                    f"{', bf16' if bf16 else ''})"
+                entry, shapes = check_kpconv(encode, 11, "one encode (11 calls)", tag, bf16,
+                                             modes, flip_excuse=True)
+                level, _ = check_kpconv(narrow, 2, "2D-3D level 0 (2 calls)", tag + " 2D-3D",
+                                        bf16, modes, flip_excuse=True)
+                rec = {k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "shapes", "excused_rows")}
+                rec["level0_2d3d"] = {k: level[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                            "bound_ms", "bound_by", "shapes")}
+                if key == "24":
+                    worst, total = kpconv_gradients(shapes, gen, bf16, modes)
+                    rec.update(backward_ms=total, backward_max_rel_err=worst)
+                records["bf16" if bf16 else "f32"][key] = rec
+                del shapes
+    return records
+
+
+def shape_range_attention(gen):
+    """Phase 23b: both attention instances at every D of SHAPE_HEAD_WIDTHS
+    against their plain versions (f32 within ATTENTION_ABS_TOL, bf16 within
+    ATTENTION_BF16_REL_TOL of the largest plain entry), timed beside the plain
+    version and scaled_dot_product_attention, with the bound; the instance
+    that ran is read from the wrapper's counts; then a call whose B * H passes
+    the grid's rows, and the gradients through both autograd Functions at
+    SHAPE_GRAD_WIDTHS. Returns {"f32" | "bf16": [case records]}."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffreg_tpu_torch.ops.attention import (MaskedAttentionBF16Function,
+                                                 MaskedAttentionFunction,
+                                                 masked_attention_bf16_plain,
+                                                 masked_attention_cuda,
+                                                 masked_attention_cuda_bf16,
+                                                 masked_attention_plain)
+
+    def inputs(b, h, length, keys, d, dtype):
+        q = torch.randn(b, h, length, d, generator=gen).to("cuda", dtype)
+        k, v = (torch.randn(b, h, keys, d, generator=gen).to("cuda", dtype) for _ in range(2))
+        mask = torch.ones(b, keys, dtype=torch.bool)
+        mask[1::2, keys - 37:] = False
+        return q, k, v, mask.cuda()
+
+    records = {"f32": [], "bf16": []}
+    for bf16 in (False, True):
+        kernel, plain, dtype, function = (
+            (masked_attention_cuda_bf16, masked_attention_bf16_plain, torch.bfloat16,
+             MaskedAttentionBF16Function) if bf16 else
+            (masked_attention_cuda, masked_attention_plain, torch.float32,
+             MaskedAttentionFunction))
+        name = "attention bf16" if bf16 else "attention"
+        cases = [(d, SHAPE_IMAGE_SELF if d == 256 else SHAPE_ATTENTION)
+                 for d in SHAPE_HEAD_WIDTHS] + [(54, SHAPE_WIDE_BH)]
+        for d, (b, h, length, keys) in cases:
+            scale = d ** -0.5
+            with torch.inference_mode():
+                q, k, v, mask = inputs(b, h, length, keys, d, dtype)
+                before = dict(kernel.instance_launches)
+                got = kernel(q, k, v, mask, scale)
+                ref = plain(q, k, v, mask, scale)
+                torch.cuda.synchronize()
+                instance = [i for i, n in kernel.instance_launches.items()
+                            if n != before.get(i, 0)]
+                err = float((got.float() - ref.float()).abs().max())
+                top = float(ref.float().abs().max())
+                limit = ATTENTION_BF16_REL_TOL * top if bf16 else ATTENTION_ABS_TOL
+                if not (math.isfinite(err) and err <= limit) or len(instance) != 1:
+                    raise AssertionError(f"{name} D {d} [{b},{h},{length}x{keys}]: err {err} "
+                                         f"(limit {limit}), instances {instance}")
+                big = length * keys * b * h * d > 5e9
+                ms = time_cuda(lambda: kernel(q, k, v, mask, scale), 5 if big else 20)
+                plain_ms = time_cuda(lambda: plain(q, k, v, mask, scale), 3 if big else 10)
+                lib_mask = mask[:, None, None, :]
+                lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=lib_mask, scale=scale), 5 if big else 20)
+                bms, by = bound_ms(*attention_work(q, k, mask),
+                                   BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
+            log(f"{name} D {d} [{b},{h},{length}x{keys}] (instance {instance[0]}): err "
+                f"{err:.3e} = {err / top:.3e} of max |plain| (limit {limit:.1e}) kernel "
+                f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound {bms:.4f} ms "
+                f"({by})")
+            rec = {"d": d, "b": b, "h": h, "l": length, "s": keys, "instance": instance[0],
+                   "max_abs_err": err, "max_abs_plain": top, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+            if d in SHAPE_GRAD_WIDTHS and (b, h, length, keys) == SHAPE_ATTENTION:
+                rec["backward_max_rel_err"], rec["backward_ms"] = grad_case(
+                    f"{name} D {d} [{b},{h},{length}x{keys}]",
+                    lambda *a: function.apply(*a, scale), (q, k, v, mask), (0, 1, 2),
+                    lambda *a: plain(*a, scale), gen, 1, kernel)
+            records["bf16" if bf16 else "f32"].append(rec)
+            del q, k, v, got, ref
+    return records
+
+
+def shape_yaml(repo, directory, name):
+    """configs/test/3dmatch.yaml with configuration ``name``'s keys
+    (SHAPE_CONFIGS), written to ``directory``: (path, raw)."""
+    import yaml
+
+    from diffreg_tpu_torch.utils.config import load_yaml
+
+    raw = load_yaml(os.path.join(repo, "configs", "test", "3dmatch.yaml"))
+    for section, keys in SHAPE_CONFIGS[name].items():
+        raw[section].update(keys)
+    raw["exp_dir"] = f"shape-{name.lower()}"
+    path = os.path.join(directory, f"3dmatch_{name.lower()}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path, raw
+
+
+def reset_shape_counts():
+    """Every count of both kernels' wrappers set to 0."""
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_cuda_bf16
+
+    reset_kpconv_counts()
+    for wrapper in (masked_attention_cuda, masked_attention_cuda_bf16):
+        wrapper.launches = 0
+        wrapper.instance_launches = {}
+
+
+def shape_counts():
+    """The wrappers' counts since ``reset_shape_counts``: KPConv by kernel-point
+    count and attention by instance, f32 and bf16."""
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_cuda_bf16
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda, kpconv_cuda_bf16
+
+    return {"kpconv": dict(kpconv_cuda.point_launches),
+            "kpconv_bf16": dict(kpconv_cuda_bf16.point_launches),
+            "attention": dict(masked_attention_cuda.instance_launches),
+            "attention_bf16": dict(masked_attention_cuda_bf16.instance_launches)}
+
+
+def add_shape_launches(launches, counts):
+    """Add ``counts`` (``shape_counts``) to the run's launches: KPConv at 15
+    kernel points and the tuned attention instances to their kernels' totals,
+    the any-P and any-D routes to theirs."""
+    for kind in ("kpconv", "kpconv_bf16"):
+        for n_points, n in counts[kind].items():
+            launches[kind if n_points == 15 else f"{kind}_any_p"] += n
+    for kind, total in (("attention", "masked_attention"),
+                        ("attention_bf16", "masked_attention_bf16")):
+        for instance, n in counts[kind].items():
+            launches[f"{total}_any_d" if instance == "any" else total] += n
+
+
+def expect_counts(tag, counts, want):
+    """Raise unless the counts (``shape_counts``) are ``want`` (kinds not
+    named: none)."""
+    full = {"kpconv": {}, "kpconv_bf16": {}, "attention": {}, "attention_bf16": {}, **want}
+    if counts != full:
+        raise AssertionError(f"{tag}: launches {counts}, want {full}")
+
+
+def run_shape_ddim(name, cfg, batch, one, x_init, u, spec, launches, bf16=False):
+    """Configuration ``name`` (``cfg`` at gate 0 and 40, or at gate 0 in bf16)
+    on the 4 pairs: the DDIM path through ``register`` with its launches
+    counted by route. Returns ({gate: output}, {gate: model}, record)."""
+    from diffreg_tpu_torch.eval.register import register
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.models.presets import with_condition_gate, with_fast_path
+
+    n_points = cfg.kpfcn.num_kernel_points
+    per_run = STEPS * attention_calls(spec.n_src, spec.n_tgt, cfg.denoising_layer_types)
+    d = cfg.coarse_transformer.feature_dim // cfg.coarse_transformer.n_head
+    tuned = (d <= (144 if bf16 else 136) and d % 4 == 0)
+    instance = ("any" if not tuned else "112" if d <= 112 and bf16 else
+                "144" if bf16 else "64" if d <= 64 else "112" if d <= 112 else "136")
+    kinds = ("kpconv_bf16", "attention_bf16") if bf16 else ("kpconv", "attention")
+    results, models, record = {}, {}, {}
+    for gate in ((0.0,) if bf16 else GATES):
+        gated = with_condition_gate(cfg, gate)
+        model = models[gate] = DiffusionMatchingModel(with_fast_path(gated) if bf16 else gated,
+                                                      device="cuda", seed=0)
+        register(model, batch, x_init, u)                      # warm-up
+        reset_shape_counts()
+        out, seconds = wall(lambda: register(model, batch, x_init, u))
+        counts = shape_counts()
+        expect_counts(f"configuration {name}{' bf16' if bf16 else ''} gate {gate}", counts,
+                      {kinds[0]: {n_points: 11}, kinds[1]: {instance: per_run}})
+        add_shape_launches(launches, counts)
+        check_outputs(out, f"configuration {name} gate {gate}")
+        results[gate] = out
+        key = f"pairs_per_s{'_bf16' if bf16 else ''}_gate_{gate:g}"
+        record[key] = BATCH_PAIRS / seconds
+        log(f"configuration {name}{' bf16' if bf16 else ''} gate {gate}: {BATCH_PAIRS} pairs in "
+            f"{seconds:.4f} s = {BATCH_PAIRS / seconds:.3f} pairs/s; launches {counts}")
+    return results, models, record
+
+
+def run_shape_c(cfg, batch, one, x_init, u, spec, launches, gen):
+    """Phase 23c: configuration C on the 4 pairs: the DDIM at gate 0 and 40 in
+    f32 through the new routes, the kernels at its shapes (attention at D = 54
+    per DDIM step, f32 and bf16), pair 0 card against CPU (the DDIM at gate 0
+    by its confidences; at gate 40 from a start clear of the gate with the
+    CPU's top-k choices kept, confidences and pose; backbone_forward at phase
+    6's limits), one train step at gate 200 card against CPU at phase 8's
+    limits, and one bf16 DDIM with pair 0 at phase 8b's limits. Returns the
+    record and the two attention entries at its shapes."""
+    import torch
+
+    from diffreg_tpu_torch.eval.register import register
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.models.presets import (with_condition_gate, with_fast_path)
+
+    results, models, record = run_shape_ddim("C", cfg, batch, one, x_init, u, spec, launches)
+    at = [check_attention(batch, cfg, gen, " (C)", bf16) for bf16 in (False, True)]
+    # pair 0 at gate 0 and backbone_forward, card against CPU
+    cpu_model = DiffusionMatchingModel(with_condition_gate(cfg, 0.0), device="cpu", seed=0)
+    t0 = time.perf_counter()
+    ref = register(cpu_model, one, x_init[:1], u[:1], device="cpu")
+    check_outputs(ref, "configuration C CPU")
+    record["pair0"] = variant_pair0("C", results[0.0], ref, one,
+                                    f"configuration C DDIM gate 0 (CPU "
+                                    f"{time.perf_counter() - t0:.1f} s)")
+    backbone = {"kpconv": 0, "masked_attention": 0}
+    reset_shape_counts()
+    run_backbone(models[0.0], batch, cpu_model, one, backbone)
+    counts = shape_counts()
+    # a warm-up and TIMED_RUNS calls, then one encode on the card
+    expect_counts("configuration C backbone_forward", counts,
+                  {"kpconv": {24: (TIMED_RUNS + 2) * 11},
+                   "attention": {"any": (TIMED_RUNS + 1) * 6}})
+    add_shape_launches(launches, counts)
+    del cpu_model
+    # pair 0 at gate 40, the card keeping the CPU's top-k choices
+    seed, x0, u0, clear = variant_gate_start(models[40.0], one)
+    cpu_gated = DiffusionMatchingModel(with_condition_gate(cfg, 40.0), device="cpu", seed=0)
+    choices, cut = [], int(max(one.src_mask.sum(), one.tgt_mask.sum()))
+    with topk_choices(record=choices):
+        ref = register(cpu_gated, one, x0, u0, device="cpu")
+    del cpu_gated
+    with topk_choices(replay=choices, cut=cut) as seen:
+        got = register(models[40.0], one.to("cuda"), x0.cuda(), u0.cuda())
+    check_outputs(ref, "configuration C CPU gate 40")
+    tag = "configuration C DDIM gate 40"
+    record["pair0_gate_40"] = variant_pair0(
+        "C", got, ref, one, f"{tag} (start seed {seed}, conditions {clear:.3f} from the gate, "
+        f"the CPU's top-k choices in {seen['calls']} Procrustes calls: {seen['differ']} entries "
+        f"of the card's own differ, {seen['far']} farther than {TOPK_CUT_REL:.0e} of the cut)",
+        pose=True)
+    check_replayed(seen, cut, tag)
+    f32_gate0 = results[0.0]
+    del models, results, got
+    torch.cuda.empty_cache()
+    # one train step at gate 200, card against CPU
+    reset_shape_counts()
+    record["train_step"] = train_step_card_vs_cpu(with_condition_gate(cfg, 200.0), one,
+                                                  tag=" configuration C")
+    add_shape_launches(launches, shape_counts())
+    # one bf16 DDIM at gate 0, pair 0 card against CPU
+    bf16_out, _, bf16_rec = run_shape_ddim("C", cfg, batch, one, x_init, u, spec, launches,
+                                           bf16=True)
+    record.update(bf16_rec)
+    cpu_bf16 = DiffusionMatchingModel(with_fast_path(with_condition_gate(cfg, 0.0)),
+                                      device="cpu", seed=0)
+    ref = register(cpu_bf16, one, x_init[:1], u[:1], device="cpu")
+    bf16_pair_check(bf16_out[0.0], ref, f32_gate0, one, cpu_bf16, "configuration C gate 0")
+    return record, at
+
+
+def run_shape_w(cfg, batch, one, x_init, u, spec, launches, gen):
+    """Phase 23d: configuration W on the 4 pairs: the DDIM at gate 0 in f32 and
+    bf16 (attention through the any-D instance at D = 216), the attention
+    kernel at its shapes per DDIM step, and pair 0 card against CPU at phase
+    23c's limits. Returns the record and the two attention entries."""
+    from diffreg_tpu_torch.eval.register import register
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.models.presets import with_fast_path
+
+    results, _, record = run_shape_ddim("W", cfg, batch, one, x_init, u, spec, launches)
+    at = [check_attention(batch, cfg, gen, " (W)", bf16) for bf16 in (False, True)]
+    cpu_model = DiffusionMatchingModel(cfg, device="cpu", seed=0)
+    ref = register(cpu_model, one, x_init[:1], u[:1], device="cpu")
+    record["pair0"] = variant_pair0("W", results[0.0], ref, one, "configuration W DDIM gate 0")
+    bf16_out, _, bf16_rec = run_shape_ddim("W", cfg, batch, one, x_init, u, spec, launches,
+                                           bf16=True)
+    record.update(bf16_rec)
+    cpu_bf16 = DiffusionMatchingModel(with_fast_path(cfg), device="cpu", seed=0)
+    ref = register(cpu_bf16, one, x_init[:1], u[:1], device="cpu")
+    bf16_pair_check(bf16_out[0.0], ref, results[0.0], one, cpu_bf16, "configuration W gate 0")
+    return record, at
+
+
+def run_shape_cli(repo, c_path, directory, launches):
+    """Phase 23e: ``diffreg_tpu_torch.main`` on the card on configuration C's
+    YAML (--demo) and on configs/test/4dmatch.yaml with one head of 528
+    (--demo --thr 0.55), each on BATCH_PAIRS pairs in one batch, with the
+    launches counted by route. Returns the runs' records."""
+    import yaml
+
+    from diffreg_tpu_torch.data.synthetic import synthetic_batch
+    from diffreg_tpu_torch.main import main as cli
+    from diffreg_tpu_torch.utils.config import build_pipeline_config, load_yaml
+
+    raw4 = load_yaml(os.path.join(repo, "configs", "test", "4dmatch.yaml"))
+    raw4["coarse_transformer"]["n_head"] = 1
+    raw4["exp_dir"] = "shape-4dmatch-d528"
+    path4 = os.path.join(directory, "4dmatch_d528.yaml")
+    with open(path4, "w") as f:
+        yaml.safe_dump(raw4, f)
+    _, demo_spec, _ = synthetic_batch(batch_size=1, n_points=768, seed=0)
+    runs = {}
+    cwd = os.getcwd()
+    os.chdir(directory)
+    try:
+        for name, path, extra, keys in (("C", c_path, [], ("IR", "FMR", "RR")),
+                                        ("4DMatch D 528", path4, ["--thr", "0.55"], ("IR",))):
+            cfg = build_pipeline_config(load_yaml(path))
+            d = cfg.coarse_transformer.feature_dim // cfg.coarse_transformer.n_head
+            want_at = STEPS * attention_calls(demo_spec.n_src, demo_spec.n_tgt,
+                                              cfg.denoising_layer_types)
+            reset_shape_counts()
+            summary, seconds = wall(lambda: cli(["--config", path, "--demo", "--num-pairs",
+                                                 str(BATCH_PAIRS), "--batch-size",
+                                                 str(BATCH_PAIRS), *extra]))
+            counts = shape_counts()
+            expect_counts(f"main {name}", counts,
+                          {"kpconv": {cfg.kpfcn.num_kernel_points: 11},
+                           "attention": {"any": want_at}})
+            add_shape_launches(launches, counts)
+            if not all(math.isfinite(summary[k]) for k in keys):
+                raise AssertionError(f"main {name}: summary {summary}")
+            log(f"main {name} (D {d}, P {cfg.kpfcn.num_kernel_points}, --demo), {BATCH_PAIRS} "
+                f"pairs: {seconds:.2f} s, launches {counts}; " + ", ".join(
+                    f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in summary.items()))
+            runs[name] = {"seconds": seconds, "d": d, **{k: summary[k] for k in keys}}
+    finally:
+        os.chdir(cwd)
+    return runs
+
+
+def run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
+    """Phase 23: the kernels over their shape range (a, b), configurations C (c)
+    and W (d) at full width, the CLI on C's YAML and on 4DMatch at D = 528 (e).
+    Each part's runs must launch the new routes. Returns the four JSON entries
+    of the new routes (f32 and bf16 any-P KPConv, f32 and bf16 any-D
+    attention)."""
+    import tempfile
+
+    import torch
+
+    from diffreg_tpu_torch.models.diffusion_matching import DiffusionMatchingModel
+    from diffreg_tpu_torch.nn.kpfcn import KPConv
+    from diffreg_tpu_torch.utils.config import build_pipeline_config
+
+    t0 = time.perf_counter()
+    one = batch_cpu.select(slice(0, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        c_path, c_raw = shape_yaml(repo, tmp, "C")
+        _, w_raw = shape_yaml(repo, tmp, "W")
+        cfg_c, cfg_w = build_pipeline_config(c_raw), build_pipeline_config(w_raw)
+        model = DiffusionMatchingModel(cfg_c, device="cuda", seed=0)
+        calls = kpconv_layer_calls(model, lambda: model.encode(batch), KPConv)
+        del model
+        points = shape_range_kpconv(calls, gen)
+        del calls
+        torch.cuda.empty_cache()
+        widths = shape_range_attention(gen)
+        t_kernels = time.perf_counter() - t0
+        record_c, at_c = run_shape_c(cfg_c, batch, one, x_init, u, spec, launches, gen)
+        torch.cuda.empty_cache()
+        record_w, at_w = run_shape_w(cfg_w, batch, one, x_init, u, spec, launches, gen)
+        torch.cuda.empty_cache()
+        cli = run_shape_cli(repo, c_path, tmp, launches)
+    for key, routed in (("kpconv_any_p", launches["kpconv_any_p"]),
+                        ("kpconv_bf16_any_p", launches["kpconv_bf16_any_p"]),
+                        ("masked_attention_any_d", launches["masked_attention_any_d"]),
+                        ("masked_attention_bf16_any_d", launches["masked_attention_bf16_any_d"])):
+        if not routed:
+            raise AssertionError(f"phase 23: the route {key} was not launched on the path")
+    entries = []
+    for bf16 in (False, True):
+        dtype = "bf16" if bf16 else "f32"
+        rec = points[dtype]["24"]
+        name = "kpconv_bf16_any_p" if bf16 else "kpconv_any_p"
+        entries.append({
+            "name": name, "route": "cuda", "source": "diffreg_tpu_torch/csrc/kpconv_common.cuh",
+            "compiled_into": f"diffreg_tpu_torch/csrc/{'kpconv_bf16' if bf16 else 'kpconv'}.cu",
+            "replaces": "diffreg_tpu/ops/pallas/kpconv_kernel.py:38",
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in points[dtype].values()),
+            **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "per": "configuration C's encode (11 calls, P = 24)",
+            "points": points[dtype]})
+    for bf16 in (False, True):
+        dtype = "bf16" if bf16 else "f32"
+        c, w = at_c[bf16], at_w[bf16]
+        name = "masked_attention_bf16_any_d" if bf16 else "masked_attention_any_d"
+        entries.append({
+            "name": name, "route": "cuda", "source": "diffreg_tpu_torch/csrc/attention.cu",
+            "replaces": "diffreg_tpu/ops/pallas/attention_kernel.py:24",
+            "launches": launches[name],
+            "max_abs_err": max([c["max_abs_err"], w["max_abs_err"]]
+                               + [r["max_abs_err"] for r in widths[dtype]]),
+            **{k: c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "per": f"one DDIM step of configuration C (D 54, {c['per']})",
+            "d216": {k: w[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "per")},
+            "shapes": c["shapes"] + w["shapes"], "widths": widths[dtype]})
+    entries[0]["configurations"] = {"C": record_c, "W": record_w, "cli": cli}
+    log(f"phase 23 (the shape range): {time.perf_counter() - t0:.1f} s (kernels "
+        f"{t_kernels:.1f} s)")
+    return entries
+
+
 def path_data():
     """(spec, CPU batch) of the 3DMatch phases: BATCH_PAIRS synthetic pairs of
     N_POINTS at the spec calibrated from two such pairs (K capped at 40)."""
@@ -4532,6 +5099,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()      # the gradient checks above are not its peak
     results = {}
     launches = {"kpconv": 0, "masked_attention": 0, "masked_attention_d132": 0,
+                "kpconv_any_p": 0, "kpconv_bf16_any_p": 0, "masked_attention_any_d": 0,
+                "masked_attention_bf16_any_d": 0,
                 "masked_attention_d64": 0, "masked_attention_d64_dino": 0, "kpconv_train_2d3d": 0,
                 "masked_attention_train_2d3d": 0, "kpconv_bf16": 0,
                 "masked_attention_bf16": 0, "masked_attention_bf16_d144": 0,
@@ -4665,6 +5234,12 @@ def main() -> int:
     # versions, variants A and B at full width card against CPU, main on a
     # variant YAML ----
     kernels += run_variants(repo, batch, batch_cpu, spec, x_init, u, launches, gen)
+
+    # ---- 23. the shape range: both kernels at every kernel-point count and head
+    # width in SHAPE_POINTS / SHAPE_HEAD_WIDTHS against their plain versions,
+    # configurations C (24 kernel points, D 54) and W (D 216) at full width card
+    # against CPU, main on C's YAML and on 4DMatch at D 528 ----
+    kernels += run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen)
 
     kernels[0]["launches"] = (launches["kpconv"] + launches["kpconv_train_2d3d"]
                               + launches["kpconv_story_2d3d"] + launches["kpconv_dp"])

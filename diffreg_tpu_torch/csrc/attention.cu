@@ -9,6 +9,13 @@
 // the [B, H, L, S] logits never reach device memory. The scale is passed in
 // (1/sqrt(D)). Rows of queries past L are not written.
 //
+// Shapes: the tuned instances below take D a multiple of 4 up to 136 (f32) or
+// 144 (bf16), 16-byte (f32) or 8-byte (bf16) aligned rows and B * H up to the
+// grid's 65535 rows; every other shape the Pallas kernel takes (any D >= 1,
+// any alignment, any B * H, any S) goes to the any-D instance at the end of
+// the file, in either dtype with that dtype's roundings. The entries report
+// which instance ran (`route`).
+//
 // What bounds it on an H100: operations. At L = S = 704, D = 108 or 132 it does
 // 4 L S D product flops per (batch, head) against 4 (L + 2 S) D bytes of q, k,
 // v and 4 L D bytes of output, far past the ridge point even at the TF32
@@ -672,17 +679,24 @@ __global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(kThread
   }
 }
 
+// A block's key range for S keys, and the shared memory it takes.
+template <int kDPad>
+size_t bf16_block_bytes(int S, int* tiles_per_block, bool* keep) {
+  const int n_tiles = (S + kBKT - 1) / kBKT;
+  *tiles_per_block = (n_tiles + kClusterBlocks - 1) / kClusterBlocks;
+  const int range = *tiles_per_block * kBKT;
+  *keep = range <= kKeepMax;
+  return smem_bytes_bf16<kDPad>(range, *keep);
+}
+
 template <int kDPad>
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                 const uint8_t* kv_mask, __nv_bfloat16* out, int B, int H, int L, int S, int D,
                 float scale, cudaStream_t stream) {
   auto kernel = masked_attention_bf16_kernel<kDPad>;
-  const int n_tiles = (S + kBKT - 1) / kBKT;
-  const int tiles_per_block = (n_tiles + kClusterBlocks - 1) / kClusterBlocks;
-  const int range = tiles_per_block * kBKT;
-  const bool keep = range <= kKeepMax;
-  const size_t bytes = smem_bytes_bf16<kDPad>(range, keep);
-  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  int tiles_per_block;
+  bool keep;
+  const size_t bytes = bf16_block_bytes<kDPad>(S, &tiles_per_block, &keep);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -695,20 +709,224 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloa
   return (int)cudaGetLastError();
 }
 
+// ---- any head width: the CUDA-core instance (both dtypes) ----
+//
+// For the shapes the tuned instances do not take: D not a multiple of 4 (a
+// row of D = 54 is 216 bytes in f32, 108 in bf16: 4-byte aligned at best, so
+// no 8- or 16-byte copies), D above 136 (f32) or 144 (bf16), rows not aligned
+// for the tuned instances' copies, B * H above 65535, or a bf16 key range
+// whose mask bytes do not fit in shared memory. Same function in each dtype,
+// with that dtype's roundings (f32: q * scale, then q.k^T; bf16: q.k^T of the
+// bf16 values summed in f32, then masked and scaled, the probabilities
+// rounded to bf16 for P.V, the output rounded to bf16).
+//
+// A block owns 32 queries of one (batch, head) and a range of at most 512
+// output columns (gridDim.z splits wider heads; each z recomputes the
+// logits); x enumerates (query tile, batch x head), so B * H is bounded only
+// by 2^31 / tiles. Two passes over the key tiles of 32: pass 1 forms the
+// logits (q.k^T over D in chunks of 32 columns, q and k staged element by
+// element, so any D and any alignment) and each row's running max and sum of
+// exp(s - max); pass 2 forms the logits again, p = exp(s - M) / L, and adds
+// p.V into the block's output rows in shared memory, 64 columns at a time.
+// (Two passes, as the bf16 rounding of normalised probabilities needs; the f32
+// instance shares them.) Everything runs on CUDA cores in f32: a thread holds
+// 2 rows x 4 keys of a logit tile and 2 rows x 8 columns of a P.V chunk.
+constexpr int kAQ = 32;         // queries a block
+constexpr int kAK = 32;         // keys a tile
+constexpr int kAC = 32;         // columns of q and k a staging chunk
+constexpr int kAV = 64;         // output columns a P.V chunk
+constexpr int kAOMax = 512;     // output columns a block
+constexpr int kAThreads = 128;
+
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_out(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+
+size_t any_d_smem_bytes(int ow) {
+  return sizeof(float) * ((size_t)kAQ * (kAC + 1) + (size_t)kAK * (kAC + 1) +
+                          (size_t)kAQ * (kAK + 1) + (size_t)kAK * (kAV + 1) + (size_t)kAQ * ow);
+}
+
+template <class T>
+__global__ void __launch_bounds__(kAThreads) masked_attention_any_d_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const uint8_t* __restrict__ kv_mask, T* __restrict__ out, int H, int L, int S, int D,
+    float scale, int q_tiles, int ow) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  extern __shared__ float any_d_smem[];
+  float* qs = any_d_smem;                  // [kAQ][kAC + 1]
+  float* ks = qs + kAQ * (kAC + 1);        // [kAK][kAC + 1]
+  float* ps = ks + kAK * (kAC + 1);        // [kAQ][kAK + 1] probabilities of a tile
+  float* vs = ps + kAQ * (kAK + 1);        // [kAK][kAV + 1]
+  float* os = vs + kAK * (kAV + 1);        // [kAQ][ow] the block's output columns
+
+  const long long bh = blockIdx.x / q_tiles;
+  const int l0 = (blockIdx.x - (int)(bh * q_tiles)) * kAQ;
+  const int b = (int)(bh / H);
+  const int c0 = blockIdx.z * ow, c1 = min(D, c0 + ow);  // the block's output columns
+  const int tid = threadIdx.x;
+  const int rg = tid / 8, kg = tid % 8;    // rows 2 rg, 2 rg + 1; keys 4 kg .. + 4
+  const T* qb = q + (size_t)bh * L * D;
+  const T* kb = k + (size_t)bh * S * D;
+  const T* vb = v + (size_t)bh * S * D;
+  const uint8_t* mb = kv_mask + (size_t)b * S;
+  const int n_tiles = (S + kAK - 1) / kAK;
+
+  for (int i = tid; i < kAQ * ow; i += kAThreads) os[i] = 0.f;
+
+  // the masked, scaled logits of rows 2 rg + i, keys s0 + 4 kg + j
+  auto logits = [&](int s0, float (&sc)[2][4]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kAC) {
+      __syncthreads();  // the previous chunk is consumed
+      for (int i = tid; i < kAQ * kAC; i += kAThreads) {
+        const int r = i / kAC, c = i - r * kAC;
+        const bool in = d0 + c < D;
+        const float qv = in && l0 + r < L ? as_f32(qb[(size_t)(l0 + r) * D + d0 + c]) : 0.f;
+        qs[r * (kAC + 1) + c] = kBf16 ? qv : qv * scale;
+        ks[r * (kAC + 1) + c] = in && s0 + r < S ? as_f32(kb[(size_t)(s0 + r) * D + d0 + c]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < kAC; ++c) {
+        const float a0 = qs[(2 * rg) * (kAC + 1) + c], a1 = qs[(2 * rg + 1) * (kAC + 1) + c];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float kv = ks[(4 * kg + j) * (kAC + 1) + c];
+          sc[0][j] = fmaf(a0, kv, sc[0][j]);
+          sc[1][j] = fmaf(a1, kv, sc[1][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = s0 + 4 * kg + j;
+      const bool valid = s < S && mb[s] != 0;
+      const float fill = s < S ? -1.0e9f : -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        sc[i][j] = valid ? (kBf16 ? sc[i][j] * scale : sc[i][j]) : fill;
+    }
+  };
+
+  // pass 1: each row's max M and sum L of exp(s - M) over all keys (the 8
+  // threads of a row group hold its 32 keys of a tile)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float sc[2][4];
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    logits(tile * kAK, sc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[i], mx);  // finite: the tile holds a key < S
+      float ps_ = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps_ += expf(sc[i][j] - mn);
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) ps_ += __shfl_xor_sync(0xffffffffu, ps_, off);
+      l[i] = l[i] * expf(m[i] - mn) + ps_;
+      m[i] = mn;
+    }
+  }
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};  // the sums are >= 1
+
+  // pass 2: O += P V, P = exp(s - M) / L (bf16: rounded), 64 columns at a time
+  const int vr = tid / 8, vc = tid % 8;   // P.V: rows 2 vr, 2 vr + 1; columns vc + 8 j
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int s0 = tile * kAK;
+    logits(s0, sc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(sc[i][j] - m[i]) * inv[i];
+        ps[(2 * rg + i) * (kAK + 1) + 4 * kg + j] = kBf16 ? round_bf16(p) : p;
+      }
+    for (int v0 = c0; v0 < c1; v0 += kAV) {
+      __syncthreads();  // the probabilities are in place; the previous V chunk is consumed
+      for (int i = tid; i < kAK * kAV; i += kAThreads) {
+        const int r = i / kAV, c = i - r * kAV;
+        vs[r * (kAV + 1) + c] =
+            s0 + r < S && v0 + c < c1 ? as_f32(vb[(size_t)(s0 + r) * D + v0 + c]) : 0.f;
+      }
+      __syncthreads();
+      float o[2][8];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < kAK; ++kk) {
+        const float p0 = ps[(2 * vr) * (kAK + 1) + kk], p1 = ps[(2 * vr + 1) * (kAK + 1) + kk];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float vv = vs[kk * (kAV + 1) + vc + 8 * j];
+          o[0][j] = fmaf(p0, vv, o[0][j]);
+          o[1][j] = fmaf(p1, vv, o[1][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = v0 + vc + 8 * j;
+          if (c < c1) os[(2 * vr + i) * ow + c - c0] += o[i][j];
+        }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kAQ * (c1 - c0); i += kAThreads) {
+    const int r = i / (c1 - c0), c = i - r * (c1 - c0);
+    if (l0 + r < L) store_out(out + ((size_t)bh * L + l0 + r) * D + c0 + c, os[r * ow + c]);
+  }
+}
+
+template <class T>
+int launch_any_d(const T* q, const T* k, const T* v, const uint8_t* kv_mask, T* out, int B,
+                 int H, int L, int S, int D, float scale, cudaStream_t stream) {
+  const int q_tiles = (L + kAQ - 1) / kAQ;
+  const long long blocks = (long long)q_tiles * B * H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int z = (D + kAOMax - 1) / kAOMax;
+  const int ow = (D + z - 1) / z;          // output columns a block
+  const size_t bytes = any_d_smem_bytes(ow);
+  auto kernel = masked_attention_any_d_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)blocks, 1, z);
+  kernel<<<grid, kAThreads, bytes, stream>>>(q, k, v, kv_mask, out, H, L, S, D, scale, q_tiles,
+                                             ow);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // q [B, H, L, D], k/v [B, H, S, D], kv_mask [B, S] bool (1 byte), out
-// [B, H, L, D]; f32, contiguous, 16-byte aligned; D a multiple of 4, at most
-// 136. Returns a cudaError_t (0 on success).
+// [B, H, L, D]; f32, contiguous; any D >= 1. *route is set to the instance
+// that ran: its padded width (64, 112, 136), or 0 for the any-D instance.
+// Returns a cudaError_t (0 on success).
 int masked_attention_forward(const float* q, const float* k, const float* v,
                              const uint8_t* kv_mask, float* out, int B, int H,
-                             int L, int S, int D, float scale, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || S <= 0 || D <= 0 || D > kDMax || D % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
-    return (int)cudaErrorMisalignedAddress;
+                             int L, int S, int D, float scale, int* route,
+                             cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || L <= 0 || S <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0;
+  if (D > kDMax || D % 4 != 0 || !aligned || (long long)B * H > 65535) {
+    *route = 0;
+    return launch_any_d<float>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
+  }
+  *route = D <= 64 ? 64 : D <= 112 ? 112 : 136;
   if (D <= 64)
     return launch<64>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
   if (D <= 112)
@@ -717,18 +935,24 @@ int masked_attention_forward(const float* q, const float* k, const float* v,
 }
 
 // The bf16 instance: q [B, H, L, D], k/v [B, H, S, D] bf16, kv_mask [B, S]
-// bool (1 byte), out [B, H, L, D] bf16; contiguous, 8-byte aligned; D a
-// multiple of 4, at most 144; S at most 2^19 (the mask bytes of a block's key
-// range in shared memory). Returns a cudaError_t (0 on success).
+// bool (1 byte), out [B, H, L, D] bf16; contiguous; any D >= 1. *route as
+// masked_attention_forward's (112, 144, or 0 for the any-D instance).
+// Returns a cudaError_t (0 on success).
 int masked_attention_forward_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                   const __nv_bfloat16* v, const uint8_t* kv_mask,
                                   __nv_bfloat16* out, int B, int H, int L, int S, int D,
-                                  float scale, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || S <= 0 || D <= 0 || D > kDMaxBf16 || D % 4 != 0 ||
-      S > (1 << 19) || B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 8 != 0)
-    return (int)cudaErrorMisalignedAddress;
+                                  float scale, int* route, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || L <= 0 || S <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 8 == 0;
+  int tiles_per_block;
+  bool keep;
+  const bool fits = S <= (1 << 19) && bf16_block_bytes<144>(S, &tiles_per_block, &keep) <=
+                                          227 * 1024;
+  if (D > kDMaxBf16 || D % 4 != 0 || !aligned || (long long)B * H > 65535 || !fits) {
+    *route = 0;
+    return launch_any_d<__nv_bfloat16>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
+  }
+  *route = D <= 112 ? 112 : 144;
   if (D <= 112)
     return launch_bf16<112>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
   return launch_bf16<144>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);

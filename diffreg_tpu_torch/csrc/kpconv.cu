@@ -43,8 +43,11 @@
 //    points are split between two blocks per query tile (0-7 and 8-14) that
 //    add their partial results into a zeroed output with atomicAdd; with two
 //    addends onto zero the sum does not depend on their order.
-//  * any other shape: the CUDA-core kernel of kpconv_common.cuh, reading its
-//    rows through F32Rows.
+//  * any other shape at P = 15: the CUDA-core kernel of kpconv_common.cuh,
+//    reading its rows through F32Rows;
+//  * any other kernel-point count P: the any-P CUDA-core kernel of
+//    kpconv_common.cuh (every shape and mode; P a runtime parameter), through
+//    F32Rows.
 
 #include "kpconv_common.cuh"
 
@@ -330,13 +333,17 @@ cudaError_t launch_tc(const float* q_pts, const float* s_pts, const int32_t* ind
   return cudaGetLastError();
 }
 
-// The f32 path of one influence mode: the tensor-core kernel where the shape
-// allows it, else the CUDA-core kernel.
+// The f32 path of one influence mode: at P = 15 the tensor-core kernel where
+// the shape allows it, else the CUDA-core kernel; at any other P the any-P
+// kernel.
 template <int Infl>
 cudaError_t forward_f32(const float* q_pts, const float* s_pts, const int32_t* inds,
                         const float* x, const float* kp, const float* w, float* out, int B,
-                        int Nq, int Ns, int K, int Cin, int Cout, Mode mode,
+                        int Nq, int Ns, int K, int Cin, int Cout, int P, Mode mode,
                         cudaStream_t stream) {
+  if (P != kP)
+    return launch_any_p<Infl>(q_pts, F32Rows{s_pts, x, w, Ns, Cin}, inds, kp, out, B, Nq, Ns, K,
+                              Cin, Cout, P, mode, stream);
   const bool aligned = ((uintptr_t)w | (uintptr_t)out) % 16 == 0;
   if (Cin >= 64 && Cin % kCC == 0 && K <= kKMax && aligned) {
     switch (Cout) {
@@ -362,7 +369,7 @@ extern "C" {
 
 // q_pts [B, Nq, 3], s_pts [B, Ns, 3], inds [B, Nq, K] int32 (sentinel Ns),
 // x [B, Ns, Cin], kp [P, 3], w [P, Cin, Cout], out [B, Nq, Cout]; all f32 and
-// contiguous. influence: 0 linear, 1 constant, 2 gaussian (gauss_den its
+// contiguous; any P >= 1. influence: 0 linear, 1 constant, 2 gaussian (gauss_den its
 // 2 sigma^2 + 1e-9); closest: 1 for "closest" aggregation, 0 for "sum".
 // Returns a cudaError_t (0 on success).
 int kpconv_forward(const float* q_pts, const float* s_pts, const int32_t* inds,
@@ -370,19 +377,19 @@ int kpconv_forward(const float* q_pts, const float* s_pts, const int32_t* inds,
                    int B, int Nq, int Ns, int K, int Cin, int Cout, int P,
                    float extent, int influence, int closest, float gauss_den,
                    cudaStream_t stream) {
-  if (P != kP || B <= 0 || Nq <= 0 || K <= 0 || Cin <= 0 || Cout <= 0)
+  if (P <= 0 || B <= 0 || Nq <= 0 || K <= 0 || Cin <= 0 || Cout <= 0)
     return (int)cudaErrorInvalidValue;
   const Mode mode{extent, gauss_den, closest != 0};
   switch (influence) {
     case kLinear:
       return (int)forward_f32<kLinear>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin,
-                                       Cout, mode, stream);
+                                       Cout, P, mode, stream);
     case kConstant:
       return (int)forward_f32<kConstant>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin,
-                                         Cout, mode, stream);
+                                         Cout, P, mode, stream);
     case kGaussian:
       return (int)forward_f32<kGaussian>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin,
-                                         Cout, mode, stream);
+                                         Cout, P, mode, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

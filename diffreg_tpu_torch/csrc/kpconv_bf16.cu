@@ -15,9 +15,13 @@
 // bf16 features in f32). Two paths:
 //  * Cin a multiple of 32, K <= 40, Cout in {64, 128, 256, 512}: the
 //    tensor-core kernel below.
-//  * any other shape (on the main path the first layer, Cin = 1): the
-//    CUDA-core kernel of the f32 path, reading the table through Bf16Rows,
-//    which applies the same roundings.
+//  * any other shape at P = 15 (on the main path the first layer, Cin = 1):
+//    the CUDA-core kernel of the f32 path, reading the table through
+//    Bf16Rows, which applies the same roundings;
+//  * any other kernel-point count P: the any-P CUDA-core kernel of
+//    kpconv_common.cuh through Bf16Rows (the same roundings).
+// The tensor-core kernel maps kernel points to its mma rows g and g + 8, and
+// its A chunk and W ring are laid out for P = 15.
 //
 // The tensor-core kernel. What bounds it on an H100: operations, both
 // products on the bf16 tensor cores (989 TFLOP/s dense): the aggregation
@@ -524,7 +528,11 @@ cudaError_t launch_tc_bf16(const float* q_pts, const __nv_bfloat16* table, const
 template <int Infl>
 cudaError_t forward_bf16(const float* q_pts, const __nv_bfloat16* table, const int32_t* inds,
                          const float* kp, const __nv_bfloat16* w, float* out, int B, int Nq,
-                         int Ns, int K, int Cin, int Cout, Mode mode, cudaStream_t stream) {
+                         int Ns, int K, int Cin, int Cout, int P, Mode mode,
+                         cudaStream_t stream) {
+  if (P != kP)
+    return launch_any_p<Infl>(q_pts, Bf16Rows{table, w, Ns, Cin}, inds, kp, out, B, Nq, Ns, K,
+                              Cin, Cout, P, mode, stream);
   const bool aligned = ((uintptr_t)table | (uintptr_t)w | (uintptr_t)out) % 16 == 0;
   if (Cin % kCC == 0 && K <= kKMax && aligned) {
     switch (Cout) {
@@ -551,25 +559,25 @@ extern "C" {
 // The bf16 instance. q_pts [B, Nq, 3] f32, table [B, Ns + 1, 8 + Cin] bf16
 // (hi(pos), lo(pos), 0, 0, features; row Ns the shadow row), inds [B, Nq, K] int32
 // (sentinel Ns), kp [P, 3] f32, w [P, Cin, Cout] bf16, out [B, Nq, Cout] f32;
-// all contiguous; the modes as kpconv_forward's. Returns a cudaError_t (0 on
+// any P >= 1; all contiguous; the modes as kpconv_forward's. Returns a cudaError_t (0 on
 // success).
 int kpconv_forward_bf16(const float* q_pts, const __nv_bfloat16* table, const int32_t* inds,
                         const float* kp, const __nv_bfloat16* w, float* out, int B, int Nq,
                         int Ns, int K, int Cin, int Cout, int P, float extent, int influence,
                         int closest, float gauss_den, cudaStream_t stream) {
-  if (P != kP || B <= 0 || Nq <= 0 || K <= 0 || Cin <= 0 || Cout <= 0)
+  if (P <= 0 || B <= 0 || Nq <= 0 || K <= 0 || Cin <= 0 || Cout <= 0)
     return (int)cudaErrorInvalidValue;
   const Mode mode{extent, gauss_den, closest != 0};
   switch (influence) {
     case kLinear:
       return (int)forward_bf16<kLinear>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, Cout,
-                                        mode, stream);
+                                        P, mode, stream);
     case kConstant:
       return (int)forward_bf16<kConstant>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin,
-                                          Cout, mode, stream);
+                                          Cout, P, mode, stream);
     case kGaussian:
       return (int)forward_bf16<kGaussian>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin,
-                                          Cout, mode, stream);
+                                          Cout, P, mode, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,6 @@
 // Shared by the KPConv kernels' two libraries, kpconv.cu (f32) and
 // kpconv_bf16.cu (the bf16 instance): the influence modes, the CUDA-core
-// kernel both use for the shapes their tensor-core kernels do not take, and
+// kernels both use for the shapes their tensor-core kernels do not take, and
 // the tiling constants of those tensor-core kernels.
 //
 // Replaces the Pallas TPU kernel diffreg_tpu/ops/pallas/kpconv_kernel.py:_kernel
@@ -19,25 +19,34 @@
 // and aggregation "closest" (a runtime flag) keeps, for each neighbor, only the
 // influence of its nearest kernel point (the first on ties, as jnp.argmin).
 //
-// The CUDA-core kernel (any shape; on the main path only the first layer,
-// Cin = 1): one block per (pair, tile of TQ queries), reading its rows through
-// F32Rows (the bf16 instance's through Bf16Rows); the influences, the density
-// count and the influence-weighted [TQ, P * Cin] accumulator live in shared
-// memory, and the contraction runs in f32 on CUDA cores, each W element read
-// once per block and reused for the TQ queries from registers (TQ the largest
-// of 16/8/4/2/1 that fits).
+// The kernel-point count P is the weights' first dimension, as in the Pallas
+// kernel. The tensor-core kernels and the first CUDA-core kernel below are
+// compiled for P = kP = 15 (the default KPFCNConfig.num_kernel_points, every
+// preset's and YAML's): their register arrays and shared tiles are sized by it.
+// Any other P takes the any-P CUDA-core kernel (kpconv_any_p_kernel), which
+// reads P at run time.
+//
+// The CUDA-core kernel at P = 15 (any other shape; on the main path only the
+// first layer, Cin = 1): one block per (pair, tile of TQ queries), reading its
+// rows through F32Rows (the bf16 instance's through Bf16Rows); the influences,
+// the density count and the influence-weighted [TQ, P * Cin] accumulator live
+// in shared memory, and the contraction runs in f32 on CUDA cores, each W
+// element read once per block and reused for the TQ queries from registers (TQ
+// the largest of 16/8/4/2/1 that fits).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "bf16.cuh"
 #include "tf32.cuh"
 
 namespace {
 
-constexpr int kP = 15;         // kernel points (KPFCNConfig.num_kernel_points)
+constexpr int kP = 15;         // the kernel-point count the tuned kernels are compiled for
 constexpr int kThreads = 256;
 constexpr size_t kSmemBudget = 200 * 1024;
 
@@ -284,6 +293,236 @@ cudaError_t launch_cuda_cores(const float* q_pts, Rows rows, const int32_t* inds
     return launch<2, Infl>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, mode, stream);
   if (smem_bytes(1, K, Cin) <= kSmemBudget)
     return launch<1, Infl>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, mode, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---- the any-P CUDA-core kernel ----
+//
+// Every kernel-point count P >= 1, every influence and aggregation mode, any
+// K, Cin and Cout, through the same Rows as the kernel above (so the bf16
+// instance rounds where the JAX package's bf16 path rounds). P is a runtime
+// parameter: the kernel points, the influences [tq][K][P] and the
+// influence-weighted sums live in shared memory, not in registers. Cin is
+// taken in chunks of cc channels (cc = Cin unless P x Cin x tq would not fit):
+// each chunk's sums are contracted with W's rows of that chunk and added to
+// the block's output rows in global memory (a block owns its rows, and a
+// thread its columns, so no other thread writes them), which are divided by
+// the density count after the last chunk. So a layer is never refused for its
+// width; only K x P beyond shared memory at one query (K P > 50,000) is.
+//
+// The contraction: the sums are stored [P][cc][tq] (the tile's queries
+// fastest, tq padded to 4), so a thread that owns an output column reads the
+// sums of all its queries for one (p, c) as float4 broadcasts and multiplies
+// them by one weight, loaded kAnyWU at a time ahead of their products. Below
+// 256 output columns the threads split the kernel points into groups (group g
+// takes p = g, g + groups, ...), whose partial sums are added in group order
+// through shared memory. A block takes at most kAnyBudget of shared memory
+// (two blocks an SM) while it holds more than one query, and fewer than 16
+// queries where the grid would be short of two blocks an SM.
+constexpr int kAnyTQ = 16;  // the most queries a block of the any-P kernel owns
+constexpr int kAnyPB = 8;   // kernel points a thread sums at once (registers)
+constexpr int kAnyWU = 8;   // weights a contraction thread loads at once
+constexpr size_t kAnyBudget = 110 * 1024;  // shared memory of a block: two an SM
+
+__host__ __device__ constexpr int any_p_stride(int tq) { return (tq + 3) / 4 * 4; }
+
+size_t any_p_smem_bytes(int P, int tq, int cc, int K) {
+  return sizeof(float) * ((size_t)P * cc * any_p_stride(tq) + (size_t)kThreads * kAnyTQ +
+                          (size_t)tq * K * P + 4 * (size_t)P) +
+         sizeof(int) * ((size_t)tq * K + tq);
+}
+
+template <int Infl, class Rows>
+__global__ void __launch_bounds__(kThreads) kpconv_any_p_kernel(
+    const float* __restrict__ q_pts, const Rows rows, const int32_t* __restrict__ inds,
+    const float* __restrict__ kp, float* __restrict__ out, int Nq, int Ns, int K, int Cin,
+    int Cout, int P, int tq, int cc, Mode mode) {
+  extern __shared__ __align__(16) float any_smem[];
+  const int ts = any_p_stride(tq);
+  float* acc = any_smem;                             // [P][cc][ts]
+  float* part = acc + (size_t)P * cc * ts;           // [groups - 1][tq][span] partial sums
+  float* infl = part + kThreads * kAnyTQ;            // [tq][K][P]
+  float* kps = infl + (size_t)tq * K * P;            // [P][3]
+  float* k2s = kps + 3 * P;                          // [P]
+  int* nbr = (int*)(k2s + P);                        // [tq][K], -1 = shadow row
+  int* cnt = nbr + tq * K;                           // [tq]
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * tq;
+  const int tid = threadIdx.x;
+  for (int p = tid; p < P; p += kThreads) {
+    const float a = kp[3 * p], c = kp[3 * p + 1], d = kp[3 * p + 2];
+    kps[3 * p] = a;
+    kps[3 * p + 1] = c;
+    kps[3 * p + 2] = d;
+    k2s[p] = kp_norm2(a, c, d);
+  }
+  if (tid < tq) cnt[tid] = 0;
+  __syncthreads();
+
+  // neighbor index and influence of every (query, neighbor, kernel point):
+  // the squared distances first, then (under "closest") their argmin, then
+  // the influences in place
+  for (int s = tid; s < tq * K; s += kThreads) {
+    const int qi = s / K, k = s - qi * K;
+    const int q = q0 + qi;
+    const int nb = q < Nq ? inds[((size_t)b * Nq + q) * K + k] : Ns;
+    float* ip = infl + (size_t)s * P;
+    if (nb < 0 || nb >= Ns) {
+      nbr[s] = -1;
+      for (int p = 0; p < P; ++p) ip[p] = 0.f;
+      continue;
+    }
+    nbr[s] = nb;
+    const float* qp = q_pts + ((size_t)b * Nq + q) * 3;
+    float px, py, pz;
+    rows.pos(b, nb, px, py, pz);
+    const float rx = px - qp[0], ry = py - qp[1], rz = pz - qp[2];
+    const float n2 = rx * rx + ry * ry + rz * rz;
+    int nearest = 0;
+    for (int p = 0; p < P; ++p) {
+      ip[p] = kp_d2(rx, ry, rz, n2, kps[3 * p], kps[3 * p + 1], kps[3 * p + 2], k2s[p]);
+      if (ip[p] < ip[nearest]) nearest = p;
+    }
+    for (int p = 0; p < P; ++p)
+      ip[p] = Rows::rounded(mode.closest && p != nearest ? 0.f : influence_of<Infl>(ip[p], mode));
+  }
+  __syncthreads();
+
+  // density count, one warp per (query, neighbor), over all Cin channels
+  const int warp = tid / 32, lane = tid % 32;
+  for (int s = warp; s < tq * K; s += kThreads / 32) {
+    const int nb = nbr[s];
+    if (nb < 0) continue;
+    float sum = 0.f;
+    for (int c = lane; c < Cin; c += 32) sum += rows.feat(b, nb, c);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0 && sum > 0.f) atomicAdd(&cnt[s / K], 1);
+  }
+
+  // the contraction's threads: column co = tid % span (and co + span, ...),
+  // kernel points p = g, g + groups, ... (g = tid / span)
+  const int span = min(Cout, kThreads), groups = kThreads / span;
+  const int g = tid / span;
+  for (int c0 = 0; c0 < Cin; c0 += cc) {
+    const int nc = min(cc, Cin - c0);
+    const bool last = c0 + cc >= Cin;
+    // acc[p, c, q] = sum_k infl[q, k, p] * x[nbr[q, k], c0 + c]; one thread
+    // per (query, channel), kAnyPB kernel points at a time in registers
+    for (int s = tid; s < tq * nc; s += kThreads) {
+      const int qi = s / nc, c = s - qi * nc;
+      const int* nq = nbr + qi * K;
+      const float* iq = infl + (size_t)qi * K * P;
+      float* aq = acc + (size_t)c * ts + qi;
+      for (int pb = 0; pb < P; pb += kAnyPB) {
+        float a[kAnyPB];
+#pragma unroll
+        for (int j = 0; j < kAnyPB; ++j) a[j] = 0.f;
+        for (int k = 0; k < K; ++k) {
+          const int nb = nq[k];
+          if (nb < 0) continue;
+          const float xv = rows.feat(b, nb, c0 + c);
+#pragma unroll
+          for (int j = 0; j < kAnyPB; ++j)
+            if (pb + j < P) a[j] = fmaf(iq[k * P + pb + j], xv, a[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < kAnyPB; ++j)
+          if (pb + j < P) aq[(size_t)(pb + j) * cc * ts] = Rows::rounded(a[j]);
+      }
+    }
+    __syncthreads();
+
+    // out[q, co] (+)= sum_{p, c} acc[p, c, q] * W[p, c0 + c, co]; after the
+    // last chunk divided by max(cnt[q], 1)
+    for (int co = tid % span; co < Cout; co += span) {
+      float r[kAnyTQ];
+#pragma unroll
+      for (int i = 0; i < kAnyTQ; ++i) r[i] = 0.f;
+      for (int p = g; p < P && g < groups; p += groups) {
+        const float* ap = acc + (size_t)p * cc * ts;
+        for (int cb = 0; cb < nc; cb += kAnyWU) {
+          float wv[kAnyWU];
+#pragma unroll
+          for (int u = 0; u < kAnyWU; ++u)
+            wv[u] = cb + u < nc ? rows.weight(((size_t)p * Cin + c0 + cb + u) * Cout + co) : 0.f;
+#pragma unroll
+          for (int u = 0; u < kAnyWU; ++u) {
+            if (cb + u >= nc) break;
+            const float4* a4 = reinterpret_cast<const float4*>(ap + (size_t)(cb + u) * ts);
+#pragma unroll
+            for (int v = 0; v < kAnyTQ / 4; ++v) {
+              if (4 * v >= tq) break;
+              const float4 a = a4[v];  // one address for the warp
+              r[4 * v] = fmaf(a.x, wv[u], r[4 * v]);
+              r[4 * v + 1] = fmaf(a.y, wv[u], r[4 * v + 1]);
+              r[4 * v + 2] = fmaf(a.z, wv[u], r[4 * v + 2]);
+              r[4 * v + 3] = fmaf(a.w, wv[u], r[4 * v + 3]);
+            }
+          }
+        }
+      }
+      if (groups > 1) {
+        // span = Cout <= 128: one column a thread, so every thread meets the
+        // barrier once; groups 1, 2, ... hand their sums to group 0
+        if (g > 0 && g < groups)
+#pragma unroll
+          for (int i = 0; i < kAnyTQ; ++i)
+            if (i < tq) part[((g - 1) * tq + i) * span + co] = r[i];
+        __syncthreads();
+        if (g == 0)
+          for (int o = 1; o < groups; ++o)
+#pragma unroll
+            for (int i = 0; i < kAnyTQ; ++i)
+              if (i < tq) r[i] += part[((o - 1) * tq + i) * span + co];
+      }
+      if (g != 0) continue;
+#pragma unroll
+      for (int i = 0; i < kAnyTQ; ++i) {
+        const int q = q0 + i;
+        if (i >= tq || q >= Nq) continue;
+        float* o = out + ((size_t)b * Nq + q) * Cout + co;
+        const float v = (c0 == 0 ? 0.f : *o) + r[i];
+        *o = last ? v / (float)max(cnt[i], 1) : v;
+      }
+    }
+    __syncthreads();  // the chunk's sums are consumed before the next chunk's
+  }
+}
+
+// The any-P kernel at the most queries a block (16/8/4/2/1) whose influences
+// fit beside a chunk of at least min(Cin, 32) channels within kAnyBudget, so
+// that two blocks share an SM; else one query a block with any chunk that fits
+// kSmemBudget.
+template <int Infl, class Rows>
+cudaError_t launch_any_p(const float* q_pts, Rows rows, const int32_t* inds, const float* kp,
+                         float* out, int B, int Nq, int Ns, int K, int Cin, int Cout, int P,
+                         Mode mode, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // fewer queries a block where 16 would leave the grid short of two blocks an SM
+  int most = kAnyTQ;
+  while (most > 4 && (long long)((Nq + most - 1) / most) * B < 2LL * sms) most /= 2;
+  for (int tq = most; tq >= 1; tq /= 2) {
+    const size_t budget = tq > 1 ? kAnyBudget : kSmemBudget;
+    const size_t fixed = any_p_smem_bytes(P, tq, 0, K);
+    const size_t per_channel = sizeof(float) * any_p_stride(tq) * P;
+    if (fixed + per_channel > budget) continue;
+    const int cc = (int)std::min<size_t>(Cin, (budget - fixed) / per_channel);
+    if (cc < std::min(Cin, 32) && tq > 1) continue;
+    const size_t smem = any_p_smem_bytes(P, tq, cc, K);
+    err = cudaFuncSetAttribute(
+        kpconv_any_p_kernel<Infl, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((Nq + tq - 1) / tq, B);
+    kpconv_any_p_kernel<Infl, Rows><<<grid, kThreads, smem, stream>>>(
+        q_pts, rows, inds, kp, out, Nq, Ns, K, Cin, Cout, P, tq, cc, mode);
+    return cudaGetLastError();
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -16,8 +16,8 @@ on the device:
     ``metric_points_fn`` gives a pair's raw metric points and flow.
 
 Each draw is one method (``draw_start``, ``draw_noise``, ``draw_ransac``), in
-the order the JAX testers split their keys. The host pose estimators
-(``eval/host_estimators.py``) are not ported. In a process group the DDIM
+the order the JAX testers split their keys. The 3D host pose estimator
+(Open3D's RANSAC, ``eval/host_estimators.py``) has no port. In a process group the DDIM
 goes through ``parallel.mesh.make_parallel_eval_step`` (the JAX testers'
 mesh): a batch the world divides is split over the processes, each drawing
 the whole batch's start and noise and running its rows, and every process

@@ -12,11 +12,14 @@ test.py and eval.py), in two stages:
     table, per scene and as means of the scene means.
 
 Each draw is one method (``draw_start``, ``draw_pnp``; ``eval_from_cache``
-takes ``draw_pnp``), in the order the JAX tester splits its keys. The host
-estimator (``pnp_backend: opencv``) is not ported: without cv2 the device
-PnP runs instead, with a warning; with cv2 the config is refused
-(``eval/host_estimators.py``). In a process group the model's forward goes
-through ``parallel.mesh.make_parallel_eval_step``, as in ``engine.tester``.
+takes ``draw_pnp``), in the order the JAX tester splits its keys. With
+``pnp_backend: opencv`` both stages solve each pair's pose with the
+reference's host estimator (``eval/host_estimators.py:pnp_pose_opencv``,
+cv2.solvePnPRansac on the fine correspondences, identity where it finds
+none), where the JAX tester does; the test still draws its PnP hypotheses, as
+JAX's splits its keys either way. Without cv2 the device PnP runs instead,
+with a warning. In a process group the model's forward goes through
+``parallel.mesh.make_parallel_eval_step``, as in ``engine.tester``.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from ..eval.host_estimators import resolve_backend
+from ..eval.host_estimators import pnp_pose_opencv, resolve_backend
 from ..eval.pnp import pnp_ransac
 from ..geometry.se3 import rotation_error_deg, translation_error
 from ..models.pipeline_2d3d import fine_matching, patch_pixel_table
@@ -99,6 +102,19 @@ def registration_rmse(pcd_points, valid, est_rot, est_trn, transform):
                       / valid.sum().clamp_min(1))
 
 
+def host_pnp(points, pixels, intrinsics, cfg: Test2D3DConfig):
+    """One pair's pose from cv2.solvePnPRansac on its correspondences (numpy,
+    (u, v) pixels, so ``transposed=False``): (rotation [3, 3], translation
+    [3, 1]) in float32, the identity where cv2 finds none or there are fewer
+    than 4 (the reference scores such a pair RR 0). The JAX tester's
+    ``_host_pnp_batch`` and its ``eval_from_cache``."""
+    tfm = pnp_pose_opencv(points, pixels, intrinsics, distance_tolerance=cfg.pnp_tolerance_px,
+                          transposed=False)
+    if tfm is None:
+        tfm = np.eye(4)
+    return tfm[:3, :3].astype(np.float32), tfm[:3, 3:4].astype(np.float32)
+
+
 def _scene_of(meta_entry) -> str:
     if isinstance(meta_entry, str):
         return meta_entry
@@ -167,11 +183,19 @@ class TwoDThreeDTester:
             ir, n_corr = correspondence_inlier_ratio(fm["pcd_corr_points"],
                                                      fm["img_corr_points"], fm["corr_valid"],
                                                      batch.transform[i], cfg.acceptance_radius)
-            res = pnp_ransac(u[i], fm["pcd_corr_points"], fm["img_corr_pixels"],
-                             fm["corr_valid"], batch.intrinsics[i],
-                             distance_tolerance=cfg.pnp_tolerance_px)
-            pairs.append({"fm": fm, "IR": ir, "n_corr": n_corr, "rotation": res.rotation,
-                          "translation": res.translation})
+            if cfg.pnp_backend == "opencv":
+                valid = fm["corr_valid"].cpu().numpy()
+                rot, trn = (torch.from_numpy(a).to(self.device) for a in host_pnp(
+                    fm["pcd_corr_points"].cpu().numpy()[valid],
+                    fm["img_corr_pixels"].cpu().numpy()[valid],
+                    batch.intrinsics[i].cpu().numpy(), cfg))
+            else:
+                res = pnp_ransac(u[i], fm["pcd_corr_points"], fm["img_corr_pixels"],
+                                 fm["corr_valid"], batch.intrinsics[i],
+                                 distance_tolerance=cfg.pnp_tolerance_px)
+                rot, trn = res.rotation, res.translation
+            pairs.append({"fm": fm, "IR": ir, "n_corr": n_corr, "rotation": rot,
+                          "translation": trn})
         return out, corrs, pairs
 
     def pair_row(self, batch, out, pair, i) -> dict:
@@ -308,18 +332,22 @@ def eval_from_cache(cache_dir: str, cfg: Test2D3DConfig = Test2D3DConfig(),
 
             rr = 0.0
             if len(pcd_c) >= 4:
-                buf = cfg.max_fine_corr
-                p3 = np.zeros((buf, 3), np.float32)
-                px = np.zeros((buf, 2), np.float32)
-                vv = np.zeros(buf, bool)
-                n = min(len(pcd_c), buf)
-                order = np.argsort(-scores)[:n]
-                p3[:n], px[:n], vv[:n] = pcd_c[order], pix_c[order], True
-                t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-                res = pnp_ransac(draw_pnp_eval(generator, cfg, device), t(p3), t(px), t(vv),
-                                 t(d["intrinsics"]), distance_tolerance=cfg.pnp_tolerance_px)
-                rot = res.rotation.cpu().numpy()
-                trn = res.translation.cpu().numpy()
+                if cfg.pnp_backend == "opencv":
+                    rot, trn = host_pnp(pcd_c, pix_c, d["intrinsics"], cfg)
+                else:
+                    buf = cfg.max_fine_corr
+                    p3 = np.zeros((buf, 3), np.float32)
+                    px = np.zeros((buf, 2), np.float32)
+                    vv = np.zeros(buf, bool)
+                    n = min(len(pcd_c), buf)
+                    order = np.argsort(-scores)[:n]
+                    p3[:n], px[:n], vv[:n] = pcd_c[order], pix_c[order], True
+                    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+                    res = pnp_ransac(draw_pnp_eval(generator, cfg, device), t(p3), t(px),
+                                     t(vv), t(d["intrinsics"]),
+                                     distance_tolerance=cfg.pnp_tolerance_px)
+                    rot = res.rotation.cpu().numpy()
+                    trn = res.translation.cpu().numpy()
                 pts = d["pcd_points"]
                 est = pts @ rot.T + trn.reshape(1, 3)
                 gt = pts @ tfm[:3, :3].T + tfm[:3, 3]

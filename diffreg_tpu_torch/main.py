@@ -20,9 +20,11 @@ loaders and engine. 3DMatch and 4DMatch, test (``ThreeDMatchTester``,
 7Scenes) test (``TwoDThreeDTester``, then ``eval_from_cache``) and train
 (``engine.train2d3d`` with Adam, the ``Trainer``), with the frozen towers
 (``use_dino`` / ``use_mono_depth``: torch state_dicts at the YAML's
-``towers.dinov2`` / ``towers.depth_anything``, run once per pair). The host
-estimators are not ported (ROADMAP §1): where the estimator's library is
-missing, the device estimator runs, as in the JAX package. ``--demo``, or a
+``towers.dinov2`` / ``towers.depth_anything``, run once per pair). The 2D-3D
+host PnP (``eval.pnp_backend: opencv``, ``parity_eval``) runs OpenCV's
+solvePnPRansac where cv2 imports; the 3D host RANSAC (Open3D) has no port.
+Where the estimator's library is missing, the device estimator runs, as in
+the JAX package. ``--demo``, or a
 missing ``data_root``, runs on synthetic pairs, which carry no tower
 outputs. A metric run on real data refuses random weights. Runs write
 under ``snapshot/<exp_dir>`` in the working directory.

@@ -34,15 +34,16 @@ class PointBackboneConfig:
 
 class KPConvBias(nn.Module):
     """vision3d KPConv: influence-weighted kernel-point convolution plus a bias;
-    ``sigma`` is the kernel points' influence extent."""
+    ``sigma`` is the kernel points' influence extent, ``n_points`` their count."""
 
-    def __init__(self, in_dim: int, out_dim: int, radius: float, sigma: float):
+    def __init__(self, in_dim: int, out_dim: int, radius: float, sigma: float,
+                 n_points: int = 15):
         super().__init__()
         self.sigma = float(sigma)
-        self.weights = nn.Parameter(torch.empty(15, in_dim, out_dim))
+        self.weights = nn.Parameter(torch.empty(n_points, in_dim, out_dim))
         self.bias = nn.Parameter(torch.zeros(out_dim))
         self.register_buffer("kernel_points", torch.from_numpy(load_kernel_points(
-            radius, 15, 3, "center")))
+            radius, n_points, 3, "center")))
 
     def forward(self, q_pts, s_pts, feats, inds):
         return kpconv_batched(q_pts, s_pts, inds, feats, self.kernel_points, self.weights,
@@ -66,9 +67,9 @@ class UnaryBlock2D3D(nn.Module):
 class KPBlock(nn.Module):
     """vision3d KPConvBlock: KPConv (with bias) + GroupNorm + LeakyReLU."""
 
-    def __init__(self, in_dim, out_dim, radius, sigma):
+    def __init__(self, in_dim, out_dim, radius, sigma, n_points=15):
         super().__init__()
-        self.conv = KPConvBias(in_dim, out_dim, radius, sigma)
+        self.conv = KPConvBias(in_dim, out_dim, radius, sigma, n_points)
         self.norm = GroupNormPack(out_dim)
 
     def forward(self, q_pts, s_pts, feats, inds, q_mask):
@@ -79,12 +80,12 @@ class KPResidual(nn.Module):
     """vision3d KPResidualBlock: unary1 -> KPConvBlock -> unary2 (no act) plus
     the (max-pooled when strided, projected when in != out) shortcut -> leaky."""
 
-    def __init__(self, in_dim, out_dim, radius, sigma, strided=False):
+    def __init__(self, in_dim, out_dim, radius, sigma, strided=False, n_points=15):
         super().__init__()
         mid = out_dim // 4
         self.strided = strided
         self.unary1 = UnaryBlock2D3D(in_dim, mid)
-        self.conv = KPBlock(mid, mid, radius, sigma)
+        self.conv = KPBlock(mid, mid, radius, sigma, n_points)
         self.unary2 = UnaryBlock2D3D(mid, out_dim, use_act=False)
         self.unary_shortcut = (UnaryBlock2D3D(in_dim, out_dim, use_act=False)
                                if in_dim != out_dim else None)
@@ -101,22 +102,21 @@ class KPResidual(nn.Module):
 
 class PointBackbone(nn.Module):
     """A 3-level pyramid batch -> [level-0 features [B, N0, output_dim],
-    level-1 [B, N1, 4 init_dim], level-2 (the nodes) [B, N2, 8 init_dim]]."""
+    level-1 [B, N1, 4 init_dim], level-2 (the nodes) [B, N2, 8 init_dim]]; each
+    KPConv has ``kernel_size`` kernel points (any count, as JAX's builds)."""
 
     def __init__(self, cfg: PointBackboneConfig):
         super().__init__()
-        if cfg.kernel_size != 15:
-            raise NotImplementedError("the KPConv kernel takes 15 kernel points")
         self.cfg = cfg
-        d, r, s = cfg.init_dim, cfg.init_radius, cfg.init_sigma
-        self.encoder1_1 = KPBlock(cfg.input_dim, d, r, s)
-        self.encoder1_2 = KPResidual(d, 2 * d, r, s)
-        self.encoder2_1 = KPResidual(2 * d, 2 * d, r, s, strided=True)
-        self.encoder2_2 = KPResidual(2 * d, 4 * d, 2 * r, 2 * s)
-        self.encoder2_3 = KPResidual(4 * d, 4 * d, 2 * r, 2 * s)
-        self.encoder3_1 = KPResidual(4 * d, 4 * d, 2 * r, 2 * s, strided=True)
-        self.encoder3_2 = KPResidual(4 * d, 8 * d, 4 * r, 4 * s)
-        self.encoder3_3 = KPResidual(8 * d, 8 * d, 4 * r, 4 * s)
+        d, r, s, p = cfg.init_dim, cfg.init_radius, cfg.init_sigma, cfg.kernel_size
+        self.encoder1_1 = KPBlock(cfg.input_dim, d, r, s, p)
+        self.encoder1_2 = KPResidual(d, 2 * d, r, s, n_points=p)
+        self.encoder2_1 = KPResidual(2 * d, 2 * d, r, s, strided=True, n_points=p)
+        self.encoder2_2 = KPResidual(2 * d, 4 * d, 2 * r, 2 * s, n_points=p)
+        self.encoder2_3 = KPResidual(4 * d, 4 * d, 2 * r, 2 * s, n_points=p)
+        self.encoder3_1 = KPResidual(4 * d, 4 * d, 2 * r, 2 * s, strided=True, n_points=p)
+        self.encoder3_2 = KPResidual(4 * d, 8 * d, 4 * r, 4 * s, n_points=p)
+        self.encoder3_3 = KPResidual(8 * d, 8 * d, 4 * r, 4 * s, n_points=p)
         self.decoder2 = UnaryBlock2D3D(12 * d, 4 * d)
         self.decoder1 = UnaryBlock2D3D(6 * d, 2 * d)
         self.out_proj = nn.Linear(2 * d, cfg.output_dim)

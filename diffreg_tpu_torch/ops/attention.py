@@ -24,6 +24,13 @@ instance on CUDA inside ``MaskedAttentionBF16Function`` (its backward
 recomputes ``masked_attention_bf16_plain`` and differentiates it, as
 ``jax.grad`` differentiates the JAX layer's XLA attention),
 ``masked_attention_bf16_plain`` on the CPU; both return bf16.
+
+The kernel takes every shape the Pallas kernel takes (any head width D, any
+B * H and S) in both dtypes: tuned instances padded to 64, 112 and 136 (f32)
+or 112 and 144 (bf16) where D is a multiple of 4 up to their width, and the
+any-D instance for the rest. Each wrapper counts its launches in
+``launches`` and, per instance ("64", "112", "136", "144" or "any"), in
+``instance_launches``.
 """
 from __future__ import annotations
 
@@ -71,34 +78,47 @@ def _check_inputs(name, q, k, v, kv_mask, dtype):
     return b, h, l, s, d
 
 
+def _count(wrapper, route):
+    """One launch of ``wrapper``, counted in ``launches`` and, by the instance
+    the C entry reported (its padded width, or 0 for the any-D instance), in
+    ``instance_launches``."""
+    wrapper.launches += 1
+    key = str(route.value) if route.value else "any"
+    wrapper.instance_launches[key] = wrapper.instance_launches.get(key, 0) + 1
+
+
 def masked_attention_cuda(q, k, v, kv_mask, scale):
     """Launch the Hopper attention kernel; same contract as the plain version."""
     b, h, l, s, d = _check_inputs("masked_attention_cuda", q, k, v, kv_mask, torch.float32)
     lib = _library()
     out = torch.empty_like(q)
+    route = ctypes.c_int(-1)
     launch(lib, "masked_attention_forward", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           kv_mask.data_ptr(), out.data_ptr(), b, h, l, s, d, float(scale))
-    masked_attention_cuda.launches += 1
+           kv_mask.data_ptr(), out.data_ptr(), b, h, l, s, d, float(scale), ctypes.byref(route))
+    _count(masked_attention_cuda, route)
     return out
 
 
 masked_attention_cuda.launches = 0
+masked_attention_cuda.instance_launches = {}
 
 
 def masked_attention_cuda_bf16(q, k, v, kv_mask, scale):
-    """Launch the kernel's bf16 instance (head width up to 144); bf16 q, k, v
-    -> bf16, as ``masked_attention_bf16_plain``."""
+    """Launch the kernel's bf16 instance; bf16 q, k, v -> bf16, as
+    ``masked_attention_bf16_plain``."""
     b, h, l, s, d = _check_inputs("masked_attention_cuda_bf16", q, k, v, kv_mask,
                                   torch.bfloat16)
     lib = _library()
     out = torch.empty_like(q)
+    route = ctypes.c_int(-1)
     launch(lib, "masked_attention_forward_bf16", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           kv_mask.data_ptr(), out.data_ptr(), b, h, l, s, d, float(scale))
-    masked_attention_cuda_bf16.launches += 1
+           kv_mask.data_ptr(), out.data_ptr(), b, h, l, s, d, float(scale), ctypes.byref(route))
+    _count(masked_attention_cuda_bf16, route)
     return out
 
 
 masked_attention_cuda_bf16.launches = 0
+masked_attention_cuda_bf16.instance_launches = {}
 
 
 class MaskedAttentionFunction(torch.autograd.Function):
@@ -141,9 +161,11 @@ def _library():
     lib = kernel_library("attention")
     if lib.masked_attention_forward.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.masked_attention_forward.argtypes = [vp] * 5 + [ci] * 5 + [ctypes.c_float, vp]
+        # q, k, v, kv_mask, out; B, H, L, S, D; scale; route (int *); stream
+        args = [vp] * 5 + [ci] * 5 + [ctypes.c_float, ctypes.POINTER(ci), vp]
+        lib.masked_attention_forward.argtypes = args
         lib.masked_attention_forward.restype = ci
-        lib.masked_attention_forward_bf16.argtypes = [vp] * 5 + [ci] * 5 + [ctypes.c_float, vp]
+        lib.masked_attention_forward_bf16.argtypes = args
         lib.masked_attention_forward_bf16.restype = ci
     return lib
 

@@ -17,7 +17,8 @@ XLA, and no kernel of either package computes it.
 ``kpconv_batched`` is the entry the backbone calls: a CUDA tensor launches
 the hand-written kernel (``csrc/kpconv.cu``) or raises; a CPU tensor runs
 the plain version (the bf16 instance is ``csrc/kpconv_bf16.cu``, a library of
-its own). On CUDA tensors the kernel runs inside ``KPConvFunction``,
+its own). Both kernels take any kernel-point count P, as the Pallas kernel
+does: P = 15 runs their tuned instances, any other P their any-P kernel. On CUDA tensors the kernel runs inside ``KPConvFunction``,
 whose backward recomputes the plain version at the saved inputs and
 differentiates it, as the JAX package's ``custom_vjp`` does
 (``ops/pallas/kpconv_kernel.py``): the gathered rows are rebuilt one layer at
@@ -223,17 +224,19 @@ def _mode_codes(kp_extent, influence, aggregation):
             gaussian_denominator(kp_extent))
 
 
-def _count(wrapper, influence, aggregation):
+def _count(wrapper, influence, aggregation, n_points):
     wrapper.launches += 1
     key = f"{influence}/{aggregation}"
     wrapper.mode_launches[key] = wrapper.mode_launches.get(key, 0) + 1
+    wrapper.point_launches[n_points] = wrapper.point_launches.get(n_points, 0) + 1
 
 
 def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
                 influence="linear", aggregation="sum"):
-    """Launch the Hopper KPConv kernel; same contract as ``kpconv``. Counts its
-    launches in ``launches`` and, per "influence/aggregation", in
-    ``mode_launches``."""
+    """Launch the Hopper KPConv kernel; same contract as ``kpconv``, at any
+    kernel-point count P (``weights.shape[0]``). Counts its launches in
+    ``launches``, per "influence/aggregation" in ``mode_launches`` and per P
+    in ``point_launches``."""
     tensors = {"q_pts": q_pts, "s_pts": s_pts, "x": x,
                "kernel_points": kernel_points, "weights": weights}
     for name, t in tensors.items():
@@ -256,12 +259,13 @@ def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
            neighb_inds.data_ptr(), x.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
            out.data_ptr(), b, nq, ns, k, cin, cout, p,
            *_mode_codes(kp_extent, influence, aggregation))
-    _count(kpconv_cuda, influence, aggregation)
+    _count(kpconv_cuda, influence, aggregation, p)
     return out
 
 
 kpconv_cuda.launches = 0
 kpconv_cuda.mode_launches = {}
+kpconv_cuda.point_launches = {}
 
 
 def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_extent,
@@ -290,12 +294,13 @@ def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_exten
            neighb_inds.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
            out.data_ptr(), b, nq, ns, k, cin, cout, p,
            *_mode_codes(kp_extent, influence, aggregation))
-    _count(kpconv_cuda_bf16, influence, aggregation)
+    _count(kpconv_cuda_bf16, influence, aggregation, p)
     return out
 
 
 kpconv_cuda_bf16.launches = 0
 kpconv_cuda_bf16.mode_launches = {}
+kpconv_cuda_bf16.point_launches = {}
 
 
 class KPConvFunction(torch.autograd.Function):

@@ -565,10 +565,11 @@ def test_tester_and_cache(runs, setup, tmp_path, monkeypatch):
     for key, val in ref_eval.items():
         if key != "scenes":
             assert got_eval[key] == pytest.approx(float(val), rel=1e-5, abs=1e-5), key
-    # the host PnP is not ported: refused where cv2 imports, the device PnP
-    # (with a warning) where it does not, as the JAX package's main falls back
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.TwoDThreeDTester(setup["port"], pt.Test2D3DConfig(pnp_backend="opencv"), device="cpu")
+    # the host PnP: OpenCV's where cv2 imports, the device PnP (with a
+    # warning) where it does not, as the JAX package's main falls back
+    host = pt.TwoDThreeDTester(setup["port"], pt.Test2D3DConfig(pnp_backend="opencv"),
+                               device="cpu")
+    assert host.cfg.pnp_backend == "opencv"
     from diffreg_tpu_torch.eval import host_estimators
 
     monkeypatch.setattr(host_estimators, "has_module", lambda name: False)

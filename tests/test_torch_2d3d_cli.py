@@ -326,8 +326,9 @@ def test_main_2d3d_rejects_what_is_not_ported(tmp_path, monkeypatch, rng):
     """The tower variant on real data without its checkpoints exits as the
     JAX package's main does (the same SystemExit); the demo pairs carry no
     tower outputs, so ``use_dino`` with --demo fails in both (JAX at its
-    model's init). The host PnP where cv2 imports (it does here) and a metric
-    run on real data with random weights are refused."""
+    model's init). A metric run on real data with random weights is refused.
+    The host PnP (``eval.pnp_backend: opencv``, ``parity_eval``) runs OpenCV's
+    where cv2 imports (it does here)."""
     import diffreg_tpu.main as jax_main
 
     monkeypatch.chdir(tmp_path)
@@ -347,10 +348,18 @@ def test_main_2d3d_rejects_what_is_not_ported(tmp_path, monkeypatch, rng):
         jax_main.main(["--config", cfg, "--demo"])
     with pytest.raises(ValueError, match="dino_feats"):
         main(["--config", cfg, "--demo", "--device", "cpu"])
+    # the host PnP runs where cv2 imports: OpenCV's solvePnPRansac for every pair
+    from diffreg_tpu_torch.engine import tester2d3d
+
+    solves = []
+    host = tester2d3d.pnp_pose_opencv
+    monkeypatch.setattr(tester2d3d, "pnp_pose_opencv",
+                        lambda *a, **k: solves.append(1) or host(*a, **k))
     for change in ({"eval": {"pnp_backend": "opencv"}}, {"parity_eval": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--config", _tiny_yaml(tmp_path / "c.yaml", **change), "--demo",
-                  "--device", "cpu"])
+        solves.clear()
+        summary = main(["--config", _tiny_yaml(tmp_path / "c.yaml", **change), "--demo",
+                        "--device", "cpu"])
+        assert len(solves) >= summary["pairs"] > 0 and np.isfinite(summary["RR"])
     with pytest.raises(SystemExit, match="random weights"):
         main(["--config", _tiny_yaml(tmp_path / "d.yaml", data_root=str(tmp_path)),
               "--device", "cpu"])
