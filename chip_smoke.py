@@ -228,14 +228,17 @@ In order, it
      keys, --demo;
  23. the shape range (``run_shape_range``): (a) both KPConv kernels, f32
      and bf16, at every kernel-point count of SHAPE_POINTS (any P but 15
-     takes the any-P kernel) against their plain versions at a 3DMatch
-     encode's 11 layers and the 2D-3D level-0 shapes, linear/sum at every P,
-     gaussian/sum and linear/closest at P = 24 (a bf16 row beyond the limit
-     excused only where one rounding flip of a term explains it), timed, with
-     the gradients through both Functions at P = 24; (b) the attention kernel,
-     f32 and bf16, at every head width of SHAPE_HEAD_WIDTHS (the any-D instance
-     where D is not a multiple of 4 or above the tuned instances), D = 256 at
-     the 2D-3D image self shape, and one bf16 call with B * H past the grid's
+     takes an any-P kernel: on tensor cores at the wide layers, on CUDA cores
+     at the others) against their plain versions at a 3DMatch encode's 11
+     layers and the 2D-3D level-0 shapes, linear/sum at every P,
+     gaussian/sum and linear/closest at P = 17 and 24 (a bf16 row beyond the
+     limit excused only where one rounding flip of a term explains it), timed,
+     with the gradients through both Functions at P = 24; (b) the attention
+     kernel, f32 and bf16, at every head width of SHAPE_HEAD_WIDTHS (the any-D
+     route where D is not a multiple of 4 or above the tuned instances: its
+     tensor-core branch, and its CUDA-core branch for the widest), D = 256 at
+     the 2D-3D image self shape, calls on q, k and v offset by one element
+     (4- and 2-byte aligned rows), and one call with B * H past the grid's
      65,535 rows, timed beside the plain version and SDPA, with gradients at D
      = 54 and 528; (c) configuration C (configs/test/3dmatch.yaml with 24
      kernel points and 8 heads of 54) on the 4 pairs: the DDIM at gate 0 and 40
@@ -245,7 +248,9 @@ In order, it
      configuration W (2 heads of 216): the DDIM at gate 0 in f32 and bf16, pair
      0 card against CPU; (e) ``diffreg_tpu_torch.main`` --demo on C's YAML and
      on configs/test/4dmatch.yaml with one head of 528; every part's launches
-     counted by route (KPConv by kernel-point count, attention by instance);
+     counted by route (KPConv by kernel-point count and kernel, attention by
+     instance and any-D branch), C's ten wide KPConv layers and C's and W's
+     attention asserted on the tensor-core routes;
  24. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
@@ -586,18 +591,26 @@ VARIANT_BACKBONE_REL_TOL = {"A": 1e-4, "B": 1e-4}
 VARIANT_REG_REL_TOL = 1e-5
 # phase 23, the shape range: both kernels at shapes their tuned instances do
 # not take, each against its plain version at phase 1's limits. KPConv at these
-# kernel-point counts (any P but 15 takes the any-P kernel); attention at these
-# head widths (D not a multiple of 4, or above 136 in f32 and 144 in bf16,
-# takes the any-D instance; 128 runs in instance 136 / 144), at
+# kernel-point counts (any P but 15 takes an any-P kernel; 16, 17, 32 and 33
+# lie on each side of the tensor-core kernel's 16-point chunks), with
+# SHAPE_MODE_POINTS also under gaussian/sum and linear/closest; attention at
+# these head widths (D not a multiple of 4, or above 136 in f32 and 144 in
+# bf16, takes the any-D route; 128 and 136 run in instance 136, 144 in bf16;
+# 137, 145 and 257 lie past a padding or slice edge; 1000 passes the
+# tensor-core branch's shared memory and takes its CUDA-core branch), at
 # SHAPE_ATTENTION (S not a multiple of the 32-key tile, the second pair's last
-# 37 keys masked), D = 256 at the 2D-3D image self call, and one call whose B *
-# H passes the grid's 65,535 rows. Then two configurations of
+# 37 keys masked), D = 256 at the 2D-3D image self call, SHAPE_OFFSET_WIDTHS
+# on q, k and v offset by one element, and one call whose B * H passes the
+# grid's 65,535 rows. Then two configurations of
 # configs/test/3dmatch.yaml at full width, written as YAML copies: C (24
 # kernel points, 8 heads of 54) and W (2 heads of 216), held card against CPU as
 # the variants are (VARIANT_CONF_REL_TOL), and the CLI on C's YAML and on
 # configs/test/4dmatch.yaml with one head of 528
-SHAPE_POINTS = (1, 7, 16, 17, 24, 64)
-SHAPE_HEAD_WIDTHS = (6, 54, 66, 128, 176, 216, 256, 264, 432, 528)
+SHAPE_POINTS = (1, 7, 16, 17, 24, 32, 33, 64)
+SHAPE_MODE_POINTS = (17, 24)
+SHAPE_HEAD_WIDTHS = (6, 54, 66, 128, 136, 137, 144, 145, 176, 216, 256, 257, 264, 432, 528,
+                     1000)
+SHAPE_OFFSET_WIDTHS = (54, 216)
 SHAPE_ATTENTION = (4, 2, 705, 709)          # B, H, L, S
 SHAPE_IMAGE_SELF = (4, 1, 4602, 4602)
 SHAPE_WIDE_BH = (8193, 8, 16, 45)           # B * H = 65,544
@@ -852,11 +865,12 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False, modes=("linear", "sum"
     with torch.inference_mode():
         for (nq, ns, k, cin, cout), (args, count) in shapes.items():
             q, s, inds, x, kpts, w, _ = args
-            before = counted.launches
+            before, routes = counted.launches, dict(counted.route_launches)
             got = kernel(*args, *modes)
             ref = plain(*args, *modes)
             torch.cuda.synchronize()
             assert counted.launches == before + 1
+            route = [r for r, n in counted.route_launches.items() if n != routes.get(r, 0)][0]
             scale = float(ref.abs().max())
             allowed = limit * (scale if bf16 else max(scale, 1.0))
             flips = bf16_flip_rows(*args, modes) if bf16 and flip_excuse else None
@@ -869,10 +883,11 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False, modes=("linear", "sum"
             plain_ms = time_cuda(lambda: plain(*args, *modes), 3, warmup=1)
             work = kpconv_work(q, s, inds, x, w, bf16, modes=modes)
             bms, by = bound_ms(*work, BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
-            tensor_cores = (w.shape[0] == 15 and cin >= (32 if bf16 else 64) and cin % 32 == 0
-                            and k <= 40 and cout in (64, 128, 256, 512))
-            path = ("tensor cores" if tensor_cores else "CUDA cores" if w.shape[0] == 15
-                    else "any-P kernel")
+            tensor_cores = (cin >= (32 if bf16 else 64) and cin % 32 == 0 and k <= 40
+                            and cout in (64, 128, 256, 512))
+            path = {"tuned": "tensor cores" if tensor_cores else "CUDA cores",
+                    "any_p_tensor_cores": "any-P tensor cores",
+                    "any_p_cuda_cores": "any-P CUDA cores"}[route]
             per_shape.append({"nq": nq, "ns": ns, "k": k, "cin": cin, "cout": cout,
                               "calls": count, "path": path, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bms, "bound_by": by, "max_abs_err": err,
@@ -3979,6 +3994,7 @@ def reset_kpconv_counts():
         wrapper.launches = 0
         wrapper.mode_launches = {}
         wrapper.point_launches = {}
+        wrapper.route_launches = {}
 
 
 def run_mode_kernels(calls, gen):
@@ -4567,16 +4583,16 @@ def shape_range_kpconv(calls, gen):
     bound): at a 3DMatch encode's 11 layers (configuration C's, on the
     activations its encoder feeds them; ``shape_calls`` at the other counts)
     and at the 2D-3D level-0 shapes; linear/sum at every P, gaussian/sum and
-    linear/closest at P = 24; then the gradients through both autograd
-    Functions at P = 24 (kpconv_gradients). Returns {"f32" | "bf16": {P or
-    "P/mode": record}}."""
+    linear/closest at SHAPE_MODE_POINTS; then the gradients through both
+    autograd Functions at P = 24 (kpconv_gradients). Returns {"f32" | "bf16":
+    {P or "P/mode": record}}."""
     level0 = level0_calls_2d3d(gen)
     records = {"f32": {}, "bf16": {}}
     for n_points in SHAPE_POINTS:
         encode = shape_calls(calls, n_points, gen)
         narrow = shape_calls(level0, n_points, gen)
         cases = [("linear", "sum")] + ([("gaussian", "sum"), ("linear", "closest")]
-                                       if n_points == 24 else [])
+                                       if n_points in SHAPE_MODE_POINTS else [])
         for bf16 in (False, True):
             for modes in cases:
                 key = str(n_points) if modes == ("linear", "sum") else \
@@ -4604,9 +4620,10 @@ def shape_range_attention(gen):
     against their plain versions (f32 within ATTENTION_ABS_TOL, bf16 within
     ATTENTION_BF16_REL_TOL of the largest plain entry), timed beside the plain
     version and scaled_dot_product_attention, with the bound; the instance
-    that ran is read from the wrapper's counts; then a call whose B * H passes
-    the grid's rows, and the gradients through both autograd Functions at
-    SHAPE_GRAD_WIDTHS. Returns {"f32" | "bf16": [case records]}."""
+    and any-D branch that ran are read from the wrapper's counts; then calls
+    on views offset by one element (SHAPE_OFFSET_WIDTHS), a call whose B * H
+    passes the grid's rows, and the gradients through both autograd Functions
+    at SHAPE_GRAD_WIDTHS. Returns {"f32" | "bf16": [case records]}."""
     import torch
     import torch.nn.functional as F
 
@@ -4617,9 +4634,12 @@ def shape_range_attention(gen):
                                                  masked_attention_cuda_bf16,
                                                  masked_attention_plain)
 
-    def inputs(b, h, length, keys, d, dtype):
-        q = torch.randn(b, h, length, d, generator=gen).to("cuda", dtype)
-        k, v = (torch.randn(b, h, keys, d, generator=gen).to("cuda", dtype) for _ in range(2))
+    def inputs(b, h, length, keys, d, dtype, offset):
+        def draw(*shape):  # a view ``offset`` elements into its storage
+            flat = torch.randn(math.prod(shape) + offset, generator=gen).to("cuda", dtype)
+            return flat[offset:].view(*shape)
+        q = draw(b, h, length, d)
+        k, v = draw(b, h, keys, d), draw(b, h, keys, d)
         mask = torch.ones(b, keys, dtype=torch.bool)
         mask[1::2, keys - 37:] = False
         return q, k, v, mask.cuda()
@@ -4632,18 +4652,22 @@ def shape_range_attention(gen):
             (masked_attention_cuda, masked_attention_plain, torch.float32,
              MaskedAttentionFunction))
         name = "attention bf16" if bf16 else "attention"
-        cases = [(d, SHAPE_IMAGE_SELF if d == 256 else SHAPE_ATTENTION)
-                 for d in SHAPE_HEAD_WIDTHS] + [(54, SHAPE_WIDE_BH)]
-        for d, (b, h, length, keys) in cases:
+        cases = ([(d, SHAPE_IMAGE_SELF if d == 256 else SHAPE_ATTENTION, 0)
+                  for d in SHAPE_HEAD_WIDTHS] + [(d, SHAPE_ATTENTION, 1)
+                                                 for d in SHAPE_OFFSET_WIDTHS]
+                 + [(54, SHAPE_WIDE_BH, 0)])
+        for d, (b, h, length, keys), offset in cases:
             scale = d ** -0.5
             with torch.inference_mode():
-                q, k, v, mask = inputs(b, h, length, keys, d, dtype)
-                before = dict(kernel.instance_launches)
+                q, k, v, mask = inputs(b, h, length, keys, d, dtype, offset)
+                before = dict(kernel.instance_launches), dict(kernel.any_d_branch_launches)
                 got = kernel(q, k, v, mask, scale)
                 ref = plain(q, k, v, mask, scale)
                 torch.cuda.synchronize()
                 instance = [i for i, n in kernel.instance_launches.items()
-                            if n != before.get(i, 0)]
+                            if n != before[0].get(i, 0)]
+                branch = [i for i, n in kernel.any_d_branch_launches.items()
+                          if n != before[1].get(i, 0)]
                 err = float((got.float() - ref.float()).abs().max())
                 top = float(ref.float().abs().max())
                 limit = ATTENTION_BF16_REL_TOL * top if bf16 else ATTENTION_ABS_TOL
@@ -4654,18 +4678,25 @@ def shape_range_attention(gen):
                 ms = time_cuda(lambda: kernel(q, k, v, mask, scale), 5 if big else 20)
                 plain_ms = time_cuda(lambda: plain(q, k, v, mask, scale), 3 if big else 10)
                 lib_mask = mask[:, None, None, :]
+                # SDPA on aligned copies of offset views (its kernels fault on rows
+                # aligned to 4 or 2 bytes): the same values
+                lq, lk, lv = (t.clone() for t in (q, k, v)) if offset else (q, k, v)
                 lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=lib_mask, scale=scale), 5 if big else 20)
+                    lq, lk, lv, attn_mask=lib_mask, scale=scale), 5 if big else 20)
+                del lq, lk, lv
                 bms, by = bound_ms(*attention_work(q, k, mask),
                                    BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
-            log(f"{name} D {d} [{b},{h},{length}x{keys}] (instance {instance[0]}): err "
-                f"{err:.3e} = {err / top:.3e} of max |plain| (limit {limit:.1e}) kernel "
-                f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound {bms:.4f} ms "
-                f"({by})")
-            rec = {"d": d, "b": b, "h": h, "l": length, "s": keys, "instance": instance[0],
+            where = instance[0] + (f", {branch[0]}" if branch else "")
+            log(f"{name} D {d} [{b},{h},{length}x{keys}]{' offset 1' if offset else ''} "
+                f"(instance {where}): err {err:.3e} = {err / top:.3e} of max |plain| (limit "
+                f"{limit:.1e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
+                f"bound {bms:.4f} ms ({by})")
+            rec = {"d": d, "b": b, "h": h, "l": length, "s": keys, "offset": offset,
+                   "instance": instance[0], "branch": branch[0] if branch else None,
                    "max_abs_err": err, "max_abs_plain": top, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
-            if d in SHAPE_GRAD_WIDTHS and (b, h, length, keys) == SHAPE_ATTENTION:
+            if (d in SHAPE_GRAD_WIDTHS and (b, h, length, keys) == SHAPE_ATTENTION
+                    and not offset):
                 rec["backward_max_rel_err"], rec["backward_ms"] = grad_case(
                     f"{name} D {d} [{b},{h},{length}x{keys}]",
                     lambda *a: function.apply(*a, scale), (q, k, v, mask), (0, 1, 2),
@@ -4700,39 +4731,62 @@ def reset_shape_counts():
     for wrapper in (masked_attention_cuda, masked_attention_cuda_bf16):
         wrapper.launches = 0
         wrapper.instance_launches = {}
+        wrapper.any_d_branch_launches = {}
 
 
 def shape_counts():
     """The wrappers' counts since ``reset_shape_counts``: KPConv by kernel-point
-    count and attention by instance, f32 and bf16."""
+    count and by kernel (``_routes``), attention by instance and by any-D
+    branch (``_branches``), f32 and bf16."""
     from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_cuda_bf16
     from diffreg_tpu_torch.ops.kpconv import kpconv_cuda, kpconv_cuda_bf16
 
     return {"kpconv": dict(kpconv_cuda.point_launches),
             "kpconv_bf16": dict(kpconv_cuda_bf16.point_launches),
             "attention": dict(masked_attention_cuda.instance_launches),
-            "attention_bf16": dict(masked_attention_cuda_bf16.instance_launches)}
+            "attention_bf16": dict(masked_attention_cuda_bf16.instance_launches),
+            "kpconv_routes": dict(kpconv_cuda.route_launches),
+            "kpconv_bf16_routes": dict(kpconv_cuda_bf16.route_launches),
+            "attention_branches": dict(masked_attention_cuda.any_d_branch_launches),
+            "attention_bf16_branches": dict(masked_attention_cuda_bf16.any_d_branch_launches)}
 
 
 def add_shape_launches(launches, counts):
     """Add ``counts`` (``shape_counts``) to the run's launches: KPConv at 15
     kernel points and the tuned attention instances to their kernels' totals,
-    the any-P and any-D routes to theirs."""
+    the any-P and any-D routes to theirs, and those by kernel and branch
+    (``<route>_tensor_cores``, ``<route>_cuda_cores``)."""
     for kind in ("kpconv", "kpconv_bf16"):
         for n_points, n in counts[kind].items():
             launches[kind if n_points == 15 else f"{kind}_any_p"] += n
+        for route, n in counts[f"{kind}_routes"].items():
+            if route != "tuned":
+                launches[f"{kind}_{route}"] += n
     for kind, total in (("attention", "masked_attention"),
                         ("attention_bf16", "masked_attention_bf16")):
         for instance, n in counts[kind].items():
             launches[f"{total}_any_d" if instance == "any" else total] += n
+        for branch, n in counts[f"{kind}_branches"].items():
+            launches[f"{total}_any_d_{branch}"] += n
 
 
 def expect_counts(tag, counts, want):
     """Raise unless the counts (``shape_counts``) are ``want`` (kinds not
     named: none)."""
-    full = {"kpconv": {}, "kpconv_bf16": {}, "attention": {}, "attention_bf16": {}, **want}
+    full = {key: {} for key in counts}
+    full.update(want)
     if counts != full:
         raise AssertionError(f"{tag}: launches {counts}, want {full}")
+
+
+def kpconv_routes(n_points, n):
+    """The KPConv kernels an encode's 11 layers launch ``n`` times over at
+    ``n_points``: the tuned kernels at 15; else the any-P tensor-core kernel
+    at the 10 layers of Cin >= 64 and the any-P CUDA-core kernel at the first
+    (Cin = 1)."""
+    if n_points == 15:
+        return {"tuned": 11 * n}
+    return {"any_p_tensor_cores": 10 * n, "any_p_cuda_cores": n}
 
 
 def run_shape_ddim(name, cfg, batch, one, x_init, u, spec, launches, bf16=False):
@@ -4759,8 +4813,11 @@ def run_shape_ddim(name, cfg, batch, one, x_init, u, spec, launches, bf16=False)
         reset_shape_counts()
         out, seconds = wall(lambda: register(model, batch, x_init, u))
         counts = shape_counts()
-        expect_counts(f"configuration {name}{' bf16' if bf16 else ''} gate {gate}", counts,
-                      {kinds[0]: {n_points: 11}, kinds[1]: {instance: per_run}})
+        want = {kinds[0]: {n_points: 11}, kinds[1]: {instance: per_run},
+                f"{kinds[0]}_routes": kpconv_routes(n_points, 1)}
+        if instance == "any":
+            want[f"{kinds[1]}_branches"] = {"tensor_cores": per_run}
+        expect_counts(f"configuration {name}{' bf16' if bf16 else ''} gate {gate}", counts, want)
         add_shape_launches(launches, counts)
         check_outputs(out, f"configuration {name} gate {gate}")
         results[gate] = out
@@ -4803,7 +4860,9 @@ def run_shape_c(cfg, batch, one, x_init, u, spec, launches, gen):
     # a warm-up and TIMED_RUNS calls, then one encode on the card
     expect_counts("configuration C backbone_forward", counts,
                   {"kpconv": {24: (TIMED_RUNS + 2) * 11},
-                   "attention": {"any": (TIMED_RUNS + 1) * 6}})
+                   "kpconv_routes": kpconv_routes(24, TIMED_RUNS + 2),
+                   "attention": {"any": (TIMED_RUNS + 1) * 6},
+                   "attention_branches": {"tensor_cores": (TIMED_RUNS + 1) * 6}})
     add_shape_launches(launches, counts)
     del cpu_model
     # pair 0 at gate 40, the card keeping the CPU's top-k choices
@@ -4898,9 +4957,18 @@ def run_shape_cli(repo, c_path, directory, launches):
                                                  str(BATCH_PAIRS), "--batch-size",
                                                  str(BATCH_PAIRS), *extra]))
             counts = shape_counts()
+            # main calibrates its own K (up to 58 on the demo's data): a layer
+            # past K = 40 takes the CUDA-core kernel, so only the total and the
+            # tensor-core route's use are fixed here
+            routes = counts["kpconv_routes"]
+            n_points = cfg.kpfcn.num_kernel_points
+            if sum(routes.values()) != 11 or (n_points != 15 and not routes.get(
+                    "any_p_tensor_cores")) or (n_points == 15 and set(routes) != {"tuned"}):
+                raise AssertionError(f"main {name}: KPConv routes {routes}")
             expect_counts(f"main {name}", counts,
-                          {"kpconv": {cfg.kpfcn.num_kernel_points: 11},
-                           "attention": {"any": want_at}})
+                          {"kpconv": {n_points: 11}, "kpconv_routes": routes,
+                           "attention": {"any": want_at},
+                           "attention_branches": {"tensor_cores": want_at}})
             add_shape_launches(launches, counts)
             if not all(math.isfinite(summary[k]) for k in keys):
                 raise AssertionError(f"main {name}: summary {summary}")
@@ -4947,11 +5015,9 @@ def run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
         record_w, at_w = run_shape_w(cfg_w, batch, one, x_init, u, spec, launches, gen)
         torch.cuda.empty_cache()
         cli = run_shape_cli(repo, c_path, tmp, launches)
-    for key, routed in (("kpconv_any_p", launches["kpconv_any_p"]),
-                        ("kpconv_bf16_any_p", launches["kpconv_bf16_any_p"]),
-                        ("masked_attention_any_d", launches["masked_attention_any_d"]),
-                        ("masked_attention_bf16_any_d", launches["masked_attention_bf16_any_d"])):
-        if not routed:
+    for key in ("kpconv_any_p_tensor_cores", "kpconv_bf16_any_p_tensor_cores",
+                "masked_attention_any_d_tensor_cores", "masked_attention_bf16_any_d_tensor_cores"):
+        if not launches[key]:
             raise AssertionError(f"phase 23: the route {key} was not launched on the path")
     entries = []
     for bf16 in (False, True):
@@ -4963,6 +5029,7 @@ def run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
             "compiled_into": f"diffreg_tpu_torch/csrc/{'kpconv_bf16' if bf16 else 'kpconv'}.cu",
             "replaces": "diffreg_tpu/ops/pallas/kpconv_kernel.py:38",
             "launches": launches[name],
+            "route_launches": {k: launches[f"{name}_{k}"] for k in ("tensor_cores", "cuda_cores")},
             "max_abs_err": max(r["max_abs_err"] for r in points[dtype].values()),
             **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None, "per": "configuration C's encode (11 calls, P = 24)",
@@ -4975,12 +5042,16 @@ def run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
             "name": name, "route": "cuda", "source": "diffreg_tpu_torch/csrc/attention.cu",
             "replaces": "diffreg_tpu/ops/pallas/attention_kernel.py:24",
             "launches": launches[name],
+            "branch_launches": {k: launches[f"{name}_{k}"] for k in ("tensor_cores", "cuda_cores")},
             "max_abs_err": max([c["max_abs_err"], w["max_abs_err"]]
                                + [r["max_abs_err"] for r in widths[dtype]]),
             **{k: c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "per": f"one DDIM step of configuration C (D 54, {c['per']})",
             "d216": {k: w[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                        "per")},
+            **{f"d{r['d']}_{r['l']}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                          "bound_by", "library_ms")}
+               for r in widths[dtype] if r["d"] in (256, 528) and not r["offset"]},
             "shapes": c["shapes"] + w["shapes"], "widths": widths[dtype]})
     entries[0]["configurations"] = {"C": record_c, "W": record_w, "cli": cli}
     log(f"phase 23 (the shape range): {time.perf_counter() - t0:.1f} s (kernels "
@@ -5101,6 +5172,10 @@ def main() -> int:
     launches = {"kpconv": 0, "masked_attention": 0, "masked_attention_d132": 0,
                 "kpconv_any_p": 0, "kpconv_bf16_any_p": 0, "masked_attention_any_d": 0,
                 "masked_attention_bf16_any_d": 0,
+                **{f"{route}_{kind}": 0 for route in ("kpconv_any_p", "kpconv_bf16_any_p",
+                                                       "masked_attention_any_d",
+                                                       "masked_attention_bf16_any_d")
+                   for kind in ("tensor_cores", "cuda_cores")},
                 "masked_attention_d64": 0, "masked_attention_d64_dino": 0, "kpconv_train_2d3d": 0,
                 "masked_attention_train_2d3d": 0, "kpconv_bf16": 0,
                 "masked_attention_bf16": 0, "masked_attention_bf16_d144": 0,

@@ -12,9 +12,10 @@
 // Shapes: the tuned instances below take D a multiple of 4 up to 136 (f32) or
 // 144 (bf16), 16-byte (f32) or 8-byte (bf16) aligned rows and B * H up to the
 // grid's 65535 rows; every other shape the Pallas kernel takes (any D >= 1,
-// any alignment, any B * H, any S) goes to the any-D instance at the end of
-// the file, in either dtype with that dtype's roundings. The entries report
-// which instance ran (`route`).
+// any alignment, any B * H, any S) goes to the any-D route at the end of the
+// file (tensor cores; heads too wide for its shared memory on CUDA cores), in
+// either dtype with that dtype's roundings. The entries report which instance
+// or branch ran (`route`).
 //
 // What bounds it on an H100: operations. At L = S = 704, D = 108 or 132 it does
 // 4 L S D product flops per (batch, head) against 4 (L + 2 S) D bytes of q, k,
@@ -68,6 +69,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <vector>
 
 #include <cooperative_groups.h>
 
@@ -709,28 +715,612 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloa
   return (int)cudaGetLastError();
 }
 
-// ---- any head width: the CUDA-core instance (both dtypes) ----
+// ---- any head width: the any-D route (both dtypes) ----
 //
 // For the shapes the tuned instances do not take: D not a multiple of 4 (a
-// row of D = 54 is 216 bytes in f32, 108 in bf16: 4-byte aligned at best, so
-// no 8- or 16-byte copies), D above 136 (f32) or 144 (bf16), rows not aligned
-// for the tuned instances' copies, B * H above 65535, or a bf16 key range
-// whose mask bytes do not fit in shared memory. Same function in each dtype,
-// with that dtype's roundings (f32: q * scale, then q.k^T; bf16: q.k^T of the
-// bf16 values summed in f32, then masked and scaled, the probabilities
-// rounded to bf16 for P.V, the output rounded to bf16).
+// row of D = 54 is 216 bytes in f32, 108 in bf16), D above 136 (f32) or 144
+// (bf16), rows not aligned for the tuned instances' copies, B * H above
+// 65535, or a bf16 key range whose mask bytes do not fit in shared memory.
+// Same function in each dtype, with that dtype's roundings (f32: q * scale,
+// then q.k^T; bf16: q.k^T of the bf16 values summed in f32, then masked and
+// scaled, the probabilities rounded to bf16 for P.V, the output rounded to
+// bf16).
+//
+// What bounds it on an H100: operations in principle (4 L S D product flops
+// per (batch, head), far past the ridge point at D = 216 or 256); in
+// practice copying K and V into shared memory. Each block copies every key's
+// row (bf16: three times, K, K, V), and those copies ran at 1.0-1.5 TB/s from
+// L2 and overlapped little with the products. With the copies cut out, W's
+// bf16 self call took 0.097 ms against 0.181 with them (scratch variants,
+// NVIDIA H100 80GB HBM3, 700 W). So the tiling gives a block as many query
+// rows as twelve warps can hold. Bulk copies (cp.async.bulk, a row an
+// instruction, completion on an mbarrier) in place of cp.async measured
+// slower where the rows allow them: W's f32 step 1.57 ms against 1.49, the
+// 4602^2 bf16 call 1.86 against 1.68 (tools/bench_any_routes.py, same card).
+//
+// Design (the tensor-core branch, masked_attention_any_d_tc_kernel and its
+// bf16 twin): the tuned instances' warp tiling, with D known at run time.
+//  * D is padded in shared memory with zero columns to a multiple of kChunk
+//    = 32, which leaves every product exact. A warp owns 16 query rows and a
+//    column slice of at most kSliceMax = 128 of the padded D (ns slices, each
+//    a multiple of 32); O [16 x slice] stays in registers, so any D keeps the
+//    registers of a 128-wide instance (an O over all of D = 216 would not
+//    fit: instance 136 already takes 225 registers). The slice's loops run 32
+//    columns at a time, fully unrolled within the chunk: a runtime bound on
+//    every n-tile kept the compiler from interleaving independent mma chains.
+//  * The slices share the logits without recomputing them: each warp forms
+//    the partial S = q[:, slice] k[:, slice]^T of a 32-key tile on tensor
+//    cores, the ns partials of a row group meet in shared memory (a named
+//    barrier of the row group's warps) and every warp of the group adds them
+//    in slice order, so all of them hold the same S and the same softmax;
+//    each then multiplies its P by V[:, slice]. The products are done once:
+//    splitting O's columns with the logits recomputed per slice would cost
+//    1.5x them at D = 216. The exchange through a block-wide barrier, summed
+//    one slice at a time per value, made W's f32 step 2.12 ms; the row
+//    group's barrier and sixteen loads a slice, 1.77 (NVIDIA H100 80GB HBM3,
+//    700 W).
+//  * A block is rw row groups of ns warps; the launcher picks (slice width,
+//    rw) for the call's grid with a cost model fitted to sweeps of every
+//    tiling (any_d_cost): W's self call takes two slices and six row groups
+//    (96 rows), its cross call, half the grid, four 64-column slices of
+//    three, C's (D 54) one slice of twelve. x enumerates (query tile, batch x
+//    head), so B * H is bounded only by 2^31 / tiles.
+//  * K and V rows are staged by cp.async at the widest width the rows'
+//    alignment allows (16, 8 or 4 bytes; an f32 row of D = 54 is 216 bytes,
+//    8-byte aligned), a warp per row and a lane per piece, rows past S zero-
+//    filled; bf16 rows aligned to 2 bytes only are copied by plain loads
+//    (cp.async copies 4 bytes at least; TMA would need 16-byte row strides,
+//    which these rows do not have). The logits' A (q) and B (K) fragments
+//    come by ldmatrix, whose b16 pairs are TF32 values in f32.
+//  * f32: one pass with the online softmax of the tuned f32 instance, 3xTF32
+//    (tf32.cuh); q in shared memory, scaled; K and V in one buffer each, the
+//    next tile's K copied during this tile's P.V, its V during the next S. A
+//    32-column chunk's P.V is summed over the tile in the tensor core from
+//    zero (three products, four independent chains) and folded into O by one
+//    f32 FMA with the rescale, as the tuned instances fold it.
+//  * bf16: every row's max and sum are known before its first P.V, as the
+//    XLA path's rounding of the normalised probabilities needs (the tuned
+//    bf16 instance's reason): pass 1 over the K tiles forms the logits and
+//    the rows' running max and sum; pass 2 takes each K tile again, forms the
+//    logits again, p = exp(s - M) (1 / L) rounded to bf16 straight into the
+//    A fragments, then the V tile (ldmatrix.trans). K and V tiles go through
+//    a ring of four slots, three in flight. Neither the kept logits nor the
+//    cluster split of the tuned bf16 instance is taken over: keeping W's
+//    logits (S = 704) measured no faster (0.269 ms a self call against 0.257
+//    recomputed; C's 0.657 against 0.376 on an NVIDIA H100 80GB HBM3, 700
+//    W: the kept rows take the shared memory of the blocks that hide
+//    latency), and the column slices give a query tile the warps that the
+//    cluster gave it.
+//  * The CUDA-core branch (masked_attention_wide_d_kernel) takes the heads
+//    whose K and V tiles do not fit in shared memory beside q and the
+//    exchange (f32 D above 672, bf16 above 832): a block owns 32
+//    queries and at most 512 output columns, two passes over the keys on CUDA
+//    cores. Its launches are counted apart (*route = 1).
+constexpr int kChunk = 32;          // columns of a slice's unrolled inner loops
+constexpr int kSliceMax = 128;      // widest column slice a warp owns
+constexpr int kAnyWarpsMax = 12;    // ns * rw of the tensor-core branch: 12 warps of at
+                                    // most 168 registers fill an SM's register file
+constexpr int kAnyRing = 4;         // bf16 K/V tile slots: kAnyRing - 1 tiles in flight
+constexpr size_t kAnySmemMax = 227 * 1024;
+
+// Copy `copy` bytes global -> shared (16, 8, 4: cp.async, zero-filled when
+// !in; 2: a plain load and store, for bf16 rows aligned to 2 bytes only).
+__device__ __forceinline__ void copy_piece(void* dst, const void* src, bool in, int copy) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  if (copy == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(in ? 16 : 0));
+  } else if (copy == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+                 "r"(in ? 8 : 0));
+  } else if (copy == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(in ? 4 : 0));
+  } else {
+    *reinterpret_cast<unsigned short*>(dst) =
+        in ? __ldg(reinterpret_cast<const unsigned short*>(src)) : (unsigned short)0;
+  }
+}
+
+// Stage rows [s0, s0 + kKT) of k or v into a shared tile (row stride
+// `stride` elements); rows past S are zeros. Warp w copies rows w, w + n_warps,
+// ...; lane c the row's pieces c, c + 32, ... The caller commits the group.
+template <class T>
+__device__ __forceinline__ void stage_any_rows(T* dst, int stride, const T* src, int s0, int S,
+                                               int D, int copy, int warp, int n_warps, int lane) {
+  const int pieces = D * (int)sizeof(T) / copy;
+  for (int r = warp; r < kKT; r += n_warps) {
+    const bool in = s0 + r < S;
+    const char* from = reinterpret_cast<const char*>(src + (size_t)(in ? s0 + r : 0) * D);
+    char* to = reinterpret_cast<char*>(dst + r * stride);
+    for (int c = lane; c < pieces; c += 32) copy_piece(to + c * copy, from + c * copy, in, copy);
+  }
+}
+
+// Add the partial logits of the ns warps of a row group (slot `warp` of xs
+// holds this warp's 16 values a lane): every warp of the group adds them in
+// slice order, so all of them hold the same sums. The row group's warps meet
+// at named barrier 1 + rg; a slot is written again only after the block's
+// next barrier.
+__device__ __forceinline__ void sum_slices(float (&sc)[kKT / 8][4], float* xs, int warp, int rg,
+                                           int ns, int lane) {
+#pragma unroll
+  for (int n = 0; n < kKT / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) xs[(warp * 16 + 4 * n + i) * 32 + lane] = sc[n][i];
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "r"(32 * ns) : "memory");
+#pragma unroll
+  for (int n = 0; n < kKT / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+  for (int j = 0; j < ns; ++j) {
+    const float* xj = xs + (rg * ns + j) * 16 * 32 + lane;
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] += xj[(4 * n + i) * 32];
+  }
+}
+
+// The tensor-core branch's tiling for head width D: padded width (a multiple
+// of kChunk), slices, slice width, row groups, threads, shared memory.
+struct AnyDPlan {
+  int dpad, ns, ds, rw, threads;
+  size_t smem;
+};
+
+size_t any_d_smem_bytes(const AnyDPlan& p, bool bf16) {
+  const int stride = p.dpad + (bf16 ? 8 : 4);
+  const size_t tiles = (size_t)(bf16 ? kAnyRing * 2 : 2 * 4) * kKT * stride;  // K and V, or the ring
+  const size_t xs = p.ns > 1 ? sizeof(float) * 16 * p.threads : 0;  // partial logits
+  return tiles + xs + (bf16 ? 0 : sizeof(float) * 16 * p.rw * stride);  // f32: + q
+}
+
+// f32. Shared: K and V tiles [kKT][dpad + 4] (row strides 4 mod 8 floats: the
+// fragment loads of q, k and v hit 32 distinct banks), the partial logits
+// [warp][16][32 lanes], then the block's q rows [16 rw][dpad + 4], scaled.
+__global__ void __launch_bounds__(32 * kAnyWarpsMax) masked_attention_any_d_tc_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const uint8_t* __restrict__ kv_mask, float* __restrict__ out, int H, int L, int S, int D,
+    float scale, int q_tiles, int dpad, int ns, int ds, int copy) {
+  extern __shared__ __align__(16) float any_tc_smem[];
+  const int stride = dpad + 4;
+  const int n_warps = blockDim.x / 32, rw = n_warps / ns;
+  float* ks = any_tc_smem;
+  float* vs = ks + kKT * stride;
+  float* xs = vs + kKT * stride;
+  float* qs = xs + (ns > 1 ? 16 * blockDim.x : 0);
+  const long long bh = blockIdx.x / q_tiles;
+  const int l0 = (int)(blockIdx.x - bh * q_tiles) * 16 * rw;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp / ns, c0 = (warp - rg * ns) * ds, cw = min(ds, dpad - c0);
+  const float* qb = q + (size_t)bh * L * D;
+  const float* kb = k + (size_t)bh * S * D;
+  const float* vb = v + (size_t)bh * S * D;
+  const uint8_t* mb = kv_mask + (size_t)(bh / H) * S;
+  const int n_tiles = (S + kKT - 1) / kKT;
+
+  stage_any_rows(ks, stride, kb, 0, S, D, copy, warp, n_warps, lane);
+  cp_async_commit();
+  stage_any_rows(vs, stride, vb, 0, S, D, copy, warp, n_warps, lane);
+  cp_async_commit();
+  // the zero columns [D, dpad) of both tiles (contiguous rows); the block's
+  // q rows, scaled, zero past L and past D
+  for (int i = tid; i < 2 * kKT * (dpad - D); i += blockDim.x) {
+    const int r = i / (dpad - D);
+    ks[r * stride + D + i - r * (dpad - D)] = 0.f;
+  }
+  for (int i = tid; i < 16 * rw * dpad; i += blockDim.x) {
+    const int r = i / dpad, c = i - r * dpad;
+    qs[r * stride + c] = l0 + r < L && c < D ? qb[(size_t)(l0 + r) * D + c] * scale : 0.f;
+  }
+  // the lane's ldmatrix rows: q (A: rows lane % 16, columns 4 (lane / 16))
+  // and K (B of two n-tiles: keys lane % 8 + 8 (lane / 16), columns 4 ((lane
+  // / 8) % 2)), in the warp's slice
+  const float* ql = qs + (16 * rg + lane % 16) * stride + c0 + 4 * (lane / 16);
+  const float* kl = ks + (lane % 8 + 8 * (lane / 16)) * stride + c0 + 4 * ((lane / 8) % 2);
+  const int r0 = l0 + 16 * rg + g, r1 = r0 + 8;
+
+  float o[kSliceMax / 8][4];
+#pragma unroll
+  for (int n = 0; n < kSliceMax / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
+  float l0sum = 0.f, l1sum = 0.f;        // this thread's share of the row sums
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int s0 = tile * kKT;
+    const bool more = tile + 1 < n_tiles;
+    cp_async_wait<1>();  // pending: this tile's K and V
+    __syncthreads();     // K of this tile (and, at tile 0, q and the pad columns) is in place
+
+    // this thread's keys' mask bytes, in flight during the products (1 valid,
+    // 0 masked, 2 past S)
+    uint32_t mk[kKT / 8][2];
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int s = s0 + 8 * n + 2 * t + j;
+        mk[n][j] = s < S ? (__ldg(mb + s) != 0) : 2u;
+      }
+    // the partial S of the slice, 32 columns (4 k-steps) at a time; the hi.hi
+    // and correction products in separate accumulators for independent chains
+    float sc[kKT / 8][4], sx[kKT / 8][4];
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = sx[n][i] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kSliceMax / kChunk; ++kc) {
+      if (kChunk * kc >= cw) break;
+#pragma unroll
+      for (int k4 = 0; k4 < kChunk / 8; ++k4) {
+        const int col = kChunk * kc + 8 * k4;
+        uint32_t a[4], ah[4], al[4];
+        ldmatrix_x4(a, ql + col);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+#pragma unroll
+        for (int n2 = 0; n2 < kKT / 16; ++n2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kl + 16 * n2 * stride + col);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = 2 * n2 + e;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(__uint_as_float(b[2 * e]), bh0, bl0);
+            split_tf32(__uint_as_float(b[2 * e + 1]), bh1, bl1);
+            mma_tf32(sx[n], al, bh0, bh1);
+            mma_tf32(sx[n], ah, bl0, bl1);
+            mma_tf32(sc[n], ah, bh0, bh1);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] += sx[n][i];
+    if (ns > 1) sum_slices(sc, xs, warp, rg, ns, lane);
+
+    // mask, online softmax; thread holds keys 8n + 2t, 8n + 2t + 1 of rows g, g + 8
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float fill = mk[n][j] == 0 ? -1.0e9f : -INFINITY;
+        const bool valid = mk[n][j] == 1;
+        sc[n][j] = valid ? sc[n][j] : fill;
+        sc[n][2 + j] = valid ? sc[n][2 + j] : fill;
+        mx0 = fmaxf(mx0, sc[n][j]);
+        mx1 = fmaxf(mx1, sc[n][2 + j]);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: the tile holds a key < S
+    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+    // P split for P.V: k-step j covers keys 8j..8j+7 in the order
+    // (0,2,4,6,1,3,5,7), so the A fragment is the accumulator of n-tile j as
+    // it stands (the tuned instances' order)
+    uint32_t pah[kKT / 8][4], pal[kKT / 8][4];
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        sc[n][j] = expf(sc[n][j] - mn0);
+        sc[n][2 + j] = expf(sc[n][2 + j] - mn1);
+        ps0 += sc[n][j];
+        ps1 += sc[n][2 + j];
+      }
+      split_tf32(sc[n][0], pah[n][0], pal[n][0]);
+      split_tf32(sc[n][2], pah[n][1], pal[n][1]);
+      split_tf32(sc[n][1], pah[n][2], pal[n][2]);
+      split_tf32(sc[n][3], pah[n][3], pal[n][3]);
+    }
+    l0sum = l0sum * al0 + ps0;
+    l1sum = l1sum * al1 + ps1;
+
+    cp_async_wait<0>();
+    __syncthreads();  // V of this tile is in place; K is consumed: stage the next tile's
+                      // K during P.V
+    if (more) stage_any_rows(ks, stride, kb, s0 + kKT, S, D, copy, warp, n_warps, lane);
+    cp_async_commit();
+
+    // O = O alpha + P V[:, slice], 32 columns (4 n-tiles) at a time: each
+    // chunk's P.V summed over the tile in the tensor core from zero, then
+    // folded into O by one f32 FMA (the tuned instances' accumulation)
+#pragma unroll
+    for (int c = 0; c < kSliceMax / kChunk; ++c) {
+      if (kChunk * c >= cw) break;
+      float pv[kChunk / 8][4];
+#pragma unroll
+      for (int n = 0; n < kChunk / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[n][i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKT / 8; ++j) {
+        const float* v0 = vs + (8 * j + 2 * t) * stride + c0 + kChunk * c + g;
+        uint32_t bh[kChunk / 8][2], bl[kChunk / 8][2];
+#pragma unroll
+        for (int n = 0; n < kChunk / 8; ++n) {
+          split_tf32(v0[8 * n], bh[n][0], bl[n][0]);
+          split_tf32(v0[stride + 8 * n], bh[n][1], bl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kChunk / 8; ++n) mma_tf32(pv[n], pal[j], bh[n][0], bh[n][1]);
+#pragma unroll
+        for (int n = 0; n < kChunk / 8; ++n) mma_tf32(pv[n], pah[j], bl[n][0], bl[n][1]);
+#pragma unroll
+        for (int n = 0; n < kChunk / 8; ++n) mma_tf32(pv[n], pah[j], bh[n][0], bh[n][1]);
+      }
+#pragma unroll
+      for (int n = 0; n < kChunk / 8; ++n) {
+        float* on = o[(kChunk / 8) * c + n];
+        on[0] = fmaf(on[0], al0, pv[n][0]);
+        on[1] = fmaf(on[1], al0, pv[n][1]);
+        on[2] = fmaf(on[2], al1, pv[n][2]);
+        on[3] = fmaf(on[3], al1, pv[n][3]);
+      }
+    }
+    __syncthreads();  // V is consumed: stage the next tile's V during the next S
+    if (more) stage_any_rows(vs, stride, vb, s0 + kKT, S, D, copy, warp, n_warps, lane);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  l0sum += __shfl_xor_sync(0xffffffffu, l0sum, 1);
+  l0sum += __shfl_xor_sync(0xffffffffu, l0sum, 2);
+  l1sum += __shfl_xor_sync(0xffffffffu, l1sum, 1);
+  l1sum += __shfl_xor_sync(0xffffffffu, l1sum, 2);
+  const float inv0 = 1.f / fmaxf(l0sum, 1e-30f), inv1 = 1.f / fmaxf(l1sum, 1e-30f);
+  float* o0 = out + ((size_t)bh * L + r0) * D;
+  float* o1 = out + ((size_t)bh * L + r1) * D;
+#pragma unroll
+  for (int n = 0; n < kSliceMax / 8; ++n) {
+    if (8 * n >= cw) break;
+    const int d = c0 + 8 * n + 2 * t;  // scalar stores: rows of odd D are 4-byte aligned
+    if (r0 < L && d < D) o0[d] = o[n][0] * inv0;
+    if (r0 < L && d + 1 < D) o0[d + 1] = o[n][1] * inv0;
+    if (r1 < L && d < D) o1[d] = o[n][2] * inv1;
+    if (r1 < L && d + 1 < D) o1[d + 1] = o[n][3] * inv1;
+  }
+}
+
+// bf16. Shared: a ring of kAnyRing K/V tile slots [kKT][dpad + 8] (row strides
+// odd multiples of 16 bytes: the fragment loads and ldmatrix hit distinct
+// banks), then the partial logits [warp][16][32 lanes].
+__global__ void __launch_bounds__(32 * kAnyWarpsMax) masked_attention_any_d_tc_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+    __nv_bfloat16* __restrict__ out, int H, int L, int S, int D, float scale, int q_tiles,
+    int dpad, int ns, int ds, int copy) {
+  extern __shared__ __align__(16) unsigned char any_tc_bf16_smem[];
+  const int stride = dpad + 8;
+  const int slot = kKT * stride;
+  const int n_warps = blockDim.x / 32, rw = n_warps / ns;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(any_tc_bf16_smem);
+  float* xs = reinterpret_cast<float*>(ring + kAnyRing * slot);
+  const long long bh = blockIdx.x / q_tiles;
+  const int l0 = (int)(blockIdx.x - bh * q_tiles) * 16 * rw;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp / ns, c0 = (warp - rg * ns) * ds, cw = min(ds, dpad - c0);
+  const __nv_bfloat16* qb = q + (size_t)bh * L * D;
+  const __nv_bfloat16* kb = k + (size_t)bh * S * D;
+  const __nv_bfloat16* vb = v + (size_t)bh * S * D;
+  const uint8_t* mb = kv_mask + (size_t)(bh / H) * S;
+  const int n_tiles = (S + kKT - 1) / kKT;
+  const int n_steps = 3 * n_tiles;  // pass 1: K tiles; pass 2: K, V of each tile
+
+  // stage step `st`'s tile into slot st % kAnyRing (one commit group a step)
+  auto stage = [&](int st) {
+    if (st < n_steps) {
+      const int u = st - n_tiles;
+      const bool is_v = st >= n_tiles && (u & 1);
+      const int tile = st < n_tiles ? st : u >> 1;
+      stage_any_rows(ring + (st % kAnyRing) * slot, stride, is_v ? vb : kb, tile * kKT, S, D,
+                     copy, warp, n_warps, lane);
+    }
+    cp_async_commit();
+  };
+  for (int st = 0; st < kAnyRing - 1; ++st) stage(st);
+  for (int i = tid; i < kAnyRing * kKT * (dpad - D); i += blockDim.x) {
+    const int r = i / (dpad - D);
+    ring[r * stride + D + i - r * (dpad - D)] = __float2bfloat16_rn(0.f);
+  }
+
+  // the warp's q fragments (A of m16n8k16) over its slice; zero past L and D
+  const int r0 = l0 + 16 * rg + g, r1 = r0 + 8;
+  auto qpair = [&](int r, int c, bool on) -> uint32_t {
+    if (!on || r >= L) return 0u;
+    const __nv_bfloat16* p = qb + (size_t)r * D + c;
+    const uint32_t lo = c < D ? (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) : 0u;
+    const uint32_t hi =
+        c + 1 < D ? (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p + 1)) : 0u;
+    return lo | hi << 16;
+  };
+  uint32_t qa[kSliceMax / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kSliceMax / 16; ++kk) {
+    const int ca = c0 + 16 * kk + 2 * t;
+    const bool on = 16 * kk < cw;
+    qa[kk][0] = qpair(r0, ca, on);
+    qa[kk][1] = qpair(r1, ca, on);
+    qa[kk][2] = qpair(r0, ca + 8, on);
+    qa[kk][3] = qpair(r1, ca + 8, on);
+  }
+
+  // S of one K tile for the warp's rows (keys 8n + 2t, 8n + 2t + 1 of rows g,
+  // g + 8), 32 columns (2 k-steps) at a time, summed over the slices, masked
+  // and scaled; K's B fragments of two n-tiles by one ldmatrix (the lane's
+  // row: key lane % 8 + 8 (lane / 16), columns 8 ((lane / 8) % 2))
+  const int kl = (lane % 8 + 8 * (lane / 16)) * stride + c0 + 8 * ((lane / 8) % 2);
+  auto logits = [&](const __nv_bfloat16* kt, int s0, float (&sc)[kKT / 8][4]) {
+    uint32_t mk[kKT / 8][2];  // mask bytes, in flight during the products
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int s = s0 + 8 * n + 2 * t + j;
+        mk[n][j] = s < S ? (__ldg(mb + s) != 0) : 2u;
+      }
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kSliceMax / kChunk; ++kc) {
+      if (kChunk * kc >= cw) break;
+#pragma unroll
+      for (int k2 = 0; k2 < kChunk / 16; ++k2) {
+        const int kk = (kChunk / 16) * kc + k2;
+#pragma unroll
+        for (int n2 = 0; n2 < kKT / 16; ++n2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kt + kl + 16 * n2 * stride + 16 * kk);
+          mma_bf16(sc[2 * n2], qa[kk], b[0], b[1]);
+          mma_bf16(sc[2 * n2 + 1], qa[kk], b[2], b[3]);
+        }
+      }
+    }
+    if (ns > 1) sum_slices(sc, xs, warp, rg, ns, lane);
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float fill = mk[n][j] == 0 ? -1.0e9f : -INFINITY;
+        const bool valid = mk[n][j] == 1;
+        sc[n][j] = valid ? sc[n][j] * scale : fill;
+        sc[n][2 + j] = valid ? sc[n][2 + j] * scale : fill;
+      }
+    }
+  };
+
+  // pass 1: the rows' running max and sum of exp(s - max) (this thread's
+  // keys; summed over the quad after the pass)
+  float m0 = -INFINITY, m1 = -INFINITY, l0s = 0.f, l1s = 0.f;
+  float sc[kKT / 8][4];
+  for (int st = 0; st < n_tiles; ++st) {
+    cp_async_wait<kAnyRing - 2>();
+    __syncthreads();  // the tile is in place for all; the slot of step st - 1 is free
+    stage(st + kAnyRing - 1);
+    logits(ring + (st % kAnyRing) * slot, st * kKT, sc);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: the tile holds a key < S
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < kKT / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        ps0 += expf(sc[n][j] - mn0);
+        ps1 += expf(sc[n][2 + j] - mn1);
+      }
+    }
+    l0s = l0s * expf(m0 - mn0) + ps0;
+    l1s = l1s * expf(m1 - mn1) + ps1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+  l0s += __shfl_xor_sync(0xffffffffu, l0s, 1);
+  l0s += __shfl_xor_sync(0xffffffffu, l0s, 2);
+  l1s += __shfl_xor_sync(0xffffffffu, l1s, 1);
+  l1s += __shfl_xor_sync(0xffffffffu, l1s, 2);
+  const float inv0 = 1.f / l0s, inv1 = 1.f / l1s;  // the sums are >= 1
+
+  // pass 2: O = P V over the slice, P = exp(s - M) (1 / L) rounded to bf16;
+  // a K step forms the tile's probabilities again, the V step after it uses
+  // them, 32 columns (4 n-tiles) at a time
+  float o[kSliceMax / 8][4];
+#pragma unroll
+  for (int n = 0; n < kSliceMax / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  uint32_t pa[kKT / 16][4];
+  for (int st = n_tiles; st < n_steps; ++st) {
+    cp_async_wait<kAnyRing - 2>();
+    __syncthreads();
+    stage(st + kAnyRing - 1);
+    const __nv_bfloat16* tile_p = ring + (st % kAnyRing) * slot;
+    const int u = st - n_tiles;
+    if (!(u & 1)) {
+      logits(tile_p, (u >> 1) * kKT, sc);
+      // k-step j of P.V covers keys 16 j .. 16 j + 15: n-tiles 2 j and 2 j + 1
+#pragma unroll
+      for (int j = 0; j < kKT / 16; ++j) {
+        pa[j][0] = pack_bf16(expf(sc[2 * j][0] - m0) * inv0, expf(sc[2 * j][1] - m0) * inv0);
+        pa[j][1] = pack_bf16(expf(sc[2 * j][2] - m1) * inv1, expf(sc[2 * j][3] - m1) * inv1);
+        pa[j][2] =
+            pack_bf16(expf(sc[2 * j + 1][0] - m0) * inv0, expf(sc[2 * j + 1][1] - m0) * inv0);
+        pa[j][3] =
+            pack_bf16(expf(sc[2 * j + 1][2] - m1) * inv1, expf(sc[2 * j + 1][3] - m1) * inv1);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int c = 0; c < kSliceMax / kChunk; ++c) {
+      if (kChunk * c >= cw) break;
+#pragma unroll
+      for (int j = 0; j < kKT / 16; ++j) {
+        const __nv_bfloat16* vrow = tile_p + (16 * j + lane % 16) * stride + c0 + kChunk * c;
+        uint32_t b[kChunk / 8][2];
+#pragma unroll
+        for (int n = 0; n < kChunk / 8; ++n) ldmatrix_x2_trans(b[n][0], b[n][1], vrow + 8 * n);
+#pragma unroll
+        for (int n = 0; n < kChunk / 8; ++n)
+          mma_bf16(o[(kChunk / 8) * c + n], pa[j], b[n][0], b[n][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* o0 = out + ((size_t)bh * L + r0) * D;
+  __nv_bfloat16* o1 = out + ((size_t)bh * L + r1) * D;
+#pragma unroll
+  for (int n = 0; n < kSliceMax / 8; ++n) {
+    if (8 * n >= cw) break;
+    const int d = c0 + 8 * n + 2 * t;  // scalar stores: rows of odd D are 2-byte aligned
+    if (r0 < L && d < D) o0[d] = __float2bfloat16_rn(o[n][0]);
+    if (r0 < L && d + 1 < D) o0[d + 1] = __float2bfloat16_rn(o[n][1]);
+    if (r1 < L && d < D) o1[d] = __float2bfloat16_rn(o[n][2]);
+    if (r1 < L && d + 1 < D) o1[d + 1] = __float2bfloat16_rn(o[n][3]);
+  }
+}
+
+// The widest copy (16, 8, 4 or 2 bytes) that the rows of k and v allow.
+int copy_width(const void* k, const void* v, int row_bytes) {
+  const uintptr_t any = (uintptr_t)k | (uintptr_t)v | (uintptr_t)row_bytes;
+  return any % 16 == 0 ? 16 : any % 8 == 0 ? 8 : any % 4 == 0 ? 4 : 2;
+}
+
+// ---- the CUDA-core branch, for heads too wide for the tensor-core branch ----
 //
 // A block owns 32 queries of one (batch, head) and a range of at most 512
 // output columns (gridDim.z splits wider heads; each z recomputes the
-// logits); x enumerates (query tile, batch x head), so B * H is bounded only
-// by 2^31 / tiles. Two passes over the key tiles of 32: pass 1 forms the
-// logits (q.k^T over D in chunks of 32 columns, q and k staged element by
-// element, so any D and any alignment) and each row's running max and sum of
-// exp(s - max); pass 2 forms the logits again, p = exp(s - M) / L, and adds
-// p.V into the block's output rows in shared memory, 64 columns at a time.
-// (Two passes, as the bf16 rounding of normalised probabilities needs; the f32
-// instance shares them.) Everything runs on CUDA cores in f32: a thread holds
-// 2 rows x 4 keys of a logit tile and 2 rows x 8 columns of a P.V chunk.
+// logits); x enumerates (query tile, batch x head). Two passes over the key
+// tiles of 32: pass 1 forms the logits (q.k^T over D in chunks of 32 columns,
+// q and k staged element by element, so any D and any alignment) and each
+// row's running max and sum of exp(s - max); pass 2 forms the logits again,
+// p = exp(s - M) / L, and adds p.V into the block's output rows in shared
+// memory, 64 columns at a time. Everything runs on CUDA cores in f32.
 constexpr int kAQ = 32;         // queries a block
 constexpr int kAK = 32;         // keys a tile
 constexpr int kAC = 32;         // columns of q and k a staging chunk
@@ -745,19 +1335,19 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* o, float v) {
   *o = __float2bfloat16_rn(v);
 }
 
-size_t any_d_smem_bytes(int ow) {
+size_t wide_d_smem_bytes(int ow) {
   return sizeof(float) * ((size_t)kAQ * (kAC + 1) + (size_t)kAK * (kAC + 1) +
                           (size_t)kAQ * (kAK + 1) + (size_t)kAK * (kAV + 1) + (size_t)kAQ * ow);
 }
 
 template <class T>
-__global__ void __launch_bounds__(kAThreads) masked_attention_any_d_kernel(
+__global__ void __launch_bounds__(kAThreads) masked_attention_wide_d_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const uint8_t* __restrict__ kv_mask, T* __restrict__ out, int H, int L, int S, int D,
     float scale, int q_tiles, int ow) {
   constexpr bool kBf16 = sizeof(T) == 2;
-  extern __shared__ float any_d_smem[];
-  float* qs = any_d_smem;                  // [kAQ][kAC + 1]
+  extern __shared__ float wide_d_smem[];
+  float* qs = wide_d_smem;                  // [kAQ][kAC + 1]
   float* ks = qs + kAQ * (kAC + 1);        // [kAK][kAC + 1]
   float* ps = ks + kAK * (kAC + 1);        // [kAQ][kAK + 1] probabilities of a tile
   float* vs = ps + kAQ * (kAK + 1);        // [kAK][kAV + 1]
@@ -890,15 +1480,15 @@ __global__ void __launch_bounds__(kAThreads) masked_attention_any_d_kernel(
 }
 
 template <class T>
-int launch_any_d(const T* q, const T* k, const T* v, const uint8_t* kv_mask, T* out, int B,
-                 int H, int L, int S, int D, float scale, cudaStream_t stream) {
+int launch_wide_d(const T* q, const T* k, const T* v, const uint8_t* kv_mask, T* out, int B,
+                  int H, int L, int S, int D, float scale, cudaStream_t stream) {
   const int q_tiles = (L + kAQ - 1) / kAQ;
   const long long blocks = (long long)q_tiles * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int z = (D + kAOMax - 1) / kAOMax;
   const int ow = (D + z - 1) / z;          // output columns a block
-  const size_t bytes = any_d_smem_bytes(ow);
-  auto kernel = masked_attention_any_d_kernel<T>;
+  const size_t bytes = wide_d_smem_bytes(ow);
+  auto kernel = masked_attention_wide_d_kernel<T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -908,13 +1498,121 @@ int launch_any_d(const T* q, const T* k, const T* v, const uint8_t* kv_mask, T* 
   return (int)cudaGetLastError();
 }
 
+inline auto any_d_tc_kernel(const float*) { return masked_attention_any_d_tc_kernel; }
+inline auto any_d_tc_kernel(const __nv_bfloat16*) { return masked_attention_any_d_tc_bf16_kernel; }
+
+// The tensor-core branch's tilings for head width D that fit, each with its
+// resident blocks an SM (the occupancy calculator): slice widths 128, 96 and
+// 64, any number of row groups up to twelve warps a block. Kept per (dtype,
+// D).
+struct AnyDChoice {
+  AnyDPlan p;
+  int per_sm;
+};
+
+template <class T>
+cudaError_t any_d_choices(int D, const std::vector<AnyDChoice>** choices) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  static std::mutex lock;
+  static std::map<int, std::vector<AnyDChoice>> cache;
+  std::lock_guard<std::mutex> hold(lock);
+  auto found = cache.find(D);
+  if (found == cache.end()) {
+    auto kernel = any_d_tc_kernel(static_cast<const T*>(nullptr));
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)kAnySmemMax);
+    if (err != cudaSuccess) return err;
+    std::vector<AnyDChoice> list;
+    AnyDPlan p;
+    p.dpad = (D + kChunk - 1) / kChunk * kChunk;
+    for (int width = kSliceMax; width >= 64; width -= kChunk) {
+      const int ns0 = (p.dpad + width - 1) / width;
+      p.ds = (p.dpad / kChunk + ns0 - 1) / ns0 * kChunk;
+      p.ns = (p.dpad + p.ds - 1) / p.ds;
+      for (p.rw = kAnyWarpsMax / p.ns; p.rw >= 1; --p.rw) {
+        p.threads = 32 * p.rw * p.ns;
+        p.smem = any_d_smem_bytes(p, kBf16);
+        if (p.smem > kAnySmemMax) continue;
+        int per_sm = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.threads, p.smem);
+        if (err != cudaSuccess) return err;
+        if (per_sm > 0) list.push_back({p, per_sm});
+      }
+    }
+    found = cache.emplace(D, std::move(list)).first;
+  }
+  *choices = &found->second;
+  return cudaSuccess;
+}
+
+// The modelled time of a tiling on a grid of `blocks`: blocks are dealt to
+// the SMs in waves of per_sm; c blocks sharing an SM take (rw + 1) c / r
+// (rw query row groups each and one for copying K and V, r the SM's share of
+// its throughput: resident warps / 12, at most 1); times 1 + a (ns - 1) for
+// the slices' exchange and repeated softmax (a = 0.1 f32, 0.3 bf16, which
+// exchanges twice a tile). Fitted to sweeps of every tiling at W's self and
+// cross calls, C's self call and the [4, 1, 4602^2] D = 256 call (NVIDIA
+// H100 80GB HBM3, 700 W): it picks the fastest tiling measured at each, e.g.
+// at D = 216 two 128-column slices of six row groups for the self call
+// (f32 0.217 ms; three row groups 0.230, 64-column slices 0.289) and four
+// 64-column slices of three for the cross call, whose grid is half as large
+// (0.139 ms; 128-column slices of six 0.207).
+double any_d_cost(const AnyDChoice& c, long long blocks, int sms, bool bf16) {
+  const int wpb = c.p.rw * c.p.ns;
+  auto span = [&](long long n) {  // n blocks sharing an SM
+    return (c.p.rw + 1.0) * n / std::min(1.0, n * wpb / 12.0);
+  };
+  const long long slots = (long long)c.per_sm * sms;
+  const long long full = blocks / slots, rem = blocks - full * slots;
+  double t = full * span(c.per_sm);
+  if (rem) t += span((rem + sms - 1) / sms);
+  return t * (1.0 + (bf16 ? 0.3 : 0.1) * (c.p.ns - 1));
+}
+
+// The any-D route: the tensor-core branch where its tiles fit (*route = 0),
+// else the CUDA-core branch (*route = 1).
+template <class T>
+int launch_any_d(const T* q, const T* k, const T* v, const uint8_t* kv_mask, T* out, int B,
+                 int H, int L, int S, int D, float scale, int* route, cudaStream_t stream) {
+  const std::vector<AnyDChoice>* choices;
+  cudaError_t err = any_d_choices<T>(D, &choices);
+  if (err != cudaSuccess) return (int)err;
+  if (choices->empty()) {
+    *route = 1;
+    return launch_wide_d<T>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
+  }
+  *route = 0;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const AnyDPlan* p = nullptr;
+  double best = 0.0;
+  for (const AnyDChoice& c : *choices) {  // ties keep the earlier: fewer slices, more rows
+    const long long blocks = (long long)((L + 16 * c.p.rw - 1) / (16 * c.p.rw)) * B * H;
+    const double cost = any_d_cost(c, blocks, sms, sizeof(T) == 2);
+    if (!p || cost < best) {
+      p = &c.p;
+      best = cost;
+    }
+  }
+  const int q_tiles = (L + 16 * p->rw - 1) / (16 * p->rw);
+  const long long blocks = (long long)q_tiles * B * H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int copy = copy_width(k, v, D * (int)sizeof(T));
+  any_d_tc_kernel(q)<<<(unsigned)blocks, p->threads, p->smem, stream>>>(
+      q, k, v, kv_mask, out, H, L, S, D, scale, q_tiles, p->dpad, p->ns, p->ds, copy);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // q [B, H, L, D], k/v [B, H, S, D], kv_mask [B, S] bool (1 byte), out
 // [B, H, L, D]; f32, contiguous; any D >= 1. *route is set to the instance
-// that ran: its padded width (64, 112, 136), or 0 for the any-D instance.
+// that ran: its padded width (64, 112, 136), or the any-D route's branch (0:
+// tensor cores, 1: CUDA cores).
 // Returns a cudaError_t (0 on success).
 int masked_attention_forward(const float* q, const float* k, const float* v,
                              const uint8_t* kv_mask, float* out, int B, int H,
@@ -922,10 +1620,8 @@ int masked_attention_forward(const float* q, const float* k, const float* v,
                              cudaStream_t stream) {
   if (B <= 0 || H <= 0 || L <= 0 || S <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0;
-  if (D > kDMax || D % 4 != 0 || !aligned || (long long)B * H > 65535) {
-    *route = 0;
-    return launch_any_d<float>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
-  }
+  if (D > kDMax || D % 4 != 0 || !aligned || (long long)B * H > 65535)
+    return launch_any_d<float>(q, k, v, kv_mask, out, B, H, L, S, D, scale, route, stream);
   *route = D <= 64 ? 64 : D <= 112 ? 112 : 136;
   if (D <= 64)
     return launch<64>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
@@ -936,7 +1632,7 @@ int masked_attention_forward(const float* q, const float* k, const float* v,
 
 // The bf16 instance: q [B, H, L, D], k/v [B, H, S, D] bf16, kv_mask [B, S]
 // bool (1 byte), out [B, H, L, D] bf16; contiguous; any D >= 1. *route as
-// masked_attention_forward's (112, 144, or 0 for the any-D instance).
+// masked_attention_forward's (112, 144, or the any-D route's 0 or 1).
 // Returns a cudaError_t (0 on success).
 int masked_attention_forward_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                   const __nv_bfloat16* v, const uint8_t* kv_mask,
@@ -948,10 +1644,9 @@ int masked_attention_forward_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k
   bool keep;
   const bool fits = S <= (1 << 19) && bf16_block_bytes<144>(S, &tiles_per_block, &keep) <=
                                           227 * 1024;
-  if (D > kDMaxBf16 || D % 4 != 0 || !aligned || (long long)B * H > 65535 || !fits) {
-    *route = 0;
-    return launch_any_d<__nv_bfloat16>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);
-  }
+  if (D > kDMaxBf16 || D % 4 != 0 || !aligned || (long long)B * H > 65535 || !fits)
+    return launch_any_d<__nv_bfloat16>(q, k, v, kv_mask, out, B, H, L, S, D, scale, route,
+                                       stream);
   *route = D <= 112 ? 112 : 144;
   if (D <= 112)
     return launch_bf16<112>(q, k, v, kv_mask, out, B, H, L, S, D, scale, stream);

@@ -40,6 +40,19 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, co
                : "r"(s));
 }
 
+// Four 8 x 8 b16 matrices from shared memory (ldmatrix.x4, no transpose):
+// lanes 8 m .. 8 m + 7 pass the addresses of matrix m's eight 16-byte rows;
+// lane 4 g + t receives row g, 32-bit word t of each matrix in d[m]. For a
+// 16 x 16 bf16 A tile (rows l % 16, columns 8 (l / 16)) that is mma.sync
+// m16n8k16's A fragment; for 16-byte rows of TF32 values (four a row) word t
+// is element t, so the same load gives m16n8k8's TF32 fragments.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], const void* row) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(s));
+}
+
 // Two f32 values rounded to bf16 (to nearest even), packed lo | hi << 16.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

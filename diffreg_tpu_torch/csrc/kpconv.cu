@@ -45,7 +45,11 @@
 //    addends onto zero the sum does not depend on their order.
 //  * any other shape at P = 15: the CUDA-core kernel of kpconv_common.cuh,
 //    reading its rows through F32Rows;
-//  * any other kernel-point count P: the any-P CUDA-core kernel of
+//  * any other kernel-point count P at the tensor-core kernel's shapes: the
+//    any-P tensor-core kernel below (P in chunks of 16 kernel points, its A
+//    rows built on tensor cores too; one instance per Cout for every P and
+//    mode);
+//  * any other P at any other shape: the any-P CUDA-core kernel of
 //    kpconv_common.cuh (every shape and mode; P a runtime parameter), through
 //    F32Rows.
 
@@ -333,19 +337,321 @@ cudaError_t launch_tc(const float* q_pts, const float* s_pts, const int32_t* ind
   return cudaGetLastError();
 }
 
+// ---- the any-P tensor-core kernel (P != 15; the steps in kpconv_common.cuh) ----
+//
+// Blocks (tile, pair, split) of 8 warps, 32 queries and all of Cout; with two
+// splits, split z takes kernel points [z p_split, min(P, (z + 1) p_split)).
+// For each chunk of 16 points: the influences [32][16][K padded to 8, + 4]
+// in shared memory; for each chunk of 16 channels, warp w builds the A rows
+// of queries [4 w, 4 w + 4) in 3xTF32 (m16n8k8: k-steps of 8 neighbours, X's
+// B fragments read from global memory, 32-byte sectors per row), then owns
+// output columns [8 NT w, 8 NT (w + 1)) of the contraction, whose W rows
+// (16 a point) it stages with cp.async in a ring of its own, as the tuned
+// kernel does.
+//
+// What bounds it: operations, as the tuned kernel (the contraction, 2 P Cin
+// Cout a query, in 3xTF32; the A build is 2 x 16 x K x 16 a query and channel
+// chunk, padded to 16 points). It replaces the any-P CUDA-core kernel at
+// these shapes: configuration C's encode (P = 24) took 27.0 ms there and
+// 6.70-6.74 ms here, against the plain version's 14.3-15.4 and the tuned
+// P = 15 kernel's 5.90; P = 64 16.0 ms against 28.3-28.5 (tools/
+// bench_any_routes.py, NVIDIA H100 80GB HBM3, 700 W). Building A on tensor
+// cores keeps the 16-point chunks cheap: the contraction's k-steps take the
+// real points only, so P = 24 costs its 24 points there and 32 in the A
+// build.
+constexpr int kAnyAS = kPC * kXC + 4;  // A chunk row stride (floats): 4 mod 32, no bank conflicts
+
+template <int NT> __host__ __device__ constexpr int any_w_groups() {
+  return NT == 8 ? 2 : NT == 4 ? 3 : 4;
+}
+__host__ __device__ inline int any_kpad(int K) { return (K + 7) / 8 * 8; }
+
+template <int NT>
+size_t tc_any_p_smem_bytes(int K, int P) {
+  const int kst = any_kpad(K) + 4;
+  return sizeof(float4) * P +
+         sizeof(float) * ((size_t)kTQ * kPC * kst + (size_t)kTQ * kAnyAS +
+                          (size_t)kWarps * any_w_groups<NT>() * 16 * w_stride<NT>() +
+                          (size_t)kTQ * K) +
+         sizeof(int) * (2 * (size_t)kTQ * K + kTQ);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1) kpconv_tc_any_p_kernel(
+    const float* __restrict__ q_pts, const float* __restrict__ s_pts,
+    const int32_t* __restrict__ inds, const float* __restrict__ x,
+    const float* __restrict__ kp, const float* __restrict__ w, float* __restrict__ out, int Nq,
+    int Ns, int K, int Cin, int P, int p_split, Mode mode, int kind) {
+  constexpr int kCout = 64 * NT, kG = any_w_groups<NT>(), kWS = w_stride<NT>();
+  const int kpad = any_kpad(K), kst = kpad + 4;
+  extern __shared__ __align__(16) float tc_any_smem[];
+  float4* kps = reinterpret_cast<float4*>(tc_any_smem);    // [P]
+  float* infl = tc_any_smem + 4 * P;                        // [TQ][PC][kst]
+  float* abuf = infl + kTQ * kPC * kst;                     // [TQ][kAnyAS]
+  float* wbuf = abuf + kTQ * kAnyAS;                        // [warp][G][16][kWS]
+  float* fsum = wbuf + kWarps * kG * 16 * kWS;              // [TQ][K]
+  int* nbr = reinterpret_cast<int*>(fsum + kTQ * K);        // [TQ][K], -1 = none
+  int* nearest = nbr + kTQ * K;                             // [TQ][K]
+  int* cnt = nearest + kTQ * K;                             // [TQ]
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kTQ;
+  const int p_begin = blockIdx.z * p_split, p_end = min(P, p_begin + p_split);
+  const int n_ch = Cin / kXC;
+  const int n_groups = (p_end - p_begin) * n_ch;  // W groups: a point's 16 rows of a channel chunk
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int col_w = warp * 8 * NT;
+  const F32Rows rows{s_pts, x, w, Ns, Cin};
+  float* wring = wbuf + warp * kG * 16 * kWS;
+
+  // W groups in the order they are used (chunk of points, chunk of channels,
+  // point): a cursor that load_w advances
+  int wp0 = p_begin, wch = 0, wj = 0;
+  auto load_w = [&](int gi) {
+    if (gi < n_groups) {
+      const float* src = w + ((size_t)(wp0 + wj) * Cin + kXC * wch) * kCout + col_w;
+      float* dst = wring + (gi % kG) * 16 * kWS;
+#pragma unroll
+      for (int i = lane; i < 16 * 2 * NT; i += 32) {
+        const int r = i / (2 * NT), c = 4 * (i - r * 2 * NT);
+        cp_async16(dst + r * kWS + c, src + (size_t)r * kCout + c, true);
+      }
+      if (++wj == min(kPC, p_end - wp0)) {
+        wj = 0;
+        if (++wch == n_ch) {
+          wch = 0;
+          wp0 += kPC;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int gi = 0; gi < kG - 1; ++gi) load_w(gi);  // in flight during the set-up
+
+  load_kernel_points_any(kp, kps, P);
+  __syncthreads();
+  any_p_neighbours(q_pts, rows, inds, kps, P, b, q0, Nq, Ns, K, mode, nbr, nearest, fsum);
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+
+  const float* xb = x + (size_t)b * Ns * Cin + g;
+  int gi = 0;
+  for (int pc0 = p_begin; pc0 < p_end; pc0 += kPC) {
+    const int npc = min(kPC, p_end - pc0);
+    const bool first = pc0 == p_begin;
+    __syncthreads();  // the neighbour table is in place; the last chunk's influences are consumed
+    chunk_influences(infl, kst, kpad, q_pts, rows, kps, nbr, nearest, b, q0, Nq, K, pc0, npc,
+                     mode, kind);
+    __syncthreads();
+    for (int ch = 0; ch < n_ch; ++ch) {
+      // A[q][16 p + c] = sum_k infl[q, p, k] x[nbr[q, k], 16 ch + c]
+#pragma unroll 1
+      for (int i = 0; i < kQW; ++i) {
+        const int aq = kQW * warp + i;
+        const int* nq = nbr + aq * K;
+        const float* xc = xb + kXC * ch;
+        // B fragments of X: neighbour 8 ks + t + 4 h, channel 8 n + g
+        float xf[kKMax / 8][2][2];
+#pragma unroll
+        for (int ks = 0; ks < kKMax / 8; ++ks)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int kk = 8 * ks + t + 4 * h;
+            const int nb = kk < K ? nq[kk] : -1;
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              xf[ks][n][h] = nb >= 0 ? __ldg(xc + (size_t)nb * Cin + 8 * n) : 0.f;
+          }
+        if (first) {
+          // the chunk's share of each neighbour's feature sum, over the 8
+          // lanes of a quad column
+#pragma unroll
+          for (int ks = 0; ks < kKMax / 8; ++ks)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float fs = xf[ks][0][h] + xf[ks][1][h];
+              fs += __shfl_xor_sync(0xffffffffu, fs, 4);
+              fs += __shfl_xor_sync(0xffffffffu, fs, 8);
+              fs += __shfl_xor_sync(0xffffffffu, fs, 16);
+              const int kk = 8 * ks + t + 4 * h;
+              if (g == 0 && kk < K) fsum[aq * K + kk] += fs;
+            }
+        }
+        float c[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < kKMax / 8; ++ks) {
+          if (8 * ks >= kpad) break;
+          uint32_t ah[4], al[4];
+          load_a_3xtf32(infl + aq * kPC * kst + 8 * ks, kst, g, t, ah, al);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(xf[ks][n][0], bh0, bl0);
+            split_tf32(xf[ks][n][1], bh1, bl1);
+            mma_3xtf32_add(c[n], ah, al, bh0, bh1, bl0, bl1);
+          }
+        }
+        float* arow = abuf + aq * kAnyAS;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          *reinterpret_cast<float2*>(arow + g * kXC + 8 * n + 2 * t) = make_float2(c[n][0], c[n][1]);
+          *reinterpret_cast<float2*>(arow + (g + 8) * kXC + 8 * n + 2 * t) =
+              make_float2(c[n][2], c[n][3]);
+        }
+      }
+      __syncthreads();  // the A chunk is complete
+
+      // the contraction: point j of the chunk is A columns [16 j, 16 j + 16)
+      // (two k-steps) against its 16 W rows of this channel chunk
+      for (int j = 0; j < npc; ++j, ++gi) {
+        cp_async_wait<kG - 2>();
+        __syncwarp();  // the warp's W group gi is in place; group gi - 1 is consumed
+        load_w(gi + kG - 1);
+        const float* wg = wring + (gi % kG) * 16 * kWS + g;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float* as = abuf + kXC * j + 8 * u;
+          const float* ws = wg + u * 8 * kWS;
+          uint32_t ah[2][4], al[2][4];
+          load_a_3xtf32(as, kAnyAS, g, t, ah[0], al[0]);
+          load_a_3xtf32(as + 16 * kAnyAS, kAnyAS, g, t, ah[1], al[1]);
+          uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            split_tf32(ws[t * kWS + 8 * n], bh[n][0], bl[n][0]);
+            split_tf32(ws[(t + 4) * kWS + 8 * n], bh[n][1], bl[n][1]);
+          }
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+              mma_3xtf32_add(acc[m][n], ah[m], al[m], bh[n][0], bh[n][1], bl[n][0], bl[n][1]);
+        }
+      }
+      __syncthreads();  // the A chunk is consumed before the next one is built
+    }
+  }
+  cp_async_wait<0>();
+  any_p_counts(nbr, fsum, K, cnt);
+  __syncthreads();
+
+  // out[q, col] = acc / max(cnt[q], 1)
+  const bool split = gridDim.z > 1;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = 16 * m + g + 8 * h;
+      const int q = q0 + qi;
+      if (q >= Nq) continue;
+      const float den = (float)max(cnt[qi], 1);
+      float* orow = out + ((size_t)b * Nq + q) * kCout + col_w + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float v0 = acc[m][n][2 * h] / den, v1 = acc[m][n][2 * h + 1] / den;
+        if (split) {
+          atomicAdd(orow + 8 * n, v0);
+          atomicAdd(orow + 8 * n + 1, v1);
+        } else {
+          *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch_tc_any_p(const float* q_pts, const float* s_pts, const int32_t* inds,
+                            const float* x, const float* kp, const float* w, float* out, int B,
+                            int Nq, int Ns, int K, int Cin, int P, Mode mode, int kind,
+                            cudaStream_t stream) {
+  const size_t smem = tc_any_p_smem_bytes<NT>(K, P);
+  cudaError_t err = cudaFuncSetAttribute(
+      kpconv_tc_any_p_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int tiles = (Nq + kTQ - 1) / kTQ;
+  // one block an SM: split the kernel points in two when the grid is short of two waves
+  const int splits = P > 1 && tiles * B < 2 * sms ? 2 : 1;
+  const int p_split = (P + splits - 1) / splits;
+  if (splits > 1 && (err = cudaMemsetAsync(out, 0, sizeof(float) * B * Nq * 64 * NT,
+                                           stream)) != cudaSuccess)
+    return err;
+  dim3 grid(tiles, B, splits);
+  kpconv_tc_any_p_kernel<NT><<<grid, kThreads, smem, stream>>>(
+      q_pts, s_pts, inds, x, kp, w, out, Nq, Ns, K, Cin, P, p_split, mode, kind);
+  return cudaGetLastError();
+}
+
+// The any-P tensor-core kernel at this Cout, if its tiles fit in shared memory.
+cudaError_t forward_tc_any_p(const float* q_pts, const float* s_pts, const int32_t* inds,
+                             const float* x, const float* kp, const float* w, float* out, int B,
+                             int Nq, int Ns, int K, int Cin, int Cout, int P, Mode mode, int kind,
+                             cudaStream_t stream, bool* taken) {
+  *taken = true;
+  switch (Cout) {
+    case 64:
+      if (tc_any_p_smem_bytes<1>(K, P) <= kTcSmemMax)
+        return launch_tc_any_p<1>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, P, mode, kind, stream);
+      break;
+    case 128:
+      if (tc_any_p_smem_bytes<2>(K, P) <= kTcSmemMax)
+        return launch_tc_any_p<2>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, P, mode, kind, stream);
+      break;
+    case 256:
+      if (tc_any_p_smem_bytes<4>(K, P) <= kTcSmemMax)
+        return launch_tc_any_p<4>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, P, mode, kind, stream);
+      break;
+    case 512:
+      if (tc_any_p_smem_bytes<8>(K, P) <= kTcSmemMax)
+        return launch_tc_any_p<8>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, P, mode, kind, stream);
+      break;
+    default:
+      break;
+  }
+  *taken = false;
+  return cudaSuccess;
+}
+
 // The f32 path of one influence mode: at P = 15 the tensor-core kernel where
 // the shape allows it, else the CUDA-core kernel; at any other P the any-P
-// kernel.
+// tensor-core kernel where the shape allows it, else the any-P CUDA-core
+// kernel. *route: which ran.
 template <int Infl>
 cudaError_t forward_f32(const float* q_pts, const float* s_pts, const int32_t* inds,
                         const float* x, const float* kp, const float* w, float* out, int B,
-                        int Nq, int Ns, int K, int Cin, int Cout, int P, Mode mode,
+                        int Nq, int Ns, int K, int Cin, int Cout, int P, Mode mode, int* route,
                         cudaStream_t stream) {
-  if (P != kP)
+  const bool aligned = ((uintptr_t)w | (uintptr_t)out) % 16 == 0;
+  const bool tc_shape = Cin >= 64 && Cin % kCC == 0 && K <= kKMax && aligned;
+  if (P != kP) {
+    if (tc_shape) {
+      bool taken;
+      *route = kRouteAnyPTensorCores;
+      const cudaError_t err = forward_tc_any_p(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K,
+                                               Cin, Cout, P, mode, Infl, stream, &taken);
+      if (taken) return err;
+    }
+    *route = kRouteAnyPCudaCores;
     return launch_any_p<Infl>(q_pts, F32Rows{s_pts, x, w, Ns, Cin}, inds, kp, out, B, Nq, Ns, K,
                               Cin, Cout, P, mode, stream);
-  const bool aligned = ((uintptr_t)w | (uintptr_t)out) % 16 == 0;
-  if (Cin >= 64 && Cin % kCC == 0 && K <= kKMax && aligned) {
+  }
+  *route = kRouteTuned;
+  if (tc_shape) {
     switch (Cout) {
       case 64:
         return launch_tc<1, Infl>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, mode, stream);
@@ -371,11 +677,13 @@ extern "C" {
 // x [B, Ns, Cin], kp [P, 3], w [P, Cin, Cout], out [B, Nq, Cout]; all f32 and
 // contiguous; any P >= 1. influence: 0 linear, 1 constant, 2 gaussian (gauss_den its
 // 2 sigma^2 + 1e-9); closest: 1 for "closest" aggregation, 0 for "sum".
-// Returns a cudaError_t (0 on success).
+// *route is set to the kernel that ran (Route: 0 the tuned kernels at P = 15,
+// 1 the any-P tensor-core kernel, 2 the any-P CUDA-core kernel). Returns a
+// cudaError_t (0 on success).
 int kpconv_forward(const float* q_pts, const float* s_pts, const int32_t* inds,
                    const float* x, const float* kp, const float* w, float* out,
                    int B, int Nq, int Ns, int K, int Cin, int Cout, int P,
-                   float extent, int influence, int closest, float gauss_den,
+                   float extent, int influence, int closest, float gauss_den, int* route,
                    cudaStream_t stream) {
   if (P <= 0 || B <= 0 || Nq <= 0 || K <= 0 || Cin <= 0 || Cout <= 0)
     return (int)cudaErrorInvalidValue;
@@ -383,13 +691,13 @@ int kpconv_forward(const float* q_pts, const float* s_pts, const int32_t* inds,
   switch (influence) {
     case kLinear:
       return (int)forward_f32<kLinear>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin,
-                                       Cout, P, mode, stream);
+                                       Cout, P, mode, route, stream);
     case kConstant:
       return (int)forward_f32<kConstant>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin,
-                                         Cout, P, mode, stream);
+                                         Cout, P, mode, route, stream);
     case kGaussian:
       return (int)forward_f32<kGaussian>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin,
-                                         Cout, P, mode, stream);
+                                         Cout, P, mode, route, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -18,7 +18,9 @@
 //  * any other shape at P = 15 (on the main path the first layer, Cin = 1):
 //    the CUDA-core kernel of the f32 path, reading the table through
 //    Bf16Rows, which applies the same roundings;
-//  * any other kernel-point count P: the any-P CUDA-core kernel of
+//  * any other kernel-point count P at the tensor-core kernel's shapes: the
+//    any-P tensor-core kernel below (P in chunks of 16 kernel points);
+//  * any other P at any other shape: the any-P CUDA-core kernel of
 //    kpconv_common.cuh through Bf16Rows (the same roundings).
 // The tensor-core kernel maps kernel points to its mma rows g and g + 8, and
 // its A chunk and W ring are laid out for P = 15.
@@ -524,17 +526,310 @@ cudaError_t launch_tc_bf16(const float* q_pts, const __nv_bfloat16* table, const
   return cudaGetLastError();
 }
 
-// The bf16 path of one influence mode.
+// ---- the any-P tensor-core kernel (P != 15; the steps in kpconv_common.cuh) ----
+//
+// The f32 any-P kernel's tiling (kpconv.cu) in bf16 at the roundings of
+// Bf16Rows: the influences rounded to bf16 ([32][16][K padded to 16, + 8]
+// bf16), the A rows built with mma.sync m16n8k16 (k-steps of 16 neighbours,
+// X's B fragments read as bf16 pairs from the table, f32 sums rounded to
+// bf16), and the contraction on m16n8k16 with W's B fragments by
+// ldmatrix.trans, accumulated in the tensor core's f32 accumulators as the
+// tuned bf16 kernel accumulates. It does not split the warps into producers
+// and consumers as the tuned kernel does (its blocks meet twice a chunk):
+// configuration C's bf16 encode (P = 24) took 29.2 ms on the any-P CUDA-core
+// kernel and 3.33-3.36 ms here, against the plain bf16 version's
+// 17.0-18.9 and the tuned P = 15 kernel's 2.00-2.02 (tools/bench_any_routes.py,
+// NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kAnyBAS = kPC * kXC + 8;  // bf16 A chunk row stride: 132 words, 4 mod 32
+
+template <int NT> __host__ __device__ constexpr int any_bw_groups() { return NT == 8 ? 3 : 4; }
+template <int NT> __host__ __device__ constexpr int any_bw_stride() {
+  return NT == 1 ? 24 : 8 * NT + 8;  // bf16; rows odd multiples of 16 bytes
+}
+__host__ __device__ inline int any_kpad16(int K) { return (K + 15) / 16 * 16; }
+
+template <int NT>
+size_t tc_any_p_bf16_smem_bytes(int K, int P) {
+  const int kst = any_kpad16(K) + 8;
+  return sizeof(float4) * P +
+         sizeof(__nv_bfloat16) * ((size_t)kTQ * kPC * kst + (size_t)kTQ * kAnyBAS +
+                                  (size_t)8 * any_bw_groups<NT>() * 16 * any_bw_stride<NT>()) +
+         sizeof(float) * kTQ * K + sizeof(int) * (2 * (size_t)kTQ * K + kTQ);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1) kpconv_tc_any_p_bf16_kernel(
+    const float* __restrict__ q_pts, const __nv_bfloat16* __restrict__ table,
+    const int32_t* __restrict__ inds, const float* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ w, float* __restrict__ out, int Nq, int Ns, int K, int Cin,
+    int P, int p_split, Mode mode, int kind) {
+  constexpr int kCout = 64 * NT, kG = any_bw_groups<NT>(), kWS = any_bw_stride<NT>();
+  constexpr int kQW = kTQ / 8;  // queries whose A rows a warp builds
+  const int kpad = any_kpad16(K), kst = kpad + 8;
+  extern __shared__ __align__(16) unsigned char tc_any_bf16_smem[];
+  float4* kps = reinterpret_cast<float4*>(tc_any_bf16_smem);                 // [P]
+  __nv_bfloat16* infl = reinterpret_cast<__nv_bfloat16*>(kps + P);          // [TQ][PC][kst]
+  __nv_bfloat16* abuf = infl + kTQ * kPC * kst;                             // [TQ][kAnyBAS]
+  __nv_bfloat16* wbuf = abuf + kTQ * kAnyBAS;                               // [warp][G][16][kWS]
+  float* fsum = reinterpret_cast<float*>(wbuf + 8 * kG * 16 * kWS);         // [TQ][K]
+  int* nbr = reinterpret_cast<int*>(fsum + kTQ * K);                        // [TQ][K], -1 = none
+  int* nearest = nbr + kTQ * K;                                             // [TQ][K]
+  int* cnt = nearest + kTQ * K;                                             // [TQ]
+
+  const int row = 8 + Cin;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kTQ;
+  const int p_begin = blockIdx.z * p_split, p_end = min(P, p_begin + p_split);
+  const int n_ch = Cin / kXC;
+  const int n_groups = (p_end - p_begin) * n_ch;  // W groups: a point's 16 rows of a channel chunk
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int col_w = warp * 8 * NT;
+  const Bf16Rows rows{table, w, Ns, Cin};
+  __nv_bfloat16* wring = wbuf + warp * kG * 16 * kWS;
+
+  // W groups in the order they are used (chunk of points, chunk of channels,
+  // point): a cursor that load_w advances
+  int wp0 = p_begin, wch = 0, wj = 0;
+  auto load_w = [&](int gi) {
+    if (gi < n_groups) {
+      const __nv_bfloat16* src = w + ((size_t)(wp0 + wj) * Cin + kXC * wch) * kCout + col_w;
+      __nv_bfloat16* dst = wring + (gi % kG) * 16 * kWS;
+#pragma unroll
+      for (int i = lane; i < 16 * NT; i += 32) {
+        const int r = i / NT, c = 8 * (i - r * NT);
+        cp_async16_bf16(dst + r * kWS + c, src + (size_t)r * kCout + c, true);
+      }
+      if (++wj == min(kPC, p_end - wp0)) {
+        wj = 0;
+        if (++wch == n_ch) {
+          wch = 0;
+          wp0 += kPC;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int gi = 0; gi < kG - 1; ++gi) load_w(gi);  // in flight during the set-up
+
+  load_kernel_points_any(kp, kps, P);
+  __syncthreads();
+  any_p_neighbours(q_pts, rows, inds, kps, P, b, q0, Nq, Ns, K, mode, nbr, nearest, fsum);
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+
+  const unsigned short* tb =
+      reinterpret_cast<const unsigned short*>(table + (size_t)b * (Ns + 1) * row + 8) + g;
+  int gi = 0;
+  for (int pc0 = p_begin; pc0 < p_end; pc0 += kPC) {
+    const int npc = min(kPC, p_end - pc0);
+    const bool first = pc0 == p_begin;
+    __syncthreads();  // the neighbour table is in place; the last chunk's influences are consumed
+    chunk_influences(infl, kst, kpad, q_pts, rows, kps, nbr, nearest, b, q0, Nq, K, pc0, npc,
+                     mode, kind);
+    __syncthreads();
+    for (int ch = 0; ch < n_ch; ++ch) {
+      // A[q][16 p + c] = bf16(sum_k infl[q, p, k] x[nbr[q, k], 16 ch + c])
+#pragma unroll 1
+      for (int i = 0; i < kQW; ++i) {
+        const int aq = kQW * warp + i;
+        const int* nq = nbr + aq * K;
+        const unsigned short* xc = tb + kXC * ch;
+        // B fragments of X: neighbour 16 ks + 2 t + (e & 1) + 8 (e >> 1),
+        // channel 8 n + g, as bf16 bits
+        uint32_t xw[kKPadMax / 16][2][4];
+#pragma unroll
+        for (int ks = 0; ks < kKPadMax / 16; ++ks)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kk = 16 * ks + 2 * t + (e & 1) + 8 * (e >> 1);
+            const int nb = kk < K ? nq[kk] : -1;
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              xw[ks][n][e] = nb >= 0 ? (uint32_t)__ldg(xc + (size_t)nb * row + 8 * n) : 0u;
+          }
+        if (first) {
+          // the chunk's share of each neighbour's feature sum (f32), over the
+          // 8 lanes of a quad column
+#pragma unroll
+          for (int ks = 0; ks < kKPadMax / 16; ++ks)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float fs = __uint_as_float(xw[ks][0][e] << 16) + __uint_as_float(xw[ks][1][e] << 16);
+              fs += __shfl_xor_sync(0xffffffffu, fs, 4);
+              fs += __shfl_xor_sync(0xffffffffu, fs, 8);
+              fs += __shfl_xor_sync(0xffffffffu, fs, 16);
+              const int kk = 16 * ks + 2 * t + (e & 1) + 8 * (e >> 1);
+              if (g == 0 && kk < K) fsum[aq * K + kk] += fs;
+            }
+        }
+        float c[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < kKPadMax / 16; ++ks) {
+          if (16 * ks >= kpad) break;
+          const __nv_bfloat16* ia = infl + (aq * kPC + g) * kst + 16 * ks + 2 * t;
+          const uint32_t a[4] = {ld_pair(ia), ld_pair(ia + 8 * kst), ld_pair(ia + 8),
+                                 ld_pair(ia + 8 * kst + 8)};
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_bf16(c[n], a, xw[ks][n][0] | xw[ks][n][1] << 16, xw[ks][n][2] | xw[ks][n][3] << 16);
+        }
+        __nv_bfloat16* arow = abuf + aq * kAnyBAS;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          *reinterpret_cast<uint32_t*>(arow + g * kXC + 8 * n + 2 * t) = pack_bf16(c[n][0], c[n][1]);
+          *reinterpret_cast<uint32_t*>(arow + (g + 8) * kXC + 8 * n + 2 * t) =
+              pack_bf16(c[n][2], c[n][3]);
+        }
+      }
+      __syncthreads();  // the A chunk is complete
+
+      // the contraction: point j of the chunk is A columns [16 j, 16 j + 16)
+      // (one k-step) against its 16 W rows of this channel chunk
+      for (int j = 0; j < npc; ++j, ++gi) {
+        cp_async_wait<kG - 2>();
+        __syncwarp();  // the warp's W group gi is in place; group gi - 1 is consumed
+        load_w(gi + kG - 1);
+        const __nv_bfloat16* wg = wring + (gi % kG) * 16 * kWS;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const __nv_bfloat16* ar = abuf + (16 * m + g) * kAnyBAS + kXC * j + 2 * t;
+          a[m][0] = ld_pair(ar);
+          a[m][1] = ld_pair(ar + 8 * kAnyBAS);
+          a[m][2] = ld_pair(ar + 8);
+          a[m][3] = ld_pair(ar + 8 * kAnyBAS + 8);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          uint32_t b0, b1;
+          ldmatrix_x2_trans(b0, b1, wg + (lane % 16) * kWS + 8 * n);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) mma_bf16(acc[m][n], a[m], b0, b1);
+        }
+      }
+      __syncthreads();  // the A chunk is consumed before the next one is built
+    }
+  }
+  cp_async_wait<0>();
+  any_p_counts(nbr, fsum, K, cnt);
+  __syncthreads();
+
+  // out[q, col] = acc / max(cnt[q], 1)
+  const bool split = gridDim.z > 1;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = 16 * m + g + 8 * h;
+      const int q = q0 + qi;
+      if (q >= Nq) continue;
+      const float den = (float)max(cnt[qi], 1);
+      float* orow = out + ((size_t)b * Nq + q) * kCout + col_w + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float v0 = acc[m][n][2 * h] / den, v1 = acc[m][n][2 * h + 1] / den;
+        if (split) {
+          atomicAdd(orow + 8 * n, v0);
+          atomicAdd(orow + 8 * n + 1, v1);
+        } else {
+          *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch_tc_any_p_bf16(const float* q_pts, const __nv_bfloat16* table,
+                                 const int32_t* inds, const float* kp, const __nv_bfloat16* w,
+                                 float* out, int B, int Nq, int Ns, int K, int Cin, int P,
+                                 Mode mode, int kind, cudaStream_t stream) {
+  const size_t smem = tc_any_p_bf16_smem_bytes<NT>(K, P);
+  cudaError_t err = cudaFuncSetAttribute(
+      kpconv_tc_any_p_bf16_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kpconv_tc_any_p_bf16_kernel<NT>, kThreads, smem)) != cudaSuccess)
+    return err;
+  const int tiles = (Nq + kTQ - 1) / kTQ;
+  const int splits = P > 1 && tiles * B < 2 * sms * per_sm ? 2 : 1;
+  const int p_split = (P + splits - 1) / splits;
+  if (splits > 1 && (err = cudaMemsetAsync(out, 0, sizeof(float) * B * Nq * 64 * NT,
+                                           stream)) != cudaSuccess)
+    return err;
+  dim3 grid(tiles, B, splits);
+  kpconv_tc_any_p_bf16_kernel<NT><<<grid, kThreads, smem, stream>>>(
+      q_pts, table, inds, kp, w, out, Nq, Ns, K, Cin, P, p_split, mode, kind);
+  return cudaGetLastError();
+}
+
+// The any-P tensor-core kernel at this Cout, if its tiles fit in shared memory.
+cudaError_t forward_tc_any_p_bf16(const float* q_pts, const __nv_bfloat16* table,
+                                  const int32_t* inds, const float* kp, const __nv_bfloat16* w,
+                                  float* out, int B, int Nq, int Ns, int K, int Cin, int Cout,
+                                  int P, Mode mode, int kind, cudaStream_t stream, bool* taken) {
+  *taken = true;
+  switch (Cout) {
+    case 64:
+      if (tc_any_p_bf16_smem_bytes<1>(K, P) <= kTcSmemMax)
+        return launch_tc_any_p_bf16<1>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, P, mode, kind, stream);
+      break;
+    case 128:
+      if (tc_any_p_bf16_smem_bytes<2>(K, P) <= kTcSmemMax)
+        return launch_tc_any_p_bf16<2>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, P, mode, kind, stream);
+      break;
+    case 256:
+      if (tc_any_p_bf16_smem_bytes<4>(K, P) <= kTcSmemMax)
+        return launch_tc_any_p_bf16<4>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, P, mode, kind, stream);
+      break;
+    case 512:
+      if (tc_any_p_bf16_smem_bytes<8>(K, P) <= kTcSmemMax)
+        return launch_tc_any_p_bf16<8>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, P, mode, kind, stream);
+      break;
+    default:
+      break;
+  }
+  *taken = false;
+  return cudaSuccess;
+}
+
+// The bf16 path of one influence mode. *route: which kernel ran (Route).
 template <int Infl>
 cudaError_t forward_bf16(const float* q_pts, const __nv_bfloat16* table, const int32_t* inds,
                          const float* kp, const __nv_bfloat16* w, float* out, int B, int Nq,
-                         int Ns, int K, int Cin, int Cout, int P, Mode mode,
+                         int Ns, int K, int Cin, int Cout, int P, Mode mode, int* route,
                          cudaStream_t stream) {
-  if (P != kP)
+  const bool aligned = ((uintptr_t)table | (uintptr_t)w | (uintptr_t)out) % 16 == 0;
+  const bool tc_shape = Cin % kCC == 0 && K <= kKMax && aligned;
+  if (P != kP) {
+    if (tc_shape) {
+      bool taken;
+      *route = kRouteAnyPTensorCores;
+      const cudaError_t err = forward_tc_any_p_bf16(q_pts, table, inds, kp, w, out, B, Nq, Ns, K,
+                                                    Cin, Cout, P, mode, Infl, stream, &taken);
+      if (taken) return err;
+    }
+    *route = kRouteAnyPCudaCores;
     return launch_any_p<Infl>(q_pts, Bf16Rows{table, w, Ns, Cin}, inds, kp, out, B, Nq, Ns, K,
                               Cin, Cout, P, mode, stream);
-  const bool aligned = ((uintptr_t)table | (uintptr_t)w | (uintptr_t)out) % 16 == 0;
-  if (Cin % kCC == 0 && K <= kKMax && aligned) {
+  }
+  *route = kRouteTuned;
+  if (tc_shape) {
     switch (Cout) {
       case 64:
         return launch_tc_bf16<1, Infl>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, mode, stream);
@@ -559,25 +854,25 @@ extern "C" {
 // The bf16 instance. q_pts [B, Nq, 3] f32, table [B, Ns + 1, 8 + Cin] bf16
 // (hi(pos), lo(pos), 0, 0, features; row Ns the shadow row), inds [B, Nq, K] int32
 // (sentinel Ns), kp [P, 3] f32, w [P, Cin, Cout] bf16, out [B, Nq, Cout] f32;
-// any P >= 1; all contiguous; the modes as kpconv_forward's. Returns a cudaError_t (0 on
-// success).
+// any P >= 1; all contiguous; the modes and *route as kpconv_forward's. Returns a
+// cudaError_t (0 on success).
 int kpconv_forward_bf16(const float* q_pts, const __nv_bfloat16* table, const int32_t* inds,
                         const float* kp, const __nv_bfloat16* w, float* out, int B, int Nq,
                         int Ns, int K, int Cin, int Cout, int P, float extent, int influence,
-                        int closest, float gauss_den, cudaStream_t stream) {
+                        int closest, float gauss_den, int* route, cudaStream_t stream) {
   if (P <= 0 || B <= 0 || Nq <= 0 || K <= 0 || Cin <= 0 || Cout <= 0)
     return (int)cudaErrorInvalidValue;
   const Mode mode{extent, gauss_den, closest != 0};
   switch (influence) {
     case kLinear:
       return (int)forward_bf16<kLinear>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, Cout,
-                                        P, mode, stream);
+                                        P, mode, route, stream);
     case kConstant:
       return (int)forward_bf16<kConstant>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin,
-                                          Cout, P, mode, stream);
+                                          Cout, P, mode, route, stream);
     case kGaussian:
       return (int)forward_bf16<kGaussian>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin,
-                                          Cout, P, mode, stream);
+                                          Cout, P, mode, route, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

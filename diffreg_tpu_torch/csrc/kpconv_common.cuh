@@ -20,11 +20,14 @@
 // influence of its nearest kernel point (the first on ties, as jnp.argmin).
 //
 // The kernel-point count P is the weights' first dimension, as in the Pallas
-// kernel. The tensor-core kernels and the first CUDA-core kernel below are
-// compiled for P = kP = 15 (the default KPFCNConfig.num_kernel_points, every
-// preset's and YAML's): their register arrays and shared tiles are sized by it.
-// Any other P takes the any-P CUDA-core kernel (kpconv_any_p_kernel), which
-// reads P at run time.
+// kernel. The tuned kernels (the tensor-core kernels and the first CUDA-core
+// kernel below) are compiled for P = kP = 15 (the default
+// KPFCNConfig.num_kernel_points, every preset's and YAML's): their register
+// arrays and shared tiles are sized by it. Any other P reads P at run time:
+// the any-P tensor-core kernels (their shared steps at the end of this file)
+// at the tuned tensor-core kernels' shapes, the any-P CUDA-core kernel
+// (kpconv_any_p_kernel) at every other shape (the first layer, Cin = 1; the
+// 2D-3D level 0, K = 64; the narrow layers of the synthetic stories).
 //
 // The CUDA-core kernel at P = 15 (any other shape; on the main path only the
 // first layer, Cin = 1): one block per (pair, tile of TQ queries), reading its
@@ -299,7 +302,8 @@ cudaError_t launch_cuda_cores(const float* q_pts, Rows rows, const int32_t* inds
 // ---- the any-P CUDA-core kernel ----
 //
 // Every kernel-point count P >= 1, every influence and aggregation mode, any
-// K, Cin and Cout, through the same Rows as the kernel above (so the bf16
+// K, Cin and Cout (where the any-P tensor-core kernels do not take the shape),
+// through the same Rows as the kernel above (so the bf16
 // instance rounds where the JAX package's bf16 path rounds). P is a runtime
 // parameter: the kernel points, the influences [tq][K][P] and the
 // influence-weighted sums live in shared memory, not in registers. Cin is
@@ -531,5 +535,132 @@ cudaError_t launch_any_p(const float* q_pts, Rows rows, const int32_t* inds, con
 constexpr int kTQ = 32;                 // queries per block
 constexpr int kCC = 32;                 // channels per chunk: a warp's lanes
 constexpr int kKMax = 40;
+
+// ---- the any-P tensor-core kernels' shared steps ----
+//
+// kpconv.cu and kpconv_bf16.cu each have a tensor-core kernel for every
+// kernel-point count P but 15 at the tuned kernels' shapes (Cin % 32 == 0, K
+// <= 40, Cout in {64, 128, 256, 512}; f32 also Cin >= 64). Both run P in
+// chunks of kPC = 16 kernel points, the last chunk padded with zero
+// influences, and Cin in chunks of kXC = 16 channels. For each chunk of
+// points the block computes the influences of its 32 queries' neighbours,
+// [query][point][neighbour] in shared memory; for each chunk of channels each
+// warp builds the A rows of 4 queries on tensor cores, A_q[16 points x 16
+// channels] = infl_q^T[16 x K] X_q[K x 16] (kernel points on the 16 M rows of
+// the product, neighbours on its k), then every warp contracts the A chunk
+// with its columns of W on tensor cores, 32 x Cout accumulators in registers
+// across all chunks. The density count's feature sums come from the first
+// chunk of points' X fragments.
+constexpr int kPC = 16;  // kernel points a chunk: the A products' 16 rows
+constexpr int kXC = 16;  // channels a chunk
+constexpr size_t kTcSmemMax = 227 * 1024;  // shared memory a block may take
+
+// Which kernel a KPConv entry launched (*route): the tuned kernels (P = 15:
+// the tensor-core kernel or its CUDA-core kernel), the any-P tensor-core
+// kernel, or the any-P CUDA-core kernel.
+enum Route { kRouteTuned = 0, kRouteAnyPTensorCores = 1, kRouteAnyPCudaCores = 2 };
+
+// The influence of a kernel point at squared distance d2, the mode a runtime
+// value (the any-P tensor-core kernels are one instance for every mode).
+__device__ __forceinline__ float influence_rt(float d2, const Mode& mode, int kind) {
+  if (kind == kLinear) return influence_of<kLinear>(d2, mode);
+  if (kind == kConstant) return 1.f;
+  return influence_of<kGaussian>(d2, mode);
+}
+
+// Kernel points [P] as (x, y, z, |kp|^2) into shared memory.
+__device__ __forceinline__ void load_kernel_points_any(const float* kp, float4* kps, int P) {
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    const float a = kp[3 * p], c = kp[3 * p + 1], d = kp[3 * p + 2];
+    kps[p] = make_float4(a, c, d, kp_norm2(a, c, d));
+  }
+}
+
+// A neighbour's offset from its query: (x, y, z, |.|^2).
+template <class Rows>
+__device__ __forceinline__ float4 neighbour_offset(const float* q_pts, const Rows& rows, int b,
+                                                   int q, int nb, int Nq) {
+  const float* qp = q_pts + ((size_t)b * Nq + q) * 3;
+  float px, py, pz;
+  rows.pos(b, nb, px, py, pz);
+  const float rx = px - qp[0], ry = py - qp[1], rz = pz - qp[2];
+  return make_float4(rx, ry, rz, rx * rx + ry * ry + rz * rz);
+}
+
+// The block's neighbour table nbr [TQ][K] (-1: shadow row or out of range),
+// under "closest" each neighbour's nearest kernel point over all P (the first
+// of equal ones), and the feature sums zeroed.
+template <class Rows>
+__device__ void any_p_neighbours(const float* q_pts, const Rows& rows, const int32_t* inds,
+                                 const float4* kps, int P, int b, int q0, int Nq, int Ns, int K,
+                                 const Mode& mode, int* nbr, int* nearest, float* fsum) {
+  for (int s = threadIdx.x; s < kTQ * K; s += blockDim.x) {
+    const int qi = s / K, k = s - qi * K;
+    const int q = q0 + qi;
+    const int nb = q < Nq ? inds[((size_t)b * Nq + q) * K + k] : Ns;
+    const bool real = nb >= 0 && nb < Ns;
+    nbr[s] = real ? nb : -1;
+    fsum[s] = 0.f;
+    int near = 0;
+    if (mode.closest && real) {
+      const float4 r = neighbour_offset(q_pts, rows, b, q, nb, Nq);
+      float best = 0.f;
+      for (int p = 0; p < P; ++p) {
+        const float4 kq = kps[p];
+        const float d2 = kp_d2(r.x, r.y, r.z, r.w, kq.x, kq.y, kq.z, kq.w);
+        if (p == 0 || d2 < best) {
+          best = d2;
+          near = p;
+        }
+      }
+    }
+    nearest[s] = near;
+  }
+}
+
+// The influences of kernel points [pc0, pc0 + npc) on the block's neighbours,
+// infl[q][p][k] (row stride kst; k < kpad, zero past K, for missing
+// neighbours and for the chunk's pad points), rounded as Rows rounds them and
+// stored as T.
+template <class T, class Rows>
+__device__ void chunk_influences(T* infl, int kst, int kpad, const float* q_pts, const Rows& rows,
+                                 const float4* kps, const int* nbr, const int* nearest, int b,
+                                 int q0, int Nq, int K, int pc0, int npc, const Mode& mode,
+                                 int kind) {
+  for (int s = threadIdx.x; s < kTQ * kpad; s += blockDim.x) {
+    const int qi = s / kpad, k = s - qi * kpad;
+    const int nb = k < K ? nbr[qi * K + k] : -1;
+    float f[kPC];
+#pragma unroll
+    for (int p = 0; p < kPC; ++p) f[p] = 0.f;
+    if (nb >= 0) {
+      const float4 r = neighbour_offset(q_pts, rows, b, q0 + qi, nb, Nq);
+      const int near = nearest[qi * K + k];
+#pragma unroll
+      for (int p = 0; p < kPC; ++p) {
+        if (p >= npc) break;
+        const float4 kq = kps[pc0 + p];
+        const float d2 = kp_d2(r.x, r.y, r.z, r.w, kq.x, kq.y, kq.z, kq.w);
+        f[p] = mode.closest && pc0 + p != near ? 0.f : influence_rt(d2, mode, kind);
+      }
+    }
+    T* ip = infl + (size_t)qi * kPC * kst + k;
+#pragma unroll
+    for (int p = 0; p < kPC; ++p) ip[p * kst] = T(Rows::rounded(f[p]));
+  }
+}
+
+// The density count from the feature sums: a neighbour counts iff its
+// feature-sum is positive (the reference's quirk).
+__device__ __forceinline__ void any_p_counts(const int* nbr, const float* fsum, int K, int* cnt) {
+  if (threadIdx.x < kTQ) {
+    int n_pos = 0;
+    for (int k = 0; k < K; ++k) {
+      const int s = threadIdx.x * K + k;
+      n_pos += nbr[s] >= 0 && fsum[s] > 0.f;
+    }
+    cnt[threadIdx.x] = n_pos;
+  }
+}
 
 }  // namespace

@@ -28,9 +28,10 @@ recomputes ``masked_attention_bf16_plain`` and differentiates it, as
 The kernel takes every shape the Pallas kernel takes (any head width D, any
 B * H and S) in both dtypes: tuned instances padded to 64, 112 and 136 (f32)
 or 112 and 144 (bf16) where D is a multiple of 4 up to their width, and the
-any-D instance for the rest. Each wrapper counts its launches in
-``launches`` and, per instance ("64", "112", "136", "144" or "any"), in
-``instance_launches``.
+any-D route for the rest (tensor cores; heads too wide for its shared memory
+on CUDA cores). Each wrapper counts its launches in ``launches``, per
+instance ("64", "112", "136", "144" or "any") in ``instance_launches`` and
+the any-D route's per branch in ``any_d_branch_launches``.
 """
 from __future__ import annotations
 
@@ -78,13 +79,21 @@ def _check_inputs(name, q, k, v, kv_mask, dtype):
     return b, h, l, s, d
 
 
+# the any-D route's branches, by the code the C entry reports in ``route``
+ANY_D_BRANCHES = {0: "tensor_cores", 1: "cuda_cores"}
+
+
 def _count(wrapper, route):
     """One launch of ``wrapper``, counted in ``launches`` and, by the instance
-    the C entry reported (its padded width, or 0 for the any-D instance), in
-    ``instance_launches``."""
+    the C entry reported (its padded width, or "any" for the any-D route), in
+    ``instance_launches``; the any-D route's launches also by branch
+    (``ANY_D_BRANCHES``) in ``any_d_branch_launches``."""
     wrapper.launches += 1
-    key = str(route.value) if route.value else "any"
+    branch = ANY_D_BRANCHES.get(route.value)
+    key = "any" if branch else str(route.value)
     wrapper.instance_launches[key] = wrapper.instance_launches.get(key, 0) + 1
+    if branch:
+        wrapper.any_d_branch_launches[branch] = wrapper.any_d_branch_launches.get(branch, 0) + 1
 
 
 def masked_attention_cuda(q, k, v, kv_mask, scale):
@@ -101,6 +110,7 @@ def masked_attention_cuda(q, k, v, kv_mask, scale):
 
 masked_attention_cuda.launches = 0
 masked_attention_cuda.instance_launches = {}
+masked_attention_cuda.any_d_branch_launches = {}
 
 
 def masked_attention_cuda_bf16(q, k, v, kv_mask, scale):
@@ -119,6 +129,7 @@ def masked_attention_cuda_bf16(q, k, v, kv_mask, scale):
 
 masked_attention_cuda_bf16.launches = 0
 masked_attention_cuda_bf16.instance_launches = {}
+masked_attention_cuda_bf16.any_d_branch_launches = {}
 
 
 class MaskedAttentionFunction(torch.autograd.Function):

@@ -18,7 +18,9 @@ XLA, and no kernel of either package computes it.
 the hand-written kernel (``csrc/kpconv.cu``) or raises; a CPU tensor runs
 the plain version (the bf16 instance is ``csrc/kpconv_bf16.cu``, a library of
 its own). Both kernels take any kernel-point count P, as the Pallas kernel
-does: P = 15 runs their tuned instances, any other P their any-P kernel. On CUDA tensors the kernel runs inside ``KPConvFunction``,
+does: P = 15 runs their tuned instances, any other P their any-P
+tensor-core kernel at the tuned tensor-core kernels' shapes and their any-P
+CUDA-core kernel elsewhere. On CUDA tensors the kernel runs inside ``KPConvFunction``,
 whose backward recomputes the plain version at the saved inputs and
 differentiates it, as the JAX package's ``custom_vjp`` does
 (``ops/pallas/kpconv_kernel.py``): the gathered rows are rebuilt one layer at
@@ -224,19 +226,27 @@ def _mode_codes(kp_extent, influence, aggregation):
             gaussian_denominator(kp_extent))
 
 
-def _count(wrapper, influence, aggregation, n_points):
+# the kernel a C entry reports in its ``route`` (csrc/kpconv_common.cuh: Route)
+ROUTES = ("tuned", "any_p_tensor_cores", "any_p_cuda_cores")
+
+
+def _count(wrapper, influence, aggregation, n_points, route):
     wrapper.launches += 1
     key = f"{influence}/{aggregation}"
     wrapper.mode_launches[key] = wrapper.mode_launches.get(key, 0) + 1
     wrapper.point_launches[n_points] = wrapper.point_launches.get(n_points, 0) + 1
+    name = ROUTES[route.value]
+    wrapper.route_launches[name] = wrapper.route_launches.get(name, 0) + 1
 
 
 def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
                 influence="linear", aggregation="sum"):
     """Launch the Hopper KPConv kernel; same contract as ``kpconv``, at any
     kernel-point count P (``weights.shape[0]``). Counts its launches in
-    ``launches``, per "influence/aggregation" in ``mode_launches`` and per P
-    in ``point_launches``."""
+    ``launches``, per "influence/aggregation" in ``mode_launches``, per P in
+    ``point_launches`` and per kernel the C entry reports in
+    ``route_launches`` (``ROUTES``: the tuned kernels at P = 15, the any-P
+    tensor-core kernel, the any-P CUDA-core kernel)."""
     tensors = {"q_pts": q_pts, "s_pts": s_pts, "x": x,
                "kernel_points": kernel_points, "weights": weights}
     for name, t in tensors.items():
@@ -255,17 +265,19 @@ def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
                          f"{kernel_points.shape} {weights.shape}")
     lib = _library("kpconv")
     out = torch.empty((b, nq, cout), device=x.device, dtype=torch.float32)
+    route = ctypes.c_int(-1)
     launch(lib, "kpconv_forward", x.device, q_pts.data_ptr(), s_pts.data_ptr(),
            neighb_inds.data_ptr(), x.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
            out.data_ptr(), b, nq, ns, k, cin, cout, p,
-           *_mode_codes(kp_extent, influence, aggregation))
-    _count(kpconv_cuda, influence, aggregation, p)
+           *_mode_codes(kp_extent, influence, aggregation), ctypes.byref(route))
+    _count(kpconv_cuda, influence, aggregation, p, route)
     return out
 
 
 kpconv_cuda.launches = 0
 kpconv_cuda.mode_launches = {}
 kpconv_cuda.point_launches = {}
+kpconv_cuda.route_launches = {}
 
 
 def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_extent,
@@ -290,17 +302,19 @@ def kpconv_cuda_bf16(q_pts, table, neighb_inds, kernel_points, weights, kp_exten
                          f"{kernel_points.shape} {weights.shape}")
     lib = _library("kpconv_bf16")
     out = torch.empty((b, nq, cout), device=table.device, dtype=torch.float32)
+    route = ctypes.c_int(-1)
     launch(lib, "kpconv_forward_bf16", table.device, q_pts.data_ptr(), table.data_ptr(),
            neighb_inds.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
            out.data_ptr(), b, nq, ns, k, cin, cout, p,
-           *_mode_codes(kp_extent, influence, aggregation))
-    _count(kpconv_cuda_bf16, influence, aggregation, p)
+           *_mode_codes(kp_extent, influence, aggregation), ctypes.byref(route))
+    _count(kpconv_cuda_bf16, influence, aggregation, p, route)
     return out
 
 
 kpconv_cuda_bf16.launches = 0
 kpconv_cuda_bf16.mode_launches = {}
 kpconv_cuda_bf16.point_launches = {}
+kpconv_cuda_bf16.route_launches = {}
 
 
 class KPConvFunction(torch.autograd.Function):
@@ -353,7 +367,8 @@ def _library(name):
     if entry.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         modes = [ctypes.c_float, ci, ci, ctypes.c_float]   # extent, influence, closest, den
-        entry.argtypes = [vp] * (7 if name == "kpconv" else 6) + [ci] * 7 + modes + [vp]
+        entry.argtypes = ([vp] * (7 if name == "kpconv" else 6) + [ci] * 7 + modes
+                          + [ctypes.POINTER(ci), vp])      # route (int *), stream
         entry.restype = ci
     return lib
 

@@ -56,8 +56,12 @@ from diffreg_tpu_torch.ops.attention import (masked_attention, masked_attention_
 from diffreg_tpu_torch.ops.kernel_points import load_kernel_points
 
 T = torch.from_numpy
-KERNEL_POINTS = (1, 7, 16, 17, 24)
-HEAD_WIDTHS = (6, 54, 66, 216, 528)
+# 16, 17, 32 and 33 lie on each side of the any-P tensor-core kernels' chunks
+# of 16 kernel points; 128/129 and 256/257 on each side of the any-D route's
+# 128-column slices (one, two, three), 137 and 144/145 past the tuned
+# attention instances' widest (f32 136, bf16 144)
+KERNEL_POINTS = (1, 7, 16, 17, 24, 32, 33)
+HEAD_WIDTHS = (6, 54, 66, 128, 129, 137, 144, 145, 216, 256, 257, 528)
 EXTENT = 0.05
 B, N_POINTS, TRAIN_KEY, X_SEED = 2, 96, 1, 0
 TINY_POINTS = 7
@@ -144,7 +148,7 @@ def _attention_inputs(rng, d, b=2, h=2, length=16, keys=56):
 
 @pytest.mark.parametrize("d", HEAD_WIDTHS)
 def test_attention_at_any_head_width(rng, d):
-    """The plain attention (the any-D instance's reference on the card)
+    """The plain attention (the any-D route's reference on the card)
     against the Pallas kernel in interpret mode, over several key tiles."""
     q, k, v, mask, scale = _attention_inputs(rng, d)
     ref = np.asarray(masked_attention_pallas(*map(jnp.asarray, (q, k, v, mask)), q_tile=8,

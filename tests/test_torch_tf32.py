@@ -9,9 +9,11 @@ lo = a - hi, and take a.b as hi.hi + hi.lo + lo.hi with f32 sums
 split is emulated in plain PyTorch (products of TF32 values are exact in f32,
 so an f32 matmul of the parts is the tensor core's product) and held against
 the JAX package's f32 results, at the main path's per-row sizes: the
-attention's D = 108 and S = 704, and KPConv's P * Cin = 15 * 512 = 7680.
-3xTF32 stays well inside ``chip_smoke.py``'s tolerances; a single TF32
-product does not, which is why the kernels split.
+attention's D = 108 and S = 704, and KPConv's P * Cin = 15 * 512 = 7680;
+and at the any-D and any-P routes': D = 54, 216 and 528 (configurations C and
+W, the 4DMatch CLI's one head), P * Cin = 24 * 512 and 64 * 512. 3xTF32 stays
+well inside ``chip_smoke.py``'s tolerances; a single TF32 product does not,
+which is why the kernels split.
 """
 import importlib
 
@@ -85,11 +87,15 @@ def _attention(q, k, v, kv_mask, scale, matmul):
     return matmul(torch.softmax(logits, dim=-1), v)
 
 
-@pytest.mark.parametrize("n_valid", [704, 523])
-def test_attention_3xtf32_inside_budget(n_valid):
-    """Against the Pallas kernel in interpret mode, [1, 2, 704, 108]."""
+@pytest.mark.parametrize("n_valid,d", [pytest.param(704, 108, id="704"),
+                                       pytest.param(523, 108, id="523"),
+                                       pytest.param(704, 54, id="704-d54"),
+                                       pytest.param(523, 216, id="523-d216"),
+                                       pytest.param(704, 528, id="704-d528")])
+def test_attention_3xtf32_inside_budget(n_valid, d):
+    """Against the Pallas kernel in interpret mode, [1, 2, 704, d]."""
     rng = np.random.RandomState(n_valid)
-    b, h, length, d = 1, 2, 704, 108
+    b, h, length = 1, 2, 704
     q, k, v = (rng.randn(b, h, length, d).astype(np.float32) for _ in range(3))
     kv_mask = np.zeros((b, length), bool)
     kv_mask[:, :n_valid] = True
@@ -103,7 +109,8 @@ def test_attention_3xtf32_inside_budget(n_valid):
     assert err1 > ATTENTION_ABS_TOL, err1
 
 
-def test_kpconv_3xtf32_inside_budget():
+@pytest.mark.parametrize("n_points", [15, 24, 64])
+def test_kpconv_3xtf32_inside_budget(n_points):
     """The [P Cin] x Cout contraction at Cin = Cout = 512 against the JAX
     package's f32 KPConv (its XLA path)."""
     rng = np.random.RandomState(0)
@@ -113,14 +120,14 @@ def test_kpconv_3xtf32_inside_budget():
     idx = rng.randint(0, ns, (b, nq, k)).astype(np.int32)
     idx[rng.rand(b, nq, k) < 0.2] = ns                     # sentinel shadow rows
     x = np.maximum(rng.randn(b, ns, cin), 0.0).astype(np.float32)
-    kp = load_kernel_points(0.1)
-    w = (rng.randn(15, cin, cout) * 0.05).astype(np.float32)
+    kp = load_kernel_points(0.1, n_points)
+    w = (rng.randn(n_points, cin, cout) * 0.05).astype(np.float32)
     extent = 0.08
     ref = np.asarray(jax_kpconv.kpconv_batched(*map(jnp.asarray, (q, s, idx, x, kp, w)), extent,
                                                use_pallas=False))
     weighted, count = kpconv_aggregate(*map(torch.from_numpy, (q, s, idx, x, kp)), extent)
-    a = weighted.reshape(b * nq, 15 * cin)
-    wm = torch.from_numpy(w).reshape(15 * cin, cout)
+    a = weighted.reshape(b * nq, n_points * cin)
+    wm = torch.from_numpy(w).reshape(n_points * cin, cout)
     scale = np.abs(ref).max()
 
     def rel_err(matmul):
