@@ -3,8 +3,10 @@ and training (f32 and bf16), its 4DMatch registration and bf16 training, its
 2D-3D registration and training
 (with and without the DINOv2 / DepthAnything towers), its CLI, the 3D,
 2D-3D and 4DMatch synthetic training stories' trained weights, its
-data-parallel train step, two model variants and the kernels' whole shape
-range (any kernel-point count, any head width) on one CUDA card.
+data-parallel train step, two model variants, the kernels' whole shape
+range (any kernel-point count, any head width) and the library surface
+(neighbours, sampling, point features, consistency, deformation, EPro-PnP,
+rendering) on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -251,7 +253,27 @@ In order, it
      counted by route (KPConv by kernel-point count and kernel, attention by
      instance and any-D branch), C's ten wide KPConv layers and C's and W's
      attention asserted on the tensor-core routes;
- 24. prints the kernels' JSON line, and as its last line
+ 24. the library surface (``run_library``, no CUDA kernel: plain PyTorch on
+     the card, each part held against the same call on the CPU on the same
+     inputs and draws, and timed on both): (a) radius_neighbors and knn on the
+     3DMatch phase's level 0 of pair 0 and on the 2D-3D phase's (30,000
+     points, K 64), indices identical but for ties or straddles of the radius
+     within rounding, the differences from the native C++ search counted;
+     (b) farthest_point_sampling of 1,024 of those 30,000 points, indices
+     identical; (c) estimate_normals (k 50), build_local_reference_frame and
+     local_ppf on a 4,096-point cloud; (d) spatial_consistency and
+     leading_eigenvector on phase 4's pair-0 correspondences; (e) the
+     deformation graph of phase 9's pair-0 source (host C++), then
+     non_rigid_icp_gauss_newton (5 iterations) and non_rigid_icp_adam (500)
+     from correspondences under its GT flow, the warped source's mean error
+     printed; (f) EPro-PnP's monte_carlo_forward, 4 and 6 DoF, 512 samples in
+     4 iterations on 4 pairs of 4,096 correspondences from the 2D-3D clouds
+     and cameras under a known pose with 10% outliers, the pose held against
+     it (PNP_POSE_TOL); (g) sample_pdf and volume_render on 4,096 rays of 64
+     bins, batch_to_pack and pack_to_batch on the 2D-3D node batch; at most
+     60 s (``python3 chip_smoke.py --library`` runs this phase alone, on
+     inputs it makes itself);
+ 25. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
@@ -619,6 +641,78 @@ SHAPE_CONFIGS = {"C": {"kpfcn_config": {"num_kernel_points": 24},
                        "coarse_transformer": {"n_head": 8}},
                  "W": {"coarse_transformer": {"n_head": 2}}}
 VARIANT_CONF_REL_TOL.update(C=1e-5, W=1e-5)
+# Phase 24, the library surface (no CUDA kernel: plain PyTorch on the card,
+# each part held against the same function on the CPU on the same inputs and
+# draws). Elementwise parts at the CPU tests' limits (tests/test_torch_*_lib.py),
+# of the largest entry of the CPU's result: LIB_REL. Where the computation
+# itself amplifies f32 rounding (the LRF's x axis, which normalises a sum that
+# can nearly cancel; the spatial consistency's a^2 - 2ab + b^2 distances) the
+# card must be as near a float64 run as the CPU is, within LIB_F64_FACTOR
+# (``held_against_f64``). The PCA normals point by point: each device runs its own 3x3 eigh (cuSOLVER,
+# LAPACK), whose eigenvector is right to f32 epsilon over the covariance's
+# relative eigengap (lambda_2 - lambda_1) / lambda_3, which the blobby cloud
+# takes near 0 at a few points (its least value printed): each point held at
+# LIB_NORMAL_GAP_FACTOR times 2^-24 over its gap, plus LIB_REL.
+# The k-nearest picks of the features use the matmul-form distance, so a row
+# whose picks the two devices' rounding moves (at the cut or in their order)
+# must be a near-tie and is left out of the checks (counted). The neighbour searches use the
+# exact sum of squares: their indices must be identical, any difference
+# explained by a tie or a straddle of the radius within rounding (counted).
+# The CPU repeats the first LIB_CPU_ROWS query rows of the 30,000-point
+# searches (all of the others).
+LIB_REL = 1e-6
+LIB_NORMAL_GAP_FACTOR = 8.0
+LIB_F64_FACTOR = 4.0
+LIB_CPU_ROWS = 4096
+LIB_FPS_SAMPLES = 1024
+LIB_NORMAL_K = 50
+LIB_LRF_K = 32
+# 4DMatch source cloud's deformation graph: FPS nodes LIB_NODE_COVERAGE apart
+# (176 nodes on phase 9's pair 0), geodesic adjacency within LIB_GRAPH_DISTANCE,
+# 8 neighbours a node, 4 anchors a point; LIB_CORR correspondences under the
+# GT flow (source point -> source point + flow)
+LIB_NODE_COVERAGE = 0.05
+LIB_GRAPH_DISTANCE = 0.03
+LIB_CORR = 1024
+# EPro-PnP: 4,096 correspondences a pair of the 2D-3D phase's clouds and
+# cameras, projected under a known pose, LIB_PNP_OUTLIERS of them moved to
+# random pixels; 512 samples in 4 AMIS iterations, batch 4, 4 and 6 DoF
+LIB_PNP_POINTS = 4096
+LIB_PNP_OUTLIERS = 0.1
+# the Huber cost's delta, px: each outlier's pull on the pose is bounded by
+# delta, so the bias they leave grows with it; the adaptive delta (half the
+# 2D points' spread, ~100 px here) leaves the cost quadratic for most
+# outliers and the pose far outside PNP_POSE_TOL
+LIB_PNP_DELTA = 0.5
+# the weights w2d, each axis of each point alike: a softmax over the 4,096
+# points times a global scale of 64 (EPro-PnP's networks normalise their
+# weights so), which keeps the pose posterior as wide as the proposals can
+# hold in f32: at w2d = 1 the pose covariance is ~1e-8, the rotation
+# proposal's determinant rounds below 0 and its factorization falls back to
+# the default on one device and not the other. The delta applies to weighted
+# residuals: scaled alike
+LIB_PNP_WEIGHT = 64.0 / LIB_PNP_POINTS
+LIB_MC = dict(mc_samples=512, num_iter=4)
+LIB_RAYS, LIB_BINS = 4096, 64
+# Iterative solvers, card against CPU, of the largest entry (measured on the
+# H100 in two runs of this phase, the limits set from them with their reasons):
+# Gauss-Newton 6.6e-7 both times: f32 dense solves on Jacobians whose sums each
+# device orders its own way; held at 1e-5
+LIB_GN_REL = 1e-5
+# Adam 2.8e-3 and 4.3e-3: its steps g / sqrt(nu) carry a gradient's rounding
+# at full size where the gradient is small, and the card's atomic adds (the
+# gathers' backward) change that rounding from run to run; held at 2e-2
+LIB_ADAM_REL = 2e-2
+# EPro-PnP's pose_opt 2.5e-6 (4 DoF) and 6.5e-6 (6 DoF): the LM's f32 solves;
+# held at 1e-4
+LIB_MC_POSE_REL = 1e-4
+# Its log-weights and the posterior mean they give: card against CPU 1.4e-4
+# and 1.1e-6 at 4 DoF, but 1.7e-2 and 5.6e-3 at 6 DoF, whose proposals are
+# fitted to an inverse of J^T J that each device rounds its own way and whose
+# importance weights rest on a few samples (effective sample size 2-17 of
+# 512, costs to ~7e3 in the tails). So both are held against a float64 run on
+# the same float32 draws, beside the CPU's own f32 distance from it
+# (``held_against_f64``).
 
 
 def log(msg: str) -> None:
@@ -3375,7 +3469,8 @@ def run_dino_phase(repo, split_root, kernels, launches, gen):
 def run_2d3d_phases(repo, kernels, launches, gen):
     """Phases 12-17: the kernels at the 2D-3D shapes, the 2D-3D path, pair 0 on
     the CPU, PnP, the CLI on the 2D-3D configs, 2D-3D training, and the
-    published model with its towers."""
+    published model with its towers. Returns the split's batch (CPU tensors)
+    and spec for phase 24."""
     import tempfile
 
     from diffreg_tpu_torch.main import pipeline_2d3d_config
@@ -3429,6 +3524,7 @@ def run_2d3d_phases(repo, kernels, launches, gen):
 
         # ---- 17. the published model: the towers, rgbdv2_dino.yaml's path, the CLI ----
         run_dino_phase(repo, split_root, kernels, launches, gen)
+    return batch_cpu, spec
 
 
 # ---------------------------------------------------------------- the synthetic training story
@@ -5059,6 +5155,599 @@ def run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
     return entries
 
 
+# ---------------------------------------------------------------- the library surface (phase 24)
+
+
+def rel_err(got, ref):
+    """max |got - ref| over max |ref| (CPU tensors or arrays)."""
+    import numpy as np
+
+    got = np.asarray(got.detach().cpu() if hasattr(got, "detach") else got, np.float64)
+    ref = np.asarray(ref.detach().cpu() if hasattr(ref, "detach") else ref, np.float64)
+    if got.shape != ref.shape:
+        raise AssertionError(f"shapes {got.shape} and {ref.shape}")
+    return float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+
+
+def held(name, err, limit, record):
+    record[name] = err
+    if limit is not None and not err <= limit:
+        raise AssertionError(f"library {name}: {err:.3e} of the largest entry, limit {limit:.0e}")
+
+
+class Float32Draws:
+    """A draw source giving a float64 run the float32 draws of ``draws``."""
+
+    def __init__(self, draws):
+        self.draws = draws
+
+    def split(self, num=2):
+        return [self] * num
+
+    def fold_in(self, data):
+        return self
+
+    def uniform(self, shape, dtype, minval=0.0, maxval=1.0):
+        import torch
+
+        return self.draws.uniform(shape, torch.float32, minval, maxval).to(dtype)
+
+    def normal(self, shape, dtype):
+        import torch
+
+        return self.draws.normal(shape, torch.float32).to(dtype)
+
+    def gamma(self, alpha, shape, dtype):
+        import torch
+
+        return self.draws.gamma(alpha, shape, torch.float32).to(dtype)
+
+    def gumbel(self, shape, dtype):
+        import torch
+
+        return self.draws.gumbel(shape, torch.float32).to(dtype)
+
+
+def held_against_f64(name, card, cpu, exact, record):
+    """The card's f32 result no further from a float64 run than
+    LIB_F64_FACTOR times the CPU's f32 result is, plus LIB_REL of the largest
+    entry: for outputs whose f32 rounding the computation itself amplifies."""
+    import torch
+
+    scale = float(exact.abs().max())
+    e_card = float((card.double() - exact).abs().max())
+    e_cpu = float((cpu.double() - exact).abs().max())
+    record[name] = {"card_vs_f64": e_card / scale, "cpu_vs_f64": e_cpu / scale}
+    if not e_card <= LIB_F64_FACTOR * e_cpu + LIB_REL * scale:
+        raise AssertionError(f"library {name}: the card {e_card / scale:.3e} from float64, the "
+                             f"CPU {e_cpu / scale:.3e}")
+
+
+def timed_pair(fn_card, fn_cpu, iters=3):
+    """(card result, card ms a call, CPU result, CPU ms)."""
+    out = fn_card()
+    ms = time_cuda(fn_card, iters, warmup=0)
+    t0 = time.perf_counter()
+    ref = fn_cpu()
+    return out, ms, ref, (time.perf_counter() - t0) * 1e3
+
+
+def neighbour_differences(card, cpu, pts, radius):
+    """Entries where the card's and the CPU's neighbour indices differ, and how
+    many of them a tie (equal distances within rounding) or a straddle of the
+    radius (one side the sentinel, the other's distance at r^2 within
+    rounding) explains. ``card``/``cpu`` [R, K] over supports ``pts``."""
+    import torch
+
+    diff = card != cpu
+    n = int(diff.sum())
+    if n == 0:
+        return 0, 0
+    ns = pts.shape[0]
+    rows = torch.nonzero(diff)[:, 0]
+    a, b = card[diff].long(), cpu[diff].long()
+    q = pts[rows]
+    sq = lambda i: torch.where(i < ns, ((pts[i.clamp(max=ns - 1)] - q) ** 2).sum(-1),
+                               torch.full_like(q[:, 0], float("inf")))
+    da, db = sq(a), sq(b)
+    r2 = float(radius) ** 2
+    finite = lambda d: torch.where(torch.isfinite(d), d, torch.zeros_like(d))
+    tol = 4 * 2.0 ** -23 * torch.clamp(torch.maximum(finite(da), finite(db)),
+                                       min=r2 if math.isfinite(r2) else 0.0)
+    tie = (da - db).abs() <= tol
+    straddle = ((a >= ns) & ((db - r2).abs() <= tol)) | ((b >= ns) & ((da - r2).abs() <= tol))
+    return n, int((tie | straddle).sum())
+
+
+def lib_neighbours(name, pts, valid, radius, k, record):
+    """(a) radius_neighbors and knn on one padded level, card against CPU (the
+    first LIB_CPU_ROWS query rows) and against the native C++ search."""
+    import numpy as np
+    import torch
+
+    from diffreg_tpu_torch.data.native import radius_neighbors_native
+    from diffreg_tpu_torch.ops.neighbors import knn, radius_neighbors
+
+    rows = min(LIB_CPU_ROWS, pts.shape[0])
+    pc, vc = pts.cuda(), valid.cuda()
+    card, ms, cpu, cpu_ms = timed_pair(
+        lambda: radius_neighbors(pc, vc, pc, vc, radius, k),
+        lambda: radius_neighbors(pts[:rows], valid[:rows], pts, valid, radius, k))
+    card = card.cpu()
+    n_diff, n_explained = neighbour_differences(card[:rows], cpu, pts, radius)
+    if n_diff != n_explained:
+        raise AssertionError(f"library {name} radius_neighbors: {n_diff - n_explained} of "
+                             f"{n_diff} differing entries card vs CPU are not ties")
+    n_real = int(valid.sum())
+    real = pts[:n_real].numpy()
+    t0 = time.perf_counter()
+    native = radius_neighbors_native(real, real, radius, k)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    native = torch.from_numpy(np.where(native >= n_real, pts.shape[0], native))
+    nat_diff, nat_explained = neighbour_differences(card[:n_real], native, pts, radius)
+    same_sets = sum(set(a.tolist()) == set(b.tolist())
+                    for a, b in zip(card[:n_real], native))
+    (kidx, kdist), kms, (kidx_cpu, kdist_cpu), kcpu_ms = timed_pair(
+        lambda: knn(pc, vc, pc, vc, k),
+        lambda: knn(pts[:rows], valid[:rows], pts, valid, k))
+    k_diff, k_explained = neighbour_differences(kidx.cpu()[:rows], kidx_cpu, pts, float("inf"))
+    if k_diff != k_explained:
+        raise AssertionError(f"library {name} knn: {k_diff - k_explained} differing entries "
+                             f"card vs CPU are not ties")
+    held(f"{name}_knn_distances", rel_err(kdist.cpu()[:rows], kdist_cpu), LIB_REL, record)
+    log(f"library {name}: radius_neighbors [{pts.shape[0]} x {pts.shape[0]}] K {k} r {radius}: "
+        f"card {ms:.3f} ms, CPU {cpu_ms:.1f} ms ({rows} rows), native C++ {native_ms:.1f} ms; "
+        f"card vs CPU {n_diff} entries differ ({n_explained} ties/straddles); card vs native "
+        f"{nat_diff} entries differ ({nat_explained} ties/straddles), "
+        f"{n_real - same_sets} of {n_real} rows hold another set; knn card {kms:.3f} ms, CPU "
+        f"{kcpu_ms:.1f} ms, {k_diff} entries differ ({k_explained} ties)")
+    record[f"{name}_ms"] = {"radius_neighbors": ms, "radius_neighbors_cpu": cpu_ms,
+                            "native": native_ms, "knn": kms, "knn_cpu": kcpu_ms}
+    record[f"{name}_differences"] = {"cpu": n_diff, "native": nat_diff,
+                                     "native_rows_other_set": n_real - same_sets, "knn": k_diff}
+
+
+def knn_tie_rows(pts, k, card_idx, cpu_idx):
+    """Rows whose k nearest (in order) differ card vs CPU; at every position
+    where they differ the two picks must lie at the same matmul-form distance
+    within rounding (a near-tie at the cut or inside the set)."""
+    import torch
+
+    from diffreg_tpu_torch.ops.vision import pairwise_distance
+
+    rows = (card_idx != cpu_idx).any(-1)
+    if rows.any():
+        d2 = pairwise_distance(pts[rows], pts, squared=True)
+        gap = (torch.gather(d2, 1, card_idx[rows].long())
+               - torch.gather(d2, 1, cpu_idx[rows].long())).abs()
+        scale = float((pts ** 2).sum(-1).max())
+        if not bool((gap <= 16 * 2.0 ** -23 * scale).all()):
+            raise AssertionError(f"library features: a k-nearest pick differs card vs CPU "
+                                 f"beyond rounding (gap {float(gap.max()):.3e})")
+    return rows
+
+
+def lib_features(cloud, record):
+    """(c) estimate_normals, build_local_reference_frame and local_ppf on one
+    cloud, card against CPU; the LRF and PPF take the CPU's normals on both."""
+    import torch
+
+    from diffreg_tpu_torch.ops.features import (build_local_reference_frame,
+                                                estimate_normals, local_ppf)
+    from diffreg_tpu_torch.ops.topk import stable_top_k
+    from diffreg_tpu_torch.ops.vision import pairwise_distance
+
+    cc = cloud.cuda()
+    nrm, ms, nrm_cpu, cpu_ms = timed_pair(lambda: estimate_normals(cc, k=LIB_NORMAL_K),
+                                          lambda: estimate_normals(cloud, k=LIB_NORMAL_K))
+    knn_of = lambda p, k: stable_top_k(-pairwise_distance(p, p, squared=True), k)[1]
+    cut_rows = knn_tie_rows(cloud, LIB_NORMAL_K, knn_of(cc, LIB_NORMAL_K).cpu(),
+                            knn_of(cloud, LIB_NORMAL_K))
+    keep = ~cut_rows
+    idx = knn_of(cloud, LIB_NORMAL_K)
+    off = cloud[idx] - cloud[idx].mean(dim=1, keepdim=True)
+    ev = torch.linalg.eigvalsh(torch.einsum("nki,nkj->nij", off, off).double())
+    bound = LIB_NORMAL_GAP_FACTOR * 2.0 ** -24 * ev[:, 2] / (ev[:, 1] - ev[:, 0]) + LIB_REL
+    ratio = ((nrm.cpu() - nrm_cpu).abs().amax(-1).double() / bound)[keep]
+    record["normals"] = rel_err(nrm.cpu()[keep], nrm_cpu[keep])
+    record["normals_over_gap_bound"] = float(ratio.max())
+    record["normals_least_rel_gap"] = float(((ev[:, 1] - ev[:, 0]) / ev[:, 2]).min())
+    if not float(ratio.max()) <= 1.0:
+        raise AssertionError(f"library normals: {float(ratio.max()):.2f} times the eigengap "
+                             f"bound")
+    nc = nrm_cpu.cuda()
+    lrf, lrf_ms, lrf_cpu, lrf_cpu_ms = timed_pair(
+        lambda: build_local_reference_frame(cc[None], nc[None], LIB_LRF_K, True),
+        lambda: build_local_reference_frame(cloud[None], nrm_cpu[None], LIB_LRF_K, True))
+    lrf_rows = knn_tie_rows(cloud, LIB_LRF_K, knn_of(cc, LIB_LRF_K).cpu(),
+                            knn_of(cloud, LIB_LRF_K))
+    # the frame's x axis normalises a weighted sum of in-plane offsets that can
+    # nearly cancel, so its f32 rounding is not one ulp of the output: the card
+    # is held against a float64 run beside the CPU's own f32 distance from it
+    lrf64 = build_local_reference_frame(cloud.double()[None], nrm_cpu.double()[None], LIB_LRF_K,
+                                        True)
+    lrf_rows |= (knn_of(cloud.double(), LIB_LRF_K) != knn_of(cloud, LIB_LRF_K)).any(-1)
+    for got, ref, exact, part in zip(lrf, lrf_cpu, lrf64, ("x", "y", "z", "lrf")):
+        keep_rows = ~lrf_rows
+        held_against_f64(f"lrf_{part}", got.cpu()[0][keep_rows], ref[0][keep_rows],
+                         exact[0][keep_rows], record)
+    idx = knn_of(cloud, LIB_LRF_K)[None]
+    ppf, ppf_ms, ppf_cpu, ppf_cpu_ms = timed_pair(
+        lambda: local_ppf(cc[None], cc[None], nc[None], nc[None], idx.cuda()),
+        lambda: local_ppf(cloud[None], cloud[None], nrm_cpu[None], nrm_cpu[None], idx))
+    held("local_ppf", rel_err(ppf, ppf_cpu), LIB_REL, record)
+    log(f"library features on {cloud.shape[0]} points: estimate_normals (k {LIB_NORMAL_K}) card "
+        f"{ms:.3f} ms, CPU {cpu_ms:.1f} ms, {int(cut_rows.sum())} rows at a near-tie pick left "
+        f"out; LRF (k {LIB_LRF_K}) card {lrf_ms:.3f} ms, CPU {lrf_cpu_ms:.1f} ms, "
+        f"{int(lrf_rows.sum())} near-tie rows; local_ppf card {ppf_ms:.3f} ms, CPU "
+        f"{ppf_cpu_ms:.1f} ms; max rel err normals {record['normals']:.2e} "
+        f"({record['normals_over_gap_bound']:.3f} of the eigengap bound; least relative gap "
+        f"{record['normals_least_rel_gap']:.2e}), LRF x axis from float64: card "
+        f"{record['lrf_x']['card_vs_f64']:.2e}, CPU {record['lrf_x']['cpu_vs_f64']:.2e}; PPF "
+        f"{record['local_ppf']:.2e}")
+    record["features_ms"] = {"normals": ms, "normals_cpu": cpu_ms, "lrf": lrf_ms,
+                             "lrf_cpu": lrf_cpu_ms, "ppf": ppf_ms, "ppf_cpu": ppf_cpu_ms}
+
+
+def lib_consistency(src, tgt, record):
+    """(d) spatial_consistency and leading_eigenvector on pair 0's
+    correspondences."""
+    from diffreg_tpu_torch.ops.consistency import leading_eigenvector, spatial_consistency
+
+    sc, ms, sc_cpu, cpu_ms = timed_pair(lambda: spatial_consistency(src.cuda(), tgt.cuda(), 0.1),
+                                        lambda: spatial_consistency(src, tgt, 0.1))
+    # the a^2 - 2ab + b^2 distances cancel for near points, where each device's
+    # matmul order moves the square root by up to sqrt(ulp(|p|^2)): the card is
+    # held against a float64 run beside the CPU
+    held_against_f64("spatial_consistency", sc.cpu(), sc_cpu,
+                     spatial_consistency(src.double(), tgt.double(), 0.1), record)
+    m = sc_cpu.cuda()
+    ev, ev_ms, ev_cpu, ev_cpu_ms = timed_pair(lambda: leading_eigenvector(m),
+                                              lambda: leading_eigenvector(sc_cpu))
+    held("leading_eigenvector", rel_err(ev, ev_cpu), LIB_REL, record)
+    log(f"library consistency on {src.shape[0]} correspondences: spatial_consistency card "
+        f"{ms:.3f} ms, CPU {cpu_ms:.1f} ms (from float64: card "
+        f"{record['spatial_consistency']['card_vs_f64']:.2e}, CPU "
+        f"{record['spatial_consistency']['cpu_vs_f64']:.2e}); "
+        f"leading_eigenvector card {ev_ms:.3f} ms, CPU {ev_cpu_ms:.1f} ms (rel err "
+        f"{record['leading_eigenvector']:.2e})")
+    record["consistency_ms"] = {"spatial_consistency": ms, "spatial_consistency_cpu": cpu_ms,
+                                "leading_eigenvector": ev_ms, "leading_eigenvector_cpu": ev_cpu_ms}
+
+
+def lib_deformation(src, flow, record):
+    """(e) the deformation graph of the 4DMatch source cloud (host C++), then
+    Gauss-Newton (5 iterations) and Adam (500) from correspondences under the
+    GT flow, card against CPU; the warped source's mean error to src + flow."""
+    import numpy as np
+    import torch
+
+    from diffreg_tpu_torch.data.graph import (build_deformation_graph_from_point_cloud,
+                                              sample_nodes_with_fps)
+    from diffreg_tpu_torch.geometry.deformation import (apply_embedded_deformation,
+                                                        non_rigid_icp_adam,
+                                                        non_rigid_icp_gauss_newton)
+
+    t0 = time.perf_counter()
+    node_idx = sample_nodes_with_fps(src, LIB_NODE_COVERAGE)
+    nbr, _, nbr_w, anc, _, anc_w = build_deformation_graph_from_point_cloud(
+        src, node_idx, 8, 4, LIB_GRAPH_DISTANCE, LIB_NODE_COVERAGE)
+    graph_ms = (time.perf_counter() - t0) * 1e3
+    ok = nbr >= 0
+    edges = np.stack([np.nonzero(ok)[0], nbr[ok]], 1).astype(np.int64)
+    edge_w = nbr_w[ok].astype(np.float32)
+    anchored = np.nonzero(anc[:, 0] >= 0)[0]
+    pick = anchored[np.random.RandomState(3).permutation(len(anchored))[:LIB_CORR]]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    nodes, tgt_all = t(src[node_idx]), t(src + flow)
+    inputs = (nodes, t(src[pick]), t((src + flow)[pick]), t(anc[pick]), t(anc_w[pick]),
+              t(edges), t(edge_w))
+    solvers = {"gauss_newton": (lambda a: non_rigid_icp_gauss_newton(*a[:6], edge_weights=a[6]),
+                                LIB_GN_REL),
+               "adam": (lambda a: non_rigid_icp_adam(*a, num_iterations=500), LIB_ADAM_REL)}
+    card_inputs = [x.cuda() for x in inputs]
+    out = {}
+    for solver, (fn, limit) in solvers.items():
+        (rot, trn), ms, (rot_c, trn_c), cpu_ms = timed_pair(lambda: fn(card_inputs),
+                                                            lambda: fn(inputs), iters=1)
+        err = max(rel_err(rot, rot_c), rel_err(trn, trn_c))
+        held(solver, err, limit, record)
+        warped = apply_embedded_deformation(t(src), nodes, rot.cpu(), trn.cpu(), t(anc), t(anc_w))
+        real = torch.from_numpy(anc[:, 0] >= 0)
+        mean_err = float((warped - tgt_all).norm(dim=-1)[real].mean())
+        out[solver] = {"ms": ms, "cpu_ms": cpu_ms, "rel_err": err, "mean_error": mean_err}
+    flow_mean = float(np.linalg.norm(flow, axis=1).mean())
+    log(f"library deformation: graph of {len(src)} points, {len(node_idx)} nodes, "
+        f"{len(edges)} edges in {graph_ms:.1f} ms (host C++); {len(pick)} correspondences under "
+        f"the GT flow (mean |flow| {flow_mean:.4f}); Gauss-Newton 5 iterations card "
+        f"{out['gauss_newton']['ms']:.1f} ms, CPU {out['gauss_newton']['cpu_ms']:.1f} ms, "
+        f"card vs CPU {out['gauss_newton']['rel_err']:.2e}, warped source mean error "
+        f"{out['gauss_newton']['mean_error']:.4f}; Adam 500 steps card "
+        f"{out['adam']['ms']:.1f} ms, CPU {out['adam']['cpu_ms']:.1f} ms, card vs CPU "
+        f"{out['adam']['rel_err']:.2e}, warped source mean error {out['adam']['mean_error']:.4f}")
+    for solver in out:
+        if not out[solver]["mean_error"] < 0.5 * flow_mean:
+            raise AssertionError(f"library {solver}: the warp leaves {out[solver]['mean_error']}"
+                                 f" of a mean flow {flow_mean}")
+    record["deformation"] = {"graph_ms": graph_ms, "nodes": len(node_idx), **out}
+
+
+def pnp_problem(batch2d3d, dof):
+    """4 pairs of LIB_PNP_POINTS correspondences from the 2D-3D phase's clouds
+    and cameras under a known pose (6 DoF: the pair's camera-from-cloud
+    transform; 4 DoF: a yaw about the camera's y axis and a translation,
+    the cloud re-expressed so that its camera-frame points are the pair's),
+    LIB_PNP_OUTLIERS of the pixels moved to random image positions."""
+    import numpy as np
+    import torch
+
+    from diffreg_tpu_torch.eval.metrics import matrix_to_quaternion
+
+    rs = np.random.RandomState(24 + dof)
+    x3d, x2d, poses = [], [], []
+    h, w = SENSOR_HW
+    for b in range(batch2d3d.batch_size):
+        n = int(batch2d3d.masks[0][b].sum())
+        pts = batch2d3d.points[0][b, :n].numpy().astype(np.float64)
+        tfm = batch2d3d.transform[b].numpy().astype(np.float64)
+        cam = pts @ tfm[:3, :3].T + tfm[:3, 3]
+        k = batch2d3d.intrinsics[b].numpy().astype(np.float64)
+        pix = cam @ k.T
+        pix = pix[:, :2] / pix[:, 2:]
+        inside = np.nonzero((cam[:, 2] > 0.2) & (pix[:, 0] >= 0) & (pix[:, 0] < w)
+                            & (pix[:, 1] >= 0) & (pix[:, 1] < h))[0]
+        sel = inside[rs.permutation(len(inside))[:LIB_PNP_POINTS]]
+        cam, pix = cam[sel], pix[sel].copy()
+        if dof == 6:
+            obj = pts[sel]
+            q = matrix_to_quaternion(torch.from_numpy(tfm[:3, :3]).float()).double().numpy()
+            pose = np.concatenate([tfm[:3, 3], q])
+        else:
+            yaw, trn = rs.uniform(-np.pi, np.pi), cam.mean(0)
+            c, s = np.cos(yaw), np.sin(yaw)
+            r = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+            obj = (cam - trn) @ r                       # r^T (cam - trn)
+            pose = np.concatenate([trn, [yaw]])
+        out = rs.rand(len(pix)) < LIB_PNP_OUTLIERS
+        pix[out] = rs.uniform([0, 0], [w, h], (int(out.sum()), 2))
+        x3d.append(obj)
+        x2d.append(pix)
+        poses.append(pose)
+    f = lambda a: torch.from_numpy(np.stack(a).astype(np.float32))
+    return f(x3d), f(x2d), batch2d3d.intrinsics.float(), f(poses)
+
+
+def pose_errors(pose, known, dof):
+    """(rotation error deg, translation error) of [B, 4 or 7] poses, in double:
+    the wrapped yaw difference (4 DoF) or 2 acos |<q, q_known>| of the
+    normalised quaternions (6 DoF), which reads errors far below the limit
+    (the trace of an unnormalised f32 quaternion's matrix can pass 3)."""
+    import torch
+
+    pose, known = pose.double(), known.double()
+    if dof == 4:
+        d = pose[:, 3] - known[:, 3]
+        rot = torch.atan2(torch.sin(d), torch.cos(d)).abs()
+    else:
+        q = pose[:, 3:] / pose[:, 3:].norm(dim=-1, keepdim=True)
+        k = known[:, 3:] / known[:, 3:].norm(dim=-1, keepdim=True)
+        rot = 2.0 * torch.arccos(torch.clamp((q * k).sum(-1).abs(), max=1.0))
+    trn = (pose[:, :3] - known[:, :3]).norm(dim=-1)
+    return float(torch.rad2deg(rot).max()), float(trn.max())
+
+
+def lib_epropnp(batch2d3d, record):
+    """(f) monte_carlo_forward, 4 and 6 DoF, card against CPU on the same
+    draws (a CPU generator's, copied to the card), the pose against the known
+    pose."""
+    import torch
+
+    from diffreg_tpu_torch.geometry import epropnp as ep
+    from diffreg_tpu_torch.utils.draws import Draws
+
+    for dof in (4, 6):
+        x3d, x2d, cams, known = pnp_problem(batch2d3d, dof)
+        w2d = torch.full_like(x2d, LIB_PNP_WEIGHT)
+        cfg = (ep.EProPnP4DoF if dof == 4 else ep.EProPnP6DoF)(**LIB_MC)
+
+        def run(device, dtype=torch.float32):
+            d = lambda a: a.to(device, dtype)
+            camera = ep.PerspectiveCamera(d(cams))
+            cost = ep.HuberPnPCost(delta=torch.full((x2d.shape[0],), LIB_PNP_DELTA * LIB_PNP_WEIGHT,
+                                                    dtype=dtype, device=device))
+            draws = Draws(torch.Generator().manual_seed(dof), device=device)
+            if dtype == torch.float64:
+                draws = Float32Draws(draws)
+            return ep.monte_carlo_forward(draws, cfg, d(x3d), d(x2d), d(w2d), camera, cost,
+                                          ep.LMConfig(dof=dof), ep.RSLMConfig())
+
+        out, ms, ref, cpu_ms = timed_pair(lambda: run("cuda"), lambda: run("cpu"), iters=1)
+        pose_err = rel_err(out[0], ref[0])
+        held(f"epropnp{dof}_pose", pose_err, LIB_MC_POSE_REL, record)
+        logw_err = rel_err(out[4], ref[4])
+        mean = lambda o: (torch.softmax(o[4], dim=0)[..., None] * o[3][..., :3]).sum(0)
+        mean_err = rel_err(mean(out).cpu(), mean(ref))
+        exact = run("cpu", torch.float64)
+        held_against_f64(f"epropnp{dof}_logweights", out[4].cpu(), ref[4], exact[4], record)
+        held_against_f64(f"epropnp{dof}_posterior_mean", mean(out).cpu(), mean(ref),
+                         mean(exact), record)
+        rot_deg, trn_err = pose_errors(out[0].cpu(), known, dof)
+        rot_cpu, trn_cpu = pose_errors(ref[0], known, dof)
+        log(f"library EPro-PnP {dof} DoF ({x2d.shape[0]} x {x2d.shape[1]} correspondences, "
+            f"{int(LIB_PNP_OUTLIERS * 100)}% outliers, Huber delta {LIB_PNP_DELTA} px, "
+            f"{cfg.mc_samples} samples in "
+            f"{cfg.num_iter} iterations): card {ms:.1f} ms, CPU {cpu_ms:.1f} ms; pose against "
+            f"the known pose: card {rot_deg:.2e} deg / {trn_err:.2e}, CPU {rot_cpu:.2e} deg / "
+            f"{trn_cpu:.2e}; card vs CPU pose {pose_err:.2e}, log-weights {logw_err:.2e} "
+            f"(from float64: card {record[f'epropnp{dof}_logweights']['card_vs_f64']:.2e}, CPU "
+            f"{record[f'epropnp{dof}_logweights']['cpu_vs_f64']:.2e}), posterior mean "
+            f"translation {mean_err:.2e} (from float64: card "
+            f"{record[f'epropnp{dof}_posterior_mean']['card_vs_f64']:.2e}, CPU "
+            f"{record[f'epropnp{dof}_posterior_mean']['cpu_vs_f64']:.2e})")
+        if not (trn_err <= PNP_POSE_TOL and rot_deg <= PNP_POSE_TOL * 180 / math.pi
+                and torch.isfinite(out[4]).all()):
+            raise AssertionError(f"library EPro-PnP {dof} DoF: pose {rot_deg} deg / {trn_err}")
+        record[f"epropnp{dof}"] = {"ms": ms, "cpu_ms": cpu_ms, "rot_deg": rot_deg,
+                                   "trn_err": trn_err}
+
+
+def lib_render_pack(batch2d3d, record):
+    """(g) sample_pdf and volume_render on LIB_RAYS rays of LIB_BINS bins, and
+    batch_to_pack / pack_to_batch on the 2D-3D phase's padded node batch."""
+    import torch
+
+    from diffreg_tpu_torch.ops.conversion import batch_to_pack, pack_to_batch
+    from diffreg_tpu_torch.ops.render import sample_pdf, volume_render
+    from diffreg_tpu_torch.utils.draws import Draws
+
+    g = torch.Generator().manual_seed(24)
+    z = torch.sort(torch.rand(LIB_RAYS, LIB_BINS + 1, generator=g) * 4 + 0.5, dim=-1).values
+    wts = torch.rand(LIB_RAYS, LIB_BINS, generator=g)
+    dirs = torch.randn(LIB_RAYS, 3, generator=g)
+    sig = torch.randn(LIB_RAYS, LIB_BINS, generator=g) * 2
+    col = torch.rand(LIB_RAYS, LIB_BINS, 3, generator=g)
+    draws = lambda device: Draws(torch.Generator().manual_seed(25), device=device)
+    # inverse-CDF sampling divides by a bin's probability and compositing
+    # multiplies many transmittances, so both amplify the devices' different
+    # summation orders (cumsum, cumprod): held against a float64 run on the
+    # same (float32) draws beside the CPU
+    s, ms, s_cpu, cpu_ms = timed_pair(
+        lambda: sample_pdf(draws("cuda"), z.cuda(), wts.cuda(), LIB_BINS),
+        lambda: sample_pdf(draws("cpu"), z, wts, LIB_BINS))
+    held_against_f64("sample_pdf", s.cpu(), s_cpu,
+                     sample_pdf(Float32Draws(draws("cpu")), z.double(), wts.double(), LIB_BINS),
+                     record)
+    zz = z[:, :LIB_BINS]
+    render = lambda d, *t: volume_render(*t, sigma_noise=0.5, rng=d, white_background=True)
+    v, vms, v_cpu, vcpu_ms = timed_pair(
+        lambda: render(draws("cuda"), dirs.cuda(), zz.cuda(), sig.cuda(), col.cuda()),
+        lambda: render(draws("cpu"), dirs, zz, sig, col))
+    v64 = render(Float32Draws(draws("cpu")), dirs.double(), zz.double(), sig.double(),
+                 col.double())
+    for got, ref, exact, part in zip(v, v_cpu, v64, ("colors", "depths", "opacities")):
+        held_against_f64(f"volume_render_{part}", got.cpu(), ref, exact, record)
+    nodes, masks = batch2d3d.points[-1], batch2d3d.masks[-1]
+    (packed, lengths, pvalid), pms, ref, pcpu_ms = timed_pair(
+        lambda: batch_to_pack(nodes.cuda(), masks.cuda()), lambda: batch_to_pack(nodes, masks))
+    back, bms, back_cpu, bcpu_ms = timed_pair(
+        lambda: pack_to_batch(packed, lengths, nodes.shape[1]),
+        lambda: pack_to_batch(*ref[:2], nodes.shape[1]))
+    for got, want in zip((packed, lengths, pvalid) + tuple(back), tuple(ref) + tuple(back_cpu)):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("library batch_to_pack / pack_to_batch: card and CPU differ")
+    if not torch.equal(back_cpu[0][masks], nodes[masks]):
+        raise AssertionError("library pack_to_batch does not restore the node batch")
+    log(f"library render: sample_pdf [{LIB_RAYS} x {LIB_BINS}] card {ms:.3f} ms, CPU "
+        f"{cpu_ms:.1f} ms; volume_render card {vms:.3f} ms, CPU {vcpu_ms:.1f} ms; pack of "
+        f"{tuple(nodes.shape)} nodes card {pms:.3f} ms, CPU {pcpu_ms:.2f} ms, unpack card "
+        f"{bms:.3f} ms, CPU {bcpu_ms:.2f} ms")
+    record["render_ms"] = {"sample_pdf": ms, "sample_pdf_cpu": cpu_ms, "volume_render": vms,
+                           "volume_render_cpu": vcpu_ms, "batch_to_pack": pms,
+                           "batch_to_pack_cpu": pcpu_ms, "pack_to_batch": bms,
+                           "pack_to_batch_cpu": bcpu_ms}
+
+
+def run_library(card, batch3d_cpu, corr0, pair4d, batch2d3d, spec2d3d):
+    """Phase 24: the library surface on the card at the system's data sizes,
+    each part against the CPU. ``corr0``: pair 0's correspondences (source and
+    target points) from phase 4; ``pair4d``: phase 9's pair 0 (source, flow)."""
+    import numpy as np
+    import torch
+
+    from diffreg_tpu_torch.data.synthetic import make_cloud
+    from diffreg_tpu_torch.ops.sampling import farthest_point_sampling
+
+    t_phase = time.perf_counter()
+    record = {}
+    # (a) neighbours: the 3DMatch phase's level 0 of pair 0 (pyramid radius 0.03 x 2.5,
+    # the spec's K) and the 2D-3D phase's (its init radius and K)
+    lib_neighbours("3dmatch_level0", batch3d_cpu.points[0][0], batch3d_cpu.masks[0][0],
+                   0.03 * 2.5, batch3d_cpu.neighbors[0].shape[-1], record)
+    lib_neighbours("2d3d_level0", batch2d3d.points[0][0], batch2d3d.masks[0][0],
+                   spec2d3d.init_radius, spec2d3d.k_neighbors[0], record)
+    # (b) FPS of LIB_FPS_SAMPLES points from the 2D-3D phase's 30,000-point cloud
+    pts, valid = batch2d3d.points[0][0], batch2d3d.masks[0][0]
+    (idx, mask), ms, (idx_cpu, mask_cpu), cpu_ms = timed_pair(
+        lambda: farthest_point_sampling(pts.cuda(), valid.cuda(), LIB_FPS_SAMPLES),
+        lambda: farthest_point_sampling(pts, valid, LIB_FPS_SAMPLES), iters=1)
+    if not (torch.equal(idx.cpu(), idx_cpu) and torch.equal(mask.cpu(), mask_cpu)):
+        raise AssertionError(f"library FPS: {int((idx.cpu() != idx_cpu).sum())} indices differ")
+    log(f"library FPS: {LIB_FPS_SAMPLES} of {int(valid.sum())} points, card {ms:.1f} ms, "
+        f"CPU {cpu_ms:.1f} ms, indices identical")
+    record["fps_ms"] = {"card": ms, "cpu": cpu_ms}
+    # (c) point features on one 4,096-point cloud of the 3DMatch phase's generator
+    cloud = torch.from_numpy(make_cloud(np.random.RandomState(0), N_POINTS).astype(np.float32))
+    lib_features(cloud, record)
+    # (d) consistency on phase 4's pair-0 correspondences (its coarse ground truth with
+    # outliers should the random-weight DDIM have extracted fewer than 32)
+    if corr0[0].shape[0] < 32:
+        log(f"library consistency: phase 4 extracted {corr0[0].shape[0]} correspondences for "
+            f"pair 0; the coarse ground truth with outliers takes their place")
+        corr0 = synthetic_correspondences(batch3d_cpu)
+    lib_consistency(*corr0, record)
+    # (e) deformation on phase 9's pair 0
+    lib_deformation(*pair4d, record)
+    # (f) EPro-PnP on the 2D-3D clouds and cameras
+    lib_epropnp(batch2d3d, record)
+    # (g) render and pack
+    lib_render_pack(batch2d3d, record)
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"library phase: {record['seconds']:.1f} s on {card}")
+    log(f"library: {json.dumps(record)}")
+    if record["seconds"] > 60:
+        raise AssertionError(f"library phase took {record['seconds']:.1f} s (limit 60)")
+    return record
+
+
+def library_inputs():
+    """The phase's inputs when it runs alone (``--library``): the 3DMatch
+    phase's batch, phase 9's pair 0, the 2D-3D phase's batch and spec (a split
+    written to a temporary directory), and pair 0's correspondences taken from
+    its coarse ground truth with a third of them replaced by random pairs (no
+    DDIM runs here)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffreg_tpu_torch.data.synthetic import make_pair
+
+    _, batch_cpu = path_data()
+    src, _, _, _, flow = make_pair(np.random.RandomState(1), N_POINTS, deformable=True,
+                                   flow_amp=FLOW_AMP_4D, scale=SCALE_4D)
+    with tempfile.TemporaryDirectory() as root:
+        write_2d3d_split(root)
+        batch2d3d, spec2d3d, _, _ = data_2d3d(root)
+    return batch_cpu, synthetic_correspondences(batch_cpu), (src, flow), batch2d3d, spec2d3d
+
+
+def synthetic_correspondences(batch_cpu):
+    """Pair 0's coarse ground-truth matches (source and target points), a third
+    of the targets shuffled into outliers."""
+    import torch
+
+    ok = batch_cpu.gt_valid[0]
+    coarse = batch_cpu.points[-2][0]
+    s = coarse[batch_cpu.src_idx_coarse[0][batch_cpu.gt_src[0][ok].long()].long()]
+    t = coarse[batch_cpu.tgt_idx_coarse[0][batch_cpu.gt_tgt[0][ok].long()].long()]
+    n_out = s.shape[0] // 3
+    t[:n_out] = t[torch.randperm(s.shape[0], generator=torch.Generator().manual_seed(4))[:n_out]]
+    return s, t
+
+
+def phase4_correspondences(out):
+    """Pair 0's correspondences of a ``register`` output (the points that
+    ``correspond_and_ransac`` hands RANSAC), on the CPU."""
+    from diffreg_tpu_torch.ops.select import extract_correspondences
+
+    s_pcd, t_pcd = out["s_pcd"][:1], out["t_pcd"][:1]
+    corrs = extract_correspondences(out["corr_mask"][:1], out["conf_matrix_pred"][:1],
+                                    s_pcd.shape[1] + t_pcd.shape[1])
+    ok = corrs.valid[0]
+    return (s_pcd[0][corrs.src_idx[0][ok].long()].cpu(),
+            t_pcd[0][corrs.tgt_idx[0][ok].long()].cpu())
+
+
 def path_data():
     """(spec, CPU batch) of the 3DMatch phases: BATCH_PAIRS synthetic pairs of
     N_POINTS at the spec calibrated from two such pairs (K capped at 40)."""
@@ -5111,6 +5800,10 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if sys.argv[1:] == ["--library"]:                    # phase 24 alone
+        run_library(card, *library_inputs())
+        log(card)
+        return 0
 
     # ---- 2. build ----
     t0 = time.perf_counter()
@@ -5234,6 +5927,7 @@ def main() -> int:
     # 0's coarse source points under its ground-truth pose, 40% outliers.
     check_ransac(results[0.0]["s_pcd"][0, :int(batch_cpu.src_mask[0].sum())],
                  batch_cpu.rot_gt[0], batch_cpu.trn_gt[0], u[:1], gen)
+    corr0 = phase4_correspondences(results[0.0])          # phase 24's consistency input
     del results
 
     # ---- 6. backbone_forward ----
@@ -5280,7 +5974,7 @@ def main() -> int:
 
     # ---- 12-17. 2D-3D: kernels at its shapes, the tester path, pair 0, the CLI,
     # training, the published model with its towers ----
-    run_2d3d_phases(repo, kernels, launches, gen)
+    batch2d3d, spec2d3d = run_2d3d_phases(repo, kernels, launches, gen)
 
     # ---- 18. the synthetic training story: both bf16 kernels at its shapes,
     # then the committed trained weights: the test split and pair 0 card vs CPU ----
@@ -5315,6 +6009,11 @@ def main() -> int:
     # configurations C (24 kernel points, D 54) and W (D 216) at full width card
     # against CPU, main on C's YAML and on 4DMatch at D 528 ----
     kernels += run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen)
+
+    # ---- 24. the library surface: neighbours, FPS, point features, consistency,
+    # deformation, EPro-PnP, render and pack at the system's data sizes, card
+    # against CPU ----
+    run_library(card, batch_cpu, corr0, (pairs4[0][0], pairs4[0][4]), batch2d3d, spec2d3d)
 
     kernels[0]["launches"] = (launches["kpconv"] + launches["kpconv_train_2d3d"]
                               + launches["kpconv_story_2d3d"] + launches["kpconv_dp"])

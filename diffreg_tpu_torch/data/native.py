@@ -1,9 +1,11 @@
-"""ctypes bindings for the host pyramid library in ``native/src``.
+"""ctypes bindings for the host library in ``native/src``.
 
-The C++ (voxel-grid subsampling and fixed-K radius search) is compiled with
-g++ at first use, with the flags of ``native/build.sh``, into the port's own
-build directory. There is no fallback: a failed build raises, so the port
-always builds its pyramid with the same code as the JAX package.
+The C++ (voxel-grid subsampling and fixed-K radius search, and the
+deformation-graph utilities that ``data/graph.py`` binds) is compiled with
+g++ at first use from both sources, with the flags of ``native/build.sh``,
+into the port's own build directory, written to a temporary name and renamed
+into place. There is no fallback: a failed build raises, so the port always
+builds its pyramid and graphs with the same code as the JAX package.
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ import numpy as np
 
 from ..utils.build import BUILD_DIR, REPO_DIR, PendingBuild, is_stale
 
-_SOURCE = os.path.join(REPO_DIR, "native", "src", "diffreg_native.cpp")
-_LIB_PATH = os.path.join(BUILD_DIR, "libdiffreg_native.so")
+_SOURCES = [os.path.join(REPO_DIR, "native", "src", name)
+            for name in ("diffreg_native.cpp", "diffreg_graph.cpp")]
+# a name of its own, so that a pyramid-only build left in the directory is never loaded
+_LIB_PATH = os.path.join(BUILD_DIR, "libdiffreg_host.so")
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -26,9 +30,9 @@ def _load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        if is_stale(_LIB_PATH, [_SOURCE]):
+        if is_stale(_LIB_PATH, _SOURCES):
             PendingBuild(["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-                          "-fPIC", _SOURCE], _LIB_PATH).wait(timeout=300)
+                          "-fPIC", *_SOURCES], _LIB_PATH).wait(timeout=300)
         lib = ctypes.CDLL(_LIB_PATH)
         f32p = ctypes.POINTER(ctypes.c_float)
         lib.grid_subsample.restype = ctypes.c_int32

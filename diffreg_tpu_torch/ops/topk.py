@@ -15,3 +15,4 @@ def stable_top_k(x, k: int):
     distances of points on a regular grid, for one)."""
     values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], indices[..., :k]
+

@@ -18,6 +18,7 @@ full-width d = 64). Sinkhorn confidences to 1e-5 absolute; the top-1
 correspondence masks agree except where a row's or column's best two
 confidences lie within twice that (random weights make them near-uniform). PnP recovers a known pose to 1e-3 in both packages.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import cv2
 import jax
 import jax.numpy as jnp

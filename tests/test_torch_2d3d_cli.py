@@ -21,6 +21,7 @@ Tolerances: the test summaries and the cache evaluations agree to 1e-5
 (relative and absolute): the same correspondences, IR, PIR, and PnP poses
 from the same draws.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import os
 import pickle
 

@@ -15,6 +15,7 @@ and the data seed keeps the first layer's pre-activations away from zero: a
 leaky-ReLU sign that flips between the packages moves that layer's weight
 gradient discretely (data seed 2 flips one, by 8e-3 of the largest entry).
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 
 import jax

@@ -26,6 +26,7 @@ bf16 ulp, 2^-8 of it, without saying anything about the rest):
     union mask exactly outside rows and columns whose best two confidences
     lie within twice that limit of each other (near-ties).
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 
 import jax

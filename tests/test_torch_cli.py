@@ -18,6 +18,7 @@ layer's key projection, 1.8e-4 and 8.7e-4): two momentum steps of gradients
 that ``tests/test_torch_train.py`` holds to 5e-4 each, the second taken at
 parameters that already differ.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 import glob
 import math

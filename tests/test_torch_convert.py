@@ -5,6 +5,7 @@ converter in tools/convert_checkpoint.py -> flax variables of the JAX model
 This checks at once that the port's module names are the reference torch
 names and that the bridge inverts the converter.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import os
 import sys
 

@@ -3,6 +3,7 @@
 Both packages build pyramids with the same native C++ and numpy code from
 the same seed, so every array must be identical, not merely close.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 
 import numpy as np

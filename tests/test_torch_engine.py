@@ -8,6 +8,7 @@ parameters and state agree to f32 round-off (rtol 1e-6); the Functions'
 backward recomputes the plain version, so it matches plain autograd to the
 same; against JAX's VJPs, 1e-5 (sums in another order).
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import importlib
 import json
 import os

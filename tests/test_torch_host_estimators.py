@@ -15,6 +15,7 @@ and the testers' float32 poses exactly; the cache evaluations' RR is equal
 and RTE within 1e-6, RRE within ``RRE_TOL`` (float32 arccos near a perfect
 pose).
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import types
 
 import numpy as np

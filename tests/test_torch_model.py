@@ -8,6 +8,7 @@ atol 1e-4; everything downstream of it to 1e-5 relative to the values'
 scale. The DDIM start is passed in; the RANSAC draws are
 ``jax.random.uniform`` of the keys the JAX version draws from.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 
 import jax

@@ -4,6 +4,7 @@ Inputs are made with numpy from a seed and fed to both packages. Unless a
 test says otherwise the tolerance is f32 round-off of a short reduction
 (atol/rtol 1e-5): the two packages sum in different orders.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import importlib
 
 import jax

@@ -31,6 +31,27 @@ CLI_MODULES = ["diffreg_tpu_torch.main", "diffreg_tpu_torch.utils.config",
                "diffreg_tpu_torch.data.synthetic2d3d", "diffreg_tpu_torch.data.datasets2d3d",
                "diffreg_tpu_torch.engine.tester2d3d", "diffreg_tpu_torch.engine.losses2d3d",
                "diffreg_tpu_torch.engine.train2d3d", "diffreg_tpu_torch.eval.host_estimators"]
+# the library surface's modules
+LIBRARY_MODULES = ["diffreg_tpu_torch.geometry.so3", "diffreg_tpu_torch.geometry.deformation",
+                   "diffreg_tpu_torch.geometry.epropnp", "diffreg_tpu_torch.ops.features",
+                   "diffreg_tpu_torch.ops.sampling", "diffreg_tpu_torch.ops.neighbors",
+                   "diffreg_tpu_torch.ops.consistency", "diffreg_tpu_torch.ops.conversion",
+                   "diffreg_tpu_torch.ops.render", "diffreg_tpu_torch.data.graph",
+                   "diffreg_tpu_torch.data.library_datasets", "diffreg_tpu_torch.utils.ply",
+                   "diffreg_tpu_torch.utils.context", "diffreg_tpu_torch.utils.profiling",
+                   "diffreg_tpu_torch.utils.draws"]
+# the names the JAX package's tests/test_package_surface.py asks of its ops and
+# geometry, less grid_subsample (the JAX package's on-device voxel subsampling,
+# which the port does not have: its pyramid subsamples on the host)
+OPS_SURFACE = ["log_sinkhorn", "volumetric_pe", "radius_neighbors", "knn", "kpconv",
+               "spatial_consistency", "leading_eigenvector", "local_ppf", "global_ppf",
+               "build_local_reference_frame", "estimate_normals", "sample_pdf", "volume_render",
+               "batch_to_pack", "pack_to_batch", "mutual_topk_mask", "extract_correspondences"]
+GEOMETRY_SURFACE = ["apply_transform", "weighted_kabsch", "soft_procrustes",
+                    "apply_embedded_deformation", "non_rigid_icp_adam",
+                    "non_rigid_icp_gauss_newton", "rodrigues_rotation_formula",
+                    "alignment_rotation_matrix", "quaternion_product",
+                    "axis_angle_to_rotation_matrix"]
 
 
 def test_every_module_imports_without_jax():
@@ -47,7 +68,26 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert len(_modules()) > 20 and set(CLI_MODULES) <= set(_modules())
+    assert len(_modules()) > 20 and set(CLI_MODULES + LIBRARY_MODULES) <= set(_modules())
+
+
+def test_ops_and_geometry_surfaces_build_nothing():
+    """The ops and geometry packages export the JAX package's surface names, and
+    importing them starts no compiler (kernels and host libraries build at
+    their first call)."""
+    code = (
+        "import subprocess\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError(f'a build started at import: {a}')\n"
+        "subprocess.Popen = refuse\n"
+        "from diffreg_tpu_torch import geometry, ops\n"
+        f"missing = [n for n in {OPS_SURFACE!r} if not hasattr(ops, n)]\n"
+        f"missing += [n for n in {GEOMETRY_SURFACE!r} if not hasattr(geometry, n)]\n"
+        "assert not missing, missing\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_no_module_names_the_jax_package():

@@ -23,6 +23,7 @@ The processes start before the JAX compile (``group``) and run beside it;
 ``run_ranks`` kills them and fails after ``JOIN_TIMEOUT_S``. Cheap checks
 (shards, the learning rate, the launch guard) need no process.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 import os
 import sys

@@ -24,6 +24,7 @@ features 1e-5 of their largest; the whole path at
 1e-5, the union mask equal, poses 1e-4; the loss 1e-5 relative, each
 gradient 1e-4 of its tensor's largest entry).
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 import functools
 

@@ -25,6 +25,7 @@ selected weights, params.npz), on the CPU:
     JAX's batch-1 run, no mask entry differing, 0.92 of the real rows free of
     a near-tie.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 import json
 import os

@@ -24,6 +24,7 @@ and the selected weights, params.npz), on the CPU:
     that of each other (near-ties), and at least TIE_FREE_MIN of the real
     node rows free of a near-tie.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 import json
 import os

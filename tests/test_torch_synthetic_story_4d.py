@@ -35,6 +35,7 @@ and the selected weights, params.npz), on the CPU:
     (TF32 off) the port lies 6.95e-7 from JAX; CONF_TOL["f32"] is 1e-5 of the
     largest (6.9e-6 absolute), below the bf16 path's distance from f32.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 import json
 import os

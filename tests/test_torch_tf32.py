@@ -15,6 +15,7 @@ W, the 4DMatch CLI's one head), P * Cin = 24 * 512 and 64 * 512. 3xTF32 stays
 well inside ``chip_smoke.py``'s tolerances; a single TF32 product does not,
 which is why the kernels split.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import importlib
 
 import jax.numpy as jnp

@@ -38,6 +38,7 @@ the loss to 1e-5 relative, each gradient to 5e-4 of its tensor's largest
 entry, and Adam's first step to 1e-3 of lr where the gradient is clear of 0
 (the limits of tests/test_torch_train2d3d.py).
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ confidences downstream are held to 1e-4 of their scale, poses to 1e-4, and
 each parameter's gradient to 5e-4 of that tensor's largest entry (measured
 5e-5). The JAX train step is compiled once, in a module-scoped fixture.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 import types
 

@@ -21,6 +21,7 @@ every step is at most lr; a NaN gradient entry is zeroed and its step is
 0 in both. ``tests/test_torch_train2d3d_cli.py`` holds
 ``main --mode train`` against the JAX package's.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import jax
 import jax.numpy as jnp
 import numpy as np

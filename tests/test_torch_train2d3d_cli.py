@@ -10,6 +10,7 @@ Tolerances: each step's loss terms agree to 1e-5 relative at the first step
 taken from parameters that already differ (Adam's first step is lr times
 the gradient's sign wherever the gradient is not tiny).
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import jax
 import numpy as np
 import pytest

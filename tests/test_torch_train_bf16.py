@@ -46,6 +46,7 @@ Tolerances, each relative to the largest entry of the reference:
     optax's chain makes of them (1e-6), and its update is JAX's within the
     gradients' norm limit (measured 0.129, 0.135).
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 
 import jax

@@ -33,6 +33,7 @@ Tolerances, relative to the largest entry of the reference:
     tensor's largest entry (variant A's attention q and k projections 2e-3:
     ``GRAD_QK_TOL_A``); the regularizer 1e-5 relative.
 """
+import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import dataclasses
 import functools
 import re
