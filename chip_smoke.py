@@ -4,9 +4,10 @@ and training (f32 and bf16), its 4DMatch registration and bf16 training, its
 (with and without the DINOv2 / DepthAnything towers), its CLI, the 3D,
 2D-3D and 4DMatch synthetic training stories' trained weights, its
 data-parallel train step, two model variants, the kernels' whole shape
-range (any kernel-point count, any head width) and the library surface
+range (any kernel-point count, any head width), the library surface
 (neighbours, sampling, point features, consistency, deformation, EPro-PnP,
-rendering) on one CUDA card.
+rendering) and the model zoo (a GeoTransformer-shaped registration at its
+published width, the other zoo families, the encoders) on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -273,7 +274,28 @@ In order, it
      bins, batch_to_pack and pack_to_batch on the 2D-3D node batch; at most
      60 s (``python3 chip_smoke.py --library`` runs this phase alone, on
      inputs it makes itself);
- 25. prints the kernels' JSON line, and as its last line
+ 25. the model zoo (``run_zoo``; ``python3 chip_smoke.py --zoo`` builds the
+     kernels and runs this phase alone): (a) GeoTransformer's forward composed
+     of the zoo's pieces at its published 3DMatch width (``ZOO_FPN``,
+     ``ZOO_GT``) on the 3DMatch phase's 4 pairs: KPConvFPN (11 KPConv
+     launches through csrc/kpconv.cu), the geometric transformer on level 3
+     (its 6 cross-block attention calls through csrc/attention.cu, the self
+     blocks' relative-position attention in plain PyTorch), 256 superpoint
+     correspondences, patches of 64 level-1 points, Sinkhorn with a dustbin
+     and local-to-global registration, every stage timed and the launches
+     counted; pair 0 card against CPU stage by stage on the CPU's inputs
+     (``ZOO_LIMITS``; the transformer also on superpoints rounded to a grid,
+     whose self-pair distances are exact); LGR on a known pose at the full
+     shapes; the lite transformer; both kernels at the zoo's shapes against
+     their plain versions (with SDPA's time, and the relative-position self
+     layer beside SDPA with an additive float mask); (b) PointNet++ set
+     abstraction and a PointTransformer block on 4,096 points, FoldingNet,
+     Vector Neurons, Predator's GCN on 512 nodes a side, URR's
+     correspondences, the renderer and ResUNet 18 at 480 x 640; (c) VGG19-bn
+     at 480 x 640 and CNNandDinov2 with ViT-S/14; (d) grid_subsample against
+     grid_subsample_np and the other small library functions; each held
+     card against CPU (a neighbourhood cut at a near-tie excused and counted);
+ 26. prints the kernels' JSON line, and as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and exits nonzero. Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
@@ -713,6 +735,56 @@ LIB_MC_POSE_REL = 1e-4
 # 512, costs to ~7e3 in the tails). So both are held against a float64 run on
 # the same float32 draws, beside the CPU's own f32 distance from it
 # (``held_against_f64``).
+
+
+# Phase 25, the model zoo: GeoTransformer's forward composed of the zoo's
+# pieces at its published 3DMatch width (experiments/geotransformer.3dmatch.
+# stage4.gse.k3.max.oacl.stage2.sinkhorn/config.py in the GeoTransformer
+# repository): KPConv-FPN 1 -> 64 -> ... -> 1024, output 256 on level 1 (three
+# decoder stages), 15 kernel points, voxel 0.025, radius 2.5, sigma 2.0; the
+# geometric transformer 1024 -> 256, hidden 256, 4 heads, (self, cross) x 3,
+# sigma_d 0.2, sigma_a 15, angle_k 3, max; 256 superpoint correspondences;
+# patches of 64 points; 100 Sinkhorn iterations; LGR k 3, mutual, confidence
+# 0.05, acceptance radius 0.1, 5 refinement steps. On the 3DMatch phase's 4
+# pairs (its pyramid subsampled at 0.03).
+ZOO_FPN = dict(input_dim=1, output_dim=256, first_dim=64, kernel_size=15, voxel_size=0.025,
+               kpconv_radius=2.5, kpconv_sigma=2.0, encoder_stages=4, decoder_stages=3)
+ZOO_BLOCKS = ("self", "cross") * 3
+ZOO_GT = dict(input_dim=1024, output_dim=256, hidden_dim=256, num_heads=4, sigma_d=0.2,
+              sigma_a=15.0, angle_k=3, angle_reduction="max")
+ZOO_CORR = 256
+ZOO_PATCH = 64
+ZOO_SINKHORN_ITERS = 100
+ZOO_DUSTBIN = 1.0
+ZOO_POINTS = 4096
+ZOO_RENDER_POINTS = 2048
+ZOO_PHASE_S = 150
+# Pair 0 card against CPU, each card stage on the CPU's inputs of that stage,
+# of the largest entry (as first measured on an NVIDIA H100 80GB HBM3, 700 W):
+# backbone levels 5.3e-6 (11 KPConvs, GroupNorms); the embedding 4.2e-7 but on
+# its self pairs [i, i] 3.3e-4 (a self-pair distance is the square root of each
+# device's own rounding of a^2 - 2ab + b^2); the transformer, which mixes those
+# entries into every row, 3.8e-5 on the superpoints and 1.4e-6 on the same
+# superpoints rounded to a 1/256 grid (exact self-pair distances: the cause
+# shown); the lite transformer 1.6e-6 (no whole-degree flip of an angle on
+# this data); matching scores 9.0e-7; patch scores 6.1e-14; LGR's pose 3.6e-7
+# (absolute). Held at about ten times those.
+ZOO_LIMITS = {"backbone_level1": 5e-5, "backbone_level2": 5e-5, "backbone_level3": 5e-5,
+              "embedding_pairs": 5e-6, "embedding_self_pairs": 5e-3,
+              "transformer": 4e-4, "transformer_grid": 2e-5, "lite": 4e-4, "lite_grid": 2e-5,
+              "matching_scores": 1e-5, "patch_points": 0.0, "patch_scores": 1e-6,
+              "lgr_rotation": 1e-5, "lgr_translation": 1e-5}
+ZOO_CUT_GAP_MIN = 1e-5     # superpoint matching's top-256 cut, relative to the largest score
+ZOO_POSE_TOL = 1e-4        # LGR against a known pose (rotation entries, translation)
+ZOO_REL = 1e-5             # one module card against CPU, of its largest output
+ZOO_DEEP_REL = 1e-4        # deep stacks (ResUNet, VGG, ViT, Predator's GCN)
+ZOO_TIE_REL = 1e-6         # a kNN / ball cut within this of the largest squared distance
+# the renderer away from its cuts: colours 2.6e-3 and depth 8.5e-5 of the largest
+# in one run, 2.4e-7 and 3.0e-7 in another (other draws), before a
+# projection at the radius was excused too
+ZOO_RENDER_REL = 1e-2
+ZOO_RENDER_CUT_PX2 = 0.1   # 4x the a^2 - 2ab + b^2 rounding at pixel coordinates ~640
+ZOO_SUBSAMPLE_ABS = 1e-5   # barycentres (metres): the card's atomic sums in f32
 
 
 def log(msg: str) -> None:
@@ -5699,6 +5771,825 @@ def run_library(card, batch3d_cpu, corr0, pair4d, batch2d3d, spec2d3d):
     return record
 
 
+# ---------------------------------------------------------------- the model zoo (phase 25)
+
+
+def zoo_level_counts(batch_cpu, pcfg):
+    """Each pair's (source, target) point count at every pyramid level (the
+    packed rows hold the source first): the phase's pairs made again from
+    their seed and subsampled as the pyramid subsamples them, checked against
+    the batch's masks."""
+    import numpy as np
+
+    from diffreg_tpu_torch.data.native import grid_subsample_native
+    from diffreg_tpu_torch.data.synthetic import make_pair
+
+    rng = np.random.RandomState(0)                # synthetic_batch's seed in path_data
+    counts = []
+    for b in range(BATCH_PAIRS):
+        src, tgt = (a.astype(np.float32) for a in make_pair(rng, N_POINTS)[:2])
+        per, r = [(len(src), len(tgt))], pcfg.first_subsampling_dl * pcfg.conv_radius
+        for _ in range(pcfg.num_levels - 1):
+            dl = 2.0 * r / pcfg.conv_radius
+            src = grid_subsample_native(src, dl).astype(np.float32)
+            tgt = grid_subsample_native(tgt, dl).astype(np.float32)
+            per.append((len(src), len(tgt)))
+            r *= 2.0
+        for level, (ns, nt) in enumerate(per):
+            if int(batch_cpu.masks[level][b].sum()) != ns + nt:
+                raise AssertionError(f"zoo: pair {b} level {level}: {ns} + {nt} points, the "
+                                     f"batch holds {int(batch_cpu.masks[level][b].sum())}")
+        counts.append(per)
+    return counts
+
+
+def zoo_split(x, counts, level, cap):
+    """Packed rows x [B, N, C] of one level -> (source [B, cap, C], target
+    [B, cap, C], source mask [B, cap], target mask [B, cap]), zero-padded."""
+    import torch
+
+    b = x.shape[0]
+    rows = torch.full((2, b, cap), x.shape[1], dtype=torch.long)
+    for i in range(b):
+        ns, nt = counts[i][level]
+        rows[0, i, :ns] = torch.arange(ns)
+        rows[1, i, :nt] = torch.arange(ns, ns + nt)
+    rows = rows.to(x.device)
+    padded = torch.cat([x, x.new_zeros(b, 1, x.shape[2])], dim=1)
+    out = [torch.gather(padded, 1, r[..., None].expand(-1, -1, x.shape[2])) for r in rows]
+    masks = rows < x.shape[1]
+    return out[0], out[1], masks[0], masks[1]
+
+
+def zoo_pyramid(batch):
+    """The KPConv-FPN's pyramid dict of a PairBatch."""
+    return {"points": list(batch.points), "masks": list(batch.masks),
+            "neighbors": list(batch.neighbors), "pools": list(batch.pools),
+            "upsamples": list(batch.upsamples), "features": batch.features}
+
+
+def zoo_models():
+    """(KPConv-FPN, geometric transformer, lite transformer) at GeoTransformer's
+    published 3DMatch width, weights from seed 0 (the same on every device)."""
+    import copy
+
+    import torch
+
+    from diffreg_tpu_torch.models.diffusion_matching import init_weights
+    from diffreg_tpu_torch.zoo import GeometricTransformer, KPConvFPN, KPConvFPNConfig
+
+    torch.manual_seed(0)
+    fpn = KPConvFPN(KPConvFPNConfig(**ZOO_FPN))
+    init_weights(fpn, 0)
+    gt = GeometricTransformer(blocks=ZOO_BLOCKS, **ZOO_GT)
+    init_weights(gt, 1)
+    lite = GeometricTransformer(blocks=ZOO_BLOCKS, lite=True, **ZOO_GT)
+    init_weights(lite, 2)
+    return [m.eval() for m in (fpn, gt, lite)], [copy.deepcopy(m).cuda().eval()
+                                                 for m in (fpn, gt, lite)]
+
+
+def zoo_nodes(feats, batch, counts):
+    """(source / target superpoints [B, cap, 3], their masks, their features)
+    of level 3, and (points, masks, features) of level 1, split by side."""
+    cap3, cap1 = batch.points[3].shape[1], batch.points[1].shape[1]
+    s3, t3, sm3, tm3 = zoo_split(batch.points[3], counts, 3, cap3)
+    sf3, tf3, _, _ = zoo_split(feats[2], counts, 3, cap3)
+    s1, t1, sm1, tm1 = zoo_split(batch.points[1], counts, 1, cap1)
+    sf1, tf1, _, _ = zoo_split(feats[0], counts, 1, cap1)
+    return (s3, t3, sm3, tm3, sf3, tf3), (s1, t1, sm1, tm1, sf1, tf1)
+
+
+def zoo_matching(src_c, tgt_c, sm3, tm3):
+    """Each pair's superpoint correspondences (superpoint_matching_global_topk
+    on the L2-normalised features, dual normalisation)."""
+    import torch.nn.functional as F
+
+    from diffreg_tpu_torch.zoo import superpoint_matching_global_topk
+
+    return [superpoint_matching_global_topk(F.normalize(src_c[i], dim=-1),
+                                            F.normalize(tgt_c[i], dim=-1), ZOO_CORR, sm3[i],
+                                            tm3[i]) for i in range(src_c.shape[0])]
+
+
+def zoo_partition(level1, nodes):
+    """Each side's point-to-node partition of level 1 into patches of
+    ZOO_PATCH points (``ops.partition.point_to_node_partition``)."""
+    from diffreg_tpu_torch.ops.partition import point_to_node_partition
+
+    s1, t1, sm1, tm1 = level1[:4]
+    s3, t3, sm3, tm3 = nodes
+    return (point_to_node_partition(s1, s3, sm1, sm3, ZOO_PATCH),
+            point_to_node_partition(t1, t3, tm1, tm3, ZOO_PATCH))
+
+
+def zoo_patches(level1, parts, corr):
+    """Each pair's patch points, masks and log-Sinkhorn scores [C, K, K] (the
+    patch features' similarity / sqrt(C) with a learned dustbin, sliced off)."""
+    import torch
+
+    from diffreg_tpu_torch.ops.sinkhorn import log_sinkhorn
+
+    s1, t1, _, _, sf1, tf1 = level1
+    src_part, tgt_part = parts
+    pad = lambda a: torch.cat([a, torch.zeros_like(a[:1])])  # noqa: E731 (sentinel row)
+    out = []
+    for i, (si, ti, scores, _) in enumerate(corr):
+        sk, tk = src_part.node_knn_indices[i][si], tgt_part.node_knn_indices[i][ti]
+        skm, tkm = src_part.node_knn_masks[i][si], tgt_part.node_knn_masks[i][ti]
+        sp, tp = pad(s1[i])[sk], pad(t1[i])[tk]
+        sf, tf = pad(sf1[i])[sk], pad(tf1[i])[tk]
+        sim = torch.einsum("bnc,bmc->bnm", sf, tf) / math.sqrt(sf.shape[-1])
+        dustbin = torch.tensor(ZOO_DUSTBIN, device=sim.device)
+        z = log_sinkhorn(sim, dustbin, ZOO_SINKHORN_ITERS, skm, tkm)[:, :-1, :-1]
+        out.append((sp, tp, skm, tkm, z, scores, sk, tk))
+    return out
+
+
+def zoo_partition_held(card, cpu, points, nodes, side, record, problems):
+    """A side's partition card against CPU: each point assigned to another
+    node must lie as near (exact squared distances, float64) to both nodes up
+    to ZOO_TIE_REL of the largest squared distance, and each node whose member
+    list differs must hold such a point or a near-tie among its members'
+    distances. Counts recorded."""
+    import torch
+
+    p2n_card, p2n_cpu = card.point_to_node.cpu(), cpu.point_to_node
+    pts, nds = points.double(), nodes.double()
+    tol = ZOO_TIE_REL * float(((pts[:, :, None] - nds[:, None]) ** 2).sum(-1).amax())
+    touched = torch.zeros(cpu.node_masks.shape, dtype=torch.bool)
+    flips = (p2n_card != p2n_cpu).nonzero().tolist()
+    for b, i in flips:
+        a, c = int(p2n_card[b, i]), int(p2n_cpu[b, i])
+        da, dc = (float(((pts[b, i] - nds[b, n]) ** 2).sum()) if n >= 0 else math.inf
+                  for n in (a, c))
+        if not abs(da - dc) <= tol:
+            problems.append(f"partition {side}: pair {b} point {i} on node {a} (card) / {c} "
+                            f"(CPU), {abs(da - dc):.2e} apart")
+        touched[b, max(a, 0)] = touched[b, max(c, 0)] = True
+    rows = (card.node_knn_indices.cpu() != cpu.node_knn_indices).any(-1) | \
+        (card.node_knn_masks.cpu() != cpu.node_knn_masks).any(-1)
+    unexplained = 0
+    for b, m in (rows & ~touched).nonzero().tolist():
+        members = (p2n_cpu[b] == m).nonzero()[:, 0]
+        d2 = ((pts[b, members] - nds[b, m]) ** 2).sum(-1).sort().values
+        if not (d2[1:] - d2[:-1] <= tol).any():
+            unexplained += 1
+    if unexplained:
+        problems.append(f"partition {side}: {unexplained} patches differ with no near-tie")
+    record[f"partition_{side}"] = {"points_reassigned": len(flips),
+                                   "patches_differ": int(rows.sum())}
+
+
+def zoo_lgr(patches):
+    """Each pair's local-to-global registration: (R, t, correspondences kept)."""
+    from diffreg_tpu_torch.zoo import LGRConfig, PointMatchingConfig, local_global_registration
+
+    cfg = LGRConfig(matching=PointMatchingConfig(k=3, mutual=True, confidence_threshold=0.05),
+                    acceptance_radius=0.1, num_refinement_steps=5)
+    outs = []
+    for sp, tp, skm, tkm, z, scores, _, _ in patches:
+        g_src, g_tgt, g_scores, g_valid, r, t = local_global_registration(sp, tp, skm, tkm, z,
+                                                                          scores, cfg)
+        outs.append((r, t, g_valid, g_src, g_tgt, g_scores))
+    return outs
+
+
+def zoo_drive(models, batch, counts):
+    """GeoTransformer's forward composed of the zoo's pieces on ``batch`` (its
+    device): {stage: seconds}, and every stage's outputs."""
+    import torch
+
+    fpn, gt = models[0], models[1]
+    times, out = {}, {}
+    with torch.inference_mode():
+        out["feats"], times["backbone"] = wall(lambda: fpn(zoo_pyramid(batch)))
+        nodes, level1 = zoo_nodes(out["feats"], batch, counts)
+        s3, t3, sm3, tm3, sf3, tf3 = nodes
+        _, times["embedding"] = wall(lambda: (gt.embedding(s3, sm3), gt.embedding(t3, tm3)))
+        (src_c, tgt_c), t_gt = wall(lambda: gt(s3, t3, sf3, tf3, sm3, tm3))
+        times["transformer"] = t_gt - times["embedding"]
+        out["corr"], times["matching"] = wall(lambda: zoo_matching(src_c, tgt_c, sm3, tm3))
+        out["parts"], times["partition"] = wall(lambda: zoo_partition(level1,
+                                                                      (s3, t3, sm3, tm3)))
+        out["patches"], times["patches"] = wall(lambda: zoo_patches(level1, out["parts"],
+                                                                    out["corr"]))
+        out["lgr"], times["lgr"] = wall(lambda: zoo_lgr(out["patches"]))
+    out.update(nodes=nodes, level1=level1, src_c=src_c, tgt_c=tgt_c)
+    return times, out
+
+
+def zoo_cut_gap(scores, k):
+    """(v[k-1] - v[k]) / max |v| of a score matrix's sorted entries: how far
+    the top-k cut lies from a tie."""
+    v = scores.reshape(-1).sort(descending=True).values
+    return float((v[k - 1] - v[k]) / v.abs().max())
+
+
+def zoo_dual_scores(src_c, tgt_c, sm, tm):
+    """The dual-normalised superpoint scores superpoint_matching_global_topk
+    cuts (for the cut gap)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffreg_tpu_torch.ops.vision import pairwise_distance
+
+    s = torch.exp(-pairwise_distance(F.normalize(src_c, dim=-1), F.normalize(tgt_c, dim=-1)))
+    s = torch.where(sm[:, None] & tm[None, :], s, torch.zeros_like(s))
+    return s / s.sum(1, keepdim=True).clamp_min(1e-12) * (s / s.sum(0, keepdim=True).clamp_min(
+        1e-12))
+
+
+def zoo_grid(points):
+    """Coordinates rounded to a 1/256 grid: their squared distances in the
+    a^2 - 2ab + b^2 form are exact in f32 (|p| < 4), on any device."""
+    import torch
+
+    return torch.round(points * 256.0) / 256.0
+
+
+def zoo_pair0(card_models, cpu_models, batch_cpu, counts, record, problems):
+    """Pair 0 card against CPU, each card stage on the CPU's inputs of that
+    stage, so that no discrete choice of an earlier stage carries over.
+    Failures are appended to ``problems`` (the phase raises them at its end,
+    once every measure is logged)."""
+    import torch
+
+    fpn_c, gt_c, lite_c = card_models
+    one = batch_cpu.select(slice(0, 1))
+    t0 = time.perf_counter()
+    _, cpu = zoo_drive(cpu_models, one, counts[:1])
+    record["cpu_seconds"] = time.perf_counter() - t0
+    _, card = zoo_drive(card_models, one.to("cuda"), counts[:1])
+    errs = {}
+    for i, (g, r) in enumerate(zip(card["feats"], cpu["feats"])):
+        errs[f"backbone_level{(1, 2, 3)[i]}"] = rel_err(g, r)
+    s3, t3, sm3, tm3, sf3, tf3 = cpu["nodes"]
+    dev = lambda *a: [x.cuda() for x in a]  # noqa: E731
+    with torch.inference_mode():
+        emb_card, emb_cpu = gt_c.embedding(*dev(s3, sm3)), cpu_models[1].embedding(s3, sm3)
+        n = s3.shape[1]
+        diag = torch.eye(n, dtype=torch.bool)[None, :, :, None].expand_as(emb_cpu)
+        d = (emb_card.cpu() - emb_cpu).abs()
+        scale = float(emb_cpu.abs().max())
+        errs["embedding_pairs"] = float(d[~diag].max()) / scale
+        errs["embedding_self_pairs"] = float(d[diag].max()) / scale
+        del emb_card, emb_cpu, d, diag
+        src_c, tgt_c = gt_c(*dev(s3, t3, sf3, tf3, sm3, tm3))
+        errs["transformer"] = max(rel_err(src_c, cpu["src_c"]), rel_err(tgt_c, cpu["tgt_c"]))
+        # the same on the superpoints rounded to a grid: exact self-pair distances
+        gs3, gt3 = zoo_grid(s3), zoo_grid(t3)
+        for name, model, card_model in (("transformer_grid", cpu_models[1], gt_c),
+                                        ("lite_grid", cpu_models[2], lite_c)):
+            ref = model(gs3, gt3, sf3, tf3, sm3, tm3)
+            got = card_model(*dev(gs3, gt3, sf3, tf3, sm3, tm3))
+            errs[name] = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+        ref = cpu_models[2](s3, t3, sf3, tf3, sm3, tm3)
+        got = lite_c(*dev(s3, t3, sf3, tf3, sm3, tm3))
+        errs["lite"] = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+        # matching on the CPU's transformer outputs
+        corr = zoo_matching(*dev(cpu["src_c"], cpu["tgt_c"], sm3, tm3))
+        gap = zoo_cut_gap(zoo_dual_scores(cpu["src_c"][0], cpu["tgt_c"][0], sm3[0], tm3[0]),
+                          ZOO_CORR)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(corr[0][:2], cpu["corr"][0][:2]))
+        errs["matching_scores"] = rel_err(corr[0][2], cpu["corr"][0][2])
+        record["matching_cut_gap"] = gap
+        record["matching_indices_equal"] = same
+        if gap > ZOO_CUT_GAP_MIN and not same:
+            problems.append(f"matching: the card's correspondences differ with the cut {gap:.2e} "
+                            f"from a tie")
+        # the partition on the CPU's nodes, then the patches on the CPU's partition
+        level1 = [x.cuda() for x in cpu["level1"]]
+        parts = zoo_partition(level1, dev(s3, t3, sm3, tm3))
+        for side, k, p, q in (("source", 0, cpu["level1"][0], s3),
+                              ("target", 1, cpu["level1"][1], t3)):
+            zoo_partition_held(parts[k], cpu["parts"][k], p, q, side, record, problems)
+        cpu_parts = [type(part)(*(x.cuda() for x in part)) for part in cpu["parts"]]
+        patches = zoo_patches(level1, cpu_parts, [[x.cuda() for x in c] for c in cpu["corr"]])
+        for name, k in (("patch_points", 0), ("patch_scores", 4)):
+            errs[name] = rel_err(patches[0][k], cpu["patches"][0][k])
+        # registration on the CPU's patches
+        lgr = zoo_lgr([[x.cuda() for x in p] for p in cpu["patches"]])[0]
+        r_cpu, t_cpu, v_cpu = cpu["lgr"][0][:3]
+        errs["lgr_rotation"] = float((lgr[0].cpu() - r_cpu).abs().max())
+        errs["lgr_translation"] = float((lgr[1].cpu() - t_cpu).abs().max())
+        record["pair0_lgr_correspondences"] = {"card": int(lgr[2].sum()), "cpu": int(v_cpu.sum())}
+        if not torch.equal(lgr[2].cpu(), v_cpu):
+            problems.append("LGR: the card keeps other correspondences than the CPU")
+    record["pair0"] = errs
+    log(f"zoo pair 0 card vs CPU (CPU {record['cpu_seconds']:.1f} s): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; matching cut gap {gap:.2e} (indices equal: {same}); partition "
+        f"{record['partition_source']}, {record['partition_target']}; LGR correspondences "
+        f"{record['pair0_lgr_correspondences']}")
+    problems += [f"pair 0 {name}: {err:.3e}, limit {ZOO_LIMITS[name]:.0e}"
+                 for name, err in errs.items() if not err <= ZOO_LIMITS[name]]
+    return cpu
+
+
+def zoo_known_pose(cpu, record):
+    """LGR on the card at the full shapes (256 patches of 64 points: pair 0's
+    CPU patches) against a known pose, from scores peaked on the identity
+    correspondences."""
+    import numpy as np
+    import torch
+
+    from diffreg_tpu_torch.zoo import LGRConfig, PointMatchingConfig, local_global_registration
+
+    sp, _, skm, _, _, scores = cpu["patches"][0][:6]
+    ang = 0.6
+    rot = torch.tensor([[math.cos(ang), -math.sin(ang), 0.0], [math.sin(ang), math.cos(ang), 0.0],
+                        [0.0, 0.0, 1.0]])
+    trn = torch.tensor([0.3, -0.2, 0.8])
+    tp = sp @ rot.T + trn
+    k = sp.shape[1]
+    score = torch.full((sp.shape[0], k, k), -8.0)
+    score[:, torch.arange(k), torch.arange(k)] = 0.0
+    cfg = LGRConfig(matching=PointMatchingConfig(k=3, mutual=True, confidence_threshold=0.05),
+                    acceptance_radius=0.1, num_refinement_steps=5)
+    args = [x.cuda() for x in (sp, tp, skm, skm, score, torch.ones(sp.shape[0]))]
+    with torch.inference_mode():
+        out, seconds = wall(lambda: local_global_registration(*args, cfg))
+    err_r = float((out[4].cpu() - rot).abs().max())
+    err_t = float((out[5].cpu() - trn).abs().max())
+    record["known_pose"] = {"rotation_err": err_r, "translation_err": err_t,
+                            "correspondences": int(out[3].sum()), "ms": seconds * 1e3}
+    log(f"zoo LGR on a known pose ({tuple(sp.shape)} patches, {int(out[3].sum())} "
+        f"correspondences): rotation {err_r:.2e}, translation {err_t:.2e}, "
+        f"{seconds * 1e3:.1f} ms")
+    if not (err_r <= ZOO_POSE_TOL and err_t <= ZOO_POSE_TOL) or not np.isfinite(err_r):
+        raise AssertionError(f"zoo LGR missed the known pose: {err_r:.2e} / {err_t:.2e}")
+
+
+def zoo_attention_kernel(sm3, tm3, gen):
+    """The attention kernel at the transformer's cross shapes (4 heads of 64,
+    the pairs' key masks), against its plain version, with SDPA's time; and
+    the relative-position self layer's attention core timed beside SDPA with
+    an additive float mask (the open question of a kernel for it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffreg_tpu_torch.nn.layers2d3d import MultiHeadAttention
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda, masked_attention_plain
+
+    h, d = ZOO_GT["num_heads"], ZOO_GT["hidden_dim"] // ZOO_GT["num_heads"]
+    n_cross = ZOO_BLOCKS.count("cross")
+    scale = d ** -0.5
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "mma_flops": 0.0,
+              "flops": 0.0}
+    worst, shapes = 0.0, []
+    with torch.inference_mode():
+        for name, kv_mask in (("cross", tm3), ("cross_back", sm3)):
+            b, s = kv_mask.shape
+            q, k, v = (torch.randn(b, h, s, d, generator=gen).cuda() for _ in range(3))
+            kv_mask = kv_mask.cuda().contiguous()
+            before = masked_attention_cuda.launches
+            got = masked_attention_cuda(q, k, v, kv_mask, scale)
+            ref = masked_attention_plain(q, k, v, kv_mask, scale)
+            torch.cuda.synchronize()
+            assert masked_attention_cuda.launches == before + 1
+            err = float((got - ref).abs().max())
+            if not err <= ATTENTION_ABS_TOL:
+                raise AssertionError(f"zoo attention {name}: {err:.3e}")
+            worst = max(worst, err)
+            lib_mask = kv_mask[:, None, None, :]
+            ms = time_cuda(lambda: masked_attention_cuda(q, k, v, kv_mask, scale), 20)
+            plain_ms = time_cuda(lambda: masked_attention_plain(q, k, v, kv_mask, scale), 10)
+            lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=lib_mask, scale=scale), 20)
+            work = attention_work(q, k, kv_mask)
+            bms, by = bound_ms(*work)
+            shapes.append({"case": name + " (zoo)", "b": b, "h": h, "l": s, "s": s, "d": d,
+                           "calls": n_cross, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bound_ms": bms, "bound_by": by, "max_abs_err": err})
+            log(f"attention {name} (zoo) [{b},{h},{s}x{s},{d}] x{n_cross}: err {err:.3e}, "
+                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound "
+                f"{bms:.4f} ms ({by})")
+            for key, val in zip(("ms", "plain_ms", "library_ms", "bytes", "mma_flops", "flops"),
+                                (ms, plain_ms, lib_ms, *work)):
+                totals[key] += n_cross * val
+        # the relative-position self layer (its plain route) beside SDPA with the
+        # positional logits as an additive float mask
+        b, s = sm3.shape
+        c = ZOO_GT["hidden_dim"]
+        layer = MultiHeadAttention(c, h, qk_embed_proj=True).cuda().eval()
+        x = torch.randn(b, s, c, generator=gen).cuda()
+        emb = torch.randn(b, s, s, c, generator=gen).cuda()
+        mask = sm3.cuda()
+        rel_ms = time_cuda(lambda: layer(x, x, x, mask, qk_embeds=emb), 5)
+        q, k, v = (torch.randn(b, h, s, d, generator=gen).cuda() for _ in range(3))
+        bias = torch.randn(b, h, s, s, generator=gen).cuda()
+        sdpa_bias_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, scale=scale), 20)
+        qk = torch.randn(b, s, s, h, d, generator=gen).cuda()
+        qq = torch.randn(b, s, h, d, generator=gen).cuda()
+        bias_ms = time_cuda(lambda: torch.einsum("bnhc,bnmhc->bhnm", qq, qk), 10)
+        proj_ms = time_cuda(lambda: layer.qk_embed_layer(emb), 5)
+    relative = {"layer_ms": rel_ms, "qk_embed_proj_ms": proj_ms, "q_qk_einsum_ms": bias_ms,
+                "sdpa_float_mask_ms": sdpa_bias_ms, "shape": [b, h, s, s, d]}
+    log(f"relative-position self attention [{b},{h},{s}x{s},{d}]: the layer (plain) "
+        f"{rel_ms:.3f} ms (qk_embed_layer {proj_ms:.3f} ms, q.qk einsum {bias_ms:.3f} ms); "
+        f"SDPA with an additive float mask {sdpa_bias_ms:.3f} ms")
+    bms, by = bound_ms(totals["bytes"], totals["mma_flops"], totals["flops"])
+    return {"ms": totals["ms"], "plain_ms": totals["plain_ms"], "library_ms": totals["library_ms"],
+            "bound_ms": bms, "bound_by": by, "max_abs_err": worst,
+            "per": f"one GeometricTransformer forward ({2 * n_cross} calls)", "shapes": shapes,
+            "relative_position_self": relative}
+
+
+def zoo_tie_rows(queries, supports, k, radius=None, rel=ZOO_TIE_REL):
+    """Query rows [B, N] whose k-th and (k+1)-th squared distances (exact
+    differences, float64) lie within ``rel`` of the largest squared distance,
+    or (``radius``) whose first k straddle r^2 that closely: where a kNN or
+    ball query may pick another neighbour under another rounding."""
+    import torch
+
+    q, s = queries.double(), supports.double()
+    d2 = ((q[:, :, None, :] - s[:, None, :, :]) ** 2).sum(-1)
+    v = d2.topk(k + 1, dim=-1, largest=False).values
+    tol = rel * float(d2.max())
+    tie = (v[..., k] - v[..., k - 1]) <= tol
+    if radius is not None:
+        tie = tie | ((v[..., :k] - radius * radius).abs() <= tol).any(-1)
+    return tie
+
+
+def zoo_rows_held(name, got, ref, tie_rows, limit, record):
+    """got / ref [B, N, ...] card against CPU: every row at ``limit`` of the
+    largest entry but the rows ``tie_rows`` excuses (a neighbourhood cut at a
+    near-tie), which are counted."""
+    got, ref = got.cpu().double(), ref.double()
+    scale = float(ref.abs().max())
+    row_err = (got - ref).abs().reshape(*ref.shape[:2], -1).amax(-1) / scale
+    bad = row_err > limit
+    unexplained = int((bad & ~tie_rows).sum())
+    err = float(row_err[~tie_rows].max()) if bool((~tie_rows).any()) else 0.0
+    record[name] = {"max_rel_err": err, "rows_excused": int((bad & tie_rows).sum()),
+                    "rows": int(bad.numel())}
+    if unexplained:
+        raise AssertionError(f"zoo {name}: {unexplained} rows beyond {limit:.0e} with no tie")
+    return err
+
+
+@contextlib.contextmanager
+def collected(problems, name):
+    """Run a check, keeping its failure for the end of the phase (which then
+    fails), so that the phase's other measures are still taken and logged."""
+    try:
+        yield
+    except AssertionError as e:
+        problems.append(f"{name}: {e}")
+
+
+def zoo_families(record, gen, problems):
+    """Phase 25b-d: every other zoo family, the encoders and the small library
+    functions on the card against the CPU, at sizes their users run; failures
+    are appended to ``problems``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from diffreg_tpu_torch import ops as pops
+    from diffreg_tpu_torch import zoo as pzoo
+    from diffreg_tpu_torch.data.synthetic import make_cloud
+    from diffreg_tpu_torch.geometry import compose, inverse
+    from diffreg_tpu_torch.models.towers import synthesise_tower_weights
+    from diffreg_tpu_torch.nn.dinov2 import vit_small_config
+    from diffreg_tpu_torch.nn.encoders import CNNandDinov2, VGG19BN
+    from diffreg_tpu_torch.utils.draws import Draws
+
+    def pair(module, seed):
+        torch.manual_seed(seed)
+        synthesise_tower_weights(module, seed)
+        return module.eval(), copy.deepcopy(module).cuda().eval()
+
+    def run(name, cpu_fn, card_fn, iters=3):
+        with torch.inference_mode():
+            out, ms, ref, cpu_ms = timed_pair(card_fn, cpu_fn, iters)
+        record.setdefault("ms", {})[name] = {"card": ms, "cpu": cpu_ms}
+        return out, ref
+
+    def held_all(name, got, ref, limit):
+        err = rel_err(got, ref)
+        record[name] = err
+        if not err <= limit:
+            raise AssertionError(f"zoo {name}: {err:.3e} of the largest entry, limit {limit:.0e}")
+
+    clouds = torch.stack([torch.from_numpy(make_cloud(np.random.RandomState(10 + i), ZOO_POINTS))
+                          for i in range(2)])                               # [2, 4096, 3]
+    cc = clouds.cuda()
+    # (b) PointNet++ set abstraction (ScanNet segmentation's first layer)
+    with collected(problems, "set abstraction"):
+        cpu_m, card_m = pair(pzoo.SetAbstractionModule(0, (32, 32, 64), 1024, 32, 0.1), 20)
+        got, ref = run("set_abstraction", lambda: cpu_m(clouds), lambda: card_m(cc), 1)
+        if not torch.equal(got[0].cpu(), ref[0]):
+            raise AssertionError("zoo set abstraction: the centroids differ")
+        zoo_rows_held("set_abstraction", got[1], ref[1],
+                      zoo_tie_rows(ref[0], clouds, 32, 0.1), ZOO_REL, record)
+    # PointTransformer block (k 16) on the clouds with 32-d features
+    with collected(problems, "point transformer"):
+        feats = torch.randn(2, ZOO_POINTS, 32, generator=gen)
+        cpu_m, card_m = pair(pzoo.PointTransformerBlock(32, 32, 16), 21)
+        got, ref = run("point_transformer", lambda: cpu_m(feats, clouds),
+                       lambda: card_m(feats.cuda(), cc))
+        zoo_rows_held("point_transformer", got[0], ref[0], zoo_tie_rows(clouds, clouds, 16),
+                      ZOO_REL, record)
+    # FoldingNet (a 512-d code, the paper's 45 x 45 grid)
+    with collected(problems, "foldingnet"):
+        code = torch.randn(2, 512, generator=gen)
+        cpu_m, card_m = pair(pzoo.FoldingNet(512, 512, 45), 22)
+        held_all("foldingnet", *run("foldingnet", lambda: cpu_m(code), lambda: card_m(code.cuda())),
+                 ZOO_REL)
+    # Vector Neurons (VN-DGCNN's widths: 21 vector channels, 20 neighbours)
+    with collected(problems, "vector neurons"):
+        vn = torch.randn(2, 1024, 21, 3, generator=gen)
+        cpu_m, card_m = pair(torch.nn.Sequential(pzoo.VNLinearLeakyReLU(21, 42),
+                                                 pzoo.VNLinearLeakyReLU(42, 42)), 23)
+        got, ref = run("vn_linear_leaky", lambda: cpu_m(vn), lambda: card_m(vn.cuda()))
+        held_all("vn_linear_leaky", got, ref, ZOO_REL)
+        cpu_s, card_s = pair(pzoo.VNStdFeature(42), 24)
+        held_all("vn_std_feature", *run("vn_std_feature", lambda: cpu_s(ref)[0],
+                                        lambda: card_s(ref.cuda())[0]), ZOO_REL)
+        grouped = torch.randn(2, 512, 20, 21, 3, generator=gen)
+        cpu_m, card_m = pair(pzoo.VNMaxPool(21), 25)
+        got, ref = run("vn_max_pool", lambda: cpu_m(grouped), lambda: card_m(grouped.cuda()))
+        with torch.inference_mode():
+            dots = (grouped * cpu_m.map_to_dir(grouped)).sum(-1)               # [2, 512, 20, 21]
+            top2 = dots.topk(2, dim=-2).values
+            tie = ((top2[..., 0, :] - top2[..., 1, :]) <= ZOO_TIE_REL * dots.abs().max()).any(-1)
+        zoo_rows_held("vn_max_pool", got, ref, tie, 0.0, record)
+    # Predator's GCN (256-d, 4 heads, k 10) on 512 nodes a side
+    with collected(problems, "predator gcn"):
+        nodes = clouds[:, :512]
+        desc = torch.randn(2, 512, 256, generator=gen)
+        cpu_m, card_m = pair(pzoo.PredatorGCN(256, 4, 10, ("self", "cross", "self")), 26)
+        got, ref = run("predator_gcn", lambda: cpu_m(nodes[:1], nodes[1:], desc[:1], desc[1:]),
+                       lambda: card_m(nodes[:1].cuda(), nodes[1:].cuda(), desc[:1].cuda(),
+                                      desc[1:].cuda()))
+        tie = zoo_tie_rows(nodes, nodes, 11).any()
+        record["predator_gcn_knn_tie"] = bool(tie)
+        for g, r in zip(got, ref):
+            held_all("predator_gcn", g, r, ZOO_DEEP_REL)
+    # URR's correspondences (4,096 points a side, 32-d features, 512 a direction)
+    with collected(problems, "urr"):
+        fa = torch.nn.functional.normalize(torch.randn(ZOO_POINTS, 32, generator=gen), dim=-1)
+        fb = torch.nn.functional.normalize(fa + 0.3 * torch.randn(ZOO_POINTS, 32, generator=gen),
+                                           dim=-1)
+        got, ref = run("urr_correspondences",
+                       lambda: pzoo.urr_extract_correspondences(clouds[0], clouds[1], fa, fb, 512),
+                       lambda: pzoo.urr_extract_correspondences(cc[0], cc[1], fa.cuda(), fb.cuda(),
+                                                                512))
+        for g, r in zip(got, ref):
+            held_all("urr_correspondences", g, r, ZOO_REL)
+    # the differentiable renderer at 480 x 640 (a cloud in front of a Kinect camera)
+    with collected(problems, "render"):
+        h, w = SENSOR_HW
+        pts = clouds[0, :ZOO_RENDER_POINTS] * 0.8 + torch.tensor([0.0, 0.0, 2.5])
+        colors = torch.rand(ZOO_RENDER_POINTS, 3, generator=gen)
+        intr = torch.tensor([[KINECT_F, 0.0, w / 2], [0.0, KINECT_F, h / 2], [0.0, 0.0, 1.0]])
+        got, ref = run("render", lambda: pzoo.differentiable_render(pts, colors, None, intr, h, w,
+                                                                    8, 6.0, 4.0),
+                       lambda: pzoo.differentiable_render(pts.cuda(), colors.cuda(), None,
+                                                          intr.cuda(), h, w, 8, 6.0, 4.0), 1)
+        zoo_render_held(got, ref, pts, intr, 6.0, record)
+    # Pri3D ResUNet 18 at 480 x 640
+    with collected(problems, "resunet18"):
+        image = torch.rand(1, 3, h, w, generator=gen)
+        cpu_m, card_m = pair(pzoo.ResUNet(1, 18), 27)
+        held_all("resunet18", *run("resunet18", lambda: cpu_m(image), lambda: card_m(image.cuda()),
+                                   1), ZOO_DEEP_REL)
+    # (c) the encoders: VGG19-bn at 480 x 640 (running statistics drawn too), and
+    with collected(problems, "encoders"):
+        # CNNandDinov2 with ViT-S/14 at 476 x 630
+        cpu_m, card_m = pair(VGG19BN(), 28)
+        for mod in (cpu_m, card_m):
+            for i, bn in enumerate(m for m in mod.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+                g = torch.Generator().manual_seed(100 + i)
+                bn.running_mean.copy_(torch.randn(bn.num_features, generator=g) * 0.1)
+                bn.running_var.copy_(torch.rand(bn.num_features, generator=g) + 0.5)
+        got, ref = run("vgg19bn", lambda: cpu_m(image), lambda: card_m(image.cuda()), 1)
+        for s in (1, 2, 4, 8):
+            held_all(f"vgg19bn_{s}", got[s], ref[s], ZOO_DEEP_REL)
+        image14 = image[:, :, :476, :630].contiguous()
+        cpu_m, card_m = pair(CNNandDinov2(vit_small_config()), 29)
+        got, ref = run("cnn_and_dinov2", lambda: cpu_m(image14), lambda: card_m(image14.cuda()), 1)
+        for s in (1, 2, 4, 8, 16):
+            held_all(f"cnn_and_dinov2_{s}", got[s], ref[s], ZOO_DEEP_REL)
+    # (d) the small library functions
+    with collected(problems, "library"):
+        zoo_library(record, gen, clouds, Draws, compose, inverse, pops)
+
+
+def zoo_render_held(got, ref, pts, intr, radius, record):
+    """The renderer card against CPU. Its pixel-to-point distances come from
+    the a^2 - 2ab + b^2 form at pixel coordinates up to 640, whose absolute
+    rounding (~|p|^2 * 6e-8 = 2.5e-2 px^2) can move the choice of the 8
+    nearest projections where two lie that close, or a projection across the
+    radius: pixels whose 8th and 9th distances^2 (exact, float64) lie within
+    ZOO_RENDER_CUT_PX2 of each other, or one of the 8 that close to radius^2,
+    are counted and excused, the rest held at ZOO_RENDER_REL."""
+    import torch
+
+    h, w = ref[0].shape
+    diff = torch.zeros(h, w, dtype=torch.bool)
+    for g, r in zip(got[:2], ref[:2]):
+        d = (g.cpu().double() - r.double()).abs()
+        diff |= (d if d.ndim == 2 else d.amax(-1)) > ZOO_RENDER_REL * float(r.abs().max())
+    diff |= got[3].cpu() != ref[3]
+    z = pts[:, 2].double()
+    px = torch.stack([pts[:, 0].double() * float(intr[0, 0]) / z + float(intr[0, 2]),
+                      pts[:, 1].double() * float(intr[1, 1]) / z + float(intr[1, 2])], -1)
+    vs, us = torch.meshgrid(torch.arange(h, dtype=torch.float64),
+                            torch.arange(w, dtype=torch.float64), indexing="ij")
+    img = torch.stack([us.reshape(-1), vs.reshape(-1)], -1)[diff.reshape(-1)]
+    cut = torch.zeros(h * w, dtype=torch.bool)
+    if len(img):                            # the 8th / 9th gap of the differing pixels only
+        v = (torch.cdist(img, px) ** 2).topk(9, dim=-1, largest=False).values
+        cut[diff.reshape(-1).nonzero()[:, 0]] = ((v[:, 8] - v[:, 7]) <= ZOO_RENDER_CUT_PX2) | \
+            ((v[:, :8] - radius * radius).abs() <= ZOO_RENDER_CUT_PX2).any(-1)
+    cut = cut.reshape(h, w)
+    errs = {}
+    for name, g, r in (("depth", got[0], ref[0]), ("colors", got[1], ref[1])):
+        d = (g.cpu().double() - r.double()).abs()
+        d = d if d.ndim == 2 else d.amax(-1)
+        scale = float(r.abs().max())
+        bad = d > ZOO_RENDER_REL * scale
+        if int((bad & ~cut).sum()):
+            raise AssertionError(f"zoo render {name}: {int((bad & ~cut).sum())} pixels beyond "
+                                 f"{ZOO_RENDER_REL:.0e} with no near-tie at the 8th projection "
+                                 f"or the radius")
+        errs[name] = float(d[~cut].max()) / scale
+    record["render"] = {**errs, "pixels_at_cut": int(cut.sum()), "pixels": h * w,
+                        "mask_differs": int((got[3].cpu() != ref[3]).sum())}
+    if int(((got[3].cpu() != ref[3]) & ~cut).sum()):
+        raise AssertionError("zoo render: the coverage mask differs away from a near-tie")
+
+
+def zoo_library(record, gen, clouds, Draws, compose, inverse, pops):
+    """Phase 25d: grid_subsample on the 3DMatch phase's 4,096-point clouds
+    against grid_subsample_np, and the other small functions card against
+    CPU."""
+    import numpy as np
+    import torch
+
+    from diffreg_tpu_torch.data.synthetic import make_pair
+
+    rng = np.random.RandomState(0)
+    lib = {}
+    for i in range(BATCH_PAIRS):
+        src = make_pair(rng, N_POINTS)[0].astype(np.float32)
+        pts = torch.from_numpy(src)
+        valid = torch.ones(len(src), dtype=torch.bool)
+        (sub, ok, n), ms = wall(lambda: pops.grid_subsample(pts.cuda(), valid.cuda(), 0.03,
+                                                            len(src)))
+        want = pops.grid_subsample_np(src, 0.03)
+        ref = pops.grid_subsample(pts, valid, 0.03, len(src))
+        if int(n) != len(want) or not torch.equal(ok.cpu(), ref[1]):
+            raise AssertionError(f"zoo grid_subsample pair {i}: {int(n)} voxels, numpy "
+                                 f"{len(want)}")
+        err = float(np.abs(sub.cpu()[ok.cpu()].numpy() - want).max())
+        lib.setdefault("grid_subsample_abs_err", 0.0)
+        lib["grid_subsample_abs_err"] = max(lib["grid_subsample_abs_err"], err,
+                                            float((sub.cpu() - ref[0]).abs().max()))
+        lib.setdefault("grid_subsample_ms", []).append(ms * 1e3)
+    if not lib["grid_subsample_abs_err"] <= ZOO_SUBSAMPLE_ABS:
+        raise AssertionError(f"zoo grid_subsample: {lib['grid_subsample_abs_err']:.2e}")
+    s = torch.randn(4, 512, 512, generator=gen)
+    sm = torch.rand(4, 512, generator=gen) > 0.1
+    cases = {
+        "masked_var": (lambda d: pops.masked_var(s.to(d), sm.to(d), 1)),
+        "sinkhorn_conf_matrix": (lambda d: pops.sinkhorn_conf_matrix(
+            s.to(d), 1.0, 20, sm.to(d), sm.to(d))),
+        "knn_interpolate": (lambda d: pops.knn_interpolate(
+            clouds[0, :1024].to(d), clouds[0, 1024:].to(d), clouds[1, 1024:].to(d),
+            torch.ones(1024, dtype=torch.bool).to(d),
+            torch.ones(ZOO_POINTS - 1024, dtype=torch.bool).to(d))),
+        "compose_inverse": (lambda d: torch.cat([
+            torch.cat(compose(*inverse(clouds[0, :9].reshape(3, 3, 3).to(d),
+                                       clouds[1, :3].reshape(3, 3, 1).to(d)),
+                              clouds[0, 9:18].reshape(3, 3, 3).to(d),
+                              clouds[1, 3:6].reshape(3, 3, 1).to(d)), -1).reshape(-1)])),
+    }
+    for name, fn in cases.items():
+        with torch.inference_mode():
+            got, ms, ref, cpu_ms = timed_pair(lambda: fn("cuda"), lambda: fn("cpu"))
+        lib[name] = rel_err(got, ref)
+        lib.setdefault("ms", {})[name] = {"card": ms, "cpu": cpu_ms}
+        if not lib[name] <= ZOO_REL:
+            raise AssertionError(f"zoo {name}: {lib[name]:.3e}")
+    with torch.inference_mode():
+        got = pops.mutual_topk_correspondences(s.cuda(), 3, 2048)
+        ref = pops.mutual_topk_correspondences(s, 3, 2048)
+        idx = torch.randint(0, ZOO_POINTS, (64, 32), generator=gen)
+        sel = pops.index_select(clouds[0].cuda(), idx.cuda(), 0)
+        ov = torch.rand(ZOO_POINTS, generator=gen) * 0.5
+        ids, ones = torch.arange(ZOO_POINTS), torch.ones(ZOO_POINTS, dtype=torch.bool)
+        props = [pops.superpoint_proposals(ids.to(d), ids.to(d), ov.to(d), ones.to(d), 256,
+                                           Draws(torch.Generator().manual_seed(5), d),
+                                           probabilistic=True)
+                 for d in ("cuda", "cpu")]
+    same = torch.equal(got.valid.cpu(), ref.valid) and \
+        all(torch.equal(a.cpu()[ref.valid], b[ref.valid]) for a, b in zip(got[:3], ref[:3])) and \
+        torch.equal(sel.cpu(), clouds[0][idx]) and \
+        all(torch.equal(a.cpu(), b) for a, b in zip(*props))
+    lib["index_outputs_equal"] = same
+    if not same:
+        raise AssertionError("zoo: mutual_topk_correspondences, index_select or "
+                             "superpoint_proposals differ card against CPU")
+    record["library"] = lib
+
+
+def run_zoo(card, batch_cpu, gen):
+    """Phase 25: the model zoo on the card. (a) GeoTransformer's forward
+    composed of the zoo's pieces at the published 3DMatch width on the 4
+    pairs (KPConv-FPN through csrc/kpconv.cu, the geometric transformer's
+    cross blocks through csrc/attention.cu), its launches counted, stage
+    times; pair 0 card against CPU stage by stage; LGR on a known pose at the
+    full shapes; the lite transformer; both kernels at the zoo's shapes
+    against their plain versions; (b-d) the other families, the encoders and
+    the small functions card against CPU. Returns (the KPConv and attention
+    kernels' zoo entries, launches {kpconv, masked_attention}, record)."""
+    import torch
+
+    from diffreg_tpu_torch.data.pyramid import PyramidConfig
+    from diffreg_tpu_torch.nn.point_backbone import KPConvBias
+    from diffreg_tpu_torch.ops.attention import masked_attention_cuda
+    from diffreg_tpu_torch.ops.kpconv import kpconv_cuda
+
+    t_phase = time.perf_counter()
+    record = {}
+    counts = zoo_level_counts(batch_cpu, PyramidConfig(first_subsampling_dl=0.03,
+                                                       coarse_match_radius=0.1))
+    cpu_models, card_models = zoo_models()
+    fpn, gt, lite = card_models
+    batch = batch_cpu.to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    zoo_drive(card_models, batch, counts)                       # warm-up
+    kpconv_cuda.launches = 0
+    masked_attention_cuda.launches = 0
+    times, out = zoo_drive(card_models, batch, counts)
+    n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
+    if n_kp != 11 or n_at != 2 * ZOO_BLOCKS.count("cross"):
+        raise AssertionError(f"zoo: {n_kp} KPConv launches (want 11), {n_at} attention "
+                             f"launches (want {2 * ZOO_BLOCKS.count('cross')})")
+    s3, t3, sm3, tm3, sf3, tf3 = out["nodes"]
+    for name, t in (("source", out["src_c"]), ("target", out["tgt_c"])):
+        want = (BATCH_PAIRS, s3.shape[1], ZOO_GT["output_dim"])
+        if not bool(torch.isfinite(t).all()) or t.shape != want:
+            raise AssertionError(f"zoo: {name} superpoint features {tuple(t.shape)} not finite")
+    kept = [int(r[2].sum()) for r in out["lgr"]]
+    for r, t, *_ in out["lgr"]:
+        if not (bool(torch.isfinite(r).all()) and bool(torch.isfinite(t).all())):
+            raise AssertionError("zoo: a non-finite LGR pose")
+    record["stage_seconds"] = times
+    record["lgr_correspondences"] = kept
+    record["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"zoo GeoTransformer drive, {BATCH_PAIRS} pairs (levels "
+        f"{'/'.join(str(p.shape[1]) for p in batch.points)}, {s3.shape[1]} superpoint slots a "
+        f"side): " + ", ".join(f"{k} {v:.4f} s" for k, v in times.items())
+        + f" = {sum(times.values()):.4f} s; launches kpconv {n_kp} attention {n_at}; LGR "
+        f"correspondences {kept}; peak memory {record['peak_memory_gib']:.2f} GiB")
+    # the lite transformer once, its cross blocks through the kernel too
+    masked_attention_cuda.launches = 0
+    with torch.inference_mode():
+        lite_out, lite_s = wall(lambda: lite(s3, t3, sf3, tf3, sm3, tm3))
+    n_lite = masked_attention_cuda.launches
+    if n_lite != 2 * ZOO_BLOCKS.count("cross") or not bool(torch.isfinite(lite_out[0]).all()):
+        raise AssertionError(f"zoo lite transformer: {n_lite} attention launches")
+    record["lite_seconds"] = lite_s
+    log(f"zoo lite transformer: {lite_s:.4f} s, {n_lite} attention launches")
+    problems = []
+    cpu = zoo_pair0(card_models, cpu_models, batch_cpu, counts, record, problems)
+    with collected(problems, "known pose"):
+        zoo_known_pose(cpu, record)
+    # both kernels at the zoo's shapes against their plain versions
+    kp_entry, _ = check_kpconv(kpconv_layer_calls(fpn, lambda: fpn(zoo_pyramid(batch)),
+                                                  KPConvBias),
+                               11, "one KPConvFPN forward (11 calls)", tag=" (zoo)")
+    log(f"kpconv (zoo): {kp_entry['ms']:.4f} ms a KPConvFPN forward (plain "
+        f"{kp_entry['plain_ms']:.4f} ms, bound {kp_entry['bound_ms']:.4f} ms, "
+        f"{kp_entry['bound_by']})")
+    at_entry = zoo_attention_kernel(sm3, tm3, gen)
+    log(f"attention (zoo): {at_entry['ms']:.4f} ms a GeometricTransformer forward (plain "
+        f"{at_entry['plain_ms']:.4f} ms, SDPA {at_entry['library_ms']:.4f} ms, bound "
+        f"{at_entry['bound_ms']:.4f} ms, {at_entry['bound_by']})")
+    del out, cpu, batch
+    zoo_families(record, gen, problems)
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"zoo phase: {record['seconds']:.1f} s on {card}")
+    log(f"zoo: {json.dumps(record)}")
+    if record["seconds"] > ZOO_PHASE_S:
+        problems.append(f"the phase took {record['seconds']:.1f} s (limit {ZOO_PHASE_S})")
+    if problems:
+        raise AssertionError("zoo: " + "; ".join(problems))
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "per",
+            "shapes")
+    return ({k: kp_entry[k] for k in keep}, {k: at_entry[k] for k in keep}
+            | {"relative_position_self": at_entry["relative_position_self"]},
+            {"kpconv": n_kp, "masked_attention": n_at + n_lite}, record)
+
+
 def library_inputs():
     """The phase's inputs when it runs alone (``--library``): the 3DMatch
     phase's batch, phase 9's pair 0, the 2D-3D phase's batch and spec (a split
@@ -5802,6 +6693,13 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     if sys.argv[1:] == ["--library"]:                    # phase 24 alone
         run_library(card, *library_inputs())
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--zoo"]:                        # phase 25 alone (it builds the kernels)
+        t0 = time.perf_counter()
+        build_kernels()
+        log(f"kernel build: {time.perf_counter() - t0:.2f} s")
+        run_zoo(card, path_data()[1], torch.Generator().manual_seed(0))
         log(card)
         return 0
 
@@ -6015,8 +6913,20 @@ def main() -> int:
     # against CPU ----
     run_library(card, batch_cpu, corr0, (pairs4[0][0], pairs4[0][4]), batch2d3d, spec2d3d)
 
+    # ---- 25. the model zoo: GeoTransformer's forward at its published width through
+    # both kernels, pair 0 card against CPU, LGR on a known pose; the other zoo
+    # families, the encoders and the small library functions card against CPU ----
+    kp_zoo, at_zoo, zoo_launches, _ = run_zoo(card, batch_cpu, gen)
+    kernels[0]["zoo"] = {**kp_zoo, "launches": zoo_launches["kpconv"]}
+    kernels[1]["zoo"] = {**at_zoo, "launches": zoo_launches["masked_attention"]}
+    launches["kpconv_zoo"] = zoo_launches["kpconv"]
+    launches["masked_attention_zoo"] = zoo_launches["masked_attention"]
+
     kernels[0]["launches"] = (launches["kpconv"] + launches["kpconv_train_2d3d"]
-                              + launches["kpconv_story_2d3d"] + launches["kpconv_dp"])
+                              + launches["kpconv_story_2d3d"] + launches["kpconv_dp"]
+                              + launches["kpconv_zoo"])
+    kernels[0]["launches_zoo"] = launches["kpconv_zoo"]
+    kernels[1]["launches_zoo"] = launches["masked_attention_zoo"]
     kernels[0]["launches_data_parallel"] = launches["kpconv_dp"]
     kernels[1]["launches_data_parallel"] = launches["masked_attention_dp"]
     kernels[0]["launches_train_2d3d"] = launches["kpconv_train_2d3d"]
@@ -6025,7 +6935,8 @@ def main() -> int:
     kernels[1]["launches"] = (launches["masked_attention"] + launches["masked_attention_d132"]
                               + d64 + launches["masked_attention_d64_dino"]
                               + launches["masked_attention_story_2d3d"]
-                              + launches["masked_attention_dp"])
+                              + launches["masked_attention_dp"]
+                              + launches["masked_attention_zoo"])
     kernels[1]["launches_story_2d3d"] = launches["masked_attention_story_2d3d"]
     kernels[1]["launches_d132"] = launches["masked_attention_d132"]
     kernels[1]["launches_d64"] = d64

@@ -1,7 +1,9 @@
 """Weight bridge: the JAX package's flax variables -> the port's state_dict,
 for the 3D model (``state_dict_from_flax``), the 2D-3D model
-(``state_dict_2d3d_from_flax``) and its frozen towers
-(``dinov2_state_dict_from_flax``, ``depth_anything_state_dict_from_flax``).
+(``state_dict_2d3d_from_flax``), its frozen towers
+(``dinov2_state_dict_from_flax``, ``depth_anything_state_dict_from_flax``)
+and the model zoo, the encoders and any module built of the port's layers
+(``zoo_state_dict_from_flax``).
 
 Input: flat numpy parameters and buffers with '/'-paths, as
 ``flax.traverse_util.flatten_dict`` joins them (e.g.
@@ -26,7 +28,18 @@ named like the reference torch state_dict (e.g.
     ``resize0`` / ``resize1``) correlates the stride-dilated input with its
     kernel, which is torch's ConvTranspose2d with the kernel flipped in both
     spatial axes: ``kernel [H, W, I, O]`` becomes ``weight [I, O, H, W]`` of
-    the flipped kernel.
+    the flipped kernel;
+  * (zoo) the port's modules carry the flax names, so a path is walked down
+    the port module it is converted for, and a leaf becomes what the module
+    at its end holds: a Linear's ``kernel`` is transposed, a Conv2d's goes
+    HWIO -> OIHW, a LayerNorm's, GroupNorm's or BatchNorm's ``scale`` becomes
+    ``weight``, a BatchNorm's ``batch_stats`` ``mean`` / ``var`` become its
+    ``running_mean`` / ``running_var`` buffers; any other parameter keeps its
+    name and layout. The port's shared layers rename on the way: a
+    ``TransformerLayer``'s attention, linear, norm1, expand, squeeze and norm2
+    (the reference's ``attention.attention``, ``attention.linear``, ...), a
+    KPConv's ``kpconv`` scope, a ``GroupNormPack``'s affine (in ``norm``), and
+    a DINOv2 ViT (``_translate_dinov2``).
 """
 from __future__ import annotations
 
@@ -241,3 +254,86 @@ def depth_anything_state_dict_from_flax(
     """``nn.depth_anything.DepthAnything`` state_dict of the JAX package's
     DepthAnything params (``encoder/...``, ``head/...``)."""
     return _convert(params_flat, {}, _translate_depth_anything)
+
+
+_TRANSFORMER_CHILDREN = {"attention": "attention.attention", "linear": "attention.linear",
+                         "norm1": "attention.norm", "expand": "output.expand",
+                         "squeeze": "output.squeeze", "norm2": "output.norm"}
+
+
+def _zoo_child(module, name: str) -> str:
+    """The port attribute path of flax child ``name`` of ``module``."""
+    from .nn.layers2d3d import TransformerLayer
+    from .nn.point_backbone import KPConvBias
+
+    if isinstance(module, TransformerLayer):
+        return _TRANSFORMER_CHILDREN.get(name, name)
+    if isinstance(module, KPConvBias) and name == "kpconv":
+        return ""
+    return name
+
+
+def _zoo_leaf(module, leaf: str):
+    """(port name, layout) of flax leaf ``leaf`` of ``module``."""
+    from torch import nn
+
+    from .nn.layers2d3d import GroupNormPack
+
+    if isinstance(module, nn.Linear):
+        return {"kernel": ("weight", "T"), "bias": ("bias", None)}.get(leaf, (leaf, None))
+    if isinstance(module, nn.Conv2d):
+        return {"kernel": ("weight", "conv2d"), "bias": ("bias", None)}.get(leaf, (leaf, None))
+    if isinstance(module, nn.BatchNorm2d):
+        return {"scale": ("weight", None), "bias": ("bias", None),
+                "mean": ("running_mean", None), "var": ("running_var", None)}.get(leaf,
+                                                                                    (leaf, None))
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
+        return {"scale": ("weight", None), "bias": ("bias", None)}.get(leaf, (leaf, None))
+    if isinstance(module, GroupNormPack):
+        return {"scale": ("norm.weight", None), "bias": ("norm.bias", None)}.get(leaf,
+                                                                                 (leaf, None))
+    return leaf, None
+
+
+def _translate_zoo(root, path: str):
+    """(port key, layout) of flax path ``path`` of the module ``root`` is
+    converted for."""
+    from .nn.dinov2 import DinoVisionTransformer
+
+    parts = path.split("/")
+    module, keys = root, []
+    for j, seg in enumerate(parts):
+        if isinstance(module, DinoVisionTransformer):
+            key, layout = _translate_dinov2("/".join(parts[j:]))
+            return ".".join(keys + [key]), layout
+        if j == len(parts) - 1:
+            break
+        for attr in filter(None, _zoo_child(module, seg).split(".")):
+            child = getattr(module, attr, None)
+            if not isinstance(child, torch.nn.Module):
+                raise KeyError(f"no port counterpart for flax path {path!r}")
+            module = child
+            keys.append(attr)
+    name, layout = _zoo_leaf(module, parts[-1])
+    return ".".join(keys + [name]), layout
+
+
+def zoo_state_dict_from_flax(module, params_flat: Mapping[str, np.ndarray],
+                             batch_stats_flat: Mapping[str, np.ndarray] = None,
+                             buffers_flat: Mapping[str, np.ndarray] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """State_dict entries of ``module`` (a zoo module, ``nn.encoders``'
+    ``VGG19BN`` / ``CNNandDinov2``, or any module of the port's layers named
+    as the JAX module is) for every flax parameter, BatchNorm statistic
+    (``batch_stats``) and KPConv buffer (``buffers``: kernel points) given.
+    Raises ``KeyError`` on a path with no counterpart in ``module``; a
+    BatchNorm whose statistics are converted gets ``num_batches_tracked`` 0."""
+    own = module.state_dict()
+    out = _convert(params_flat, {**(batch_stats_flat or {}), **(buffers_flat or {})},
+                   lambda path: _translate_zoo(module, path))
+    for key in list(out):
+        if key not in own:
+            raise KeyError(f"no port counterpart for port key {key!r}")
+        if key.endswith(".running_mean"):
+            out[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return out

@@ -7,7 +7,7 @@ from .epropnp import (EProPnP4DoF, EProPnP6DoF, HuberPnPCost, LMConfig, Perspect
                       RSLMConfig, adaptive_huber_delta, camera_project, evaluate_pnp, gn_step,
                       lm_solve, lm_solver, monte_carlo_forward, pose_add, rslm_solve,
                       safe_cholesky)
-from .se3 import apply_transform, rotation_error_deg, translation_error
+from .se3 import apply_transform, compose, inverse, rotation_error_deg, translation_error
 from .procrustes import ProcrustesResult, soft_procrustes, weighted_kabsch
 from .deformation import (apply_embedded_deformation, apply_embedded_deformation_dense,
                           non_rigid_icp_adam, non_rigid_icp_gauss_newton)

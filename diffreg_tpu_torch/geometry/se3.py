@@ -9,6 +9,17 @@ def apply_transform(points, rotation, translation):
     return points @ rotation.transpose(-1, -2) + translation.transpose(-1, -2)
 
 
+def compose(r1, t1, r2, t2):
+    """The transform that applies (r2, t2) after (r1, t1); t are [..., 3, 1]."""
+    return r2 @ r1, r2 @ t1 + t2
+
+
+def inverse(rotation, translation):
+    """The inverse transform; translation is [..., 3, 1]."""
+    rt = rotation.transpose(-1, -2)
+    return rt, -(rt @ translation)
+
+
 def rotation_error_deg(r_est, r_gt):
     """Isotropic rotation error in degrees (RRE) of [..., 3, 3] rotations."""
     trace = torch.einsum("...ij,...ij->...", r_est, r_gt)

@@ -7,12 +7,16 @@ weights map by name. Masks are True where valid.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import masked_attention
+from ..ops.masked import NEG_INF
+from ..utils.precision import matmul_precision
 
 
 def fourier_embedding(x, length: int):
@@ -89,23 +93,34 @@ class MultiHeadAttention(nn.Module):
     -1e9)) v per head, through ``ops.attention.masked_attention`` (on CUDA
     tensors the hand-written kernel, whose plain recompute in the backward
     runs at ``precision``, as the JAX layer's einsums run at
-    ``get_precision()``). The reference's relative-position and weighting
-    arguments are not ported: the fusion module passes none."""
+    ``get_precision()``).
 
-    def __init__(self, d_model: int, num_heads: int, precision: str = "highest"):
+    The relative-position arguments take another route, chosen by argument:
+    ``qk_embeds`` [B, N, M, C] adds a key per query pair (projected by
+    ``qk_embed_layer`` when ``qk_embed_proj``), as ``q.k + q.qk``;
+    ``qk_weights`` [B, N, M] and ``k_weights`` [B, M] scale the logits after
+    the scale; ``k_valid`` and ``qk_valid`` [B, N, M] fill the masked logits
+    with -1e9. With any of the four given the layer computes that in plain
+    PyTorch, in the JAX layer's order, its einsums at ``precision`` (the
+    projections are Linear layers, as JAX's are Dense); with none, the
+    kernel's route above."""
+
+    def __init__(self, d_model: int, num_heads: int, precision: str = "highest",
+                 qk_embed_proj: bool = False):
         super().__init__()
         self.d_model, self.num_heads, self.precision = d_model, num_heads, precision
         self.q_token_layer = nn.Linear(d_model, d_model)
         self.k_token_layer = nn.Linear(d_model, d_model)
         self.v_token_layer = nn.Linear(d_model, d_model)
+        self.qk_embed_layer = nn.Linear(d_model, d_model) if qk_embed_proj else None
 
     def forward(self, q_tokens, k_tokens, v_tokens, k_valid=None, qk_embeds=None,
                 k_weights=None, qk_weights=None, qk_valid=None):
-        if any(a is not None for a in (qk_embeds, k_weights, qk_weights, qk_valid)):
-            raise NotImplementedError("qk_embeds / k_weights / qk_weights / qk_valid belong to "
-                                      "the library surface, not ported yet (ROADMAP)")
         h = self.num_heads
         d = self.d_model // h
+        if any(a is not None for a in (qk_embeds, k_weights, qk_weights, qk_valid)):
+            return self._relative(q_tokens, k_tokens, v_tokens, k_valid, qk_embeds, k_weights,
+                                  qk_weights, qk_valid)
 
         def heads(x):
             return x.reshape(x.shape[0], x.shape[1], h, d).transpose(1, 2).contiguous()
@@ -118,18 +133,47 @@ class MultiHeadAttention(nn.Module):
         out = masked_attention(q, k, v, k_valid, d ** -0.5, self.precision)   # [B, H, L, D]
         return out.transpose(1, 2).reshape(q_tokens.shape[0], q_tokens.shape[1], self.d_model)
 
+    def _relative(self, q_tokens, k_tokens, v_tokens, k_valid, qk_embeds, k_weights,
+                  qk_weights, qk_valid):
+        h = self.num_heads
+        d = self.d_model // h
+        b, nq = q_tokens.shape[:2]
+        q = self.q_token_layer(q_tokens).reshape(b, nq, h, d)
+        k = self.k_token_layer(k_tokens).reshape(b, -1, h, d)
+        v = self.v_token_layer(v_tokens).reshape(b, -1, h, d)
+        if qk_embeds is not None and self.qk_embed_layer is not None:
+            qk_embeds = self.qk_embed_layer(qk_embeds)
+        with matmul_precision(self.precision):
+            a = torch.einsum("bnhc,bmhc->bhnm", q, k)
+            if qk_embeds is not None:
+                qk = qk_embeds.reshape(*qk_embeds.shape[:3], h, d)
+                a = a + torch.einsum("bnhc,bnmhc->bhnm", q, qk)
+            a = a / math.sqrt(d)
+            if qk_weights is not None:
+                a = a * qk_weights[:, None, :, :]
+            if k_weights is not None:
+                a = a * k_weights[:, None, None, :]
+            neg = torch.full_like(a, NEG_INF)
+            if k_valid is not None:
+                a = torch.where(k_valid[:, None, None, :], a, neg)
+            if qk_valid is not None:
+                a = torch.where(qk_valid[:, None, :, :], a, neg)
+            out = torch.einsum("bhnm,bmhc->bnhc", torch.softmax(a, dim=-1), v)
+        return out.reshape(b, nq, self.d_model)
+
 
 class AttentionLayer(nn.Module):
     """Attention, output projection, residual, LayerNorm (eps 1e-5)."""
 
-    def __init__(self, d_model: int, num_heads: int, precision: str = "highest"):
+    def __init__(self, d_model: int, num_heads: int, precision: str = "highest",
+                 qk_embed_proj: bool = False):
         super().__init__()
-        self.attention = MultiHeadAttention(d_model, num_heads, precision)
+        self.attention = MultiHeadAttention(d_model, num_heads, precision, qk_embed_proj)
         self.linear = nn.Linear(d_model, d_model)
         self.norm = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, q_tokens, k_tokens, v_tokens, k_valid=None):
-        hidden = self.linear(self.attention(q_tokens, k_tokens, v_tokens, k_valid))
+    def forward(self, q_tokens, k_tokens, v_tokens, k_valid=None, **relative):
+        hidden = self.linear(self.attention(q_tokens, k_tokens, v_tokens, k_valid, **relative))
         return self.norm(hidden + q_tokens)
 
 
@@ -147,15 +191,18 @@ class AttentionOutput(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """vision3d TransformerLayer: AttentionLayer + AttentionOutput (post-norm)."""
+    """vision3d TransformerLayer: AttentionLayer + AttentionOutput (post-norm).
+    The keyword arguments ``qk_embeds``, ``k_weights``, ``qk_weights`` and
+    ``qk_valid`` pass through to ``MultiHeadAttention``."""
 
-    def __init__(self, d_model: int, num_heads: int, precision: str = "highest"):
+    def __init__(self, d_model: int, num_heads: int, precision: str = "highest",
+                 qk_embed_proj: bool = False):
         super().__init__()
-        self.attention = AttentionLayer(d_model, num_heads, precision)
+        self.attention = AttentionLayer(d_model, num_heads, precision, qk_embed_proj)
         self.output = AttentionOutput(d_model)
 
-    def forward(self, q_tokens, k_tokens, v_tokens, k_valid=None):
-        return self.output(self.attention(q_tokens, k_tokens, v_tokens, k_valid))
+    def forward(self, q_tokens, k_tokens, v_tokens, k_valid=None, **relative):
+        return self.output(self.attention(q_tokens, k_tokens, v_tokens, k_valid, **relative))
 
 
 class ConvBlock(nn.Module):

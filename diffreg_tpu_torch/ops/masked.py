@@ -16,6 +16,13 @@ def masked_mean(x, mask, dim, keepdim=False, eps=1e-12):
     return num / den.clamp_min(eps)
 
 
+def masked_var(x, mask, dim, keepdim=False, eps=1e-12):
+    """Biased variance of ``x`` over ``dim`` counting only entries where
+    ``mask`` is True."""
+    mu = masked_mean(x, mask, dim, keepdim=True, eps=eps)
+    return masked_mean((x - mu) ** 2, mask, dim, keepdim=keepdim, eps=eps)
+
+
 def masked_instance_norm(x, mask, eps=1e-5):
     """Per-channel normalization over the point axis, valid points only.
 

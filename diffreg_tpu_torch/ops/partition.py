@@ -91,3 +91,29 @@ def batch_mutual_topk_select(score_mat, k, valid_row=None, valid_col=None, thres
     if valid_col is not None:
         corr = corr & valid_col[..., None, :]
     return corr
+
+
+def knn_interpolate(q_pts, s_pts, s_feats, q_valid, s_valid, k=3, eps=1e-10):
+    """Inverse-distance weighted kNN interpolation of s_feats [Ns, C] at
+    q_pts [Nq, 3] from s_pts [Ns, 3], over the exact kNN (difference-based
+    distances, so that a query on a support reproduces its feature); invalid
+    queries get zeros."""
+    from .neighbors import knn as exact_knn
+
+    idx, d = exact_knn(q_pts, q_valid, s_pts, s_valid, k)
+    idx = idx.long()
+    ns = s_pts.shape[0]
+    w = 1.0 / d.clamp_min(eps)
+    w = torch.where(idx < ns, w, torch.zeros_like(w))
+    w = w / torch.sum(w, dim=1, keepdim=True).clamp_min(eps)
+    feats = s_feats[idx.clamp_max(ns - 1)]                      # [Nq, k, C]
+    return torch.sum(feats * w[..., None], dim=1) * q_valid[:, None].to(s_feats.dtype)
+
+
+def index_select(data, indices, dim=0):
+    """Rows (or entries along ``dim``) of ``data`` at ``indices`` of any shape
+    (vision3d index_select): the result has ``indices``' shape in place of
+    ``dim``."""
+    dim = dim % data.ndim
+    flat = torch.index_select(data, dim, indices.reshape(-1).long())
+    return flat.reshape(data.shape[:dim] + indices.shape + data.shape[dim + 1:])

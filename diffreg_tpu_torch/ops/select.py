@@ -5,8 +5,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.draws import as_draws
 from .masked import NEG_INF
-from .topk import top_k
+from .topk import stable_top_k, top_k
 
 
 class Correspondences(NamedTuple):
@@ -41,6 +42,14 @@ def extract_correspondences(corr_mat, score_mat, max_corr):
                            torch.where(valid, scores, torch.zeros_like(scores)), valid)
 
 
+def mutual_topk_correspondences(score_mat, k, max_corr, largest=True, threshold=None,
+                                mutual=True):
+    """``mutual_topk_mask`` of score_mat [B, N, M] as a fixed-size list of at
+    most ``max_corr`` correspondences (``extract_correspondences``)."""
+    corr = mutual_topk_mask(score_mat, k, largest, threshold, mutual)
+    return extract_correspondences(corr, score_mat, max_corr)
+
+
 def thresholded_mutual_argmax_mask(conf_matrix, thr=0.0, mutual=True):
     """Reference ``Matching.get_match``: conf > thr, and optionally the row
     argmax and the column argmax. conf_matrix [B, N, M]."""
@@ -50,3 +59,28 @@ def thresholded_mutual_argmax_mask(conf_matrix, thr=0.0, mutual=True):
         col_max = conf_matrix.amax(dim=1, keepdim=True)
         mask = mask & (conf_matrix == row_max) & (conf_matrix == col_max)
     return mask
+
+
+def superpoint_proposals(src_idx, tgt_idx, overlaps, valid, num_proposals, rng,
+                         overlap_threshold=0.3, decay_step=0.05, probabilistic=False):
+    """Ground-truth superpoint proposals (vision3d SuperPointProposalGenerator):
+    the overlap threshold decays by ``decay_step`` until a candidate passes
+    it (strictly), then ``num_proposals`` candidates are drawn without
+    replacement (Gumbel top-k), uniformly or, with ``probabilistic``, by
+    overlap. src_idx, tgt_idx, overlaps, valid [N]; ``rng``: a
+    ``torch.Generator`` on their device or a draw source (``utils/draws.py``),
+    drawn once, as JAX draws its key. Returns (src [P], tgt [P], overlaps [P],
+    valid [P])."""
+    inf = torch.tensor(float("inf"), dtype=overlaps.dtype, device=overlaps.device)
+    ov = torch.where(valid, overlaps, -inf)
+    max_ov = ov.max()
+    k = torch.where(max_ov > overlap_threshold, torch.zeros_like(max_ov),
+                    torch.floor((overlap_threshold - max_ov) / decay_step) + 1.0)
+    mask = ov > overlap_threshold - k * decay_step
+    if probabilistic:
+        logw = torch.where(mask, torch.log(ov.clamp_min(1e-12)), -inf)
+    else:
+        logw = torch.where(mask, torch.zeros_like(ov), -inf)
+    scores = logw + as_draws(rng).gumbel(logw.shape, logw.dtype)
+    _, sel = stable_top_k(scores, num_proposals)
+    return src_idx[sel], tgt_idx[sel], overlaps[sel], mask[sel]

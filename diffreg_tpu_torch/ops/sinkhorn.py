@@ -61,6 +61,18 @@ def log_sinkhorn(scores, alpha, iters, src_mask, tgt_mask, src_pad=None, tgt_pad
     return z - norm[:, :, None]
 
 
+def sinkhorn_conf_matrix(scores, alpha, iters, src_mask=None, tgt_mask=None):
+    """Match confidences [B, N, M]: ``exp(log_sinkhorn)`` with the dustbins
+    dropped; a missing mask counts every row (column) as valid."""
+    b, n, m = scores.shape
+    if src_mask is None:
+        src_mask = torch.ones(b, n, dtype=torch.bool, device=scores.device)
+    if tgt_mask is None:
+        tgt_mask = torch.ones(b, m, dtype=torch.bool, device=scores.device)
+    alpha = torch.as_tensor(alpha, dtype=scores.dtype, device=scores.device)
+    return torch.exp(log_sinkhorn(scores, alpha, iters, src_mask, tgt_mask))[:, :-1, :-1]
+
+
 def dual_softmax_conf_matrix(sim, temperature, src_mask=None, tgt_mask=None):
     """softmax over sources x softmax over targets of sim [B, N, M] /
     temperature; with masks, invalid sources get -1e9 in the first and

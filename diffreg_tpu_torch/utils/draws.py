@@ -45,6 +45,10 @@ class Draws:
         u = self._uniform(shape, dtype).clamp_min(torch.finfo(dtype).tiny)
         return self._place(-torch.log(-torch.log(u)))
 
+    def permutation(self, n: int):
+        return self._place(torch.randperm(n, generator=self.generator,
+                                          device=self.generator.device))
+
     def randint(self, shape: Sequence[int], low: int, high: int):
         return self._place(torch.randint(low, high, tuple(shape), generator=self.generator,
                                          dtype=torch.int64, device=self.generator.device))

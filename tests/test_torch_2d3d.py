@@ -299,8 +299,10 @@ def test_attention_and_transformer_layer(rng, kind):
     # no key mask: every key counts
     _close(port(T(q), T(kv), T(kv)), jm.apply(variables, *args[:3]), 1e-5, kind + " unmasked")
     if kind == "attention":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port(T(q), T(kv), T(kv), k_weights=torch.ones(B, 9))
+        # the relative-position arguments are ported: k_weights against JAX's
+        w = rng.rand(B, 9).astype(np.float32) + 0.5
+        _close(port(T(q), T(kv), T(kv), T(valid), k_weights=T(w)),
+               jm.apply(variables, *args, k_weights=jnp.asarray(w)), 1e-5, kind + " k_weights")
 
 
 @pytest.mark.parametrize("k,stride,use_norm,use_act", [(7, 2, True, True), (3, 1, True, False),

@@ -40,18 +40,25 @@ LIBRARY_MODULES = ["diffreg_tpu_torch.geometry.so3", "diffreg_tpu_torch.geometry
                    "diffreg_tpu_torch.data.library_datasets", "diffreg_tpu_torch.utils.ply",
                    "diffreg_tpu_torch.utils.context", "diffreg_tpu_torch.utils.profiling",
                    "diffreg_tpu_torch.utils.draws"]
+# the zoo slice's modules
+ZOO_MODULES = ["diffreg_tpu_torch.zoo", "diffreg_tpu_torch.zoo.geotransformer",
+               "diffreg_tpu_torch.zoo.kpconv_fpn", "diffreg_tpu_torch.zoo.layers_library",
+               "diffreg_tpu_torch.zoo.matching_models", "diffreg_tpu_torch.zoo.pointnets",
+               "diffreg_tpu_torch.zoo.pri3d", "diffreg_tpu_torch.nn.encoders"]
 # the names the JAX package's tests/test_package_surface.py asks of its ops and
-# geometry, less grid_subsample (the JAX package's on-device voxel subsampling,
-# which the port does not have: its pyramid subsamples on the host)
+# geometry, and the small library functions of the zoo slice
 OPS_SURFACE = ["log_sinkhorn", "volumetric_pe", "radius_neighbors", "knn", "kpconv",
                "spatial_consistency", "leading_eigenvector", "local_ppf", "global_ppf",
                "build_local_reference_frame", "estimate_normals", "sample_pdf", "volume_render",
-               "batch_to_pack", "pack_to_batch", "mutual_topk_mask", "extract_correspondences"]
+               "batch_to_pack", "pack_to_batch", "mutual_topk_mask", "extract_correspondences",
+               "grid_subsample", "grid_subsample_with_features_np", "masked_var",
+               "sinkhorn_conf_matrix", "mutual_topk_correspondences", "superpoint_proposals",
+               "knn_interpolate", "index_select"]
 GEOMETRY_SURFACE = ["apply_transform", "weighted_kabsch", "soft_procrustes",
                     "apply_embedded_deformation", "non_rigid_icp_adam",
                     "non_rigid_icp_gauss_newton", "rodrigues_rotation_formula",
                     "alignment_rotation_matrix", "quaternion_product",
-                    "axis_angle_to_rotation_matrix"]
+                    "axis_angle_to_rotation_matrix", "compose", "inverse"]
 
 
 def test_every_module_imports_without_jax():
@@ -68,7 +75,8 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert len(_modules()) > 20 and set(CLI_MODULES + LIBRARY_MODULES) <= set(_modules())
+    assert len(_modules()) > 20 and set(CLI_MODULES + LIBRARY_MODULES + ZOO_MODULES) \
+        <= set(_modules())
 
 
 def test_ops_and_geometry_surfaces_build_nothing():
@@ -83,6 +91,33 @@ def test_ops_and_geometry_surfaces_build_nothing():
         "from diffreg_tpu_torch import geometry, ops\n"
         f"missing = [n for n in {OPS_SURFACE!r} if not hasattr(ops, n)]\n"
         f"missing += [n for n in {GEOMETRY_SURFACE!r} if not hasattr(geometry, n)]\n"
+        "assert not missing, missing\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_zoo_and_encoders_export_the_jax_names():
+    """``diffreg_tpu_torch.zoo`` has every public name of the JAX package's zoo
+    (its classes and functions, not its submodule names), and the encoders
+    module its two models; importing them builds nothing."""
+    import types
+
+    from diffreg_tpu import zoo as jax_zoo
+
+    names = sorted(n for n in jax_zoo.__all__
+                   if not isinstance(getattr(jax_zoo, n), types.ModuleType))
+    assert len(names) >= 70
+    code = (
+        "import subprocess\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError(f'a build started at import: {a}')\n"
+        "subprocess.Popen = refuse\n"
+        "from diffreg_tpu_torch import zoo\n"
+        "from diffreg_tpu_torch.nn import encoders\n"
+        f"missing = [n for n in {names!r} if not hasattr(zoo, n)]\n"
+        "missing += [n for n in ('VGG19BN', 'CNNandDinov2') if not hasattr(encoders, n)]\n"
         "assert not missing, missing\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_DIR, capture_output=True,

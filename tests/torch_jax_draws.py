@@ -37,6 +37,9 @@ class JaxDraws:
     def gumbel(self, shape, dtype=torch.float32):
         return _t(jax.random.gumbel(self.key, tuple(shape), _jdt(dtype)))
 
+    def permutation(self, n):
+        return _t(jax.random.permutation(self.key, n)).long()
+
     def randint(self, shape, low, high):
         return _t(jax.random.randint(self.key, tuple(shape), low, high)).long()
 
