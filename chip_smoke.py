@@ -34,7 +34,9 @@ In order, it
      clouds, 20 DDIM steps, RANSAC with 8192 hypotheses) with random weights
      from a seed, at condition gate 0 and gate 40: one warm-up and three timed
      runs each (pairs/s from the median), the kernels' launches asserted for
-     every run and the outputs checked;
+     every run (KPConv by the route its C entry reports: the tuned kernel at
+     10 layers, the any-shape kernel at the first, ``ENCODE_ROUTES``) and
+     the outputs checked;
   5. runs one pair of the DDIM path through the same port on the CPU (plain
      versions) and holds the card's result against it, and holds RANSAC on the
      card and on the CPU against a known pose (pair 0's coarse points, 40%
@@ -63,7 +65,8 @@ In order, it
      beside the f32 path's of phase 4, peak memory), 11 bf16 KPConv and 180
      bf16 attention launches asserted per run and no f32 kernel launch;
      pair 0 against the port's CPU run in bf16 (confidences, poses, the
-     union mask up to near-ties; the card's bf16-vs-f32 gap printed); and
+     union mask up to near-ties; the card's bf16-vs-f32 gap printed; at
+     gate 40 pair 0 run again keeping the CPU's top-k choices); and
      ``diffreg_tpu_torch.main`` on configs/test/3dmatch_fast.yaml with --demo;
      before the DDIM, at the same shapes, the gradients through each bf16
      instance's autograd Function (forward: the kernel; backward: the plain
@@ -120,8 +123,9 @@ In order, it
      shapes, with the backward's time;
  13. runs the 2D-3D path at full width (configs/test/rgbdv2.yaml, SAMPLE_STEP
      50, random weights from seed 0) through TwoDThreeDTester: one warm-up
-     and three timed runs (pairs/s from the median), 8 KPConv and 612
-     attention launches asserted per forward, where the time goes (encode,
+     and three timed runs (pairs/s from the median), 8 KPConv (by route:
+     ``BACKBONE_2D3D_ROUTES``, the any-shape kernel at the level-0 trio) and
+     612 attention launches asserted per forward, where the time goes (encode,
      partition, one fusion pass, the DDIM steps, fine matching and PnP);
  14. runs pair 0 on the CPU at 10 DDIM steps with the same weights and draws
      (the matchers sharpened) and holds the Sinkhorn confidences, the top-1
@@ -231,8 +235,8 @@ In order, it
      keys, --demo;
  23. the shape range (``run_shape_range``): (a) both KPConv kernels, f32
      and bf16, at every kernel-point count of SHAPE_POINTS (any P but 15
-     takes an any-P kernel: on tensor cores at the wide layers, on CUDA cores
-     at the others) against their plain versions at a 3DMatch encode's 11
+     takes the any-P tensor-core kernel at the wide layers and the any-shape
+     kernel at the others) against their plain versions at a 3DMatch encode's 11
      layers and the 2D-3D level-0 shapes, linear/sum at every P,
      gaussian/sum and linear/closest at P = 17 and 24 (a bf16 row beyond the
      limit excused only where one rounding flip of a term explains it), timed,
@@ -253,7 +257,12 @@ In order, it
      on configs/test/4dmatch.yaml with one head of 528; every part's launches
      counted by route (KPConv by kernel-point count and kernel, attention by
      instance and any-D branch), C's ten wide KPConv layers and C's and W's
-     attention asserted on the tensor-core routes;
+     attention asserted on the tensor-core routes; (f) the any-shape KPConv
+     kernel, f32 and bf16, at ANY_SHAPE_EDGES (Cin, Cout, K and P on each side
+     of its tilings, the other modes, views offset by one element) against
+     its plain version at phase 1's limits, every launch asserted on its
+     route, the 4DMatch CLI's wide K = 58 layer timed, the gradients through
+     both Functions at a narrow layer;
  24. the library surface (``run_library``, no CUDA kernel: plain PyTorch on
      the card, each part held against the same call on the CPU on the same
      inputs and draws, and timed on both): (a) radius_neighbors and knn on the
@@ -651,7 +660,36 @@ VARIANT_REG_REL_TOL = 1e-5
 # the variants are (VARIANT_CONF_REL_TOL), and the CLI on C's YAML and on
 # configs/test/4dmatch.yaml with one head of 528
 SHAPE_POINTS = (1, 7, 16, 17, 24, 32, 33, 64)
+# the KPConv kernel behind each route a C entry reports (ops/kpconv.py:ROUTES)
+ROUTE_LABELS = {"tuned": "tuned tensor cores", "any_p_tensor_cores": "any-P tensor cores",
+                "any_shape_tensor_cores": "any-shape tensor cores"}
+# the routes of an encode's 11 layers and of a 2D-3D point-backbone pass's 8
+# at 15 kernel points: the first layer (Cin = 1) and the 2D-3D level 0 (K =
+# 64) take the any-shape kernel
+ENCODE_ROUTES = {"tuned": 10, "any_shape_tensor_cores": 1}
+KPCONV_K_TUNED = 40   # the most neighbours the tuned and any-P kernels take
+BACKBONE_2D3D_ROUTES = {"tuned": 5, "any_shape_tensor_cores": 3}
 SHAPE_MODE_POINTS = (17, 24)
+# phase 23's edges of the any-shape KPConv kernel (both dtypes, against the
+# plain versions at phase 1's limits): a base layer, 2 pairs of 2,000 points in
+# a 0.5 m cube, 1,500 queries near them, K 64 nearest within 0.1 m (the rest
+# the sentinel), 32 -> 32, 15 kernel points on a 0.0625 m radius, extent 0.05,
+# linear/sum, with one thing changed at a time: Cin on each side of the 8- and
+# 32-channel chunks, Cout on each side of the 8- and 64-column tiles, K on
+# each side of the tuned kernels' 40 and the 32-neighbour stages, P on each
+# side of the 16-point chunks, the other modes, and views offset by one
+# element (W's rows then take the kernel's plain loads)
+ANY_SHAPE_BASE = {"b": 2, "nq": 1500, "ns": 2000, "k": 64, "cin": 32, "cout": 32, "p": 15,
+                  "modes": ("linear", "sum"), "offset": 0}
+ANY_SHAPE_EDGES = ([{"cin": c} for c in (1, 3, 16, 31, 32, 33, 48)]
+                   + [{"cout": c} for c in (32, 48, 64, 96)]
+                   + [{"k": k} for k in (16, 40, 41, 58, 64, 65, 96)]
+                   + [{"p": p} for p in (15, 16, 17, 24)]
+                   + [{"modes": m, "cin": c} for m in (("gaussian", "sum"), ("linear", "closest"))
+                      for c in (1, 32)]
+                   + [{"offset": 1, "cin": c, "cout": o} for c, o in ((1, 64), (32, 48), (31, 33))])
+# the 4DMatch CLI's on-disk wide layer (K 58, past the tuned kernels' 40), timed
+ANY_SHAPE_WIDE = dict(ANY_SHAPE_BASE, b=4, nq=4608, ns=4608, k=58, cin=128, cout=128)
 SHAPE_HEAD_WIDTHS = (6, 54, 66, 128, 136, 137, 144, 145, 176, 216, 256, 257, 264, 432, 528,
                      1000)
 SHAPE_OFFSET_WIDTHS = (54, 216)
@@ -1049,13 +1087,10 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False, modes=("linear", "sum"
             plain_ms = time_cuda(lambda: plain(*args, *modes), 3, warmup=1)
             work = kpconv_work(q, s, inds, x, w, bf16, modes=modes)
             bms, by = bound_ms(*work, BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
-            tensor_cores = (cin >= (32 if bf16 else 64) and cin % 32 == 0 and k <= 40
-                            and cout in (64, 128, 256, 512))
-            path = {"tuned": "tensor cores" if tensor_cores else "CUDA cores",
-                    "any_p_tensor_cores": "any-P tensor cores",
-                    "any_p_cuda_cores": "any-P CUDA cores"}[route]
+            path = ROUTE_LABELS[route]
             per_shape.append({"nq": nq, "ns": ns, "k": k, "cin": cin, "cout": cout,
-                              "calls": count, "path": path, "ms": ms, "plain_ms": plain_ms,
+                              "calls": count, "route": route, "path": path, "ms": ms,
+                              "plain_ms": plain_ms,
                               "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                               "max_abs_plain": scale, "excused_rows": excused})
             log(f"kpconv{tag} {nq}/{ns}/K{k}/{cin}->{cout} x{count} ({path}): err {err:.3e} "
@@ -1091,6 +1126,39 @@ def check_kpconv(calls, n_calls, per, tag="", bf16=False, modes=("linear", "sum"
         log(f"kpconv{tag}: bound {bms:.4f} ms ({by}; aggregation as bf16 matrix flops), "
             f"{entry['bound_ms_aggregation_f32']:.4f} ms with it at the f32 rate")
     return entry, shapes
+
+
+def any_shape_entries(kernels, launches):
+    """The any-shape KPConv kernels' JSON entries (f32, bf16): launches on the
+    main paths (phase 4's and the 2D-3D testers' runs; phase 8b's bf16 DDIM),
+    times and bounds summed over the layers that took them at the timed
+    unit (f32: the 2D-3D point backbone's level-0 trio, phase 12; bf16: the
+    first layer of the bf16 encode, phase 8b), the largest error over every
+    layer checked in phases 3-12 that took them, and phase 23f's edges."""
+    edges = next(e for e in kernels if e["name"] == "kpconv_any_p").pop("any_shape_edges")
+    entries = []
+    for bf16 in (False, True):
+        src = kernels[2] if bf16 else kernels[0]
+        rows = [dict(r, at=key) for key in ("shapes", "shapes_4dmatch", "shapes_2d3d")
+                for r in src.get(key, []) if r["route"] == "any_shape_tensor_cores"]
+        timed = [r for r in rows if r["at"] == ("shapes" if bf16 else "shapes_2d3d")]
+        name = "kpconv_bf16_any_shape" if bf16 else "kpconv_any_shape"
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"diffreg_tpu_torch/csrc/{'kpconv_bf16' if bf16 else 'kpconv'}.cu",
+            "shared_steps": "diffreg_tpu_torch/csrc/kpconv_common.cuh",
+            "replaces": "diffreg_tpu/ops/pallas/kpconv_kernel.py:38",
+            "launches": launches[name],
+            "launches_phase23": launches[f"{'kpconv_bf16' if bf16 else 'kpconv'}"
+                                         "_any_shape_tensor_cores"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: sum(r[k] * r["calls"] for r in timed) for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": max(timed, key=lambda r: r["bound_ms"])["bound_by"], "library_ms": None,
+            "per": ("the first layer of a bf16 3DMatch encode (1 -> 128, K 32)" if bf16 else
+                    "the 2D-3D point backbone's level 0 (1 -> 64, 32 -> 32 and the strided "
+                    "32 -> 32, K 64)"),
+            "shapes": rows, "edges": edges["bf16" if bf16 else "f32"]})
+    return entries
 
 
 def attention_calls(n_src, n_tgt, layer_types):
@@ -2122,7 +2190,8 @@ def run_cli(repo, pairs4, meta4, launches):
 # ---------------------------------------------------------------- bf16
 
 
-def bf16_pair_check(got, ref, f32, one, cpu_model, tag):
+def bf16_pair_check(got, ref, f32, one, cpu_model, tag, solve_choices=None, cut=None,
+                    hold=True):
     """Pair 0 of the card's bf16 DDIM against the CPU's (the same roundings,
     so they differ where f32 sums in another order flip a bf16 rounding):
     the confidences within CONF_BF16_REL_TOL of the largest; the union mask
@@ -2132,7 +2201,10 @@ def bf16_pair_check(got, ref, f32, one, cpu_model, tag):
     CPU's solve of the same confidences within POSE_ABS_TOL. With random
     weights the confidences are near-uniform, so soft Procrustes amplifies
     their card-vs-CPU difference into the end-to-end pose: that gap, and the
-    card's bf16-vs-f32 gaps, are printed beside the limits."""
+    card's bf16-vs-f32 gaps, are printed beside the limits. With
+    ``solve_choices`` (the top-k choices the card's final Procrustes call
+    kept, recorded on the CPU: ``topk_choices``) the CPU's solve keeps them
+    too. With ``hold`` false the readings are printed and nothing is held."""
     import torch
 
     valid = one.src_mask[:, :, None] & one.tgt_mask[:, None, :]
@@ -2144,7 +2216,9 @@ def bf16_pair_check(got, ref, f32, one, cpu_model, tag):
     f32_gap = float((card - f32["conf_matrix_pred"][:1].cpu()).abs()[valid].max())
     pose_gap = lambda a, b: max(float((a[k][:1].cpu() - b[k][:1].cpu()).abs().max())  # noqa: E731
                                 for k in ("rotation_pred", "translation_pred"))
-    solve = cpu_model._pose(card, ref["s_pcd"], ref["t_pcd"], one.src_mask, one.tgt_mask)
+    with (topk_choices(replay=solve_choices, cut=cut) if solve_choices
+          else contextlib.nullcontext()):
+        solve = cpu_model._pose(card, ref["s_pcd"], ref["t_pcd"], one.src_mask, one.tgt_mask)
     solve_err = pose_gap(got, {"rotation_pred": solve.rotation,
                                "translation_pred": solve.translation})
     c = torch.where(valid, conf, torch.full_like(conf, -1.0))
@@ -2163,8 +2237,8 @@ def bf16_pair_check(got, ref, f32, one, cpu_model, tag):
         f"{tie_free:.4f}; pose solve on the card's confidences vs the CPU's {solve_err:.3e} "
         f"(limit {POSE_ABS_TOL:.0e}); end-to-end pose card vs CPU {pose_gap(got, ref):.3e}, "
         f"card bf16 vs f32 {pose_gap(got, f32):.3e}")
-    if not (conf_err <= limit and agree >= MASK_BF16_AGREEMENT and unexplained == 0
-            and solve_err <= POSE_ABS_TOL):
+    if hold and not (conf_err <= limit and agree >= MASK_BF16_AGREEMENT and unexplained == 0
+                     and solve_err <= POSE_ABS_TOL):
         raise AssertionError(f"bf16 {tag}: conf {conf_err}, mask agreement {agree}, "
                              f"{unexplained} entries outside a near-tie, pose solve {solve_err}")
 
@@ -2349,14 +2423,18 @@ def run_bf16(repo, batch, batch_cpu, spec, x_init, u, f32_ref, batch4_cpu, gen, 
             for fn in (kpconv_cuda, masked_attention_cuda, kpconv_cuda_bf16,
                        masked_attention_cuda_bf16):
                 fn.launches = 0
+            kpconv_cuda_bf16.route_launches = {}
             out, seconds = wall(lambda: register(model, batch, x_init, u))
             n_kp, n_at = kpconv_cuda_bf16.launches, masked_attention_cuda_bf16.launches
             f32 = kpconv_cuda.launches + masked_attention_cuda.launches
-            if n_kp != 11 or n_at != per_step * STEPS or f32:
+            routes = dict(kpconv_cuda_bf16.route_launches)
+            if n_kp != 11 or n_at != per_step * STEPS or f32 or routes != ENCODE_ROUTES:
                 raise AssertionError(f"bf16 gate {gate}: {n_kp} bf16 KPConv launches (want "
-                                     f"11), {n_at} bf16 attention (want {per_step * STEPS}), "
-                                     f"{f32} f32 kernel launches (want 0)")
+                                     f"11) by route {routes} (want {ENCODE_ROUTES}), {n_at} "
+                                     f"bf16 attention (want {per_step * STEPS}), {f32} f32 "
+                                     "kernel launches (want 0)")
             launches["kpconv_bf16"] += n_kp
+            launches["kpconv_bf16_any_shape"] += routes["any_shape_tensor_cores"]
             launches["masked_attention_bf16"] += n_at
             times.append(seconds)
         seconds = sorted(times)[TIMED_RUNS // 2]
@@ -2383,15 +2461,42 @@ def run_bf16(repo, batch, batch_cpu, spec, x_init, u, f32_ref, batch4_cpu, gen, 
             f"{prof['kernel_launches']} kernel launches "
             f"({prof['kernel_launches'] / STEPS:.0f} per DDIM step); top kernels (ms): "
             + "; ".join(f"{ms:.3f} {name}" for name, ms in prof["top_kernels_ms"][:6]))
+    gated = models[40.0]
     del models
 
     one = batch_cpu.select(slice(0, 1))
+    cut = int(max(one.src_mask.sum(), one.tgt_mask.sum()))
     for gate in GATES:
         t0 = time.perf_counter()
         cpu_model = DiffusionMatchingModel(with_condition_gate(cfg, gate), device="cpu", seed=0)
-        ref = register(cpu_model, one, x_init[:1], u[:1], device="cpu")
+        if gate == 0.0:
+            ref = register(cpu_model, one, x_init[:1], u[:1], device="cpu")
+            bf16_pair_check(outs[gate], ref, f32_ref[gate], one, cpu_model,
+                            f"gate {gate} (CPU {time.perf_counter() - t0:.1f} s)")
+            continue
+        # At gate 40 the warp's soft Procrustes cuts its top-k among the flat
+        # random-weight confidences, where the CPU's bf16 values tie exactly and
+        # the card's differ by a rounding: pair 0 runs again on the card keeping
+        # the CPU's top-k choices, as phases 22 and 23c hold their gate-40
+        # DDIMs, and each choice of its own that differs must lie at the cut
+        choices = []
+        with topk_choices(record=choices):
+            ref = register(cpu_model, one, x_init[:1], u[:1], device="cpu")
+        # the timed run's pair 0, on the card's own top-k choices, beside the
+        # CPU: printed, so that a kernel's drift at this gate stays in view
         bf16_pair_check(outs[gate], ref, f32_ref[gate], one, cpu_model,
-                        f"gate {gate} (CPU {time.perf_counter() - t0:.1f} s)")
+                        f"gate {gate}, the card's own top-k choices (printed, not held)",
+                        hold=False)
+        with topk_choices(replay=choices, cut=cut) as seen:
+            got = register(gated, one.to("cuda"), x_init[:1].cuda(), u[:1].cuda())
+        tag = f"gate {gate}"
+        bf16_pair_check(got, ref, f32_ref[gate], one, cpu_model,
+                        f"{tag} (CPU {time.perf_counter() - t0:.1f} s; the CPU's top-k choices "
+                        f"in {seen['calls']} Procrustes calls: {seen['differ']} entries of the "
+                        f"card's own differ, {seen['far']} farther than {TOPK_CUT_REL:.0e} of "
+                        "the cut)", solve_choices=choices[-1:], cut=cut)
+        check_replayed(seen, cut, f"bf16 {tag}")
+    del gated
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2881,6 +2986,7 @@ def pair0_2d3d(cfg, tcfg, batch_cpu, x_init, u, launches, key, tag):
             if n_kp != 16 or n_at != 12 * (2 + STEPS_2D3D_CPU):
                 raise AssertionError(f"{tag} pair 0: {n_kp} KPConv, {n_at} attention launches")
             launches["kpconv"] += n_kp
+            launches["kpconv_2d3d"] += n_kp
             launches[key] += n_at
     (got, got_corrs, got_pairs), (ref, _, ref_pairs) = res["cuda"], res["cpu"]
     ddim = mask_agreement(got, ref)
@@ -2937,14 +3043,19 @@ def run_2d3d(batch_cpu, scenes, cfg, launches, gen, key="masked_attention_d64", 
         times = []
         for run in range(TIMED_RUNS):
             kpconv_cuda.launches = 0
+            kpconv_cuda.route_launches = {}
             masked_attention_cuda.launches = 0
             summary, seconds = wall(lambda: tester.test(
                 make_iter, torch.Generator("cuda").manual_seed(1 + run)))
             n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
-            if n_kp != 8 or n_at != per_forward:
-                raise AssertionError(f"{tag} tester: {n_kp} KPConv launches (want 8), {n_at} "
+            routes = dict(kpconv_cuda.route_launches)
+            if n_kp != 8 or n_at != per_forward or routes != BACKBONE_2D3D_ROUTES:
+                raise AssertionError(f"{tag} tester: {n_kp} KPConv launches (want 8) by route "
+                                     f"{routes} (want {BACKBONE_2D3D_ROUTES}), {n_at} "
                                      f"attention launches (want {per_forward})")
             launches["kpconv"] += n_kp
+            launches["kpconv_2d3d"] += n_kp
+            launches["kpconv_any_shape"] += routes["any_shape_tensor_cores"]
             launches[key] += n_at
             times.append(seconds)
             if not (summary["pairs"] == BATCH_PAIRS and summary["n_corr"] > 0
@@ -2972,6 +3083,7 @@ def run_2d3d(batch_cpu, scenes, cfg, launches, gen, key="masked_attention_d64", 
         if n_kp != 16 or n_at != 2 * per_forward:
             raise AssertionError(f"{tag} forwards: {n_kp} KPConv, {n_at} attention launches")
         launches["kpconv"] += n_kp
+        launches["kpconv_2d3d"] += n_kp
         launches[key] += n_at
     coarse = [int(c) for c in out["corr_mask"].sum(dim=(1, 2))]
     fine = [int(p["n_corr"]) for p in pairs]
@@ -3047,6 +3159,7 @@ def run_cli_2d3d(repo, split_root, launches):
                             or not math.isfinite(ev.get("PIR", math.nan)):
                         raise AssertionError(f"main {name}: eval_from_cache gave {ev}")
                 launches["kpconv"] += n_kp
+                launches["kpconv_2d3d"] += n_kp
                 launches["masked_attention_d64"] += n_at
                 log(f"main {name}, {BATCH_PAIRS} pairs: {seconds:.2f} s, launches kpconv {n_kp} "
                     f"attention {n_at}; " + ", ".join(
@@ -3465,6 +3578,7 @@ def run_cli_dino(repo, split_root, cpu_towers, launches):
             and math.isfinite(ev.get("PIR", math.nan))):
         raise AssertionError(f"main rgbdv2_dino: summary {summary}")
     launches["kpconv"] += n_kp
+    launches["kpconv_2d3d"] += n_kp
     launches["masked_attention_d64_dino"] += n_at
     log(f"main rgbdv2_dino test (on disk, towers from state_dicts, {BATCH_PAIRS} pairs): "
         f"{seconds:.2f} s (the towers' and checkpoint's files written in {write_s:.1f} s), "
@@ -4381,7 +4495,7 @@ def topk_choices(record=None, replay=None, cut=None):
     recorded cut's value from it (or outside the recorded top-k)."""
     from diffreg_tpu_torch.geometry import procrustes
 
-    original = procrustes.top_k
+    original = procrustes.stable_top_k
     seen = {"calls": 0, "differ": 0, "far": 0}
 
     def recording(x, k):
@@ -4404,11 +4518,11 @@ def topk_choices(record=None, replay=None, cut=None):
         idx = idx_ref.to(x.device)
         return x.gather(1, idx), idx
 
-    procrustes.top_k = recording if record is not None else replaying
+    procrustes.stable_top_k = recording if record is not None else replaying
     try:
         yield seen
     finally:
-        procrustes.top_k = original
+        procrustes.stable_top_k = original
     if replay is not None and seen["calls"] != len(replay):
         raise AssertionError(f"top-k choices: {seen['calls']} calls replayed {len(replay)}")
 
@@ -4721,7 +4835,7 @@ def shape_calls(calls, n_points, gen):
 def level0_calls_2d3d(gen):
     """KPConv inputs at the 2D-3D point backbone's level-0 shapes (4 pairs of
     39,168 points, K = 64 nearest within the radius, the rest the sentinel;
-    1 -> 64 and 32 -> 32, the layers the CUDA-core kernel takes), at 15
+    1 -> 64 and 32 -> 32, the layers the any-shape kernel takes), at 15
     kernel points on rgbdv2.yaml's first radius (0.0625, sigma 0.05)."""
     import torch
 
@@ -4780,6 +4894,108 @@ def shape_range_kpconv(calls, gen):
                     rec.update(backward_ms=total, backward_max_rel_err=worst)
                 records["bf16" if bf16 else "f32"][key] = rec
                 del shapes
+    return records
+
+
+def offset_view(t, offset):
+    """``t``, or with ``offset`` a copy of it one element into a new storage."""
+    import torch
+
+    if not offset:
+        return t.contiguous()
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+def any_shape_inputs(gen, spec):
+    """KPConv inputs (q, s, inds, x, kernel points, weights, extent) of one
+    ANY_SHAPE_BASE-like ``spec`` on the card; with ``offset`` every float
+    tensor is a view one element into its storage."""
+    import torch
+
+    from diffreg_tpu_torch.ops.kernel_points import load_kernel_points
+
+    b, nq, ns, k, cin, cout, p = (spec[n] for n in ("b", "nq", "ns", "k", "cin", "cout", "p"))
+    s_pts = (torch.rand(b, ns, 3, generator=gen) * 0.5).cuda()
+    q_pts = s_pts[:, :nq] + 0.005 * torch.randn(b, nq, 3, generator=gen).cuda()
+    with torch.no_grad():
+        d, j = torch.cdist(q_pts, s_pts).topk(k, largest=False)
+    inds = torch.where(d < 0.1, j, ns).int().contiguous()
+    x = torch.randn(b, ns, cin, generator=gen).cuda()
+    kp = torch.from_numpy(load_kernel_points(0.0625, p, 3, "center")).cuda()
+    w = (torch.randn(p, cin, cout, generator=gen) / math.sqrt(p * cin)).cuda()
+    return (*(offset_view(t, spec["offset"]) for t in (q_pts, s_pts)), inds,
+            *(offset_view(t, spec["offset"]) for t in (x, kp, w)), 0.05)
+
+
+def any_shape_edges(gen):
+    """Phase 23f: the any-shape KPConv kernel, f32 and bf16, at every edge of
+    ANY_SHAPE_EDGES against its plain version at phase 1's limits (a bf16 row
+    beyond it excused only where one rounding flip of a term explains it; a
+    "closest" row only at a near-tie), each launch asserted on the any-shape
+    route; the wide K = 58 layer timed beside its plain version; the gradients
+    through both autograd Functions at the base (narrow) layer. Returns {"f32"
+    | "bf16": {"edges": [...], "wide_k58": record, "backward": record}}."""
+    import torch
+
+    from diffreg_tpu_torch.ops.kpconv import (kpconv, kpconv_bf16_plain,
+                                              kpconv_bf16_table_aligned, kpconv_cuda,
+                                              kpconv_cuda_bf16)
+
+    records = {}
+    for bf16 in (False, True):
+        counted = kpconv_cuda_bf16 if bf16 else kpconv_cuda
+        edges = []
+        for change in ANY_SHAPE_EDGES:
+            spec = dict(ANY_SHAPE_BASE, **change)
+            args = any_shape_inputs(gen, spec)
+            q, s_pts, inds, x, kp, w, ext = args
+            modes = spec["modes"]
+            name = (f"kpconv any-shape{' bf16' if bf16 else ''} "
+                    + ", ".join(f"{k} {'/'.join(v) if k == 'modes' else v}"
+                                for k, v in change.items()))
+            before = dict(counted.route_launches)
+            with torch.inference_mode():
+                if bf16:
+                    table = offset_view(kpconv_bf16_table_aligned(s_pts, x), spec["offset"])
+                    wb = offset_view(w.to(torch.bfloat16), spec["offset"])
+                    got = kpconv_cuda_bf16(q, table, inds, kp, wb, ext, *modes)
+                    ref = kpconv_bf16_plain(q, s_pts, inds, x, kp, w, ext, *modes)
+                else:
+                    got = kpconv_cuda(q, s_pts, inds, x, kp, w, ext, *modes)
+                    ref = kpconv(q, s_pts, inds, x, kp, w, ext, *modes)
+                torch.cuda.synchronize()
+            routes = {r: n - before.get(r, 0) for r, n in counted.route_launches.items()
+                      if n != before.get(r, 0)}
+            if routes != {"any_shape_tensor_cores": 1}:
+                raise AssertionError(f"{name}: routes {routes}")
+            top = float(ref.abs().max())
+            allowed = (KPCONV_BF16_REL_TOL * top if bf16 else KPCONV_REL_TOL * max(top, 1.0))
+            flips = bf16_flip_rows(*args, modes) if bf16 else None
+            err, excused = held_against_plain(got, ref, allowed, name, modes[1],
+                                              (q, s_pts, inds, kp, bf16), flips)
+            log(f"{name}: err {err:.3e} = {err / max(top, 1e-30):.3e} of max |plain| (limit "
+                f"{allowed:.3e}{f'; {excused} rows excused' if excused else ''})")
+            edges.append({"change": {k: list(v) if k == "modes" else v
+                                     for k, v in change.items()},
+                          "max_abs_err": err, "max_abs_plain": top, "excused_rows": excused})
+            del args, got, ref
+        wide = any_shape_inputs(gen, ANY_SHAPE_WIDE)
+        entry, _ = check_kpconv([wide], 1, "one call", " (any-shape wide K 58)", bf16,
+                                flip_excuse=True)
+        if entry["shapes"][0]["route"] != "any_shape_tensor_cores":
+            raise AssertionError(f"the wide K 58 layer took {entry['shapes'][0]['route']}")
+        narrow = any_shape_inputs(gen, ANY_SHAPE_BASE)
+        key = (ANY_SHAPE_BASE["nq"], ANY_SHAPE_BASE["ns"], ANY_SHAPE_BASE["k"],
+               ANY_SHAPE_BASE["cin"], ANY_SHAPE_BASE["cout"])
+        grad_err, back_ms = kpconv_gradients({key: [narrow, 1]}, gen, bf16)
+        records["bf16" if bf16 else "f32"] = {
+            "edges": edges, "max_rel_err": max(e["max_abs_err"] / e["max_abs_plain"]
+                                               for e in edges),
+            "wide_k58": entry["shapes"][0],
+            "backward": {"shape": list(key), "max_rel_err": grad_err, "ms": back_ms}}
+        del wide, narrow
     return records
 
 
@@ -4923,7 +5139,8 @@ def add_shape_launches(launches, counts):
     """Add ``counts`` (``shape_counts``) to the run's launches: KPConv at 15
     kernel points and the tuned attention instances to their kernels' totals,
     the any-P and any-D routes to theirs, and those by kernel and branch
-    (``<route>_tensor_cores``, ``<route>_cuda_cores``)."""
+    (``<kind>_any_p_tensor_cores`` and ``<kind>_any_shape_tensor_cores`` at
+    every P; ``<route>_tensor_cores``, ``<route>_cuda_cores``)."""
     for kind in ("kpconv", "kpconv_bf16"):
         for n_points, n in counts[kind].items():
             launches[kind if n_points == 15 else f"{kind}_any_p"] += n
@@ -4949,12 +5166,11 @@ def expect_counts(tag, counts, want):
 
 def kpconv_routes(n_points, n):
     """The KPConv kernels an encode's 11 layers launch ``n`` times over at
-    ``n_points``: the tuned kernels at 15; else the any-P tensor-core kernel
-    at the 10 layers of Cin >= 64 and the any-P CUDA-core kernel at the first
-    (Cin = 1)."""
-    if n_points == 15:
-        return {"tuned": 11 * n}
-    return {"any_p_tensor_cores": 10 * n, "any_p_cuda_cores": n}
+    ``n_points``: at the 10 layers of Cin >= 64 the tuned kernel at 15, else
+    the any-P tensor-core kernel; at the first (Cin = 1) the any-shape
+    kernel."""
+    wide = "tuned" if n_points == 15 else "any_p_tensor_cores"
+    return {wide: 10 * n, "any_shape_tensor_cores": n}
 
 
 def run_shape_ddim(name, cfg, batch, one, x_init, u, spec, launches, bf16=False):
@@ -5126,12 +5342,13 @@ def run_shape_cli(repo, c_path, directory, launches):
                                                  str(BATCH_PAIRS), *extra]))
             counts = shape_counts()
             # main calibrates its own K (up to 58 on the demo's data): a layer
-            # past K = 40 takes the CUDA-core kernel, so only the total and the
-            # tensor-core route's use are fixed here
+            # past K = 40 takes the any-shape kernel, so only the total, the
+            # wide layers' route and the first layer's are fixed here
             routes = counts["kpconv_routes"]
             n_points = cfg.kpfcn.num_kernel_points
-            if sum(routes.values()) != 11 or (n_points != 15 and not routes.get(
-                    "any_p_tensor_cores")) or (n_points == 15 and set(routes) != {"tuned"}):
+            wide = "tuned" if n_points == 15 else "any_p_tensor_cores"
+            if sum(routes.values()) != 11 or not routes.get(wide) or not routes.get(
+                    "any_shape_tensor_cores") or set(routes) - {wide, "any_shape_tensor_cores"}:
                 raise AssertionError(f"main {name}: KPConv routes {routes}")
             expect_counts(f"main {name}", counts,
                           {"kpconv": {n_points: 11}, "kpconv_routes": routes,
@@ -5176,6 +5393,8 @@ def run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
         points = shape_range_kpconv(calls, gen)
         del calls
         torch.cuda.empty_cache()
+        edges = any_shape_edges(gen)
+        torch.cuda.empty_cache()
         widths = shape_range_attention(gen)
         t_kernels = time.perf_counter() - t0
         record_c, at_c = run_shape_c(cfg_c, batch, one, x_init, u, spec, launches, gen)
@@ -5184,6 +5403,7 @@ def run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
         torch.cuda.empty_cache()
         cli = run_shape_cli(repo, c_path, tmp, launches)
     for key in ("kpconv_any_p_tensor_cores", "kpconv_bf16_any_p_tensor_cores",
+                "kpconv_any_shape_tensor_cores", "kpconv_bf16_any_shape_tensor_cores",
                 "masked_attention_any_d_tensor_cores", "masked_attention_bf16_any_d_tensor_cores"):
         if not launches[key]:
             raise AssertionError(f"phase 23: the route {key} was not launched on the path")
@@ -5197,7 +5417,7 @@ def run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
             "compiled_into": f"diffreg_tpu_torch/csrc/{'kpconv_bf16' if bf16 else 'kpconv'}.cu",
             "replaces": "diffreg_tpu/ops/pallas/kpconv_kernel.py:38",
             "launches": launches[name],
-            "route_launches": {k: launches[f"{name}_{k}"] for k in ("tensor_cores", "cuda_cores")},
+            "route_launches": {"any_p_tensor_cores": launches[f"{name}_tensor_cores"]},
             "max_abs_err": max(r["max_abs_err"] for r in points[dtype].values()),
             **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None, "per": "configuration C's encode (11 calls, P = 24)",
@@ -5222,6 +5442,7 @@ def run_shape_range(repo, batch, batch_cpu, spec, x_init, u, launches, gen):
                for r in widths[dtype] if r["d"] in (256, 528) and not r["offset"]},
             "shapes": c["shapes"] + w["shapes"], "widths": widths[dtype]})
     entries[0]["configurations"] = {"C": record_c, "W": record_w, "cli": cli}
+    entries[0]["any_shape_edges"] = edges   # moved to the any-shape entries (any_shape_entries)
     log(f"phase 23 (the shape range): {time.perf_counter() - t0:.1f} s (kernels "
         f"{t_kernels:.1f} s)")
     return entries
@@ -6763,10 +6984,12 @@ def main() -> int:
     launches = {"kpconv": 0, "masked_attention": 0, "masked_attention_d132": 0,
                 "kpconv_any_p": 0, "kpconv_bf16_any_p": 0, "masked_attention_any_d": 0,
                 "masked_attention_bf16_any_d": 0,
-                **{f"{route}_{kind}": 0 for route in ("kpconv_any_p", "kpconv_bf16_any_p",
-                                                       "masked_attention_any_d",
+                **{f"{route}_{kind}": 0 for route in ("masked_attention_any_d",
                                                        "masked_attention_bf16_any_d")
                    for kind in ("tensor_cores", "cuda_cores")},
+                **{f"{kind}_{route}": 0 for kind in ("kpconv", "kpconv_bf16")
+                   for route in ("any_p_tensor_cores", "any_shape_tensor_cores")},
+                "kpconv_any_shape": 0, "kpconv_bf16_any_shape": 0, "kpconv_2d3d": 0,
                 "masked_attention_d64": 0, "masked_attention_d64_dino": 0, "kpconv_train_2d3d": 0,
                 "masked_attention_train_2d3d": 0, "kpconv_bf16": 0,
                 "masked_attention_bf16": 0, "masked_attention_bf16_d144": 0,
@@ -6781,13 +7004,17 @@ def main() -> int:
         times = []
         for _ in range(TIMED_RUNS):
             kpconv_cuda.launches = 0
+            kpconv_cuda.route_launches = {}
             masked_attention_cuda.launches = 0
             out, seconds = wall(lambda: register(model, batch, x_init, u))
             n_kp, n_at = kpconv_cuda.launches, masked_attention_cuda.launches
-            if n_kp != 11 or n_at != per_step * STEPS:
-                raise AssertionError(f"gate {gate}: {n_kp} KPConv launches (want 11), "
-                                     f"{n_at} attention launches (want {per_step * STEPS})")
+            routes = dict(kpconv_cuda.route_launches)
+            if n_kp != 11 or n_at != per_step * STEPS or routes != ENCODE_ROUTES:
+                raise AssertionError(f"gate {gate}: {n_kp} KPConv launches (want 11) by route "
+                                     f"{routes} (want {ENCODE_ROUTES}), {n_at} attention "
+                                     f"launches (want {per_step * STEPS})")
             launches["kpconv"] += n_kp
+            launches["kpconv_any_shape"] += routes["any_shape_tensor_cores"]
             launches["masked_attention"] += n_at
             times.append(seconds)
         seconds = sorted(times)[TIMED_RUNS // 2]
@@ -6922,10 +7149,12 @@ def main() -> int:
     launches["kpconv_zoo"] = zoo_launches["kpconv"]
     launches["masked_attention_zoo"] = zoo_launches["masked_attention"]
 
+    kernels += any_shape_entries(kernels, launches)
     kernels[0]["launches"] = (launches["kpconv"] + launches["kpconv_train_2d3d"]
                               + launches["kpconv_story_2d3d"] + launches["kpconv_dp"]
                               + launches["kpconv_zoo"])
     kernels[0]["launches_zoo"] = launches["kpconv_zoo"]
+    kernels[0]["launches_2d3d"] = launches["kpconv_2d3d"]
     kernels[1]["launches_zoo"] = launches["masked_attention_zoo"]
     kernels[0]["launches_data_parallel"] = launches["kpconv_dp"]
     kernels[1]["launches_data_parallel"] = launches["masked_attention_dp"]

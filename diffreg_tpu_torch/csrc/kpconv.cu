@@ -16,42 +16,42 @@
 //    layer of the path runs here; Pallas gave up above 4 MB of weights.
 //
 // What bounds it on an H100: operations. Per real neighbor it does ~13 P
-// flops of distances and influences and 2 P Cin of aggregation on CUDA cores
-// (67 TFLOP/s f32), and per query the 2 P Cin Cout contraction, which for
-// Cin >= 64 runs on tensor cores (495 TFLOP/s dense TF32, of which 3xTF32's
-// three products leave at most a third); its bytes (inputs once, output once)
-// take far less time at 3.35 TB/s.
+// flops of distances and influences and 2 P Cin of aggregation, and per query
+// the 2 P Cin Cout contraction, on tensor cores in 3xTF32 (495 TFLOP/s dense
+// TF32, of which three products leave at most a third; the aggregation too
+// outside the tuned kernel, which sums it on CUDA cores at 67 TFLOP/s); its
+// bytes (inputs once, output once) take far less time at 3.35 TB/s.
 //
-// Two paths behind one entry point, chosen by shape:
-//  * Cin >= 64 (with Cin % 32 == 0, K <= 40 and Cout in {64, 128, 256, 512}):
-//    the tensor-core kernel. A block owns 32 queries and all of Cout; out[q] =
-//    A[q, P Cin] . W[P Cin, Cout], with A the influence-weighted features.
-//    A is built on CUDA cores in shared memory one chunk of 32 channels at a
-//    time (all 15 kernel points): each warp builds the rows of 4 queries with
-//    a lane per channel, so a neighbor row is read as one 128-byte line and
-//    the influences are read once per warp (broadcast). The same loads give
-//    the feature-sums of the density count (summed over the chunks, then over
-//    the lanes by a 62-shuffle reduce-scatter). Each chunk is then multiplied
-//    by its W rows on tensor cores, mma.sync m16n8k8 TF32 in 3xTF32 (hi/lo
-//    split as the fragments are loaded, tf32.cuh): warp w owns output columns
-//    [Cout w / 8, Cout (w + 1) / 8) of the 32 queries and stages exactly those
-//    columns of W with cp.async in a ring of its own, several k-steps ahead,
-//    so its k-steps need no block barrier (the block meets twice per chunk).
-//    W is read once per 32 queries, and the 32 x Cout accumulators (64 per
-//    thread at Cout 512) stay in registers, so the aggregation is done once.
-//    When the grid is short of two waves (Nq <= 1536 at 4 pairs), the kernel
-//    points are split between two blocks per query tile (0-7 and 8-14) that
-//    add their partial results into a zeroed output with atomicAdd; with two
-//    addends onto zero the sum does not depend on their order.
-//  * any other shape at P = 15: the CUDA-core kernel of kpconv_common.cuh,
-//    reading its rows through F32Rows;
-//  * any other kernel-point count P at the tensor-core kernel's shapes: the
-//    any-P tensor-core kernel below (P in chunks of 16 kernel points, its A
-//    rows built on tensor cores too; one instance per Cout for every P and
-//    mode);
-//  * any other P at any other shape: the any-P CUDA-core kernel of
-//    kpconv_common.cuh (every shape and mode; P a runtime parameter), through
-//    F32Rows.
+// Three kernels behind one entry point, chosen by shape (*route reports which):
+//  * P = 15, Cin >= 64 with Cin % 32 == 0, K <= 40 and Cout in {64, 128, 256,
+//    512}: the tuned tensor-core kernel. A block owns 32 queries and all of
+//    Cout; out[q] = A[q, P Cin] . W[P Cin, Cout], with A the influence-weighted
+//    features. A is built on CUDA cores in shared memory one chunk of 32
+//    channels at a time (all 15 kernel points): each warp builds the rows of 4
+//    queries with a lane per channel, so a neighbor row is read as one
+//    128-byte line and the influences are read once per warp (broadcast). The
+//    same loads give the feature-sums of the density count (summed over the
+//    chunks, then over the lanes by a 62-shuffle reduce-scatter). Each chunk
+//    is then multiplied by its W rows on tensor cores, mma.sync m16n8k8 TF32 in
+//    3xTF32 (hi/lo split as the fragments are loaded, tf32.cuh): warp w owns
+//    output columns [Cout w / 8, Cout (w + 1) / 8) of the 32 queries and
+//    stages exactly those columns of W with cp.async in a ring of its own,
+//    several k-steps ahead, so its k-steps need no block barrier (the block
+//    meets twice per chunk). W is read once per 32 queries, and the 32 x Cout
+//    accumulators (64 per thread at Cout 512) stay in registers, so the
+//    aggregation is done once. When the grid is short of two waves (Nq <=
+//    1536 at 4 pairs), the kernel points are split between two blocks per
+//    query tile (0-7 and 8-14) that add their partial results into a zeroed
+//    output with atomicAdd; with two addends onto zero the sum does not depend
+//    on their order.
+//  * any other kernel-point count P at those shapes: the any-P tensor-core
+//    kernel below (P in chunks of 16 kernel points, its A rows built on tensor
+//    cores too; one instance per Cout for every P and mode);
+//  * every other shape (Cin < 64 or not a multiple of 32, K > 40, another
+//    Cout, a misaligned view; on the main path the first layer, Cin = 1, and
+//    the 2D-3D point backbone's level 0, K = 64): the any-shape tensor-core
+//    kernel at the end of this file (kpconv_common.cuh has the steps it
+//    shares with the bf16 instance).
 
 #include "kpconv_common.cuh"
 
@@ -61,7 +61,6 @@ namespace {
 
 constexpr int kPP = 16;                 // influence row, padded for float4 loads
 constexpr int kAStride = kP * kCC + 4;  // A chunk row stride (floats): no bank conflicts
-constexpr int kWarps = kThreads / 32;
 constexpr int kQW = kTQ / kWarps;       // queries whose A rows a warp builds
 
 // Each warp stages its own 8 NT columns of W (Cout = 64 NT), U k-steps (8
@@ -402,7 +401,7 @@ __global__ void __launch_bounds__(kThreads, 1) kpconv_tc_any_p_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int col_w = warp * 8 * NT;
-  const F32Rows rows{s_pts, x, w, Ns, Cin};
+  const F32Rows rows{s_pts, x, Ns, Cin};
   float* wring = wbuf + warp * kG * 16 * kWS;
 
   // W groups in the order they are used (chunk of points, chunk of channels,
@@ -627,10 +626,285 @@ cudaError_t forward_tc_any_p(const float* q_pts, const float* s_pts, const int32
   return cudaSuccess;
 }
 
-// The f32 path of one influence mode: at P = 15 the tensor-core kernel where
-// the shape allows it, else the CUDA-core kernel; at any other P the any-P
-// tensor-core kernel where the shape allows it, else the any-P CUDA-core
-// kernel. *route: which ran.
+// ---- the any-shape tensor-core kernel (every shape the kernels above refuse) ----
+//
+// The steps shared with the bf16 instance are in kpconv_common.cuh. Here the
+// A rows are built in 3xTF32 with mma.sync m16n8k8: per staged chunk of 32
+// neighbours, 4 k-steps of 8; lane (g, t) computes the influences of kernel
+// points g and g + 8 on neighbours t and t + 4 of each k-step in registers
+// (its A fragment) and loads channel g of those neighbours' rows for each
+// n-tile of 8 channels (its B fragments; 8 lanes read a 32-byte sector of a
+// row), all of the chunk's loads in flight at once; each k-step's three
+// products are summed from zero and added to the A sums in f32. The
+// contraction runs over the A chunk's packed columns in k-steps of 8 (3xTF32,
+// added in f32 per k-step), its W rows staged 16 a group.
+//
+// What bounds it: at Cin = 1 the influences (P per neighbour, CUDA cores); at
+// the 2D-3D level 0's 32 -> 32 (K = 64) the aggregation, 2 x 16 x 64 x 32 a
+// query in three TF32 products, and the neighbour rows' L2 reads (8 KB a
+// query); at wide layers the contraction, as the tuned kernel.
+template <int NT> __host__ __device__ constexpr int gen_w_groups() { return NT == 8 ? 2 : 3; }
+template <int NT> __host__ __device__ constexpr int gen_w_stride() { return NT == 1 ? 8 : 8 * NT + 8; }
+// A chunk row stride (floats): an odd multiple of 4, so the fragment loads of
+// rows g and columns t hit 32 banks
+__host__ __device__ inline int gen_a_stride(int Cin) { return 16 * (Cin < kGCC ? Cin : kGCC) + 4; }
+
+template <int NT>
+size_t any_shape_smem_bytes(int P, int Cin) {
+  return sizeof(float4) * P +
+         sizeof(float) * ((size_t)kGQ * gen_a_stride(Cin) +
+                          (size_t)kWarps * gen_w_groups<NT>() * 16 * gen_w_stride<NT>()) +
+         sizeof(StagedNeighbours) * kWarps + sizeof(int) * kGQ;
+}
+
+// The A row of query q for kernel points [pc0, pc0 + 16) and channels
+// [c0, c0 + nc) (nc <= 32), A[p][c] = sum_k infl[k, p] x[nbr[k], c0 + c], at
+// arow[p nc + c] (the pad points' rows zero). With `count` (one chunk holds
+// all of Cin), returns the query's density count at every lane, from the same
+// loads (the 8 lanes of a quad column hold a neighbour's channels); else 0.
+__device__ int tf32_row(float* arow, StagedNeighbours& st, const float* q_pts, const float* s_pts,
+                        const int32_t* inds, const float* x, const float4* kps, int P, int pc0,
+                        int b, int q, int Nq, int Ns, int K, int Cin, int c0, int nc, bool count,
+                        const Mode& mode, int kind, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  const int nx = (nc + 7) / 8;
+  const F32Rows rows{s_pts, x, Ns, Cin};
+  const float4 kq0 = kps[min(pc0 + g, P - 1)], kq1 = kps[min(pc0 + g + 8, P - 1)];
+  const float* xc = x + (size_t)b * Ns * Cin + c0 + g;
+  float c[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+  int n_pos = 0;
+  for (int k0 = 0; k0 < K; k0 += kGKC) {
+    __syncwarp();  // the last chunk's staged neighbours are consumed
+    stage_neighbours(st, q_pts, rows, inds, kps, P, b, q, Nq, Ns, K, k0, mode, lane);
+    __syncwarp();
+    // B fragments: neighbour 8 ks + t + 4 h, channel c0 + 8 n + g
+    float xf[4][4][2];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int nb = st.nb[8 * ks + t + 4 * h];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          xf[ks][n][h] = nb >= 0 && 8 * n + g < nc ? __ldg(xc + (size_t)nb * Cin + 8 * n) : 0.f;
+      }
+    if (count) {
+      // entry 2 ks + h: this lane's channels of neighbour 8 ks + t + 4 h;
+      // after the reduce-scatter, lane (g, t) holds entry g's feature sum
+      float fs[8];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          fs[2 * ks + h] = (xf[ks][0][h] + xf[ks][1][h]) + (xf[ks][2][h] + xf[ks][3][h]);
+      column_reduce_scatter8(fs, lane);
+      n_pos += st.nb[8 * (g / 2) + t + 4 * (g % 2)] >= 0 && fs[0] > 0.f;
+    }
+    const int kc = min(kGKC, K - k0);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (8 * ks >= kc) break;
+      const int j0 = 8 * ks + t, j1 = j0 + 4;
+      const float4 r0 = st.rel[j0], r1 = st.rel[j1];
+      const int nb0 = st.nb[j0], nb1 = st.nb[j1], near0 = st.near[j0], near1 = st.near[j1];
+      // A fragment: a0 point g / neighbour t, a1 point g + 8 / t, a2 g / t + 4, a3 g + 8 / t + 4
+      const float f[4] = {influence_at(r0, nb0, near0, pc0 + g, P, kq0, mode, kind),
+                          influence_at(r0, nb0, near0, pc0 + g + 8, P, kq1, mode, kind),
+                          influence_at(r1, nb1, near1, pc0 + g, P, kq0, mode, kind),
+                          influence_at(r1, nb1, near1, pc0 + g + 8, P, kq1, mode, kind)};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(f[e], ah[e], al[e]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        if (n >= nx) break;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(xf[ks][n][0], bh0, bl0);
+        split_tf32(xf[ks][n][1], bh1, bl1);
+        mma_3xtf32_add(c[n], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+  // C fragments: rows kernel points g and g + 8, columns channels 8 n + 2 t (+ 1)
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    if (n >= nx) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ch = 8 * n + 2 * t + (e & 1);
+      if (ch < nc) arow[(g + 8 * (e >> 1)) * nc + ch] = c[n][e];
+    }
+  }
+  return count ? __reduce_add_sync(0xffffffffu, n_pos) : 0;
+}
+
+// Blocks (tile of 32 queries, pair, column block of 64 NT). Warp w builds the
+// A rows of queries [4 w, 4 w + 4) and contracts output columns
+// [64 NT z + 8 NT w, + 8 NT) of the 32 queries (two m-tiles), staging those
+// columns of W in a ring of its own.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, NT <= 2 ? 2 : 1) kpconv_any_shape_kernel(
+    const float* __restrict__ q_pts, const float* __restrict__ s_pts,
+    const int32_t* __restrict__ inds, const float* __restrict__ x,
+    const float* __restrict__ kp, const float* __restrict__ w, float* __restrict__ out, int Nq,
+    int Ns, int K, int Cin, int Cout, int P, Mode mode, int kind, int w16) {
+  constexpr int kG = gen_w_groups<NT>(), kWS = gen_w_stride<NT>();
+  const int as = gen_a_stride(Cin);
+  extern __shared__ __align__(16) float gen_smem[];
+  float4* kps = reinterpret_cast<float4*>(gen_smem);                   // [P]
+  float* abuf = gen_smem + 4 * P;                                      // [kGQ][as]
+  float* wbuf = abuf + kGQ * as;                                       // [warp][G][16][kWS]
+  StagedNeighbours* staged =
+      reinterpret_cast<StagedNeighbours*>(wbuf + kWarps * kG * 16 * kWS);  // [warp]
+  int* cnt = reinterpret_cast<int*>(staged + kWarps);                 // [kGQ]
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kGQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int col_w = blockIdx.z * 64 * NT + warp * 8 * NT;
+  const bool has_cols = col_w < Cout;
+  float* wring = wbuf + warp * kG * 16 * kWS;
+
+  // W group (the cursor's next 16 rows, columns [col_w, col_w + 8 NT)) into
+  // ring slot `slot`: 16-byte cp.async where W's rows allow it (zero-filled
+  // past Cout and for pad rows), else plain loads
+  WCursor cur;
+  auto load_w = [&](int slot) {
+    if (!cur.done(P)) {
+      float* dst = wring + slot * 16 * kWS;
+      if (w16) {
+#pragma unroll
+        for (int i = lane; i < 16 * 2 * NT; i += 32) {
+          const int r = i / (2 * NT), c = col_w + 4 * (i % (2 * NT));
+          const int row = cur.row(r, P, Cin);
+          const bool in = row >= 0 && c < Cout;
+          cp_async16(dst + r * kWS + (c - col_w), in ? w + (size_t)row * Cout + c : w, in);
+        }
+      } else {
+        for (int i = lane; i < 16 * 8 * NT; i += 32) {
+          const int r = i / (8 * NT), c = col_w + i % (8 * NT);
+          const int row = cur.row(r, P, Cin);
+          dst[r * kWS + (c - col_w)] = row >= 0 && c < Cout ? __ldg(w + (size_t)row * Cout + c) : 0.f;
+        }
+      }
+      cur.advance(P, Cin);
+    }
+    cp_async_commit();
+  };
+  if (has_cols)
+    for (int s = 0; s < kG - 1; ++s) load_w(s);  // in flight during the first A chunk
+
+  load_kernel_points_any(kp, kps, P);
+  __syncthreads();
+  const bool chunked = Cin > kGCC;  // the density count cannot come from one chunk's loads
+  if (chunked)
+    for (int i = 0; i < kGQW; ++i) {
+      const int n = dense_count(F32Rows{s_pts, x, Ns, Cin}, inds, b, q0 + kGQW * warp + i, Nq,
+                                Ns, K, Cin, lane);
+      if (lane == 0) cnt[kGQW * warp + i] = n;
+    }
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  int gi = 0;  // W groups consumed
+  for (int pc0 = 0; pc0 < P; pc0 += kPC) {
+    const int npc = min(kPC, P - pc0);
+    for (int c0 = 0; c0 < Cin; c0 += kGCC) {
+      const int nc = min(kGCC, Cin - c0);
+      const bool count = pc0 == 0 && !chunked;
+#pragma unroll 1
+      for (int i = 0; i < kGQW; ++i) {
+        const int aq = kGQW * warp + i;
+        float* arow = abuf + aq * as;
+        const int n = Cin == 1
+            ? cin1_row<float>(arow, q_pts, F32Rows{s_pts, x, Ns, Cin}, inds, kps, P, pc0, b,
+                              q0 + aq, Nq, Ns, K, mode, kind, lane)
+            : tf32_row(arow, staged[warp], q_pts, s_pts, inds, x, kps, P, pc0, b, q0 + aq, Nq,
+                       Ns, K, Cin, c0, nc, count, mode, kind, lane);
+        if (count && lane == 0) cnt[aq] = n;
+      }
+      __syncthreads();  // the A chunk is complete
+
+      if (has_cols) {
+        const int groups = (npc * nc + 15) / 16;
+        for (int gl = 0; gl < groups; ++gl, ++gi) {
+          cp_async_wait<kG - 2>();
+          __syncwarp();  // the warp's group gi is in place; group gi - 1 is consumed
+          load_w((gi + kG - 1) % kG);
+          const float* wg = wring + (gi % kG) * 16 * kWS + g;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float* a = abuf + 16 * gl + 8 * u;
+            const float* ws = wg + u * 8 * kWS;
+            uint32_t ah[2][4], al[2][4];
+            load_a_3xtf32(a, as, g, t, ah[0], al[0]);
+            load_a_3xtf32(a + 16 * as, as, g, t, ah[1], al[1]);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              uint32_t bh0, bl0, bh1, bl1;
+              split_tf32(ws[t * kWS + 8 * n], bh0, bl0);
+              split_tf32(ws[(t + 4) * kWS + 8 * n], bh1, bl1);
+#pragma unroll
+              for (int m = 0; m < 2; ++m)
+                mma_3xtf32_add(acc[m][n], ah[m], al[m], bh0, bh1, bl0, bl1);
+            }
+          }
+        }
+      }
+      __syncthreads();  // the A chunk is consumed before the next one is built
+    }
+  }
+  cp_async_wait<0>();
+  if (has_cols) store_any_shape<NT>(out, acc, cnt, b, q0, Nq, Cout, col_w, g, t);
+}
+
+template <int NT>
+cudaError_t launch_any_shape_nt(const float* q_pts, const float* s_pts, const int32_t* inds,
+                                const float* x, const float* kp, const float* w, float* out,
+                                int B, int Nq, int Ns, int K, int Cin, int Cout, int P, Mode mode,
+                                int kind, cudaStream_t stream) {
+  static unsigned devices_done = 0;
+  const size_t smem = any_shape_smem_bytes<NT>(P, Cin);
+  if (smem > kTcSmemMax) return cudaErrorInvalidValue;  // P past ~8,000 kernel points
+  const cudaError_t err = allow_shared_memory(kpconv_any_shape_kernel<NT>, devices_done);
+  if (err != cudaSuccess) return err;
+  const int w16 = (uintptr_t)w % 16 == 0 && Cout % 4 == 0;
+  dim3 grid((Nq + kGQ - 1) / kGQ, B, (Cout + 64 * NT - 1) / (64 * NT));
+  kpconv_any_shape_kernel<NT><<<grid, kThreads, smem, stream>>>(
+      q_pts, s_pts, inds, x, kp, w, out, Nq, Ns, K, Cin, Cout, P, mode, kind, w16);
+  return cudaGetLastError();
+}
+
+// The any-shape kernel with 8 NT columns a warp: the fewest that cover Cout,
+// up to 64 (512 columns a block).
+cudaError_t launch_any_shape(const float* q_pts, const float* s_pts, const int32_t* inds,
+                             const float* x, const float* kp, const float* w, float* out, int B,
+                             int Nq, int Ns, int K, int Cin, int Cout, int P, Mode mode, int kind,
+                             cudaStream_t stream) {
+  if (Cout <= 64)
+    return launch_any_shape_nt<1>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, Cout, P, mode, kind, stream);
+  if (Cout <= 128)
+    return launch_any_shape_nt<2>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, Cout, P, mode, kind, stream);
+  if (Cout <= 256)
+    return launch_any_shape_nt<4>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, Cout, P, mode, kind, stream);
+  return launch_any_shape_nt<8>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, Cout, P, mode, kind, stream);
+}
+
+// The f32 path of one influence mode: at P = 15 the tuned tensor-core kernel
+// where the shape allows it; at any other P the any-P tensor-core kernel
+// where the shape allows it and its tiles fit; else the any-shape kernel.
+// *route: which ran.
 template <int Infl>
 cudaError_t forward_f32(const float* q_pts, const float* s_pts, const int32_t* inds,
                         const float* x, const float* kp, const float* w, float* out, int B,
@@ -638,20 +912,15 @@ cudaError_t forward_f32(const float* q_pts, const float* s_pts, const int32_t* i
                         cudaStream_t stream) {
   const bool aligned = ((uintptr_t)w | (uintptr_t)out) % 16 == 0;
   const bool tc_shape = Cin >= 64 && Cin % kCC == 0 && K <= kKMax && aligned;
-  if (P != kP) {
-    if (tc_shape) {
-      bool taken;
-      *route = kRouteAnyPTensorCores;
-      const cudaError_t err = forward_tc_any_p(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K,
-                                               Cin, Cout, P, mode, Infl, stream, &taken);
-      if (taken) return err;
-    }
-    *route = kRouteAnyPCudaCores;
-    return launch_any_p<Infl>(q_pts, F32Rows{s_pts, x, w, Ns, Cin}, inds, kp, out, B, Nq, Ns, K,
-                              Cin, Cout, P, mode, stream);
+  if (tc_shape && P != kP) {
+    bool taken;
+    *route = kRouteAnyPTensorCores;
+    const cudaError_t err = forward_tc_any_p(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K,
+                                             Cin, Cout, P, mode, Infl, stream, &taken);
+    if (taken) return err;
   }
-  *route = kRouteTuned;
-  if (tc_shape) {
+  if (tc_shape && P == kP) {
+    *route = kRouteTuned;
     switch (Cout) {
       case 64:
         return launch_tc<1, Infl>(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, mode, stream);
@@ -665,8 +934,9 @@ cudaError_t forward_f32(const float* q_pts, const float* s_pts, const int32_t* i
         break;
     }
   }
-  return launch_cuda_cores<Infl>(q_pts, F32Rows{s_pts, x, w, Ns, Cin}, inds, kp, out, B, Nq, Ns,
-                                 K, Cin, Cout, mode, stream);
+  *route = kRouteAnyShape;
+  return launch_any_shape(q_pts, s_pts, inds, x, kp, w, out, B, Nq, Ns, K, Cin, Cout, P, mode,
+                          Infl, stream);
 }
 
 }  // namespace
@@ -677,9 +947,9 @@ extern "C" {
 // x [B, Ns, Cin], kp [P, 3], w [P, Cin, Cout], out [B, Nq, Cout]; all f32 and
 // contiguous; any P >= 1. influence: 0 linear, 1 constant, 2 gaussian (gauss_den its
 // 2 sigma^2 + 1e-9); closest: 1 for "closest" aggregation, 0 for "sum".
-// *route is set to the kernel that ran (Route: 0 the tuned kernels at P = 15,
-// 1 the any-P tensor-core kernel, 2 the any-P CUDA-core kernel). Returns a
-// cudaError_t (0 on success).
+// *route is set to the kernel that ran (Route: 0 the tuned kernel at P = 15,
+// 1 the any-P tensor-core kernel, 2 the any-shape tensor-core kernel).
+// Returns a cudaError_t (0 on success).
 int kpconv_forward(const float* q_pts, const float* s_pts, const int32_t* inds,
                    const float* x, const float* kp, const float* w, float* out,
                    int B, int Nq, int Ns, int K, int Cin, int Cout, int P,

@@ -12,20 +12,18 @@
 // neighbours in f32 (each product of two bf16 values is exact in f32) and
 // rounds that sum to bf16, then contracts it with the bf16 weights
 // accumulating in f32, and divides by the density count (feature sums of the
-// bf16 features in f32). Two paths:
-//  * Cin a multiple of 32, K <= 40, Cout in {64, 128, 256, 512}: the
-//    tensor-core kernel below.
-//  * any other shape at P = 15 (on the main path the first layer, Cin = 1):
-//    the CUDA-core kernel of the f32 path, reading the table through
-//    Bf16Rows, which applies the same roundings;
-//  * any other kernel-point count P at the tensor-core kernel's shapes: the
-//    any-P tensor-core kernel below (P in chunks of 16 kernel points);
-//  * any other P at any other shape: the any-P CUDA-core kernel of
-//    kpconv_common.cuh through Bf16Rows (the same roundings).
-// The tensor-core kernel maps kernel points to its mma rows g and g + 8, and
-// its A chunk and W ring are laid out for P = 15.
+// bf16 features in f32). Three kernels, chosen as the f32 path's (*route):
+//  * P = 15, Cin a multiple of 32, K <= 40, Cout in {64, 128, 256, 512}: the
+//    tuned tensor-core kernel below;
+//  * any other kernel-point count P at those shapes: the any-P tensor-core
+//    kernel below (P in chunks of 16 kernel points);
+//  * every other shape (on the main path the first layer, Cin = 1): the
+//    any-shape tensor-core kernel at the end of this file, with the same
+//    roundings (Bf16Rows).
+// The tuned kernel maps kernel points to its mma rows g and g + 8, and its A
+// chunk and W ring are laid out for P = 15.
 //
-// The tensor-core kernel. What bounds it on an H100: operations, both
+// The tuned kernel. What bounds it on an H100: operations, both
 // products on the bf16 tensor cores (989 TFLOP/s dense): the aggregation
 // (2 P Cin per real neighbour) and the contraction (2 P Cin Cout per query).
 // The first version built the influence-weighted sums A on CUDA cores (16
@@ -585,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1) kpconv_tc_any_p_bf16_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int col_w = warp * 8 * NT;
-  const Bf16Rows rows{table, w, Ns, Cin};
+  const Bf16Rows rows{table, Ns, Cin};
   __nv_bfloat16* wring = wbuf + warp * kG * 16 * kWS;
 
   // W groups in the order they are used (chunk of points, chunk of channels,
@@ -808,7 +806,278 @@ cudaError_t forward_tc_any_p_bf16(const float* q_pts, const __nv_bfloat16* table
   return cudaSuccess;
 }
 
-// The bf16 path of one influence mode. *route: which kernel ran (Route).
+// ---- the any-shape tensor-core kernel in bf16 (every shape the kernels above refuse) ----
+//
+// The f32 any-shape kernel's tiling (kpconv.cu, its shared steps in
+// kpconv_common.cuh) at the roundings of Bf16Rows: the A rows built with
+// mma.sync m16n8k16 (per staged chunk of 32 neighbours, 2 k-steps of 16; lane
+// (g, t) computes the influences of kernel points g and g + 8 on neighbours
+// 2 t, 2 t + 1, 2 t + 8, 2 t + 9 of a k-step in f32, rounds them to bf16 as
+// its A fragment, and reads channel g of those neighbours' table rows as its B
+// fragments), summed in the tensor core's f32 accumulators and rounded to bf16
+// into the A chunk; the contraction on m16n8k16 with W's B fragments by
+// ldmatrix.trans, accumulated in the tensor core as the tuned bf16 kernel
+// accumulates. What bounds it: as the f32 kernel, the products at the bf16
+// rate (989 TFLOP/s).
+template <int NT> __host__ __device__ constexpr int gen_bw_groups() { return NT == 8 ? 3 : 4; }
+// bf16 A chunk row stride: 8 nc + 4 words, an odd multiple of 4
+__host__ __device__ inline int gen_ba_stride(int Cin) { return 16 * (Cin < kGCC ? Cin : kGCC) + 8; }
+
+template <int NT>
+size_t any_shape_bf16_smem_bytes(int P, int Cin) {
+  return sizeof(float4) * P +
+         sizeof(__nv_bfloat16) * ((size_t)kGQ * gen_ba_stride(Cin) +
+                                  (size_t)kWarps * gen_bw_groups<NT>() * 16 * any_bw_stride<NT>()) +
+         sizeof(StagedNeighbours) * kWarps + sizeof(int) * kGQ;
+}
+
+// The A row of query q for kernel points [pc0, pc0 + 16) and channels
+// [c0, c0 + nc) (nc <= 32), A[p][c] = bf16(sum_k bf16(infl[k, p])
+// x[nbr[k], c0 + c]), at arow[p nc + c] (the pad points' rows zero). With
+// `count`, returns the query's density count at every lane from the same
+// loads (feature sums in f32), else 0.
+__device__ int bf16_row(__nv_bfloat16* arow, StagedNeighbours& st, const float* q_pts,
+                        const __nv_bfloat16* table, const int32_t* inds, const float4* kps, int P,
+                        int pc0, int b, int q, int Nq, int Ns, int K, int Cin, int c0, int nc,
+                        bool count, const Mode& mode, int kind, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  const int nx = (nc + 7) / 8, row = 8 + Cin;
+  const Bf16Rows rows{table, Ns, Cin};
+  const float4 kq0 = kps[min(pc0 + g, P - 1)], kq1 = kps[min(pc0 + g + 8, P - 1)];
+  const unsigned short* xc =
+      reinterpret_cast<const unsigned short*>(table + (size_t)b * (Ns + 1) * row + 8) + c0 + g;
+  float c[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+  int n_pos = 0;
+  for (int k0 = 0; k0 < K; k0 += kGKC) {
+    __syncwarp();  // the last chunk's staged neighbours are consumed
+    stage_neighbours(st, q_pts, rows, inds, kps, P, b, q, Nq, Ns, K, k0, mode, lane);
+    __syncwarp();
+    // B fragments as bf16 bits: neighbour 16 ks + 2 t + (e & 1) + 8 (e >> 1),
+    // channel c0 + 8 n + g
+    uint32_t xw[2][4][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int nb = st.nb[16 * ks + 2 * t + (e & 1) + 8 * (e >> 1)];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          xw[ks][n][e] = nb >= 0 && 8 * n + g < nc ? (uint32_t)__ldg(xc + (size_t)nb * row + 8 * n) : 0u;
+      }
+    if (count) {
+      // entry 4 ks + e: this lane's channels of neighbour 16 ks + 2 t + (e & 1)
+      // + 8 (e >> 1); after the reduce-scatter, lane (g, t) holds entry g's
+      float fs[8];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          fs[4 * ks + e] = (bf16_lo(xw[ks][0][e]) + bf16_lo(xw[ks][1][e])) +
+                           (bf16_lo(xw[ks][2][e]) + bf16_lo(xw[ks][3][e]));
+      column_reduce_scatter8(fs, lane);
+      n_pos += st.nb[16 * (g / 4) + 2 * t + (g & 1) + 8 * ((g >> 1) & 1)] >= 0 && fs[0] > 0.f;
+    }
+    const int kc = min(kGKC, K - k0);
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      if (16 * ks >= kc) break;
+      // the influences of points g (h = 0) and g + 8 (h = 1) on neighbour e
+      float f[4][2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 16 * ks + 2 * t + (e & 1) + 8 * (e >> 1);
+        const float4 r = st.rel[j];
+        const int nb = st.nb[j], near = st.near[j];
+        f[e][0] = influence_at(r, nb, near, pc0 + g, P, kq0, mode, kind);
+        f[e][1] = influence_at(r, nb, near, pc0 + g + 8, P, kq1, mode, kind);
+      }
+      const uint32_t a[4] = {pack_bf16(f[0][0], f[1][0]), pack_bf16(f[0][1], f[1][1]),
+                             pack_bf16(f[2][0], f[3][0]), pack_bf16(f[2][1], f[3][1])};
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        if (n >= nx) break;
+        mma_bf16(c[n], a, xw[ks][n][0] | xw[ks][n][1] << 16, xw[ks][n][2] | xw[ks][n][3] << 16);
+      }
+    }
+  }
+  // C fragments: rows kernel points g and g + 8, columns channels 8 n + 2 t (+ 1)
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    if (n >= nx) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ch = 8 * n + 2 * t + (e & 1);
+      if (ch < nc) arow[(g + 8 * (e >> 1)) * nc + ch] = __float2bfloat16_rn(c[n][e]);
+    }
+  }
+  return count ? __reduce_add_sync(0xffffffffu, n_pos) : 0;
+}
+
+// Blocks (tile of 32 queries, pair, column block of 64 NT), as the f32
+// any-shape kernel's; a W group is one k-step of 16 rows.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, NT <= 2 ? 2 : 1) kpconv_any_shape_bf16_kernel(
+    const float* __restrict__ q_pts, const __nv_bfloat16* __restrict__ table,
+    const int32_t* __restrict__ inds, const float* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ w, float* __restrict__ out, int Nq, int Ns, int K, int Cin,
+    int Cout, int P, Mode mode, int kind, int w16) {
+  constexpr int kG = gen_bw_groups<NT>(), kWS = any_bw_stride<NT>();
+  const int as = gen_ba_stride(Cin);
+  extern __shared__ __align__(16) unsigned char gen_bf16_smem[];
+  float4* kps = reinterpret_cast<float4*>(gen_bf16_smem);                      // [P]
+  __nv_bfloat16* abuf = reinterpret_cast<__nv_bfloat16*>(kps + P);            // [kGQ][as]
+  __nv_bfloat16* wbuf = abuf + kGQ * as;                                      // [warp][G][16][kWS]
+  StagedNeighbours* staged =
+      reinterpret_cast<StagedNeighbours*>(wbuf + kWarps * kG * 16 * kWS);    // [warp]
+  int* cnt = reinterpret_cast<int*>(staged + kWarps);                        // [kGQ]
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kGQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int col_w = blockIdx.z * 64 * NT + warp * 8 * NT;
+  const bool has_cols = col_w < Cout;
+  const Bf16Rows rows{table, Ns, Cin};
+  __nv_bfloat16* wring = wbuf + warp * kG * 16 * kWS;
+
+  // W group (one k-step: the cursor's next 16 rows, columns [col_w, col_w +
+  // 8 NT)) into ring slot `slot`: 16-byte cp.async where W's rows allow it
+  // (zero-filled past Cout and for pad rows), else plain loads
+  WCursor cur;
+  auto load_w = [&](int slot) {
+    if (!cur.done(P)) {
+      __nv_bfloat16* dst = wring + slot * 16 * kWS;
+      if (w16) {
+#pragma unroll
+        for (int i = lane; i < 16 * NT; i += 32) {
+          const int r = i / NT, c = col_w + 8 * (i % NT);
+          const int row = cur.row(r, P, Cin);
+          const bool in = row >= 0 && c < Cout;
+          cp_async16_bf16(dst + r * kWS + (c - col_w), in ? w + (size_t)row * Cout + c : w, in);
+        }
+      } else {
+        const unsigned short* ws = reinterpret_cast<const unsigned short*>(w);
+        unsigned short* ds = reinterpret_cast<unsigned short*>(dst);
+        for (int i = lane; i < 16 * 8 * NT; i += 32) {
+          const int r = i / (8 * NT), c = col_w + i % (8 * NT);
+          const int row = cur.row(r, P, Cin);
+          ds[r * kWS + (c - col_w)] = row >= 0 && c < Cout ? __ldg(ws + (size_t)row * Cout + c) : 0;
+        }
+      }
+      cur.advance(P, Cin);
+    }
+    cp_async_commit();
+  };
+  if (has_cols)
+    for (int s = 0; s < kG - 1; ++s) load_w(s);  // in flight during the first A chunk
+
+  load_kernel_points_any(kp, kps, P);
+  __syncthreads();
+  const bool chunked = Cin > kGCC;  // the density count cannot come from one chunk's loads
+  if (chunked)
+    for (int i = 0; i < kGQW; ++i) {
+      const int n = dense_count(rows, inds, b, q0 + kGQW * warp + i, Nq, Ns, K, Cin, lane);
+      if (lane == 0) cnt[kGQW * warp + i] = n;
+    }
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  int gi = 0;  // W groups consumed
+  for (int pc0 = 0; pc0 < P; pc0 += kPC) {
+    const int npc = min(kPC, P - pc0);
+    for (int c0 = 0; c0 < Cin; c0 += kGCC) {
+      const int nc = min(kGCC, Cin - c0);
+      const bool count = pc0 == 0 && !chunked;
+#pragma unroll 1
+      for (int i = 0; i < kGQW; ++i) {
+        const int aq = kGQW * warp + i;
+        __nv_bfloat16* arow = abuf + aq * as;
+        const int n = Cin == 1
+            ? cin1_row<__nv_bfloat16>(arow, q_pts, rows, inds, kps, P, pc0, b, q0 + aq, Nq, Ns,
+                                      K, mode, kind, lane)
+            : bf16_row(arow, staged[warp], q_pts, table, inds, kps, P, pc0, b, q0 + aq, Nq, Ns,
+                       K, Cin, c0, nc, count, mode, kind, lane);
+        if (count && lane == 0) cnt[aq] = n;
+      }
+      __syncthreads();  // the A chunk is complete
+
+      if (has_cols) {
+        const int groups = (npc * nc + 15) / 16;
+        for (int gl = 0; gl < groups; ++gl, ++gi) {
+          cp_async_wait<kG - 2>();
+          __syncwarp();  // the warp's group gi is in place; group gi - 1 is consumed
+          load_w((gi + kG - 1) % kG);
+          const __nv_bfloat16* wg = wring + (gi % kG) * 16 * kWS;
+          uint32_t a[2][4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const __nv_bfloat16* ar = abuf + (16 * m + g) * as + 16 * gl + 2 * t;
+            a[m][0] = ld_pair(ar);
+            a[m][1] = ld_pair(ar + 8 * as);
+            a[m][2] = ld_pair(ar + 8);
+            a[m][3] = ld_pair(ar + 8 * as + 8);
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            uint32_t b0, b1;
+            ldmatrix_x2_trans(b0, b1, wg + (lane % 16) * kWS + 8 * n);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) mma_bf16(acc[m][n], a[m], b0, b1);
+          }
+        }
+      }
+      __syncthreads();  // the A chunk is consumed before the next one is built
+    }
+  }
+  cp_async_wait<0>();
+  if (has_cols) store_any_shape<NT>(out, acc, cnt, b, q0, Nq, Cout, col_w, g, t);
+}
+
+template <int NT>
+cudaError_t launch_any_shape_bf16_nt(const float* q_pts, const __nv_bfloat16* table,
+                                     const int32_t* inds, const float* kp,
+                                     const __nv_bfloat16* w, float* out, int B, int Nq, int Ns,
+                                     int K, int Cin, int Cout, int P, Mode mode, int kind,
+                                     cudaStream_t stream) {
+  static unsigned devices_done = 0;
+  const size_t smem = any_shape_bf16_smem_bytes<NT>(P, Cin);
+  if (smem > kTcSmemMax) return cudaErrorInvalidValue;  // P past ~9,000 kernel points
+  const cudaError_t err = allow_shared_memory(kpconv_any_shape_bf16_kernel<NT>, devices_done);
+  if (err != cudaSuccess) return err;
+  const int w16 = (uintptr_t)w % 16 == 0 && Cout % 8 == 0;
+  dim3 grid((Nq + kGQ - 1) / kGQ, B, (Cout + 64 * NT - 1) / (64 * NT));
+  kpconv_any_shape_bf16_kernel<NT><<<grid, kThreads, smem, stream>>>(
+      q_pts, table, inds, kp, w, out, Nq, Ns, K, Cin, Cout, P, mode, kind, w16);
+  return cudaGetLastError();
+}
+
+// The any-shape kernel with 8 NT columns a warp: the fewest that cover Cout,
+// up to 64 (512 columns a block).
+cudaError_t launch_any_shape_bf16(const float* q_pts, const __nv_bfloat16* table,
+                                  const int32_t* inds, const float* kp, const __nv_bfloat16* w,
+                                  float* out, int B, int Nq, int Ns, int K, int Cin, int Cout,
+                                  int P, Mode mode, int kind, cudaStream_t stream) {
+  if (Cout <= 64)
+    return launch_any_shape_bf16_nt<1>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, Cout, P, mode, kind, stream);
+  if (Cout <= 128)
+    return launch_any_shape_bf16_nt<2>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, Cout, P, mode, kind, stream);
+  if (Cout <= 256)
+    return launch_any_shape_bf16_nt<4>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, Cout, P, mode, kind, stream);
+  return launch_any_shape_bf16_nt<8>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, Cout, P, mode, kind, stream);
+}
+
+// The bf16 path of one influence mode, chosen as the f32 path's. *route:
+// which kernel ran (Route).
 template <int Infl>
 cudaError_t forward_bf16(const float* q_pts, const __nv_bfloat16* table, const int32_t* inds,
                          const float* kp, const __nv_bfloat16* w, float* out, int B, int Nq,
@@ -816,20 +1085,15 @@ cudaError_t forward_bf16(const float* q_pts, const __nv_bfloat16* table, const i
                          cudaStream_t stream) {
   const bool aligned = ((uintptr_t)table | (uintptr_t)w | (uintptr_t)out) % 16 == 0;
   const bool tc_shape = Cin % kCC == 0 && K <= kKMax && aligned;
-  if (P != kP) {
-    if (tc_shape) {
-      bool taken;
-      *route = kRouteAnyPTensorCores;
-      const cudaError_t err = forward_tc_any_p_bf16(q_pts, table, inds, kp, w, out, B, Nq, Ns, K,
-                                                    Cin, Cout, P, mode, Infl, stream, &taken);
-      if (taken) return err;
-    }
-    *route = kRouteAnyPCudaCores;
-    return launch_any_p<Infl>(q_pts, Bf16Rows{table, w, Ns, Cin}, inds, kp, out, B, Nq, Ns, K,
-                              Cin, Cout, P, mode, stream);
+  if (tc_shape && P != kP) {
+    bool taken;
+    *route = kRouteAnyPTensorCores;
+    const cudaError_t err = forward_tc_any_p_bf16(q_pts, table, inds, kp, w, out, B, Nq, Ns, K,
+                                                  Cin, Cout, P, mode, Infl, stream, &taken);
+    if (taken) return err;
   }
-  *route = kRouteTuned;
-  if (tc_shape) {
+  if (tc_shape && P == kP) {
+    *route = kRouteTuned;
     switch (Cout) {
       case 64:
         return launch_tc_bf16<1, Infl>(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, mode, stream);
@@ -843,8 +1107,9 @@ cudaError_t forward_bf16(const float* q_pts, const __nv_bfloat16* table, const i
         break;
     }
   }
-  return launch_cuda_cores<Infl>(q_pts, Bf16Rows{table, w, Ns, Cin}, inds, kp, out, B, Nq, Ns,
-                                 K, Cin, Cout, mode, stream);
+  *route = kRouteAnyShape;
+  return launch_any_shape_bf16(q_pts, table, inds, kp, w, out, B, Nq, Ns, K, Cin, Cout, P, mode,
+                               Infl, stream);
 }
 
 }  // namespace

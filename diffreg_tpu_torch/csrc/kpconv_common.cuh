@@ -1,7 +1,6 @@
 // Shared by the KPConv kernels' two libraries, kpconv.cu (f32) and
-// kpconv_bf16.cu (the bf16 instance): the influence modes, the CUDA-core
-// kernels both use for the shapes their tensor-core kernels do not take, and
-// the tiling constants of those tensor-core kernels.
+// kpconv_bf16.cu (the bf16 instance): the influence modes, how each reads its
+// support rows, and the shared steps of their tensor-core kernels.
 //
 // Replaces the Pallas TPU kernel diffreg_tpu/ops/pallas/kpconv_kernel.py:_kernel
 // (pallas_call in _fused_kpconv_fwd_impl). Same arithmetic: for each query q and
@@ -13,29 +12,25 @@
 // The Pallas kernel has linear influence and sum aggregation only; the JAX
 // package runs its other modes in XLA (diffreg_tpu/ops/kpconv.py:
 // _influence_weights), and here they are instances of the same kernels: the
-// influence is a template parameter (linear as above; constant, infl_p = 1;
-// gaussian, infl_p = exp(-d2_p / (2 sigma^2 + 1e-9)) with sigma = 0.3 extent,
-// the denominator formed in double by the caller as the JAX package forms it),
-// and aggregation "closest" (a runtime flag) keeps, for each neighbor, only the
+// influence is a template parameter of the tuned kernels and a runtime value
+// of the others (linear as above; constant, infl_p = 1; gaussian, infl_p =
+// exp(-d2_p / (2 sigma^2 + 1e-9)) with sigma = 0.3 extent, the denominator
+// formed in double by the caller as the JAX package forms it), and
+// aggregation "closest" (a runtime flag) keeps, for each neighbor, only the
 // influence of its nearest kernel point (the first on ties, as jnp.argmin).
 //
-// The kernel-point count P is the weights' first dimension, as in the Pallas
-// kernel. The tuned kernels (the tensor-core kernels and the first CUDA-core
-// kernel below) are compiled for P = kP = 15 (the default
-// KPFCNConfig.num_kernel_points, every preset's and YAML's): their register
-// arrays and shared tiles are sized by it. Any other P reads P at run time:
-// the any-P tensor-core kernels (their shared steps at the end of this file)
-// at the tuned tensor-core kernels' shapes, the any-P CUDA-core kernel
-// (kpconv_any_p_kernel) at every other shape (the first layer, Cin = 1; the
-// 2D-3D level 0, K = 64; the narrow layers of the synthetic stories).
-//
-// The CUDA-core kernel at P = 15 (any other shape; on the main path only the
-// first layer, Cin = 1): one block per (pair, tile of TQ queries), reading its
-// rows through F32Rows (the bf16 instance's through Bf16Rows); the influences,
-// the density count and the influence-weighted [TQ, P * Cin] accumulator live
-// in shared memory, and the contraction runs in f32 on CUDA cores, each W
-// element read once per block and reused for the TQ queries from registers (TQ
-// the largest of 16/8/4/2/1 that fits).
+// Three routes in each library, all on tensor cores; the C entry reports the
+// one it took (Route):
+//  * tuned (P = kP = 15, the default KPFCNConfig.num_kernel_points, every
+//    preset's and YAML's; Cin % 32 == 0, K <= 40, Cout in {64, 128, 256, 512},
+//    f32 also Cin >= 64): register arrays and shared tiles sized by P;
+//  * any-P (any other P at the tuned shapes): P read at run time, in chunks of
+//    16 kernel points (its shared steps below);
+//  * any-shape (every other shape: the first layer, Cin = 1; the 2D-3D level
+//    0, K = 64; narrow layers, any Cin and Cout; K > 40; a misaligned view):
+//    any P, K, Cin and Cout, every mode (its shared steps at the end of this
+//    file, its kernels kpconv.cu:kpconv_any_shape_kernel and
+//    kpconv_bf16.cu:kpconv_any_shape_bf16_kernel).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,7 +46,7 @@ namespace {
 
 constexpr int kP = 15;         // the kernel-point count the tuned kernels are compiled for
 constexpr int kThreads = 256;
-constexpr size_t kSmemBudget = 200 * 1024;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float kp_norm2(float x, float y, float z) {
   return x * x + y * y + z * z;
@@ -121,20 +116,13 @@ __device__ __forceinline__ void influences(float rx, float ry, float rz, float n
     f[p] = mode.closest && p != nearest ? 0.f : influence_of<Infl>(d2[p], mode);
 }
 
-size_t smem_bytes(int tq, int K, int Cin) {
-  return sizeof(float) * ((size_t)tq * kP * Cin + (size_t)tq * K * kP) +
-         sizeof(int) * ((size_t)tq * K + tq);
-}
-
-// Where the CUDA-core kernel reads the support rows and the weights, and how
-// it rounds: the f32 arrays (kpconv_forward), or the bf16 table [B, Ns + 1,
-// 8 + Cin] of [hi(pos), lo(pos), 0, 0, features] and bf16 weights, with the bf16
-// path's roundings of the influences and of the weighted sums
-// (kpconv_forward_bf16).
+// Where a kernel reads the support rows and how it rounds: the f32 arrays
+// (kpconv_forward), or the bf16 table [B, Ns + 1, 8 + Cin] of [hi(pos),
+// lo(pos), 0, 0, features], with the bf16 path's roundings of the influences
+// and of the weighted sums (kpconv_forward_bf16).
 struct F32Rows {
   const float* s_pts;
   const float* x;
-  const float* w;
   int Ns, Cin;
   __device__ void pos(int b, int nb, float& px, float& py, float& pz) const {
     const float* sp = s_pts + ((size_t)b * Ns + nb) * 3;
@@ -145,13 +133,11 @@ struct F32Rows {
   __device__ float feat(int b, int nb, int c) const {
     return x[((size_t)b * Ns + nb) * Cin + c];
   }
-  __device__ float weight(size_t i) const { return __ldg(w + i); }
   __device__ static float rounded(float v) { return v; }
 };
 
 struct Bf16Rows {
   const __nv_bfloat16* table;
-  const __nv_bfloat16* w;
   int Ns, Cin;
   __device__ const __nv_bfloat16* row(int b, int nb) const {
     return table + ((size_t)b * (Ns + 1) + nb) * (8 + Cin);
@@ -163,372 +149,8 @@ struct Bf16Rows {
     pz = load_bf16(sp + 2) + load_bf16(sp + 5);
   }
   __device__ float feat(int b, int nb, int c) const { return load_bf16(row(b, nb) + 8 + c); }
-  __device__ float weight(size_t i) const { return load_bf16(w + i); }
   __device__ static float rounded(float v) { return round_bf16(v); }
 };
-
-template <int TQ, int Infl, class Rows>
-__global__ void __launch_bounds__(kThreads) kpconv_kernel(
-    const float* __restrict__ q_pts, const Rows rows, const int32_t* __restrict__ inds,
-    const float* __restrict__ kp, float* __restrict__ out, int Nq, int Ns, int K, int Cin,
-    int Cout, Mode mode) {
-  extern __shared__ float smem[];
-  const int PC = kP * Cin;
-  float* acc = smem;                           // [TQ][P * Cin]
-  float* infl = acc + TQ * PC;                 // [TQ][K][P]
-  int* nbr = (int*)(infl + TQ * K * kP);       // [TQ][K], -1 = shadow row
-  int* cnt = nbr + TQ * K;                     // [TQ]
-  __shared__ float kps[kP * 3];
-  __shared__ float k2s[kP];
-
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x;
-
-  load_kernel_points(kp, kps, k2s);
-  if (tid < TQ) cnt[tid] = 0;
-  __syncthreads();
-
-  // Phase A: neighbor index and influence of every (query, neighbor, kernel point).
-  for (int s = tid; s < TQ * K; s += kThreads) {
-    const int qi = s / K, k = s - qi * K;
-    const int q = q0 + qi;
-    const int nb = q < Nq ? inds[((size_t)b * Nq + q) * K + k] : Ns;
-    float* ip = infl + s * kP;
-    if (nb < 0 || nb >= Ns) {
-      nbr[s] = -1;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) ip[p] = 0.f;
-      continue;
-    }
-    nbr[s] = nb;
-    const float* qp = q_pts + ((size_t)b * Nq + q) * 3;
-    float px, py, pz;
-    rows.pos(b, nb, px, py, pz);
-    const float rx = px - qp[0], ry = py - qp[1], rz = pz - qp[2];
-    const float n2 = rx * rx + ry * ry + rz * rz;
-    float f[kP];
-    influences<Infl>(rx, ry, rz, n2, kps, k2s, mode, f);
-#pragma unroll
-    for (int p = 0; p < kP; ++p) ip[p] = Rows::rounded(f[p]);
-  }
-  __syncthreads();
-
-  // Phase A2: density count, one warp per (query, neighbor): a neighbor
-  // counts iff its feature-sum is positive (the reference's quirk).
-  const int warp = tid / 32, lane = tid % 32;
-  for (int s = warp; s < TQ * K; s += kThreads / 32) {
-    const int nb = nbr[s];
-    if (nb < 0) continue;
-    float sum = 0.f;
-    for (int c = lane; c < Cin; c += 32) sum += rows.feat(b, nb, c);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0 && sum > 0.f) atomicAdd(&cnt[s / K], 1);
-  }
-
-  // Phase B: acc[q, p, c] = sum_k infl[q, k, p] * x[nbr[q, k], c]; one
-  // thread per (query, channel), P sums in registers, x read once per row.
-  for (int s = tid; s < TQ * Cin; s += kThreads) {
-    const int qi = s / Cin, c = s - qi * Cin;
-    float a[kP];
-#pragma unroll
-    for (int p = 0; p < kP; ++p) a[p] = 0.f;
-    const int* nq = nbr + qi * K;
-    const float* iq = infl + qi * K * kP;
-    for (int k = 0; k < K; ++k) {
-      const int nb = nq[k];
-      if (nb < 0) continue;
-      const float xv = rows.feat(b, nb, c);
-#pragma unroll
-      for (int p = 0; p < kP; ++p) a[p] = fmaf(iq[k * kP + p], xv, a[p]);
-    }
-#pragma unroll
-    for (int p = 0; p < kP; ++p) acc[qi * PC + p * Cin + c] = Rows::rounded(a[p]);
-  }
-  __syncthreads();
-
-  // Phase C: out[q, co] = sum_j acc[q, j] * W[j, co] / max(cnt[q], 1).
-  for (int co = tid; co < Cout; co += kThreads) {
-    float r[TQ];
-#pragma unroll
-    for (int qi = 0; qi < TQ; ++qi) r[qi] = 0.f;
-    for (int j = 0; j < PC; ++j) {
-      const float wv = rows.weight((size_t)j * Cout + co);
-#pragma unroll
-      for (int qi = 0; qi < TQ; ++qi) r[qi] = fmaf(acc[qi * PC + j], wv, r[qi]);
-    }
-#pragma unroll
-    for (int qi = 0; qi < TQ; ++qi) {
-      const int q = q0 + qi;
-      if (q < Nq) out[((size_t)b * Nq + q) * Cout + co] = r[qi] / (float)max(cnt[qi], 1);
-    }
-  }
-}
-
-template <int TQ, int Infl, class Rows>
-cudaError_t launch(const float* q_pts, Rows rows, const int32_t* inds, const float* kp,
-                   float* out, int B, int Nq, int Ns, int K, int Cin, int Cout, Mode mode,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(TQ, K, Cin);
-  cudaError_t err = cudaFuncSetAttribute(
-      kpconv_kernel<TQ, Infl, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Nq + TQ - 1) / TQ, B);
-  kpconv_kernel<TQ, Infl, Rows><<<grid, kThreads, smem, stream>>>(
-      q_pts, rows, inds, kp, out, Nq, Ns, K, Cin, Cout, mode);
-  return cudaGetLastError();
-}
-
-// The CUDA-core kernel at the largest query tile TQ (16/8/4/2/1) whose
-// shared memory fits.
-template <int Infl, class Rows>
-cudaError_t launch_cuda_cores(const float* q_pts, Rows rows, const int32_t* inds,
-                              const float* kp, float* out, int B, int Nq, int Ns, int K,
-                              int Cin, int Cout, Mode mode, cudaStream_t stream) {
-  if (smem_bytes(16, K, Cin) <= kSmemBudget)
-    return launch<16, Infl>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, mode, stream);
-  if (smem_bytes(8, K, Cin) <= kSmemBudget)
-    return launch<8, Infl>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, mode, stream);
-  if (smem_bytes(4, K, Cin) <= kSmemBudget)
-    return launch<4, Infl>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, mode, stream);
-  if (smem_bytes(2, K, Cin) <= kSmemBudget)
-    return launch<2, Infl>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, mode, stream);
-  if (smem_bytes(1, K, Cin) <= kSmemBudget)
-    return launch<1, Infl>(q_pts, rows, inds, kp, out, B, Nq, Ns, K, Cin, Cout, mode, stream);
-  return cudaErrorInvalidValue;
-}
-
-// ---- the any-P CUDA-core kernel ----
-//
-// Every kernel-point count P >= 1, every influence and aggregation mode, any
-// K, Cin and Cout (where the any-P tensor-core kernels do not take the shape),
-// through the same Rows as the kernel above (so the bf16
-// instance rounds where the JAX package's bf16 path rounds). P is a runtime
-// parameter: the kernel points, the influences [tq][K][P] and the
-// influence-weighted sums live in shared memory, not in registers. Cin is
-// taken in chunks of cc channels (cc = Cin unless P x Cin x tq would not fit):
-// each chunk's sums are contracted with W's rows of that chunk and added to
-// the block's output rows in global memory (a block owns its rows, and a
-// thread its columns, so no other thread writes them), which are divided by
-// the density count after the last chunk. So a layer is never refused for its
-// width; only K x P beyond shared memory at one query (K P > 50,000) is.
-//
-// The contraction: the sums are stored [P][cc][tq] (the tile's queries
-// fastest, tq padded to 4), so a thread that owns an output column reads the
-// sums of all its queries for one (p, c) as float4 broadcasts and multiplies
-// them by one weight, loaded kAnyWU at a time ahead of their products. Below
-// 256 output columns the threads split the kernel points into groups (group g
-// takes p = g, g + groups, ...), whose partial sums are added in group order
-// through shared memory. A block takes at most kAnyBudget of shared memory
-// (two blocks an SM) while it holds more than one query, and fewer than 16
-// queries where the grid would be short of two blocks an SM.
-constexpr int kAnyTQ = 16;  // the most queries a block of the any-P kernel owns
-constexpr int kAnyPB = 8;   // kernel points a thread sums at once (registers)
-constexpr int kAnyWU = 8;   // weights a contraction thread loads at once
-constexpr size_t kAnyBudget = 110 * 1024;  // shared memory of a block: two an SM
-
-__host__ __device__ constexpr int any_p_stride(int tq) { return (tq + 3) / 4 * 4; }
-
-size_t any_p_smem_bytes(int P, int tq, int cc, int K) {
-  return sizeof(float) * ((size_t)P * cc * any_p_stride(tq) + (size_t)kThreads * kAnyTQ +
-                          (size_t)tq * K * P + 4 * (size_t)P) +
-         sizeof(int) * ((size_t)tq * K + tq);
-}
-
-template <int Infl, class Rows>
-__global__ void __launch_bounds__(kThreads) kpconv_any_p_kernel(
-    const float* __restrict__ q_pts, const Rows rows, const int32_t* __restrict__ inds,
-    const float* __restrict__ kp, float* __restrict__ out, int Nq, int Ns, int K, int Cin,
-    int Cout, int P, int tq, int cc, Mode mode) {
-  extern __shared__ __align__(16) float any_smem[];
-  const int ts = any_p_stride(tq);
-  float* acc = any_smem;                             // [P][cc][ts]
-  float* part = acc + (size_t)P * cc * ts;           // [groups - 1][tq][span] partial sums
-  float* infl = part + kThreads * kAnyTQ;            // [tq][K][P]
-  float* kps = infl + (size_t)tq * K * P;            // [P][3]
-  float* k2s = kps + 3 * P;                          // [P]
-  int* nbr = (int*)(k2s + P);                        // [tq][K], -1 = shadow row
-  int* cnt = nbr + tq * K;                           // [tq]
-
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * tq;
-  const int tid = threadIdx.x;
-  for (int p = tid; p < P; p += kThreads) {
-    const float a = kp[3 * p], c = kp[3 * p + 1], d = kp[3 * p + 2];
-    kps[3 * p] = a;
-    kps[3 * p + 1] = c;
-    kps[3 * p + 2] = d;
-    k2s[p] = kp_norm2(a, c, d);
-  }
-  if (tid < tq) cnt[tid] = 0;
-  __syncthreads();
-
-  // neighbor index and influence of every (query, neighbor, kernel point):
-  // the squared distances first, then (under "closest") their argmin, then
-  // the influences in place
-  for (int s = tid; s < tq * K; s += kThreads) {
-    const int qi = s / K, k = s - qi * K;
-    const int q = q0 + qi;
-    const int nb = q < Nq ? inds[((size_t)b * Nq + q) * K + k] : Ns;
-    float* ip = infl + (size_t)s * P;
-    if (nb < 0 || nb >= Ns) {
-      nbr[s] = -1;
-      for (int p = 0; p < P; ++p) ip[p] = 0.f;
-      continue;
-    }
-    nbr[s] = nb;
-    const float* qp = q_pts + ((size_t)b * Nq + q) * 3;
-    float px, py, pz;
-    rows.pos(b, nb, px, py, pz);
-    const float rx = px - qp[0], ry = py - qp[1], rz = pz - qp[2];
-    const float n2 = rx * rx + ry * ry + rz * rz;
-    int nearest = 0;
-    for (int p = 0; p < P; ++p) {
-      ip[p] = kp_d2(rx, ry, rz, n2, kps[3 * p], kps[3 * p + 1], kps[3 * p + 2], k2s[p]);
-      if (ip[p] < ip[nearest]) nearest = p;
-    }
-    for (int p = 0; p < P; ++p)
-      ip[p] = Rows::rounded(mode.closest && p != nearest ? 0.f : influence_of<Infl>(ip[p], mode));
-  }
-  __syncthreads();
-
-  // density count, one warp per (query, neighbor), over all Cin channels
-  const int warp = tid / 32, lane = tid % 32;
-  for (int s = warp; s < tq * K; s += kThreads / 32) {
-    const int nb = nbr[s];
-    if (nb < 0) continue;
-    float sum = 0.f;
-    for (int c = lane; c < Cin; c += 32) sum += rows.feat(b, nb, c);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0 && sum > 0.f) atomicAdd(&cnt[s / K], 1);
-  }
-
-  // the contraction's threads: column co = tid % span (and co + span, ...),
-  // kernel points p = g, g + groups, ... (g = tid / span)
-  const int span = min(Cout, kThreads), groups = kThreads / span;
-  const int g = tid / span;
-  for (int c0 = 0; c0 < Cin; c0 += cc) {
-    const int nc = min(cc, Cin - c0);
-    const bool last = c0 + cc >= Cin;
-    // acc[p, c, q] = sum_k infl[q, k, p] * x[nbr[q, k], c0 + c]; one thread
-    // per (query, channel), kAnyPB kernel points at a time in registers
-    for (int s = tid; s < tq * nc; s += kThreads) {
-      const int qi = s / nc, c = s - qi * nc;
-      const int* nq = nbr + qi * K;
-      const float* iq = infl + (size_t)qi * K * P;
-      float* aq = acc + (size_t)c * ts + qi;
-      for (int pb = 0; pb < P; pb += kAnyPB) {
-        float a[kAnyPB];
-#pragma unroll
-        for (int j = 0; j < kAnyPB; ++j) a[j] = 0.f;
-        for (int k = 0; k < K; ++k) {
-          const int nb = nq[k];
-          if (nb < 0) continue;
-          const float xv = rows.feat(b, nb, c0 + c);
-#pragma unroll
-          for (int j = 0; j < kAnyPB; ++j)
-            if (pb + j < P) a[j] = fmaf(iq[k * P + pb + j], xv, a[j]);
-        }
-#pragma unroll
-        for (int j = 0; j < kAnyPB; ++j)
-          if (pb + j < P) aq[(size_t)(pb + j) * cc * ts] = Rows::rounded(a[j]);
-      }
-    }
-    __syncthreads();
-
-    // out[q, co] (+)= sum_{p, c} acc[p, c, q] * W[p, c0 + c, co]; after the
-    // last chunk divided by max(cnt[q], 1)
-    for (int co = tid % span; co < Cout; co += span) {
-      float r[kAnyTQ];
-#pragma unroll
-      for (int i = 0; i < kAnyTQ; ++i) r[i] = 0.f;
-      for (int p = g; p < P && g < groups; p += groups) {
-        const float* ap = acc + (size_t)p * cc * ts;
-        for (int cb = 0; cb < nc; cb += kAnyWU) {
-          float wv[kAnyWU];
-#pragma unroll
-          for (int u = 0; u < kAnyWU; ++u)
-            wv[u] = cb + u < nc ? rows.weight(((size_t)p * Cin + c0 + cb + u) * Cout + co) : 0.f;
-#pragma unroll
-          for (int u = 0; u < kAnyWU; ++u) {
-            if (cb + u >= nc) break;
-            const float4* a4 = reinterpret_cast<const float4*>(ap + (size_t)(cb + u) * ts);
-#pragma unroll
-            for (int v = 0; v < kAnyTQ / 4; ++v) {
-              if (4 * v >= tq) break;
-              const float4 a = a4[v];  // one address for the warp
-              r[4 * v] = fmaf(a.x, wv[u], r[4 * v]);
-              r[4 * v + 1] = fmaf(a.y, wv[u], r[4 * v + 1]);
-              r[4 * v + 2] = fmaf(a.z, wv[u], r[4 * v + 2]);
-              r[4 * v + 3] = fmaf(a.w, wv[u], r[4 * v + 3]);
-            }
-          }
-        }
-      }
-      if (groups > 1) {
-        // span = Cout <= 128: one column a thread, so every thread meets the
-        // barrier once; groups 1, 2, ... hand their sums to group 0
-        if (g > 0 && g < groups)
-#pragma unroll
-          for (int i = 0; i < kAnyTQ; ++i)
-            if (i < tq) part[((g - 1) * tq + i) * span + co] = r[i];
-        __syncthreads();
-        if (g == 0)
-          for (int o = 1; o < groups; ++o)
-#pragma unroll
-            for (int i = 0; i < kAnyTQ; ++i)
-              if (i < tq) r[i] += part[((o - 1) * tq + i) * span + co];
-      }
-      if (g != 0) continue;
-#pragma unroll
-      for (int i = 0; i < kAnyTQ; ++i) {
-        const int q = q0 + i;
-        if (i >= tq || q >= Nq) continue;
-        float* o = out + ((size_t)b * Nq + q) * Cout + co;
-        const float v = (c0 == 0 ? 0.f : *o) + r[i];
-        *o = last ? v / (float)max(cnt[i], 1) : v;
-      }
-    }
-    __syncthreads();  // the chunk's sums are consumed before the next chunk's
-  }
-}
-
-// The any-P kernel at the most queries a block (16/8/4/2/1) whose influences
-// fit beside a chunk of at least min(Cin, 32) channels within kAnyBudget, so
-// that two blocks share an SM; else one query a block with any chunk that fits
-// kSmemBudget.
-template <int Infl, class Rows>
-cudaError_t launch_any_p(const float* q_pts, Rows rows, const int32_t* inds, const float* kp,
-                         float* out, int B, int Nq, int Ns, int K, int Cin, int Cout, int P,
-                         Mode mode, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  // fewer queries a block where 16 would leave the grid short of two blocks an SM
-  int most = kAnyTQ;
-  while (most > 4 && (long long)((Nq + most - 1) / most) * B < 2LL * sms) most /= 2;
-  for (int tq = most; tq >= 1; tq /= 2) {
-    const size_t budget = tq > 1 ? kAnyBudget : kSmemBudget;
-    const size_t fixed = any_p_smem_bytes(P, tq, 0, K);
-    const size_t per_channel = sizeof(float) * any_p_stride(tq) * P;
-    if (fixed + per_channel > budget) continue;
-    const int cc = (int)std::min<size_t>(Cin, (budget - fixed) / per_channel);
-    if (cc < std::min(Cin, 32) && tq > 1) continue;
-    const size_t smem = any_p_smem_bytes(P, tq, cc, K);
-    err = cudaFuncSetAttribute(
-        kpconv_any_p_kernel<Infl, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((Nq + tq - 1) / tq, B);
-    kpconv_any_p_kernel<Infl, Rows><<<grid, kThreads, smem, stream>>>(
-        q_pts, rows, inds, kp, out, Nq, Ns, K, Cin, Cout, P, tq, cc, mode);
-    return cudaGetLastError();
-  }
-  return cudaErrorInvalidValue;
-}
 
 // The tensor-core kernels' tiles: queries per block, channels per chunk (a
 // warp's lanes), and the most neighbors a query may have there.
@@ -555,10 +177,9 @@ constexpr int kPC = 16;  // kernel points a chunk: the A products' 16 rows
 constexpr int kXC = 16;  // channels a chunk
 constexpr size_t kTcSmemMax = 227 * 1024;  // shared memory a block may take
 
-// Which kernel a KPConv entry launched (*route): the tuned kernels (P = 15:
-// the tensor-core kernel or its CUDA-core kernel), the any-P tensor-core
-// kernel, or the any-P CUDA-core kernel.
-enum Route { kRouteTuned = 0, kRouteAnyPTensorCores = 1, kRouteAnyPCudaCores = 2 };
+// Which kernel a KPConv entry launched (*route): the tuned tensor-core kernel
+// (P = 15), the any-P tensor-core kernel, or the any-shape tensor-core kernel.
+enum Route { kRouteTuned = 0, kRouteAnyPTensorCores = 1, kRouteAnyShape = 2 };
 
 // The influence of a kernel point at squared distance d2, the mode a runtime
 // value (the any-P tensor-core kernels are one instance for every mode).
@@ -574,6 +195,22 @@ __device__ __forceinline__ void load_kernel_points_any(const float* kp, float4* 
     const float a = kp[3 * p], c = kp[3 * p + 1], d = kp[3 * p + 2];
     kps[p] = make_float4(a, c, d, kp_norm2(a, c, d));
   }
+}
+
+// The kernel point nearest to a neighbour at offset r (x, y, z, |.|^2), the
+// first of equal ones: "closest" aggregation's choice.
+__device__ __forceinline__ int nearest_kernel_point(const float4& r, const float4* kps, int P) {
+  int near = 0;
+  float best = 0.f;
+  for (int p = 0; p < P; ++p) {
+    const float4 kq = kps[p];
+    const float d2 = kp_d2(r.x, r.y, r.z, r.w, kq.x, kq.y, kq.z, kq.w);
+    if (p == 0 || d2 < best) {
+      best = d2;
+      near = p;
+    }
+  }
+  return near;
 }
 
 // A neighbour's offset from its query: (x, y, z, |.|^2).
@@ -601,20 +238,9 @@ __device__ void any_p_neighbours(const float* q_pts, const Rows& rows, const int
     const bool real = nb >= 0 && nb < Ns;
     nbr[s] = real ? nb : -1;
     fsum[s] = 0.f;
-    int near = 0;
-    if (mode.closest && real) {
-      const float4 r = neighbour_offset(q_pts, rows, b, q, nb, Nq);
-      float best = 0.f;
-      for (int p = 0; p < P; ++p) {
-        const float4 kq = kps[p];
-        const float d2 = kp_d2(r.x, r.y, r.z, r.w, kq.x, kq.y, kq.z, kq.w);
-        if (p == 0 || d2 < best) {
-          best = d2;
-          near = p;
-        }
-      }
-    }
-    nearest[s] = near;
+    nearest[s] = mode.closest && real
+                     ? nearest_kernel_point(neighbour_offset(q_pts, rows, b, q, nb, Nq), kps, P)
+                     : 0;
   }
 }
 
@@ -660,6 +286,249 @@ __device__ __forceinline__ void any_p_counts(const int* nbr, const float* fsum, 
       n_pos += nbr[s] >= 0 && fsum[s] > 0.f;
     }
     cnt[threadIdx.x] = n_pos;
+  }
+}
+
+// ---- the any-shape tensor-core kernels' shared steps ----
+//
+// kpconv.cu:kpconv_any_shape_kernel (f32, 3xTF32) and
+// kpconv_bf16.cu:kpconv_any_shape_bf16_kernel (bf16, the roundings of
+// Bf16Rows) take every shape the tuned and any-P kernels refuse. A block owns
+// kGQ = 32 queries of one pair and up to 64 NT output columns (more columns:
+// more blocks, grid z), 8 warps. For each chunk of 16 kernel points and of up
+// to kGCC = 32 channels:
+//  * each warp builds the A rows of 4 queries, A_q[p][c] = sum_k infl[k, p]
+//    x[nbr[k], c], into a shared A chunk [32][16 nc], streaming the neighbours
+//    32 at a time (any K): a lane per neighbour stages its offset, row and
+//    nearest kernel point (StagedNeighbours, a warp's own 768 bytes: no
+//    [TQ][K][P] influence table), then the influences are computed in
+//    registers where the tensor core wants them (the A fragments of
+//    infl^T [16 points x k neighbours]) and multiplied by the gathered rows
+//    (B fragments read through the index table) on tensor cores. At Cin = 1
+//    the A row is 16 sums a query: a lane per neighbour accumulates them and
+//    a reduce-scatter adds them across the warp (cin1_row);
+//  * every warp with output columns contracts the A chunk with those columns
+//    of W on tensor cores, the block's 32 x 64 NT accumulators in registers
+//    across all chunks; a warp stages its own W rows (16 a group, in the
+//    order WCursor walks them) with cp.async, kG - 1 groups ahead, so its
+//    k-steps need no block barrier (the block meets twice a chunk).
+// The density count comes from the same feature loads where one chunk holds
+// all of Cin (and from x itself at Cin = 1); with several channel chunks the
+// neighbours' rows are summed first (dense_count).
+constexpr int kGQ = 32;               // queries a block: two 16-row m-tiles of the contraction
+constexpr int kGQW = kGQ / kWarps;    // queries whose A rows a warp builds
+constexpr int kGKC = 32;              // neighbours a staged chunk: a lane each
+constexpr int kGCC = 32;              // channels a chunk of A, at most
+
+// A warp's staged chunk of 32 neighbours of one query: each one's offset from
+// the query (x, y, z, |.|^2), its row (-1: none) and, under "closest", its
+// nearest kernel point over all P.
+struct StagedNeighbours {
+  float4 rel[kGKC];
+  int nb[kGKC];
+  int near[kGKC];
+};
+
+// The support row of neighbour k of query q (-1: the query is past Nq, k past
+// K, or the row outside [0, Ns), the sentinel among them).
+__device__ __forceinline__ int neighbour_row(const int32_t* inds, int b, int q, int Nq, int Ns,
+                                             int K, int k) {
+  const int nb = q < Nq && k < K ? inds[((size_t)b * Nq + q) * K + k] : -1;
+  return nb >= 0 && nb < Ns ? nb : -1;
+}
+
+// Stage neighbours [k0, k0 + 32) of query q, lane l neighbour k0 + l.
+template <class Rows>
+__device__ __forceinline__ void stage_neighbours(StagedNeighbours& st, const float* q_pts,
+                                                 const Rows& rows, const int32_t* inds,
+                                                 const float4* kps, int P, int b, int q, int Nq,
+                                                 int Ns, int K, int k0, const Mode& mode,
+                                                 int lane) {
+  const int nb = neighbour_row(inds, b, q, Nq, Ns, K, k0 + lane);
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  int near = 0;
+  if (nb >= 0) {
+    r = neighbour_offset(q_pts, rows, b, q, nb, Nq);
+    if (mode.closest) near = nearest_kernel_point(r, kps, P);
+  }
+  st.rel[lane] = r;
+  st.nb[lane] = nb;
+  st.near[lane] = near;
+}
+
+// The influence of kernel point p (kq: its x, y, z, |.|^2) on a neighbour at
+// offset r with row nb and nearest point near: zero for no neighbour, for p
+// past P and, under "closest", unless p is the nearest. The IEEE sqrt, expf
+// and division of influence_rt, as the plain versions take them. Reciprocals
+// and approximate sqrt and exp (a few ulps off) were measured, NVIDIA H100
+// 80GB HBM3, 700 W: 20-25% faster at the 2D-3D level-0 layers, but the bf16
+// path rounds each influence to bf16, and their ulps flipped enough of those
+// roundings that a gate-40 DDIM's warp left the CPU's (5.3e-5 of the largest
+// confidence against a 1.9e-6 limit); in f32 they took the library's build
+// from 40-60 s to 150-220 s.
+__device__ __forceinline__ float influence_at(const float4& r, int nb, int near, int p, int P,
+                                              const float4& kq, const Mode& mode, int kind) {
+  if (nb < 0 || p >= P || (mode.closest && near != p)) return 0.f;
+  return influence_rt(kp_d2(r.x, r.y, r.z, r.w, kq.x, kq.y, kq.z, kq.w), mode, kind);
+}
+
+// One halving step of a reduce-scatter of N values over lanes: the lanes with
+// bit O set keep the upper Half values, the others the lower, each added to
+// its partner's copy; the kept ones move to v[0, Half).
+template <int Half, int O, int N>
+__device__ __forceinline__ void reduce_scatter_half(float (&v)[N], int lane) {
+  const bool up = lane & O;
+#pragma unroll
+  for (int i = 0; i < Half; ++i) {
+    const float send = up ? v[i] : v[i + Half];
+    const float keep = up ? v[i + Half] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// Sum v[16] over the warp's 32 lanes (16 shuffles): on return v[0] at lane l
+// holds the total of entry l / 2.
+__device__ __forceinline__ void warp_reduce_scatter16(float (&v)[16], int lane) {
+  reduce_scatter_half<8, 16>(v, lane);
+  reduce_scatter_half<4, 8>(v, lane);
+  reduce_scatter_half<2, 4>(v, lane);
+  reduce_scatter_half<1, 2>(v, lane);
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+// Sum v[8] over the 8 lanes of each quad column (lanes 4 g + t, g = 0..7; 7
+// shuffles): on return v[0] at lane (g, t) holds its column's total of entry
+// g. The any-shape kernels' density count: entry i is one neighbour's share
+// of the feature sum, the 8 lanes of a column its channels.
+__device__ __forceinline__ void column_reduce_scatter8(float (&v)[8], int lane) {
+  reduce_scatter_half<4, 16>(v, lane);
+  reduce_scatter_half<2, 8>(v, lane);
+  reduce_scatter_half<1, 4>(v, lane);
+}
+
+// The A row of query q at Cin = 1 for kernel points [pc0, pc0 + 16):
+// A[p] = sum_k infl[k, p] x[nbr[k]], a lane per neighbour (32 at a time),
+// each lane's 16 sums (of the influences rounded as Rows rounds them, times
+// the feature) then added across the warp; rounded as Rows rounds and stored
+// as T at arow[0, 16) (zero past P). Returns, at every lane, the query's
+// density count (neighbours with x > 0).
+template <class T, class Rows>
+__device__ int cin1_row(T* arow, const float* q_pts, const Rows& rows, const int32_t* inds,
+                        const float4* kps, int P, int pc0, int b, int q, int Nq, int Ns, int K,
+                        const Mode& mode, int kind, int lane) {
+  float a[kPC];
+#pragma unroll
+  for (int p = 0; p < kPC; ++p) a[p] = 0.f;
+  int n_pos = 0;
+  for (int k0 = 0; k0 < K; k0 += kGKC) {
+    const int nb = neighbour_row(inds, b, q, Nq, Ns, K, k0 + lane);
+    if (nb < 0) continue;
+    const float4 r = neighbour_offset(q_pts, rows, b, q, nb, Nq);
+    const int near = mode.closest ? nearest_kernel_point(r, kps, P) : 0;
+    const float xv = rows.feat(b, nb, 0);
+    n_pos += xv > 0.f;
+#pragma unroll
+    for (int p = 0; p < kPC; ++p) {
+      if (pc0 + p < P) {
+        const float f = influence_at(r, nb, near, pc0 + p, P, kps[pc0 + p], mode, kind);
+        a[p] = fmaf(Rows::rounded(f), xv, a[p]);
+      }
+    }
+  }
+  warp_reduce_scatter16(a, lane);
+  if ((lane & 1) == 0) arow[lane / 2] = T(Rows::rounded(a[0]));
+  return __reduce_add_sync(0xffffffffu, n_pos);
+}
+
+// The density count of query q where the A rows' loads see one channel chunk
+// at a time (Cin > kGCC): each chunk of 32 neighbours read in the A
+// fragments' pattern (lane (g, t): neighbours 8 (i / 2) + t + 4 (i % 2),
+// channels g, g + 8, ...; 8 lanes a 32-byte sector of a row), summed in f32
+// and reduce-scattered over each quad column. Returns it at every lane.
+template <class Rows>
+__device__ int dense_count(const Rows& rows, const int32_t* inds, int b, int q, int Nq, int Ns,
+                           int K, int Cin, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  int n_pos = 0;
+  for (int k0 = 0; k0 < K; k0 += kGKC) {
+    int nb[8];
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      nb[i] = neighbour_row(inds, b, q, Nq, Ns, K, k0 + 8 * (i / 2) + t + 4 * (i % 2));
+      v[i] = 0.f;
+    }
+    for (int c = g; c < Cin; c += 8)  // 8 rows' loads in flight a step
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (nb[i] >= 0) v[i] += rows.feat(b, nb[i], c);
+    column_reduce_scatter8(v, lane);
+    const int j = 8 * (g / 2) + t + 4 * (g % 2);
+    n_pos += neighbour_row(inds, b, q, Nq, Ns, K, k0 + j) >= 0 && v[0] > 0.f;
+  }
+  return __reduce_add_sync(0xffffffffu, n_pos);
+}
+
+// Let kernel take up to kTcSmemMax of dynamic shared memory, once per device.
+template <class Kernel>
+cudaError_t allow_shared_memory(Kernel kernel, unsigned& devices_done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && devices_done >> dev & 1u)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmemMax);
+  if (err == cudaSuccess && dev < 32) devices_done |= 1u << dev;
+  return err;
+}
+
+// The W rows of the contraction in the order the any-shape kernels take them:
+// for each chunk of 16 kernel points (pc0) and of up to kGCC channels (c0), the
+// chunk's packed rows j = p nc + c (p < npc points, c < nc channels; the A
+// chunk's columns) in groups of 16, the last one padded with zero rows.
+struct WCursor {
+  int pc0 = 0, c0 = 0, j0 = 0;
+  __device__ bool done(int P) const { return pc0 >= P; }
+  // W's row (p, c) for row r of the current group, or -1 for a pad row
+  __device__ int row(int r, int P, int Cin) const {
+    const int nc = min(kGCC, Cin - c0), npc = min(kPC, P - pc0);
+    const int j = j0 + r;
+    return j < npc * nc ? (pc0 + j / nc) * Cin + c0 + j % nc : -1;
+  }
+  __device__ void advance(int P, int Cin) {
+    const int nc = min(kGCC, Cin - c0), npc = min(kPC, P - pc0);
+    j0 += 16;
+    if (j0 >= npc * nc) {
+      j0 = 0;
+      c0 += kGCC;
+      if (c0 >= Cin) {
+        c0 = 0;
+        pc0 += kPC;
+      }
+    }
+  }
+};
+
+// out[q, col] = acc / max(cnt[q], 1) for a warp's two m-tiles (queries q0 +
+// 16 m + g (+ 8)) and NT n-tiles from column col_w, within Nq and Cout.
+template <int NT>
+__device__ __forceinline__ void store_any_shape(float* out, const float (&acc)[2][NT][4],
+                                                const int* cnt, int b, int q0, int Nq, int Cout,
+                                                int col_w, int g, int t) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = 16 * m + g + 8 * h;
+      if (q0 + qi >= Nq) continue;
+      const float den = (float)max(cnt[qi], 1);
+      float* orow = out + ((size_t)b * Nq + q0 + qi) * Cout;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col_w + 8 * n + 2 * t + e;
+          if (col < Cout) orow[col] = acc[m][n][2 * h + e] / den;
+        }
+    }
   }
 }
 

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.topk import top_k
+from ..ops.topk import stable_top_k
 
 
 class ProcrustesResult(NamedTuple):
@@ -102,7 +102,7 @@ def soft_procrustes(conf_matrix, src_pcd, tgt_pcd, src_mask, tgt_mask, *,
         tgt_len = torch.full((b,), float(m), dtype=dtype, device=conf_matrix.device)
     entry_max = torch.floor(torch.maximum(src_len, tgt_len) * sample_rate).to(torch.int64)
 
-    w, idx = top_k(conf_matrix.reshape(b, n * m), k)
+    w, idx = stable_top_k(conf_matrix.reshape(b, n * m), k)
     src_sampled = torch.gather(src_pcd, 1, (idx // m)[..., None].expand(b, k, 3))
     tgt_sampled = torch.gather(tgt_pcd, 1, (idx % m)[..., None].expand(b, k, 3))
     w_mask = torch.arange(k, device=w.device)[None, :] < entry_max[:, None]

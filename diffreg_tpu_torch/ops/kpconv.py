@@ -17,10 +17,12 @@ XLA, and no kernel of either package computes it.
 ``kpconv_batched`` is the entry the backbone calls: a CUDA tensor launches
 the hand-written kernel (``csrc/kpconv.cu``) or raises; a CPU tensor runs
 the plain version (the bf16 instance is ``csrc/kpconv_bf16.cu``, a library of
-its own). Both kernels take any kernel-point count P, as the Pallas kernel
-does: P = 15 runs their tuned instances, any other P their any-P
-tensor-core kernel at the tuned tensor-core kernels' shapes and their any-P
-CUDA-core kernel elsewhere. On CUDA tensors the kernel runs inside ``KPConvFunction``,
+its own). Both kernels take every shape the Pallas kernel takes, on tensor
+cores: P = 15 at the wide layers (Cin a multiple of 32, f32 also Cin >= 64;
+K <= 40; Cout 64-512) runs their tuned instances, any other P there their
+any-P tensor-core kernel, and every other shape (the first layer, Cin = 1;
+K > 40; narrow layers; any Cin, Cout and P) their any-shape tensor-core
+kernel. On CUDA tensors the kernel runs inside ``KPConvFunction``,
 whose backward recomputes the plain version at the saved inputs and
 differentiates it, as the JAX package's ``custom_vjp`` does
 (``ops/pallas/kpconv_kernel.py``): the gathered rows are rebuilt one layer at
@@ -227,7 +229,7 @@ def _mode_codes(kp_extent, influence, aggregation):
 
 
 # the kernel a C entry reports in its ``route`` (csrc/kpconv_common.cuh: Route)
-ROUTES = ("tuned", "any_p_tensor_cores", "any_p_cuda_cores")
+ROUTES = ("tuned", "any_p_tensor_cores", "any_shape_tensor_cores")
 
 
 def _count(wrapper, influence, aggregation, n_points, route):
@@ -245,8 +247,8 @@ def kpconv_cuda(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent,
     kernel-point count P (``weights.shape[0]``). Counts its launches in
     ``launches``, per "influence/aggregation" in ``mode_launches``, per P in
     ``point_launches`` and per kernel the C entry reports in
-    ``route_launches`` (``ROUTES``: the tuned kernels at P = 15, the any-P
-    tensor-core kernel, the any-P CUDA-core kernel)."""
+    ``route_launches`` (``ROUTES``: the tuned kernel at P = 15, the any-P
+    tensor-core kernel, the any-shape tensor-core kernel)."""
     tensors = {"q_pts": q_pts, "s_pts": s_pts, "x": x,
                "kernel_points": kernel_points, "weights": weights}
     for name, t in tensors.items():

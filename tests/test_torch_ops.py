@@ -192,6 +192,31 @@ def test_soft_procrustes(rng, gate):
     np.testing.assert_array_equal(got.solution_mask.numpy(), np.asarray(ref.solution_mask))
 
 
+@pytest.mark.parametrize("levels", [3, 12])
+def test_soft_procrustes_ties(levels):
+    """Confidences on a few levels, so the top-k cut and the masked-length
+    prefix fall inside runs of equal values (at 3 levels the run at the cut
+    spans hundreds of entries past k): the port keeps the entries that
+    jax.lax.top_k keeps, ties to the lower index, and solves the same pose."""
+    rng = np.random.RandomState(levels)
+    b, n, m = 2, 30, 28
+    conf = rng.randint(1, levels + 1, (b, n, m)).astype(np.float32) / levels
+    s_pcd = rng.randn(b, n, 3).astype(np.float32)
+    t_pcd = rng.randn(b, m, 3).astype(np.float32)
+    sm, tm = _masks(rng, b, n, m)
+    conf = conf * (sm[:, :, None] & tm[:, None, :])
+    args = (conf, s_pcd, t_pcd, sm, tm)
+    kw = dict(sample_rate=1.0, max_condition_num=1e6, use_masked_lengths=True)
+    ref = jax_soft_procrustes(*map(jnp.asarray, args), **kw)
+    got = soft_procrustes(*map(T, args), **kw)
+    for name in ("rotation", "translation"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
+                                   rtol=1e-5, atol=2e-5, err_msg=name)
+    # equal weights leave some covariances poorly conditioned (up to ~90 here):
+    # f32's eigenvalues then carry about condition^2 * 2^-23 of relative error
+    np.testing.assert_allclose(got.condition.numpy(), np.asarray(ref.condition), rtol=1e-3)
+
+
 def test_selection_masks_and_extraction(rng):
     b, n, m = 2, 16, 18
     conf = rng.rand(b, n, m).astype(np.float32)

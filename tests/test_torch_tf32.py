@@ -13,7 +13,11 @@ attention's D = 108 and S = 704, and KPConv's P * Cin = 15 * 512 = 7680;
 and at the any-D and any-P routes': D = 54, 216 and 528 (configurations C and
 W, the 4DMatch CLI's one head), P * Cin = 24 * 512 and 64 * 512. 3xTF32 stays
 well inside ``chip_smoke.py``'s tolerances; a single TF32 product does not,
-which is why the kernels split.
+which is why the kernels split. The any-shape KPConv kernel's products are
+emulated step by step at the 2D-3D point backbone's level-0 shapes (K = 64):
+its aggregation over the neighbours in k-steps of 8 (chunks of 32), each
+step's three products summed from zero and added in f32, and its contraction
+at depth P * Cin = 15, 480 and 24 * 32 in k-steps of 8.
 """
 import torch_native_guard  # noqa: F401  (makes the JAX native library whole first)
 import importlib
@@ -26,7 +30,7 @@ import torch
 from chip_smoke import ATTENTION_ABS_TOL, KPCONV_REL_TOL
 from diffreg_tpu.ops.pallas.attention_kernel import masked_attention_pallas
 from diffreg_tpu_torch.ops.kernel_points import load_kernel_points
-from diffreg_tpu_torch.ops.kpconv import kpconv_aggregate
+from diffreg_tpu_torch.ops.kpconv import _gather, influence_weights, kpconv_aggregate
 from diffreg_tpu_torch.ops.masked import NEG_INF
 
 jax_kpconv = importlib.import_module("diffreg_tpu.ops.kpconv")
@@ -137,3 +141,50 @@ def test_kpconv_3xtf32_inside_budget(n_points):
 
     assert rel_err(matmul_3xtf32) <= KPCONV_REL_TOL / MARGIN
     assert rel_err(matmul_tf32) > KPCONV_REL_TOL
+
+
+def _steps_3xtf32(a, b, step=8):
+    """a [..., M, D] @ b [..., D, N] as the any-shape kernel sums it: k-steps
+    of ``step``, each a 3xTF32 product from zero, added to the sum in f32."""
+    out = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for j in range(0, a.shape[-1], step):
+        out = out + matmul_3xtf32(a[..., j:j + step], b[..., j:j + step, :])
+    return out
+
+
+@pytest.mark.parametrize("cin,cout,n_points", [(1, 64, 15), (32, 32, 15), (32, 32, 24)],
+                         ids=["1-64-P15", "32-32-P15", "32-32-P24"])
+def test_kpconv_any_shape_3xtf32_inside_budget(cin, cout, n_points):
+    """The any-shape kernel's products at the 2D-3D level-0 shapes (K = 64
+    nearest within 0.1 m, the rest the sentinel; 2 x 256 queries) against the
+    JAX package's f32 KPConv (its XLA path): the aggregation in 3xTF32 k-steps
+    of 8 neighbours (at Cin = 1 an f32 sum, as the kernel adds it on CUDA
+    cores), the contraction at depth P Cin in 3xTF32 k-steps of 8."""
+    rng = np.random.RandomState(cin + n_points)
+    b, nq, ns, k = 2, 256, 2000, 64
+    s = (rng.rand(b, ns, 3) * 0.5).astype(np.float32)
+    q = s[:, :nq] + (rng.randn(b, nq, 3) * 0.005).astype(np.float32)
+    dist = np.linalg.norm(q[:, :, None] - s[:, None], axis=-1)
+    idx = np.argsort(dist, axis=-1, kind="stable")[..., :k]
+    idx = np.where(np.take_along_axis(dist, idx, -1) < 0.1, idx, ns).astype(np.int32)
+    x = rng.randn(b, ns, cin).astype(np.float32)
+    kp = load_kernel_points(0.0625, n_points)
+    w = (rng.randn(n_points, cin, cout) / np.sqrt(n_points * cin)).astype(np.float32)
+    extent = 0.05
+    ref = np.asarray(jax_kpconv.kpconv_batched(*map(jnp.asarray, (q, s, idx, x, kp, w)), extent,
+                                               use_pallas=False))
+    tq, ts, ti, tx, tk = map(torch.from_numpy, (q, s, idx, x, kp))
+    neighbors, feats = _gather(tq, ts, ti, tx)
+    sq_d = torch.clamp((neighbors * neighbors).sum(-1, keepdim=True) + (tk * tk).sum(-1)
+                       - 2.0 * torch.einsum("bnkc,pc->bnkp", neighbors, tk), min=0.0)
+    infl = influence_weights(sq_d, extent)                        # [B, Nq, K, P]
+    if cin == 1:
+        weighted = torch.einsum("bnkp,bnkc->bnpc", infl, feats)
+    else:
+        weighted = _steps_3xtf32(infl.transpose(-1, -2), feats)   # [B, Nq, P, Cin]
+    _, count = kpconv_aggregate(tq, ts, ti, tx, tk, extent)
+    out = _steps_3xtf32(weighted.reshape(b, nq, n_points * cin),
+                        torch.from_numpy(w).reshape(n_points * cin, cout))
+    out = out / count[..., None].float()
+    err = np.abs(out.numpy() - ref).max() / np.abs(ref).max()
+    assert err <= KPCONV_REL_TOL / MARGIN, err
